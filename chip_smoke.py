@@ -6,16 +6,26 @@
 Phases, each printing one JSON line:
 
 1. build: compile ``trivy_tpu_torch/ops/csrc/match.cu`` with nvcc for
-   sm_90a; the card's name and power limit from nvidia-smi.
+   sm_90a, with ptxas's report of the kernel's registers, shared memory and
+   spills; the card's name and power limit from nvidia-smi.
 2. check: the kernel against its plain PyTorch version (``match_plain``)
    on the card, for both uses of the matcher (the keyword prefilter and the
    anchored matcher), on a seeded batch at the scanner's dispatch shape with
-   the built-in rule samples planted at the row edges, and on a custom
-   ruleset with a negated class, negative offsets and a 130-byte run.
-   Outputs are booleans: ``torch.equal`` is required (tolerance zero).
-3. timing: each kernel use over about 1 GiB of resident rows, timed with
-   CUDA events after a warm-up, beside the plain version at the same shape
-   and the least time the card could take (bytes over 3.35 TB/s).
+   the built-in rule samples planted at the row edges, on a custom ruleset
+   with a negated class, negative offsets and a 130-byte run, and on one
+   with 1- and 2-byte keywords and a 3-byte anchor, each at the full and a
+   short batch (the custom rulesets are those of
+   ``tests/test_torch_rulesets.py``). Outputs are booleans:
+   ``torch.equal`` is required (tolerance zero).
+3. timing: each kernel use over about 1 GiB of resident rows of each of
+   four inputs (seeded source text; the checkout's own ``trivy_tpu/``
+   Python files, real code whose words include many rule keywords; uniform
+   random bytes; keyword-dense text made of the first bytes of every
+   literal of that use, the verify step's worst case), timed with CUDA events after a warm-up and behind a
+   device spin that keeps the host's enqueueing out of the time (median of
+   three rounds), beside the plain version on the source text, the least
+   time the card could take (bytes over 3.35 TB/s) and the share of
+   positions that pass the kernel's screen.
 4. e2e: a seeded tree (1 MiB text files, 2% with a planted secret, some
    thousands of small files, binaries, node_modules/, a lockfile and a CRLF
    file) scanned by ``python -m trivy_tpu_torch fs --scanners secret``'s
@@ -50,32 +60,27 @@ from trivy_tpu_torch import cli
 from trivy_tpu_torch.device import card_info
 from trivy_tpu_torch.ops import _build
 from trivy_tpu_torch.ops.match import match_plain
-from trivy_tpu_torch.ops.match_cuda import LAUNCHES, build_match_fn_cuda
+from trivy_tpu_torch.ops.match_cuda import (
+    LAUNCHES, SCREEN_BYTES, build_match_fn_cuda, literals, pack_tables,
+)
 from trivy_tpu_torch.ops.prefilter import build_prefilter_fn
 from trivy_tpu_torch.secret.device_compile import compile_rules
 from trivy_tpu_torch.secret.engine import ScannerConfig, SecretScanner
 from trivy_tpu_torch.secret.scanner import BATCH, CHUNK_LEN
 
 REPO = Path(__file__).resolve().parent
-# one sample token per built-in rule, shared with the tests
+# one sample token per built-in rule, and custom rulesets with a sample per
+# rule, shared with the tests
 SAMPLES: dict[str, str] = runpy.run_path(str(REPO / "tests" / "secret_samples.py"))["SAMPLES"]
+CUSTOM = runpy.run_path(str(REPO / "tests" / "test_torch_rulesets.py"))
+# the custom rulesets checked on the card: one widens the tables past the
+# built-ins' shapes, one goes below the screen's width (1- and 2-byte
+# keywords, a 3-byte anchor)
+CHECK_RULESETS = ("edges", "short")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+SPIN_CYCLES = 200_000_000  # about 0.1 s of the card's clock, ahead of each timed round
 KERNEL_SOURCE = "trivy_tpu_torch/ops/csrc/match.cu"
 REPLACES = "trivy_tpu/ops/match_pallas.py:109"
-
-# a custom ruleset that widens the tables past the built-ins' shapes
-EDGE_RULES = {
-    "enable-builtin-rules": [],
-    "rules": [
-        {"id": "neg", "regex": r"[^x\n]{3}zqk_[0-9a-f]{12}", "keywords": ["zqk_"],
-         "severity": "HIGH"},
-        {"id": "long", "regex": r"(?:^|[^0-9A-Za-z])(LONGTOK[A-Za-z0-9]{130})",
-         "keywords": ["longtok"], "severity": "HIGH"},
-        {"id": "negd", "regex": r"[0-9]{4}-SECRETX-[a-z]{5}", "keywords": ["secretx"],
-         "severity": "HIGH"},
-    ],
-}
-EDGE_SAMPLES = ["abczqk_0123456789ab", "LONGTOK" + "Ab1" * 43 + "x", "1234-SECRETX-abcde"]
 
 # words of the generated source text; some are rule keywords, as in real code
 CODE_WORDS = (
@@ -128,37 +133,49 @@ def sample_rows(rng: np.random.Generator, base: np.ndarray, samples: list[str],
     return out
 
 
-def time_cuda(fn, inputs: list, reps: int = 1) -> float:
-    """Mean ms per call of ``fn`` over ``inputs`` (CUDA events, after one
-    warm-up pass)."""
+def time_cuda(fn, inputs: list, reps: int = 1, rounds: int = 3) -> tuple[float, list, float]:
+    """Device ms per call of ``fn`` over ``inputs`` (CUDA events, after one
+    warm-up pass): the median of ``rounds`` rounds, the rounds themselves,
+    and the host's microseconds to enqueue one call. Before each round the
+    card spins for about 0.1 s (``SPIN_CYCLES``) while the host enqueues
+    the whole round, so the events time the card's work and not gaps left
+    by the host; ``host_us`` times ``reps * len(inputs)`` calls must stay
+    well under the spin."""
     for x in inputs[:2]:
         fn(x)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        for x in inputs:
-            fn(x)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * len(inputs))
+    times, host = [], []
+    for _ in range(rounds):
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for x in inputs:
+                fn(x)
+        host.append(time.perf_counter() - t0)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / (reps * len(inputs)))
+    return float(np.median(times)), times, min(host) / (reps * len(inputs)) * 1e6
 
 
-def phase_check(compiled, edge, base, rng) -> dict:
-    """Kernel against match_plain on the card, both uses, both rulesets."""
-    overlap = max(64, compiled.span + 1)
-    x = torch.from_numpy(
-        sample_rows(rng, base, sorted(SAMPLES.values()), BATCH, CHUNK_LEN, overlap)).cuda()
-    xe = torch.from_numpy(sample_rows(rng, base, EDGE_SAMPLES, 64, CHUNK_LEN, overlap)).cuda()
+def phase_check(rulesets: list, base, rng) -> dict:
+    """Kernel against match_plain on the card, both uses, every ruleset:
+    ``rulesets`` holds (compiled rules, samples, rows)."""
+    batches = [
+        torch.from_numpy(sample_rows(rng, base, samples, rows, CHUNK_LEN,
+                                     max(64, compiled.span + 1))).cuda()
+        for compiled, samples, rows in rulesets
+    ]
     verdict = {}
-    for use, fns in {
-        "prefilter": (build_prefilter_fn(compiled, CHUNK_LEN),
-                      build_prefilter_fn(edge, CHUNK_LEN)),
-        "anchored": (build_match_fn_cuda(compiled, CHUNK_LEN, include_keywords=False),
-                     build_match_fn_cuda(edge, CHUNK_LEN, include_keywords=False)),
-    }.items():
+    for use, build in (
+        ("prefilter", lambda c: build_prefilter_fn(c, CHUNK_LEN)),
+        ("anchored", lambda c: build_match_fn_cuda(c, CHUNK_LEN, include_keywords=False)),
+    ):
         err, equal, hits = 0, True, []
-        for fn, rows in zip(fns, (x, xe)):
+        for (compiled, *_), rows in zip(rulesets, batches):
+            fn = build(compiled)
             for n in (rows.shape[0], 8):  # the full batch and a short one
                 got = fn(rows[:n])
                 want = match_plain(fn.tables, rows[:n])
@@ -184,36 +201,93 @@ def resident_batches(dev_base: torch.Tensor, rng, rows: int, width: int, n: int)
     ]
 
 
-def phase_timing(compiled, base: np.ndarray, rng) -> dict:
-    """Each use over ~1 GiB of resident [BATCH, CHUNK_LEN] source-text
-    batches, match_plain at the same shape on a few of them; then the
+def screen_pass_share(tables, data: np.ndarray) -> float:
+    """Share of the positions of ``data`` where some bucket passes the
+    kernel's screen (computed on the host from the packed tables)."""
+    screen = pack_tables(tables)["screen"]
+    padded = np.concatenate([data, np.zeros(SCREEN_BYTES, np.uint8)])
+    cand = np.full(len(data), ~np.uint64(0))
+    for j in range(SCREEN_BYTES):
+        cand &= screen[j][padded[j : j + len(data)]]
+    return float((cand != 0).mean())
+
+
+def dense_text(rng, tables, n: int) -> np.ndarray:
+    """``n`` bytes made of the first bytes (up to the screen's width) of
+    the literals of ``tables``, drawn in seeded order: a literal's head
+    starts every few bytes and passes the screen there, so the verify step
+    runs far more often than on any text."""
+    heads = [lit.lit[:SCREEN_BYTES] for lit in literals(tables)]
+    parts = [heads[i] for i in rng.integers(0, len(heads), n // 2)]
+    return np.frombuffer(b"".join(parts)[:n], dtype=np.uint8)
+
+
+def repo_source() -> np.ndarray:
+    """Every ``*.py`` file under the checkout's ``trivy_tpu/``, as bytes."""
+    return np.frombuffer(b"".join(
+        p.read_bytes() for p in sorted((REPO / "trivy_tpu").rglob("*.py"))), dtype=np.uint8)
+
+
+def phase_timing(compiled, base: np.ndarray, rng, card: str) -> dict:
+    """Each use over ~1 GiB of resident [BATCH, CHUNK_LEN] batches of each
+    input (seeded text, repo source, random bytes, keyword-dense text),
+    match_plain at the same shape on a few seeded-text batches; then the
     kernels at other row lengths with the same bytes per batch, and the
     pinned host-to-device copy of one batch."""
     dev_base = torch.from_numpy(base.copy()).cuda()
+    source_np = repo_source()
+    dev_source = torch.from_numpy(source_np.copy()).cuda()
     n_batches = (1 << 30) // (BATCH * CHUNK_LEN)
-    batches = resident_batches(dev_base, rng, BATCH, CHUNK_LEN, n_batches)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(int(rng.integers(1 << 31)))
     R = compiled.num_rules
+    nbytes = BATCH * CHUNK_LEN + BATCH * R  # rows read once, hit mask written once
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     out = {}
     for use, fn in (("prefilter", build_prefilter_fn(compiled, CHUNK_LEN)),
                     ("anchored", build_match_fn_cuda(compiled, CHUNK_LEN, include_keywords=False))):
-        ms = time_cuda(fn, batches, reps=2)
-        plain_ms = time_cuda(lambda t, f=fn: match_plain(f.tables, t), batches[:3])
-        nbytes = BATCH * CHUNK_LEN + BATCH * R  # rows read once, hit mask written once
-        out[use] = {
-            "ms": ms, "plain_ms": plain_ms, "GBps": BATCH * CHUNK_LEN / ms / 1e6,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "shape": [BATCH, CHUNK_LEN], "batches": n_batches,
+        dense_np = dense_text(rng, fn.tables, 1 << 20)
+        dense = torch.from_numpy(dense_np.copy()).cuda()
+        # the random batches are drawn on the card; their share is taken on
+        # host bytes of the same distribution
+        share = {name: screen_pass_share(fn.tables, data) for name, data in (
+            ("text", base), ("source", source_np),
+            ("random", rng.integers(0, 256, 1 << 20, dtype=np.uint8)),
+            ("dense", dense_np))}
+        inputs = {
+            "text": lambda: resident_batches(dev_base, rng, BATCH, CHUNK_LEN, n_batches),
+            "source": lambda: resident_batches(dev_source, rng, BATCH, CHUNK_LEN, n_batches),
+            "random": lambda: [
+                torch.randint(0, 256, (BATCH, CHUNK_LEN), dtype=torch.uint8, device="cuda",
+                              generator=gen) for _ in range(n_batches)],
+            "dense": lambda: resident_batches(dense, rng, BATCH, CHUNK_LEN, n_batches),
         }
-        log({"phase": "timing", "use": use, **out[use]})
-    del batches
+        res = {"shape": [BATCH, CHUNK_LEN], "batches": n_batches, "bound_ms": bound_ms,
+               "bound_by": "bytes", "card": card}
+        for name, make in inputs.items():
+            batches = make()
+            ms, rounds, host_us = time_cuda(fn, batches, reps=2)
+            key = "" if name == "text" else f"_{name}"
+            res[f"ms{key}"] = ms
+            res[f"ms_rounds{key}"] = rounds
+            res[f"GBps{key}"] = BATCH * CHUNK_LEN / ms / 1e6
+            res[f"bound_share{key}"] = bound_ms / ms
+            res[f"screen_pass_share{key}"] = share[name]
+            if name == "text":
+                res["host_us_per_call"] = host_us
+                res["plain_ms"] = time_cuda(
+                    lambda t, f=fn: match_plain(f.tables, t), batches[:3], rounds=1)[0]
+            del batches
+        out[use] = res
+        log({"phase": "timing", "use": use, **res})
     slab = torch.zeros((BATCH, CHUNK_LEN), dtype=torch.uint8, pin_memory=True)
     dst = torch.empty_like(slab, device="cuda")
-    copy_ms = time_cuda(lambda t: dst.copy_(t, non_blocking=True), [slab] * 20)
+    copy_ms = time_cuda(lambda t: dst.copy_(t, non_blocking=True), [slab] * 20)[0]
     for width in (4096, 8192, 16384, 32768):
         rows = BATCH * CHUNK_LEN // width
         xs = resident_batches(dev_base, rng, rows, width, 16)
         log({"phase": "shape", "shape": [rows, width], "h2d_copy_ms": copy_ms, **{
-            f"{use}_ms": time_cuda(fn, xs, reps=2) for use, fn in (
+            f"{use}_ms": time_cuda(fn, xs, reps=2)[0] for use, fn in (
                 ("prefilter", build_prefilter_fn(compiled, width)),
                 ("anchored", build_match_fn_cuda(compiled, width, include_keywords=False)))
         }})
@@ -348,16 +422,22 @@ def main() -> int:
     t0 = time.perf_counter()
     card = card_info()
     lib = _build.build("match")
+    ptxas = [ln.strip() for ln in _build.ptxas_report("match").splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     log({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib.name,
-         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda})
+         "ptxas": ptxas, "card": card, "torch": torch.__version__, "cuda": torch.version.cuda})
 
     rng = np.random.default_rng(args.seed)
     base = text_base(random.Random(args.seed), 1 << 20)
     base_np = np.frombuffer(base, dtype=np.uint8)
     compiled = compile_rules(SecretScanner().rules)
-    edge = compile_rules(SecretScanner(ScannerConfig.from_dict(EDGE_RULES)).rules)
-    verdict = phase_check(compiled, edge, base_np, rng)
-    timing = phase_timing(compiled, base_np, rng)
+    custom = [
+        (compile_rules(SecretScanner(ScannerConfig.from_dict(CUSTOM["config"](name))).rules),
+         CUSTOM["RULESETS"][name][1], 64)
+        for name in CHECK_RULESETS
+    ]
+    verdict = phase_check([(compiled, sorted(SAMPLES.values()), BATCH), *custom], base_np, rng)
+    timing = phase_timing(compiled, base_np, rng, card)
     e2e = phase_e2e(args.e2e_mib, args.seed, base)
 
     kernels = [
@@ -368,6 +448,8 @@ def main() -> int:
             "ms": timing[use]["ms"], "plain_ms": timing[use]["plain_ms"],
             "bound_ms": timing[use]["bound_ms"], "bound_by": timing[use]["bound_by"],
             "library_ms": None,
+            "ms_source": timing[use]["ms_source"], "ms_random": timing[use]["ms_random"],
+            "ms_dense": timing[use]["ms_dense"],
         }
         for use in ("prefilter", "anchored")
     ]

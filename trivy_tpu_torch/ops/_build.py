@@ -3,9 +3,11 @@
 Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with :mod:`ctypes`. The
 library lands in ``build/kernels/`` at the repository root (git-ignored),
-named by a digest of its source, so an edited source rebuilds and an
-unchanged one loads at once. Nothing is built when a module is imported:
-the first call that needs the kernel builds it.
+named by a digest of its source and of every ``csrc/`` file it includes, so
+an edited source or header rebuilds and an unchanged one loads at once.
+Beside it lies ptxas's report of each kernel's registers, shared memory and
+spills (``-Xptxas -v``). Nothing is built when a module is imported: the
+first call that needs the kernel builds it.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -23,8 +26,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -34,8 +38,11 @@ _I = ctypes.c_int
 # C signatures of the exported entry points: (restype, argtypes)
 SIGNATURES = {
     "match": {
+        # smem_limit, smem, grid (out)
+        "trivy_match_grid": (_I, [_I, _I, ctypes.POINTER(_I)]),
         "trivy_match_launch": (
-            _I, [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+            # x, B, C, R, image, image_words, seg, halo, smem, grid, out, stream
+            _I, [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P],
         ),
         "trivy_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
@@ -54,10 +61,39 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every ``csrc/`` file it includes with
+    ``#include "..."``, directly or through another such file, in the order
+    first reached."""
+    root = CSRC.resolve()
+    seen: list[Path] = []
+    todo = [root / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / inc.decode()).resolve()
+            if dep.is_file() and dep.is_relative_to(root):
+                todo.append(dep)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the library of ``csrc/<name>.cu`` is built: named by a digest
+    of the flags and of every source file it reads."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.relative_to(CSRC.resolve()).as_posix().encode() + b"\0")
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def ptxas_report(name: str) -> str:
+    """What ptxas printed when the library of ``csrc/<name>.cu`` was built:
+    registers, shared memory and spills of each kernel."""
+    return library_path(name).with_suffix(".ptxas.txt").read_text()
 
 
 def build(name: str) -> Path:
@@ -77,6 +113,7 @@ def build(name: str) -> Path:
         )
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+        out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
