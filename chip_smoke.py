@@ -3,37 +3,61 @@
 
     python3 chip_smoke.py [--e2e-mib 512] [--seed 0]
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
-1. build: compile ``trivy_tpu_torch/ops/csrc/match.cu`` with nvcc for
-   sm_90a, with ptxas's report of the kernel's registers, shared memory and
-   spills; the card's name and power limit from nvidia-smi.
-2. check: the kernel against its plain PyTorch version (``match_plain``)
+1. build: compile ``trivy_tpu_torch/ops/csrc/match.cu`` and
+   ``csrc/decompress.cu`` with nvcc for sm_90a, both at once, with ptxas's
+   report of each kernel's registers, shared memory and spills; the card's
+   name and power limit from nvidia-smi.
+2. check: the matcher against its plain PyTorch version (``match_plain``)
    on the card, for both uses of the matcher (the keyword prefilter and the
    anchored matcher), on a seeded batch at the scanner's dispatch shape with
    the built-in rule samples planted at the row edges, on a custom ruleset
    with a negated class, negative offsets and a 130-byte run, and on one
    with 1- and 2-byte keywords and a 3-byte anchor, each at the full and a
    short batch (the custom rulesets are those of
-   ``tests/test_torch_rulesets.py``). Outputs are booleans:
-   ``torch.equal`` is required (tolerance zero).
-3. timing: each kernel use over about 1 GiB of resident rows of each of
+   ``tests/test_torch_rulesets.py``). Then the decompress kernel against
+   ``decompress_plain`` on frames the port's codec encodes from seeded
+   text, random-byte, zero and mixed rows, at the dispatch shape and at a
+   short batch padded to the smallest bucket, and on hand-built edge frames
+   (streams at the buffer's edges, a token stream crossing the row end, a
+   mode byte of 3, empty rows); the decoded rows must also equal the rows
+   they were encoded from. Outputs are booleans or bytes: ``torch.equal``
+   is required (tolerance zero).
+3. timing: each matcher use over about 1 GiB of resident rows of each of
    four inputs (seeded source text; the checkout's own ``trivy_tpu/``
    Python files, real code whose words include many rule keywords; uniform
    random bytes; keyword-dense text made of the first bytes of every
-   literal of that use, the verify step's worst case), timed with CUDA events after a warm-up and behind a
-   device spin that keeps the host's enqueueing out of the time (median of
-   three rounds), beside the plain version on the source text, the least
-   time the card could take (bytes over 3.35 TB/s) and the share of
-   positions that pass the kernel's screen.
+   literal of that use, the verify step's worst case), timed with CUDA
+   events after a warm-up and behind a device spin that keeps the host's
+   enqueueing out of the time (median of three rounds), beside the plain
+   version on the source text, the least time the card could take (bytes
+   over 3.35 TB/s) and the share of positions that pass the kernel's
+   screen. The decompress kernel the same way on seeded-text and mixed
+   frames, with its bound from each frame's actual wire bytes, the plain
+   version's time, the host's encode time per batch (``plan`` + ``emit``)
+   and the pinned host-to-card copy of the wire beside that of the raw
+   slab.
 4. e2e: a seeded tree (1 MiB text files, 2% with a planted secret, some
    thousands of small files, binaries, node_modules/, a lockfile and a CRLF
    file) scanned by ``python -m trivy_tpu_torch fs --scanners secret``'s
-   entry point on the card, with the kernels' launch counters set to 0
-   just before and read just after. Every planted secret must be reported
-   under its rule with its line; on a 16 MiB subset the Results must equal
-   the port's own ``--device cpu`` run.
-5. kernels: every ported kernel with its launches on the main path, its
+   entry point on the card with its default feed (dedup and compression
+   on), with the kernels' launch counters set to 0 just before and read
+   just after. Every planted secret must be reported under its rule with
+   its line, and every kernel must have launched. The same tree on the raw
+   feed (``--secret-compress off``) must give the same Results; its time
+   weighs the codec's host work against the link bytes. On a 16 MiB subset the
+   Results must equal the port's own ``--device cpu`` run, with and without
+   dedup and compression.
+5. dedup: the subset, a verbatim copy of it, eight 1 MiB zero-filled files
+   (after a short text head, so that the analyzer's binary sniff keeps
+   them) and a planted 1 MiB file with its copy, scanned on the card: rows
+   must dedup and zero rows must be gated, every planted secret must be
+   reported in both copies, the Results must equal ``--device cpu
+   --no-secret-dedup --secret-compress off``, and with
+   ``--secret-hit-cache --cache-dir`` a second run must dispatch no batch
+   and give the same Results.
+6. kernels: every ported kernel with its launches on the main path, its
    agreement with the plain version and its times.
 
 The line before the last is the card's name and power limit as nvidia-smi
@@ -51,6 +75,7 @@ import runpy
 import shutil
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -59,14 +84,16 @@ import torch
 from trivy_tpu_torch import cli
 from trivy_tpu_torch.device import card_info
 from trivy_tpu_torch.ops import _build
+from trivy_tpu_torch.ops.decompress import build_decompress_fn, decompress_plain
 from trivy_tpu_torch.ops.match import match_plain
 from trivy_tpu_torch.ops.match_cuda import (
     LAUNCHES, SCREEN_BYTES, build_match_fn_cuda, literals, pack_tables,
 )
 from trivy_tpu_torch.ops.prefilter import build_prefilter_fn
+from trivy_tpu_torch.secret.compress import MODE_PACK7, MODE_RAW, MODE_TOKEN, SlabCodec
 from trivy_tpu_torch.secret.device_compile import compile_rules
 from trivy_tpu_torch.secret.engine import ScannerConfig, SecretScanner
-from trivy_tpu_torch.secret.scanner import BATCH, CHUNK_LEN
+from trivy_tpu_torch.secret.scanner import BATCH, BUCKET_RUNGS, CHUNK_LEN
 
 REPO = Path(__file__).resolve().parent
 # one sample token per built-in rule, and custom rulesets with a sample per
@@ -81,6 +108,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 SPIN_CYCLES = 200_000_000  # about 0.1 s of the card's clock, ahead of each timed round
 KERNEL_SOURCE = "trivy_tpu_torch/ops/csrc/match.cu"
 REPLACES = "trivy_tpu/ops/match_pallas.py:109"
+DECOMPRESS_SOURCE = "trivy_tpu_torch/ops/csrc/decompress.cu"
+DECOMPRESS_REPLACES = "trivy_tpu/ops/decompress.py:47"
+LIBRARIES = ("match", "decompress")  # csrc/<name>.cu, built at once
+SHORT_BATCH = 8  # live rows of the short check batch
 
 # words of the generated source text; some are rule keywords, as in real code
 CODE_WORDS = (
@@ -296,6 +327,140 @@ def phase_timing(compiled, base: np.ndarray, rng, card: str) -> dict:
     return out
 
 
+def kind_rows(kind: str, rng, base: np.ndarray, rows: int) -> np.ndarray:
+    """``[rows, CHUNK_LEN]`` rows of one kind cut from ``base`` at seeded
+    offsets (``text`` and ``source``), uniform random bytes (RAW rows),
+    zeros (TOKEN rows of runs), or a mix of text, random printable, zero and
+    random-byte rows."""
+    C = CHUNK_LEN
+    if kind == "random":
+        return rng.integers(0, 256, (rows, C), dtype=np.uint8)
+    if kind == "zero":
+        return np.zeros((rows, C), np.uint8)
+    out = base[rng.integers(0, len(base) - C, rows)[:, None] + np.arange(C)]
+    if kind == "mix":
+        out[1::4] = rng.integers(32, 127, (len(out[1::4]), C), dtype=np.uint8)
+        out[2::4] = 0
+        out[3::4] = rng.integers(0, 256, (len(out[3::4]), C), dtype=np.uint8)
+    return out
+
+
+def encode(codec: SlabCodec, rows: np.ndarray, rows_pad: int):
+    """The codec's frame of ``rows`` padded to ``rows_pad`` rows, with a
+    wire buffer exactly as long as its streams (the last stream ends at the
+    buffer's last byte), and the host's seconds for ``plan`` + ``emit``."""
+    t0 = time.perf_counter()
+    plan = codec.plan(rows)
+    out = np.empty(plan.total(), np.uint8)
+    cs = codec.emit(plan, rows_pad, plan.total(), out)
+    return cs, time.perf_counter() - t0
+
+
+def edge_frame(C: int) -> tuple:
+    """Streams at the buffer's edges: a short RAW stream, one ending at the
+    last byte, one starting before the buffer, one running past its end, a
+    TOKEN stream crossing C, a mode byte of 3, clen 0 and clen > C."""
+    rng = np.random.default_rng(C)
+    W = 3 * C
+    buf = rng.integers(0, 256, W, dtype=np.uint8)
+    buf[:C] = 0x81  # runs of 8 spaces: a TOKEN stream of C bytes expands past C
+    offs = np.array([C, W - 40, -5, W - 3, 0, C, 0, C], np.int32)
+    clen = np.array([5, 40, C, 10, C, C, 0, 2 * C], np.int32)
+    mode = np.array([MODE_RAW, MODE_RAW, MODE_RAW, MODE_PACK7, MODE_TOKEN, 3, MODE_TOKEN,
+                     MODE_RAW], np.uint8)
+    return buf, offs, clen, mode
+
+
+def phase_check_decompress(base: np.ndarray, rng) -> dict:
+    """The decompress kernel against decompress_plain on the card: frames of
+    seeded text, the repo's source, random-byte, zero and mixed rows at
+    [BATCH, CHUNK_LEN] and at
+    SHORT_BATCH live rows padded to the smallest bucket, and the edge
+    frame. The decoded rows must also equal the rows encoded."""
+    codec = SlabCodec(CHUNK_LEN)
+    fn = build_decompress_fn(CHUNK_LEN, codec.tab_bytes, codec.tab_len, "cuda")
+    small = BATCH >> (BUCKET_RUNGS - 1)
+    err, equal, cases = 0, True, []
+
+    def compare(arrays, name: str, rows=None) -> None:
+        nonlocal err, equal
+        parts = [torch.from_numpy(a).cuda() for a in arrays]
+        got = fn(*parts)
+        want = decompress_plain(fn.tab_bytes, fn.tab_len, *parts, CHUNK_LEN)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        case = {"case": name, "rows": int(got.shape[0]), "equal": same,
+                "max_abs_err": int((got.int() - want.int()).abs().max())}
+        if rows is not None:
+            case["decoded_equal_source"] = (
+                torch.equal(got[: len(rows)].cpu(), torch.from_numpy(rows))
+                and not bool(got[len(rows):].any()))
+            case["modes"] = np.bincount(arrays[3][: len(rows)], minlength=3).tolist()
+            check(case["decoded_equal_source"], f"decompress {name}: rows differ from the source")
+        err = max(err, case["max_abs_err"])
+        equal &= same
+        cases.append(case)
+
+    source = repo_source()
+    for kind in ("text", "source", "random", "zero", "mix"):
+        for live, pad in ((BATCH, BATCH), (SHORT_BATCH, small)):
+            rows = kind_rows(kind, rng, source if kind == "source" else base, live)
+            compare(encode(codec, rows, pad)[0].arrays(), f"{kind}-{live}", rows)
+    compare(edge_frame(CHUNK_LEN), "edges")
+    log({"phase": "check", "use": "decompress", "equal": equal, "max_abs_err": err,
+         "cases": cases})
+    check(equal, "decompress kernel disagrees with decompress_plain")
+    return {"equal": equal, "max_abs_err": err}
+
+
+def phase_timing_decompress(base: np.ndarray, rng, card: str) -> dict:
+    """The decompress kernel over four distinct [BATCH, CHUNK_LEN] frames of
+    seeded text (PACK7 rows), of the repo's source (RAW and TOKEN rows) and
+    of mixed rows (about 120 MB of wire and rows each, past the 50 MB L2),
+    timed as the matcher is; its bound from the frames' actual
+    wire bytes (payload and framing read once, the tables read once, the
+    rows written once); the plain version's time; the host's encode time
+    per batch; the pinned copy of a frame's wire beside the raw slab's."""
+    codec = SlabCodec(CHUNK_LEN)
+    fn = build_decompress_fn(CHUNK_LEN, codec.tab_bytes, codec.tab_len, "cuda")
+    raw = torch.zeros((BATCH, CHUNK_LEN), dtype=torch.uint8, pin_memory=True)
+    raw_d = torch.empty_like(raw, device="cuda")
+    raw_ms = time_cuda(lambda t: raw_d.copy_(t, non_blocking=True), [raw] * 20)[0]
+    out = {}
+    source = repo_source()
+    for kind in ("text", "source", "mix"):
+        frames, enc_s = [], []
+        for _ in range(4):
+            rows = kind_rows(kind, rng, source if kind == "source" else base, BATCH)
+            cs, sec = encode(codec, rows, BATCH)
+            frames.append(cs)
+            enc_s.append(sec)
+        dev = [tuple(torch.from_numpy(a).cuda() for a in cs.arrays()) for cs in frames]
+        ms, rounds, host_us = time_cuda(lambda f: fn(*f), dev * 4, reps=4)
+        wire = float(np.mean([cs.wire_bytes + cs.frame_bytes() for cs in frames]))
+        tables = codec.tab_bytes.nbytes + codec.tab_len.nbytes
+        bound_ms = (wire + tables + BATCH * CHUNK_LEN) / HBM_BYTES_PER_S * 1e3
+        plain_ms = time_cuda(lambda f: decompress_plain(fn.tab_bytes, fn.tab_len, *f, CHUNK_LEN),
+                             dev[:2], rounds=1)[0]
+        wire_h = torch.from_numpy(frames[0].buf).pin_memory()
+        wire_d = torch.empty_like(wire_h, device="cuda")
+        wire_ms = time_cuda(lambda t: wire_d.copy_(t, non_blocking=True), [wire_h] * 20)[0]
+        res = {
+            "shape": [BATCH, CHUNK_LEN], "frames": len(frames), "ms": ms, "ms_rounds": rounds,
+            "host_us_per_call": host_us, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "bound_share": bound_ms / ms, "wire_bytes": wire,
+            "wire_ratio": wire / (BATCH * CHUNK_LEN),
+            "modes": np.bincount(frames[0].mode, minlength=3).tolist(),
+            "encode_ms": float(np.median(enc_s)) * 1e3, "h2d_wire_ms": wire_ms,
+            "h2d_raw_ms": raw_ms, "card": card,
+        }
+        out[kind] = res
+        log({"phase": "timing", "use": "decompress", "input": kind, **res})
+        del dev
+    torch.cuda.empty_cache()
+    return out
+
+
 def write_tree(root: Path, e2e_mib: int, seed: int, base: bytes) -> tuple[list, int]:
     """The e2e tree; returns the planted (relpath, rule_id, line) and the
     bytes written. ``root/sub16`` is a ~16 MiB subset with its own plants."""
@@ -350,10 +515,10 @@ def write_tree(root: Path, e2e_mib: int, seed: int, base: bytes) -> tuple[list, 
     return planted, written
 
 
-def run_cli(target: Path, out_dir: Path, tag: str, device: str) -> tuple[dict, dict]:
+def run_cli(target: Path, out_dir: Path, tag: str, device: str, *extra: str) -> tuple[dict, dict]:
     out, stats = out_dir / f"{tag}.json", out_dir / f"{tag}.stats.json"
     rc = cli.main(["fs", "--scanners", "secret", "--format", "json", "-o", str(out),
-                   "--stats-out", str(stats), "--device", device, "-q", str(target)])
+                   "--stats-out", str(stats), "--device", device, "-q", *extra, str(target)])
     check(rc == 0, f"fs scan ({tag}) exited {rc}")
     return json.loads(out.read_text()), json.loads(stats.read_text())
 
@@ -365,49 +530,140 @@ def found(report: dict, prefix: str = "") -> set:
     }
 
 
-def phase_e2e(e2e_mib: int, seed: int, base: bytes) -> dict:
-    root = REPO / ".chip_tmp" / "tree"
-    shutil.rmtree(root.parent, ignore_errors=True)
-    try:
-        t0 = time.perf_counter()
-        planted, written = write_tree(root, e2e_mib, seed, base)
-        setup_s = time.perf_counter() - t0
-        # the main path: counters to 0 just before, read just after
-        LAUNCHES.clear()
-        report, stats = run_cli(root, root.parent, "e2e", "cuda")
-        launches = dict(LAUNCHES)
-        got = found(report)
-        missed = [p for p in planted if p not in got]
-        leaked = [t for t, *_ in got if "node_modules/" in t or t.endswith("package-lock.json")]
-        result = {
-            "phase": "e2e", "tree_bytes": written, "setup_s": setup_s,
-            "files_walked": stats["files_walked"], "files_scanned": stats["files_scanned"],
-            "bytes_scanned": stats["bytes_in"], "seconds": stats["seconds"],
-            "MBps": stats["bytes_in"] / stats["seconds"] / 1e6,
-            "rows": stats["rows"], "batches": stats["batches"],
-            "rows_nfa_skipped": stats["rows_nfa_skipped"],
-            "batches_nfa_skipped": stats["batches_nfa_skipped"],
-            "rows_prefilter_hit": stats["rows_prefilter_hit"],
-            "launches": launches, "planted": len(planted), "missed": missed[:10],
-            "findings": len(got),
-        }
-        log(result)
-        check(not missed, f"{len(missed)} planted secrets not reported: {missed[:5]}")
-        check(not leaked, f"skipped files reported: {leaked[:5]}")
-        check(launches.get("prefilter", 0) > 0 and launches.get("anchored", 0) > 0,
-              f"a kernel use was not launched on the main path: {launches}")
-        # the 16 MiB subset: the card's Results equal the port's CPU run
-        sub = root / "sub16"
-        on_card, _ = run_cli(sub, root.parent, "sub16-cuda", "cuda")
-        on_cpu, _ = run_cli(sub, root.parent, "sub16-cpu", "cpu")
-        same = on_card["Results"] == on_cpu["Results"]
-        log({"phase": "e2e-subset", "target_bytes": sum(
-            f.stat().st_size for f in sub.rglob("*") if f.is_file()),
-            "results": len(on_card["Results"]), "equal_to_cpu": same})
-        check(same, "16 MiB subset: Results on the card differ from --device cpu")
-        return result
-    finally:
-        shutil.rmtree(root.parent, ignore_errors=True)
+# the feed counters each scan reports: dedup, zero gate, wire
+FEED_KEYS = (
+    "chunks", "chunks_uploaded", "chunks_dedup_hit", "bytes_dedup_hit", "chunks_gated_zero",
+    "bytes_gated", "bytes_uploaded", "bytes_compressed", "bytes_raw_equiv",
+    "bytes_raw_fallback", "bytes_gated_binary", "batches_compressed", "batches_raw_fallback",
+    "chunks_warm_hit", "files_packed", "bytes_packed",
+)
+
+
+def feed_counters(stats: dict) -> dict:
+    out = {k: stats[k] for k in FEED_KEYS}
+    raw = stats["bytes_raw_equiv"] + stats["bytes_raw_fallback"]
+    if raw:
+        out["wire_ratio"] = (stats["bytes_compressed"] + stats["bytes_raw_fallback"]) / raw
+    return out
+
+
+def phase_e2e(root: Path, e2e_mib: int, seed: int, base: bytes) -> tuple[dict, list]:
+    """The main path on the e2e tree under ``root``; returns the result and
+    the planted secrets."""
+    t0 = time.perf_counter()
+    planted, written = write_tree(root, e2e_mib, seed, base)
+    setup_s = time.perf_counter() - t0
+    # the main path: counters to 0 just before, read just after
+    LAUNCHES.clear()
+    report, stats = run_cli(root, root.parent, "e2e", "cuda")
+    launches = dict(LAUNCHES)
+    got = found(report)
+    missed = [p for p in planted if p not in got]
+    leaked = [t for t, *_ in got if "node_modules/" in t or t.endswith("package-lock.json")]
+    result = {
+        "phase": "e2e", "tree_bytes": written, "setup_s": setup_s,
+        "files_walked": stats["files_walked"], "files_scanned": stats["files_scanned"],
+        "bytes_scanned": stats["bytes_in"], "seconds": stats["seconds"],
+        "MBps": stats["bytes_in"] / stats["seconds"] / 1e6,
+        "rows": stats["rows"], "batches": stats["batches"],
+        "rows_nfa_skipped": stats["rows_nfa_skipped"],
+        "batches_nfa_skipped": stats["batches_nfa_skipped"],
+        "rows_prefilter_hit": stats["rows_prefilter_hit"],
+        "feed": feed_counters(stats),
+        "launches": launches, "planted": len(planted), "missed": missed[:10],
+        "findings": len(got),
+    }
+    log(result)
+    check(not missed, f"{len(missed)} planted secrets not reported: {missed[:5]}")
+    check(not leaked, f"skipped files reported: {leaked[:5]}")
+    check(all(launches.get(k, 0) > 0 for k in ("prefilter", "anchored", "decompress")),
+          f"a kernel was not launched on the main path: {launches}")
+    # the same tree on the raw feed, to weigh the codec's host work against
+    # the link bytes it saves
+    raw_report, raw = run_cli(root, root.parent, "e2e-raw", "cuda", "--secret-compress", "off")
+    log({"phase": "e2e-raw", "seconds": raw["seconds"],
+         "MBps": raw["bytes_in"] / raw["seconds"] / 1e6, "batches": raw["batches"],
+         "bytes_uploaded": raw["bytes_uploaded"],
+         "equal_to_default_feed": raw_report["Results"] == report["Results"]})
+    check(raw_report["Results"] == report["Results"], "e2e: Results differ without compression")
+    # the 16 MiB subset: the card's Results equal the port's CPU runs, with
+    # the CPU's default feed (dedup on) and with dedup and compression off
+    sub = root / "sub16"
+    on_card, _ = run_cli(sub, root.parent, "sub16-cuda", "cuda")
+    on_cpu, _ = run_cli(sub, root.parent, "sub16-cpu", "cpu")
+    plain, _ = run_cli(sub, root.parent, "sub16-cpu-plain", "cpu",
+                       "--secret-compress", "off", "--no-secret-dedup")
+    same = on_card["Results"] == on_cpu["Results"] == plain["Results"]
+    log({"phase": "e2e-subset", "target_bytes": sum(
+        f.stat().st_size for f in sub.rglob("*") if f.is_file()),
+        "results": len(on_card["Results"]), "equal_to_cpu": same})
+    check(same, "16 MiB subset: Results on the card differ from --device cpu")
+    return result, planted
+
+
+def phase_dedup(tmp: Path, tree: Path, planted: list, seed: int, base: bytes) -> dict:
+    """The subset twice, eight zero-filled 1 MiB files and a planted file
+    with its copy, on the card's default feed, with counters to 0 just
+    before and read just after; then the CPU reference and two runs with
+    the persistent hit store."""
+    root = tmp / "dedup"
+    for copy in ("a", "b"):
+        shutil.copytree(tree / "sub16", root / copy)
+    rng = random.Random(seed + 1)
+
+    def text(n: int) -> bytes:
+        off = rng.randrange(0, len(base) - n)
+        body = base[off : off + n]
+        return body[: body.rfind(b"\n") + 1]
+
+    head = text(1024)  # printable, so the analyzer's binary sniff passes
+    (root / "zero").mkdir()
+    for i in range(8):
+        (root / "zero" / f"disk{i}.img").write_bytes(head + bytes(1 << 20) + head)
+    rid = sorted(SAMPLES)[seed % len(SAMPLES)]
+    body = text(1 << 20)
+    cut = body.rfind(b"\n", 0, len(body) // 2) + 1
+    data = body[:cut] + SAMPLES[rid].encode() + b"\n" + body[cut:]
+    line = body[:cut].count(b"\n") + 1
+    for rel in ("p/secret.py", "p/copy/secret.py"):
+        (root / rel).parent.mkdir(parents=True, exist_ok=True)
+        (root / rel).write_bytes(data)
+    want = {(f"{c}/{rel[len('sub16/'):]}", r, ln) for rel, r, ln in planted
+            if rel.startswith("sub16/") for c in ("a", "b")}
+    want |= {("p/secret.py", rid, line), ("p/copy/secret.py", rid, line)}
+
+    LAUNCHES.clear()
+    report, stats = run_cli(root, tmp, "dedup-cuda", "cuda")
+    launches = dict(LAUNCHES)
+    ref, _ = run_cli(root, tmp, "dedup-cpu", "cpu", "--no-secret-dedup",
+                     "--secret-compress", "off")
+    cache = ["--secret-hit-cache", "--cache-dir", str(tmp / "cache")]
+    cold, cold_stats = run_cli(root, tmp, "dedup-cold", "cuda", *cache)
+    warm, warm_stats = run_cli(root, tmp, "dedup-warm", "cuda", *cache)
+    missed = sorted(want - found(report))
+    result = {
+        "phase": "dedup", "tree_bytes": sum(f.stat().st_size for f in root.rglob("*")
+                                            if f.is_file()),
+        "seconds": stats["seconds"], "MBps": stats["bytes_in"] / stats["seconds"] / 1e6,
+        "batches": stats["batches"], "feed": feed_counters(stats), "launches": launches,
+        "planted": len(want), "missed": missed[:10],
+        "equal_to_cpu_plain": report["Results"] == ref["Results"],
+        "hit_cache": {"cold_batches": cold_stats["batches"],
+                      "warm_batches": warm_stats["batches"],
+                      "warm_chunks_warm_hit": warm_stats["chunks_warm_hit"],
+                      "warm_seconds": warm_stats["seconds"],
+                      "equal": cold["Results"] == warm["Results"] == ref["Results"]},
+    }
+    log(result)
+    check(stats["chunks_dedup_hit"] > 0, "dedup: no row was served by dedup")
+    check(stats["chunks_gated_zero"] > 0, "dedup: no zero row was gated")
+    check(not missed, f"dedup: {len(missed)} planted secrets not reported: {missed[:5]}")
+    check(result["equal_to_cpu_plain"], "dedup: Results differ from --device cpu, dedup "
+          "and compression off")
+    check(warm_stats["batches"] == 0, f"dedup: warm re-scan dispatched "
+          f"{warm_stats['batches']} batches")
+    check(result["hit_cache"]["equal"], "dedup: hit-cache runs changed the Results")
+    return result
 
 
 def main() -> int:
@@ -421,11 +677,14 @@ def main() -> int:
     torch.cuda.set_device(0)
     t0 = time.perf_counter()
     card = card_info()
-    lib = _build.build("match")
-    ptxas = [ln.strip() for ln in _build.ptxas_report("match").splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    log({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib.name,
-         "ptxas": ptxas, "card": card, "torch": torch.__version__, "cuda": torch.version.cuda})
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:  # one nvcc per source, together
+        libs = dict(zip(LIBRARIES, pool.map(_build.build, LIBRARIES)))
+    ptxas = {name: [ln.strip() for ln in _build.ptxas_report(name).splitlines()
+                    if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+             for name in LIBRARIES}
+    log({"phase": "build", "seconds": time.perf_counter() - t0,
+         "libraries": {k: v.name for k, v in libs.items()}, "ptxas": ptxas, "card": card,
+         "torch": torch.__version__, "cuda": torch.version.cuda})
 
     rng = np.random.default_rng(args.seed)
     base = text_base(random.Random(args.seed), 1 << 20)
@@ -437,8 +696,16 @@ def main() -> int:
         for name in CHECK_RULESETS
     ]
     verdict = phase_check([(compiled, sorted(SAMPLES.values()), BATCH), *custom], base_np, rng)
+    verdict["decompress"] = phase_check_decompress(base_np, rng)
     timing = phase_timing(compiled, base_np, rng, card)
-    e2e = phase_e2e(args.e2e_mib, args.seed, base)
+    dec_timing = phase_timing_decompress(base_np, rng, card)
+    tmp = REPO / ".chip_tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        e2e, planted = phase_e2e(tmp / "tree", args.e2e_mib, args.seed, base)
+        phase_dedup(tmp, tmp / "tree", planted, args.seed, base)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     kernels = [
         {
@@ -453,6 +720,17 @@ def main() -> int:
         }
         for use in ("prefilter", "anchored")
     ]
+    text, source, mix = dec_timing["text"], dec_timing["source"], dec_timing["mix"]
+    kernels.append({
+        "name": "decompress_kernel", "route": "cuda", "source": DECOMPRESS_SOURCE,
+        "replaces": DECOMPRESS_REPLACES, "launches": e2e["launches"].get("decompress", 0),
+        "max_abs_err": verdict["decompress"]["max_abs_err"],
+        "equal": verdict["decompress"]["equal"],
+        "ms": text["ms"], "plain_ms": text["plain_ms"], "bound_ms": text["bound_ms"],
+        "bound_by": text["bound_by"], "library_ms": None,
+        "ms_source": source["ms"], "bound_ms_source": source["bound_ms"],
+        "ms_mix": mix["ms"], "bound_ms_mix": mix["bound_ms"],
+    })
     log({"kernels": kernels})
     print(card, flush=True)
     name = torch.cuda.get_device_name(0)

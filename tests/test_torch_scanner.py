@@ -165,7 +165,9 @@ def test_keyword_lane_match_far_from_keyword():
 
 def test_lures_skip_the_anchored_matcher():
     cfg = {"enable-builtin-rules": ["github-pat", "slack-access-token"]}
-    files = [(f"l{i}.txt", b"boring bytes without any rule keyword\n" * 100) for i in range(8)]
+    # distinct lures: identical files would dedup into one row
+    files = [(f"l{i}.txt", b"boring bytes without any rule keyword %d\n" % i * 100)
+             for i in range(8)]
     files.append(("MiXeD.txt", b"SEE GHP_NOT_A_REAL_TOKEN HERE\n" * 40))
     trio = scanners(cfg)
     got = assert_parity(trio, files)

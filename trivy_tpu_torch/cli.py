@@ -1,12 +1,17 @@
 """Command line of the port: the ``fs`` secret scan.
 
     python -m trivy_tpu_torch fs --scanners secret [--secret-config F]
-        [--format json|table] [-o OUT] [--device cuda|cpu] <dir>
+        [--format json|table] [-o OUT] [--device cuda|cpu]
+        [--no-secret-dedup] [--secret-dedup-mb N]
+        [--secret-hit-cache [--cache-dir D] [--cache-backend fs|memory]]
+        [--secret-compress auto|on|off | --no-secret-compress]
+        [--secret-compress-min-ratio R] <dir>
 
 Runs on the card unless ``--device cpu`` is given, and fails when CUDA is
 asked for and missing. Its JSON ``Results`` equal those of
 ``python -m trivy_tpu.cli fs --scanners secret --backend cpu --format json``
-on the same tree.
+on the same tree, under every feed option. The feed options carry the
+meanings and defaults of the JAX package's flags of the same names.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import sys
 import time
 
 from trivy_tpu_torch import log
+from trivy_tpu_torch.cache import BACKENDS, new_cache
 from trivy_tpu_torch.device import DEFAULT_DEVICE
 from trivy_tpu_torch.fanal.secret import SecretAnalyzer
 from trivy_tpu_torch.fanal.walker import FSWalker, WalkOption
@@ -31,12 +37,13 @@ DEFAULT_SECRET_CONFIG = "trivy-secret.yaml"
 
 
 def scan_fs(root: str, config_path: str | None = None, device=DEFAULT_DEVICE,
-            skip_dirs=(), skip_files=()) -> tuple[Report, dict]:
+            skip_dirs=(), skip_files=(), **scanner_opts) -> tuple[Report, dict]:
     """Secret-scan the tree under ``root``. Returns the report and the
     scan's counters (files walked and scanned, seconds, and the device
-    scanner's feed counters)."""
+    scanner's feed counters). ``scanner_opts`` reach the
+    :class:`~trivy_tpu_torch.secret.scanner.TorchSecretScanner`."""
     t0 = time.perf_counter()
-    analyzer = SecretAnalyzer(root, config_path=config_path, device=device)
+    analyzer = SecretAnalyzer(root, config_path=config_path, device=device, **scanner_opts)
     walker = FSWalker(WalkOption(skip_files=list(skip_files), skip_dirs=list(skip_dirs)))
     walked = scanned = 0
     try:
@@ -90,7 +97,30 @@ def build_parser() -> argparse.ArgumentParser:
     fs.add_argument("--skip-files", action="append", default=[],
                     help="glob of files to skip (repeatable)")
     fs.add_argument("--stats-out", default="",
-                    help="write the scan's counters (files, seconds, rows) as JSON")
+                    help="write the scan's counters (files, seconds, rows, dedup and "
+                         "wire bytes) as JSON")
+    fs.add_argument("--no-secret-dedup", action="store_true",
+                    help="disable the chunk-dedup hit cache on the device feed")
+    fs.add_argument("--secret-dedup-mb", type=int, default=0,
+                    help="byte budget (MB) for the in-process dedup hit-store LRU "
+                         "(0 = default 32; the bound is bytes, not entries, so "
+                         "streaming scans keep flat RSS)")
+    fs.add_argument("--secret-hit-cache", action="store_true",
+                    help="persist chunk hit vectors in the scan cache backend for "
+                         "cross-scan dedup")
+    fs.add_argument("--cache-dir", default=None, help="cache directory")
+    fs.add_argument("--cache-backend", choices=BACKENDS, default="fs",
+                    help="scan cache backend")
+    fs.add_argument("--secret-compress", choices=["auto", "on", "off"], default=None,
+                    help="compressed slab wire format on the device feed: auto (on "
+                         "for the card, off for --device cpu), on, off")
+    fs.add_argument("--no-secret-compress", action="store_true",
+                    help="ship raw slabs unconditionally (shorthand for "
+                         "--secret-compress off)")
+    fs.add_argument("--secret-compress-min-ratio", type=float, default=None,
+                    help="per-batch wire budget as a fraction of the raw slab: a "
+                         "batch that can't compress below this ships raw (default "
+                         "0.875, the 7-bit-packing line)")
     fs.add_argument("-q", "--quiet", action="store_true")
     return p
 
@@ -105,6 +135,13 @@ def main(argv: list[str] | None = None) -> int:
     report, counters = scan_fs(
         args.target, config_path=config, device=args.device,
         skip_dirs=args.skip_dirs, skip_files=args.skip_files,
+        dedup=not args.no_secret_dedup,
+        hit_cache=(new_cache(args.cache_backend, args.cache_dir)
+                   if args.secret_hit_cache else None),
+        hit_cache_bytes=max(0, args.secret_dedup_mb) << 20,
+        # --no-secret-compress is the loud opt-out shorthand
+        compress="off" if args.no_secret_compress else (args.secret_compress or ""),
+        compress_min_ratio=args.secret_compress_min_ratio or 0.0,
     )
     if args.stats_out:
         with open(args.stats_out, "w", encoding="utf-8") as f:

@@ -92,10 +92,14 @@ class SecretAnalyzer:
 
     ``required`` → ``collect`` per walked file, then ``finalize`` for the
     files with findings. ``abort`` ends the background scan early.
+    ``scanner_opts`` (``dedup``, ``hit_cache``, ``hit_cache_bytes``,
+    ``compress``, ``compress_min_ratio``) reach the
+    :class:`TorchSecretScanner` it builds.
     """
 
     def __init__(self, root: str, config_path: str | None = None,
-                 device="cuda", scanner: TorchSecretScanner | None = None):
+                 device="cuda", scanner: TorchSecretScanner | None = None,
+                 **scanner_opts):
         self.config_path = config_path
         # the config file's scan-root-relative path, so its self-exclusion
         # matches at any nesting depth
@@ -107,7 +111,7 @@ class SecretAnalyzer:
                 self._config_rel_path = os.path.normpath(rel)
             if os.path.exists(config_path):
                 cfg = ScannerConfig.from_yaml_file(config_path)
-        self.scanner = scanner or TorchSecretScanner(cfg, device=device)
+        self.scanner = scanner or TorchSecretScanner(cfg, device=device, **scanner_opts)
         self._stream: FileStream | None = None
         self._thread: threading.Thread | None = None
         self._found: list[Secret] = []

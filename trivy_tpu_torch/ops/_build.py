@@ -46,6 +46,13 @@ SIGNATURES = {
         ),
         "trivy_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
+    "decompress": {
+        "trivy_decompress_launch": (
+            # buf, W, offs, clen, mode, B, C, tab_bytes, tab_len, out, stream
+            _I, [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+        ),
+        "trivy_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 

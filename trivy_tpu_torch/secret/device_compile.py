@@ -147,6 +147,20 @@ class CompiledRules:
             g[ridx] = True
         return g
 
+    def prefilter_fingerprint(self) -> bytes:
+        """Digest of the prefilter table: any keyword add/remove/edit (or a
+        rule-index renumbering) flips it. Mixed into the dedup-cache key so
+        cached hit/candidate vectors can never survive a ruleset keyword
+        edit."""
+        import hashlib
+
+        h = hashlib.blake2b(digest_size=16)
+        for ridx, kw in sorted(self.prefilter_keywords):
+            h.update(ridx.to_bytes(4, "little"))
+            h.update(len(kw).to_bytes(4, "little"))
+            h.update(kw)
+        return h.digest()
+
 
 def _category_chars(cat) -> frozenset:
     if cat == sre_c.CATEGORY_DIGIT:

@@ -57,6 +57,9 @@ class ScannerConfig:
     disable_rule_ids: list[str] = field(default_factory=list)
     disable_allow_rule_ids: list[str] = field(default_factory=list)
     exclude_block_regexes: list[str] = field(default_factory=list)
+    # sha256 of the source --secret-config file bytes ("" when built
+    # programmatically): folded into the persistent dedup namespace
+    source_digest: str = ""
 
     @classmethod
     def from_dict(cls, d: dict) -> "ScannerConfig":
@@ -102,11 +105,20 @@ class ScannerConfig:
 
     @classmethod
     def from_yaml_file(cls, path: str) -> "ScannerConfig":
+        import hashlib
+
         import yaml
 
         with open(path, "rb") as f:
             raw = f.read()
-        return cls.from_dict(yaml.safe_load(raw.decode("utf-8")) or {})
+        cfg = cls.from_dict(yaml.safe_load(raw.decode("utf-8")) or {})
+        # content digest of the config FILE: the persistent dedup store
+        # folds it into its namespace keys, so editing the rule file
+        # invalidates every persisted entry even when the parsed rule set
+        # hashes the same way (allow rules, exclude blocks and disables
+        # don't change hit vectors but DO change findings)
+        cfg.source_digest = hashlib.sha256(raw).hexdigest()
+        return cfg
 
 
 class SecretScanner:

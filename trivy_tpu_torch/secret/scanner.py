@@ -4,11 +4,15 @@ confirmation.
 Pipeline (the port of ``trivy_tpu/secret/tpu_scanner.py``):
 
   files → overlapping fixed-size rows (small files packed several to a
-  row) → ``[B, C]`` batches in a pinned chunk arena → one asynchronous copy
-  to the card → keyword prefilter kernel → anchored matcher kernel when the
-  prefilter found a candidate for it → per-(file, rule) candidates → exact
-  :class:`SecretScanner` restricted to those rules → findings identical to
-  the CPU engine, emitted in input order.
+  row) → content-hash dedup (rows seen before resolve from the hit store,
+  identical rows in flight coalesce, all-zero rows are gated) → ``[B, C]``
+  batches in a pinned chunk arena → optionally compressed into a wire frame
+  (``secret/compress.py``) → one asynchronous copy to the card → the
+  decompress kernel (compressed frames only) → keyword prefilter kernel →
+  anchored matcher kernel when the prefilter found a candidate for it →
+  per-(file, rule) candidates → exact :class:`SecretScanner` restricted to
+  those rules → findings identical to the CPU engine, emitted in input
+  order.
 
 Row overlap covers the compiled ruleset's widest device window, so every
 device-checkable window lies inside some row. Host confirmation is
@@ -17,15 +21,21 @@ bounds the match start (anchored lane, and keyword-lane rules whose keyword
 sits inside every bounded match — ``_windowed_ids``); other rules rescan
 the whole file on flag.
 
+Dedup is sound because a row's verdict is a pure function of (row bytes,
+compiled tables): every row digest is keyed with the ruleset fingerprint,
+and path-dependent filtering happens later, on the host. Compression is
+framing only: rows hash and resolve against their uncompressed bytes.
+
 Threads, all scoped to one ``scan_files`` call: a feeder that consumes the
-input, chunks and packs rows into arena slabs; one device worker that
-copies each slab to the device, runs both kernel uses and resolves the
-hits; and a confirm pool. A device error fails the scan: there is no host
-fallback.
+input, chunks, hashes and packs rows into arena slabs and compresses them;
+one device worker that copies each slab to the device, runs the kernels
+and resolves the hits; and a confirm pool. A device or codec error fails
+the scan: there is no host fallback.
 """
 
 from __future__ import annotations
 
+import hashlib
 import queue
 import threading
 from collections.abc import Iterable, Iterator
@@ -35,14 +45,20 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from trivy_tpu_torch import log
 from trivy_tpu_torch.device import resolve
+from trivy_tpu_torch.ops.decompress import build_decompress_fn
 from trivy_tpu_torch.ops.match_cuda import build_match_fn_cuda
 from trivy_tpu_torch.ops.prefilter import build_prefilter_fn
+from trivy_tpu_torch.secret.compress import COMPRESS_MIN_RATIO, CompressedSlab, SlabCodec
 from trivy_tpu_torch.secret.device_compile import CompiledRules, compile_rules
 from trivy_tpu_torch.secret.engine import ScannerConfig, SecretScanner
 from trivy_tpu_torch.secret.feed import ChunkArena, row_windows
+from trivy_tpu_torch.secret.hitstore import DEFAULT_STORE_MB, HitStore
 from trivy_tpu_torch.secret.rules import ascii_lower
 from trivy_tpu_torch.types import Secret
+
+logger = log.logger("secret:device")
 
 # Row length and rows per batch on an H100. At 16 MiB per batch the
 # kernel's time on the card does not depend on the row length between 4 and
@@ -61,10 +77,18 @@ BUCKET_RUNGS = 3
 # assembled slabs queued between the feeder and the device worker
 FEED_QUEUE_DEPTH = 2
 # arena slack beyond the queue: the slab being assembled, the one on the
-# device, and a spare
+# device, and the wire slab a compressed batch is encoded into while its
+# source slab is still held
 ARENA_MARGIN = 3
 # workers for exact host confirmation
 CONFIRM_WORKERS = 4
+# entry-count backstop of the dedup LRU (the real bound is its byte budget)
+HIT_CACHE_ENTRIES = 1 << 16
+# version folded into the ruleset fingerprint that keys every row digest;
+# the JAX package's value, so both packages' persisted verdicts share one
+# namespace (v4: rows may reach the kernels through the decompressor, whose
+# output is byte-identical to a raw upload; keys hash UNCOMPRESSED rows)
+HIT_CACHE_VERSION = 4
 
 
 def chunk_spans(n: int, chunk_len: int, overlap: int) -> list[int]:
@@ -93,7 +117,12 @@ class _FileState:
 
 
 class ScanStats:
-    """Cumulative feed and device counters (thread-safe)."""
+    """Cumulative feed and device counters (thread-safe). The link-traffic
+    and dedup fields carry the names and meaning of the JAX package's
+    ``ScanStats``: ``bytes_uploaded`` counts the bytes actually shipped to
+    the card (padded raw slabs, or wire + framing of compressed batches);
+    ``bytes_dedup_hit`` counts corpus bytes whose rows were served from the
+    hit store or coalesced onto an identical in-flight row."""
 
     FIELDS = (
         "bytes_in",             # corpus bytes fed to the device path
@@ -103,6 +132,23 @@ class ScanStats:
         "rows_prefilter_hit",   # rows with >=1 prefilter candidate
         "rows_nfa_skipped",     # rows whose batch skipped the anchored matcher
         "batches_nfa_skipped",  # batches resolved by the prefilter alone
+        "bytes_uploaded",       # bytes shipped to the card (see above)
+        "bytes_dedup_hit",      # corpus bytes resolved without an upload
+        "bytes_packed",         # corpus bytes sharing a row with another file
+        "chunks",               # rows the corpus decomposed into
+        "chunks_uploaded",      # rows actually dispatched
+        "chunks_dedup_hit",     # rows served from the hit store / coalesced
+        "files_packed",         # files that rode a shared row
+        "chunks_warm_hit",      # rows served from the PERSISTENT store
+        "bytes_warm_hit",       # corpus bytes those rows covered
+        "bytes_compressed",     # wire + framing bytes of compressed batches
+        "bytes_raw_equiv",      # padded raw bytes those batches replaced
+        "bytes_raw_fallback",   # padded bytes shipped raw with the codec on
+        "bytes_gated",          # corpus bytes the zero gate kept off the link
+        "bytes_gated_binary",   # raw bytes of binary rows inside compressed frames
+        "chunks_gated_zero",    # all-zero rows the zero gate resolved
+        "batches_compressed",   # batches that shipped compressed
+        "batches_raw_fallback",  # batches shipped raw with the codec on
     )
 
     def __init__(self):
@@ -125,8 +171,17 @@ class TorchSecretScanner:
     ``scan_files`` consumes an iterable of (path, bytes) and yields one
     :class:`Secret` per input file, in input order, with findings identical
     to ``SecretScanner.scan_bytes``. ``device`` is ``cuda`` (the default;
-    raises without CUDA) or ``cpu``, where both kernel uses run their plain
+    raises without CUDA) or ``cpu``, where every kernel runs its plain
     PyTorch version.
+
+    ``dedup`` turns the row-digest hit store on (rows seen before resolve
+    without an upload); ``hit_cache`` is a :mod:`trivy_tpu_torch.cache`
+    backend that persists its verdicts across scans, and
+    ``hit_cache_bytes`` bounds its in-process LRU (0: ``DEFAULT_STORE_MB``).
+    ``compress`` is ``auto`` (the default: on for ``cuda``, off for
+    ``cpu``), ``on`` or ``off``; with it on, batches cross to the card as
+    compressed wire frames whenever they fit ``compress_min_ratio`` of the
+    raw slab (0: ``COMPRESS_MIN_RATIO``), and all-zero rows are gated.
     """
 
     def __init__(
@@ -135,6 +190,11 @@ class TorchSecretScanner:
         chunk_len: int | None = None,
         batch_size: int | None = None,
         device="cuda",
+        dedup: bool = True,
+        hit_cache=None,
+        hit_cache_bytes: int = 0,
+        compress: str = "",
+        compress_min_ratio: float = 0.0,
     ):
         self.device = resolve(device)
         self.exact = SecretScanner(config)
@@ -194,6 +254,82 @@ class TorchSecretScanner:
             buckets.append(buckets[-1] // 2)
         self._buckets = sorted(buckets)
         self.stats = ScanStats()
+
+        # -- dedup hit store ------------------------------------------------
+        # ruleset fingerprint: the hit vector is a pure function of (row
+        # bytes, compiled tables); keying the row hash with it makes any
+        # rule add/remove/regex/keyword change, and any reordering (which
+        # renumbers rule indices), flip every key. It folds the
+        # --secret-config file's content digest (allow rules and disables
+        # change findings, not hit vectors) and the prefilter table (cached
+        # values carry its candidate masks). The recipe is the JAX
+        # package's, byte for byte.
+        fp = hashlib.blake2b(digest_size=16)
+        fp.update(f"v{HIT_CACHE_VERSION}:{self.chunk_len}:".encode())
+        for r in self.exact.rules:
+            fp.update(repr((r.id, r.regex, r.keywords, r.path)).encode())
+            fp.update(b"\x00")
+        fp.update(b"cfg:")
+        fp.update(getattr(config, "source_digest", "").encode() or b"-")
+        if self._prefilter is not None:
+            fp.update(b"pf:")
+            fp.update(self.compiled.prefilter_fingerprint())
+        else:
+            fp.update(b"pf-off")
+        self.ruleset_fingerprint = fp.digest()
+        # the store maps a row digest to the row's verdict, the JAX
+        # package's 4-tuple (hit_rules, cand_rules, nfa_ran, lic):
+        # - hit_rules: device hit vector (anchored + keyword-lane hits)
+        # - cand_rules: prefilter candidate rules; () without a prefilter
+        # - nfa_ran: False when the row's batch skipped the anchored
+        #   matcher; replaying it marks every guarded anchored rule
+        #   unchecked for the row's file, so a candidate there confirms by
+        #   a full scan
+        # - lic: the fused license gate's verdict; always None here (the
+        #   port has no license gate yet)
+        self._dedup = dedup
+        self._hit_store = HitStore(
+            self.ruleset_fingerprint,
+            backend=hit_cache,
+            max_entries=HIT_CACHE_ENTRIES,
+            max_bytes=hit_cache_bytes or DEFAULT_STORE_MB << 20,
+        )
+
+        # -- compressed slab wire format ------------------------------------
+        # 'auto' is on where the rows cross a link to the card and off on
+        # the CPU, where compressing only burns host cycles. An 'off'
+        # scanner builds no codec tables and no decompressor.
+        mode = compress or "auto"
+        if mode not in ("auto", "on", "off"):
+            raise ValueError(f"compress={mode!r}: use 'auto', 'on', or 'off'")
+        comp_on = mode == "on" or (mode == "auto" and self.device.type == "cuda")
+        if comp_on and self.chunk_len % 8:
+            logger.warning(
+                "compression needs chunk_len %% 8 == 0 (7-bit packing), got "
+                "%d; shipping raw slabs", self.chunk_len,
+            )
+            comp_on = False
+        self.compress_min_ratio = float(compress_min_ratio or COMPRESS_MIN_RATIO)
+        if not 0.0 < self.compress_min_ratio <= 1.0:
+            raise ValueError(f"compress_min_ratio={self.compress_min_ratio} out of (0, 1]")
+        self._codec: SlabCodec | None = None
+        self._decompress = None
+        # per rows-bucket wire-size ladder {top, top/2, top/4, top/8}: a
+        # very compressible batch (zero pages, config trees) ships a small
+        # rung instead of padding to the top
+        self._wire_rungs: dict[int, list[int]] = {}
+        if comp_on:
+            self._codec = SlabCodec(self.chunk_len)
+            self._decompress = build_decompress_fn(
+                self.chunk_len, self._codec.tab_bytes, self._codec.tab_len, self.device
+            )
+            for b in self._buckets:
+                top = -(-int(b * self.chunk_len * self.compress_min_ratio) // 128) * 128
+                rungs = [top]
+                while len(rungs) < 4 and rungs[-1] // 2 >= 1024:
+                    rungs.append(rungs[-1] // 2)
+                self._wire_rungs[b] = sorted(rungs)
+        self.compress_on = comp_on
 
     def _alloc_slab(self, rows: int, row_len: int) -> np.ndarray:
         """Arena slab: pinned host memory on the card (one asynchronous
@@ -322,6 +458,10 @@ class _ScanRun:
         self.states: dict[int, _FileState] = {}
         # reorder buffer: input index -> Secret | in-flight Future
         self.results: dict[int, Secret | Future] = {}
+        # row digest -> waiting segment lists: identical rows already
+        # dispatched but not yet resolved coalesce here instead of being
+        # uploaded again (zero pages recur within a single batch)
+        self.row_waiters: dict[bytes, list] = {}
         self.total: int | None = None  # set once the input is exhausted
         self.error: BaseException | None = None
         self.stop = threading.Event()
@@ -350,6 +490,9 @@ class _ScanRun:
         self.feeder.join(timeout=10.0)
         self.worker.join(timeout=10.0)
         self.pool.shutdown(wait=False, cancel_futures=True)
+        # push the dedup store's write-behind tail so the next scan, possibly
+        # in another process, starts warm
+        self.sc._hit_store.flush_writes(force=True)
 
     def _aborted(self) -> bool:
         return self.stop.is_set() or self.error is not None
@@ -382,14 +525,15 @@ class _ScanRun:
 
     def _apply_hits(self, batch: list) -> None:
         """Credit resolved rows to their file segments; ``batch`` is
-        ``[(segs, hit_rules, cand_rules, nfa_ran)]``. Every row hit applies
-        to every segment of the row — cross-segment false candidates are
-        discarded by the exact confirm. Files whose last pending row
-        resolved here go to the confirm pool."""
+        ``[(segs, hit_rules, cand_rules, nfa_ran, lic)]`` (the row-verdict
+        schema of the dedup store). Every row hit applies to every segment
+        of the row — cross-segment false candidates are discarded by the
+        exact confirm. Files whose last pending row resolved here go to the
+        confirm pool."""
         guarded_anchored = self.sc._guarded_anchored
         ready: list[tuple[int, _FileState]] = []
         with self.lock:
-            for segs, hit_rules, cand_rules, nfa_ran in batch:
+            for segs, hit_rules, cand_rules, nfa_ran, _ in batch:
                 for fidx, ws, we in segs:
                     st = self.states[fidx]
                     for r in hit_rules:
@@ -411,7 +555,8 @@ class _ScanRun:
         """Fold one fetched batch into file state. ``hits`` is the anchored
         matcher's output (None when the batch skipped it), ``pre`` the
         prefilter mask; both are sliced to the live rows here (rows past
-        ``len(meta)`` are bucket padding)."""
+        ``len(meta)`` are bucket padding). Each keyed row's verdict goes
+        into the hit store and to the rows coalesced onto it."""
         sc = self.sc
         n = len(meta)
         cand_by_row: dict[int, list[int]] = {}
@@ -434,31 +579,51 @@ class _ScanRun:
         by_row: dict[int, list[int]] = {}
         for row, r in zip(*(a.tolist() for a in np.nonzero(full))):
             by_row.setdefault(row, []).append(r)
-        self._apply_hits([
-            (segs, tuple(by_row.get(row, ())), tuple(cand_by_row.get(row, ())), nfa_ran)
-            for row, (segs, _) in enumerate(meta)
-        ])
+        store = sc._hit_store
+        apply: list = []
+        for row, (key, segs, _) in enumerate(meta):
+            verdict = (tuple(by_row.get(row, ())), tuple(cand_by_row.get(row, ())), nfa_ran, None)
+            apply.append((segs,) + verdict)
+            if key is not None:
+                store.put(key, verdict)
+                with self.lock:
+                    waiting = self.row_waiters.pop(key, ())
+                apply.extend((w,) + verdict for w in waiting)
+        # write-behind flush: one backend call per batch (a no-op without a
+        # persistent backend or below the write batch)
+        store.flush_writes()
+        self._apply_hits(apply)
 
     # -- device worker ------------------------------------------------------
 
     def _worker(self) -> None:
         """The one transfer stream: each slab crosses to the device as one
-        (pinned, non-blocking) copy, both kernel uses read the resident
-        rows, and the slab returns to the arena only after the results are
-        fetched — by then every kernel reading the copy has finished."""
+        (pinned, non-blocking) copy, or as a compressed wire frame that the
+        decompress kernel expands into the same ``[n, C]`` rows; both
+        matcher uses read the resident rows, and the slab returns to the
+        arena only after the results are fetched — by then every kernel
+        reading the copy has finished."""
         sc = self.sc
         try:
             if sc.device.type == "cuda":
-                # the kernel launches through ctypes on this thread's device
+                # the kernels launch through ctypes on this thread's device
                 torch.cuda.set_device(sc.device)
             while True:
                 item = self._get_work()
                 if item is None:
                     return
-                slab_id, n, meta = item
-                rows = torch.from_numpy(self.arena.slab(slab_id)[:n])
-                if sc.device.type == "cuda":
-                    rows = rows.to(sc.device, non_blocking=True)
+                slab_id, batch, meta = item
+                if isinstance(batch, CompressedSlab):
+                    # the frame crosses (its wire from the pinned arena
+                    # slab) and the decompress kernel expands it
+                    parts = [torch.from_numpy(a) for a in batch.arrays()]
+                    if sc.device.type == "cuda":
+                        parts = [t.to(sc.device, non_blocking=True) for t in parts]
+                    rows = sc._decompress(*parts)
+                else:
+                    rows = torch.from_numpy(self.arena.slab(slab_id)[:batch])
+                    if sc.device.type == "cuda":
+                        rows = rows.to(sc.device, non_blocking=True)
                 hits, pre, nfa_ran = sc.run_batch(rows, len(meta))
                 self.arena.release(slab_id)
                 sc.stats.add(rows=len(meta), batches=1)
@@ -490,13 +655,22 @@ class _ScanRun:
         chunk_len = sc.chunk_len
         B = sc.batch_size
         use_pf = sc._prefilter is not None
+        dedup = sc._dedup
+        fp_key = sc.ruleset_fingerprint
+        store = sc._hit_store
+        persist_on = dedup and store.backend is not None
+        # compressed feed on -> the zero gate is on (all-zero rows resolve
+        # through a forced dedup key instead of crossing the link again)
+        zero_gate = sc._codec is not None
         gap = sc.overlap
         pack_max = chunk_len - gap
+        blake2b = hashlib.blake2b
         slab_id: int | None = None
         slab: np.ndarray | None = None
         used = 0
-        # per-row metadata: ([(fidx, win_start, win_end)], corpus_bytes)
-        meta: list[tuple[list[tuple[int, int, int]], int]] = []
+        # per-row metadata:
+        # (digest | None, [(fidx, win_start, win_end)], corpus_bytes)
+        meta: list[tuple[bytes | None, list[tuple[int, int, int]], int]] = []
         # slab rows awaiting the bulk strided gather from the current file
         copy_rows: list[int] = []
         copy_starts: list[int] = []
@@ -522,28 +696,135 @@ class _ScanRun:
                 copy_rows = []
                 copy_starts = []
 
+        def acquire() -> tuple[int, np.ndarray]:
+            got = self.arena.acquire(self._aborted)
+            if got is None:
+                raise _FeedAbort
+            return got
+
         def ensure_slab() -> None:
             nonlocal slab_id, slab, used
             if slab is None:
-                got = self.arena.acquire(self._aborted)
-                if got is None:
-                    raise _FeedAbort
-                slab_id, slab = got
+                slab_id, slab = acquire()
                 used = 0
+
+        def route_row(key, segs, nbytes) -> bool:
+            """True when the row resolved without an upload: served from
+            the hit store or coalesced onto an identical in-flight row."""
+            if key is None:
+                return False
+            cached = store.get(key)
+            if cached is not None:
+                stats.add(chunks_dedup_hit=1, bytes_dedup_hit=nbytes)
+                self._apply_hits([(segs,) + cached])
+                return True
+            with self.lock:
+                waiting = self.row_waiters.get(key)
+                if waiting is not None:
+                    waiting.append(segs)
+                else:
+                    self.row_waiters[key] = []
+            if waiting is not None:
+                stats.add(chunks_dedup_hit=1, bytes_dedup_hit=nbytes)
+            return waiting is not None
+
+        def warm_filter() -> None:
+            """Persistent-store lookup for the assembled slab's rows, in one
+            batched call. Rows whose verdict is already persisted resolve
+            here (no upload, no kernel) and the slab compacts over the
+            survivors with one vectorized gather."""
+            nonlocal meta
+            keys = [k for k, _, _ in meta if k is not None]
+            if not keys:
+                return
+            found = store.lookup_batch(keys)
+            if not found:
+                return
+            live: list[int] = []
+            warm_apply: list = []
+            warm_rows = warm_bytes = 0
+            for i, (k, segs, nbytes) in enumerate(meta):
+                v = found.get(k) if k is not None else None
+                if v is None:
+                    live.append(i)
+                    continue
+                warm_rows += 1
+                warm_bytes += nbytes
+                warm_apply.append((segs,) + v)
+                with self.lock:
+                    waiting = self.row_waiters.pop(k, ())
+                warm_apply.extend((w,) + v for w in waiting)
+            if not warm_apply:
+                return
+            # chunks_uploaded was counted at assembly; correct it so the
+            # dedup-hit-rate denominators stay exact
+            stats.add(
+                chunks_dedup_hit=warm_rows, bytes_dedup_hit=warm_bytes,
+                chunks_warm_hit=warm_rows, bytes_warm_hit=warm_bytes,
+                chunks_uploaded=-warm_rows,
+            )
+            self._apply_hits(warm_apply)
+            if live:
+                slab[: len(live)] = slab[np.asarray(live)]
+            meta = [meta[i] for i in live]
+
+        def compress_slab(n: int):
+            """The assembled slab's live rows as a wire frame in a SECOND
+            arena slab (the wire stays in pinned, reused memory and takes
+            part in the arena's backpressure): the dispatch item
+            ``(wire_slab_id, CompressedSlab, meta)``, or None when the batch
+            can't beat the min-ratio wire budget and ships raw. An encoder
+            error fails the scan."""
+            plan = sc._codec.plan(slab[: len(meta)])
+            total = plan.total()
+            rung = next((r for r in sc._wire_rungs[n] if r >= total), None)
+            if rung is None:
+                return None
+            dst_id, dst = acquire()
+            try:
+                cs = sc._codec.emit(plan, n, rung, dst.reshape(-1))
+            except BaseException:
+                self.arena.release(dst_id)
+                raise
+            wire = rung + cs.frame_bytes()
+            stats.add(
+                bytes_uploaded=wire,
+                bytes_compressed=wire,
+                bytes_raw_equiv=n * chunk_len,
+                bytes_gated_binary=int(plan.binary.sum()) * chunk_len,
+                batches_compressed=1,
+            )
+            return (dst_id, cs, meta)
 
         def flush() -> None:
             nonlocal slab_id, slab, used, meta
             flush_copies()
+            if persist_on and meta:
+                warm_filter()
             if not meta:
+                # padding-only batches are never sent (and a fully-warm
+                # slab resolved above with no upload at all)
                 if slab is not None:
                     self.arena.release(slab_id)
                     slab_id, slab, used = None, None, 0
+                # a fully-warm flush is still a batch boundary for the pack
+                # staleness bound below
                 if pack_pending:
                     emit_pack()
                 return
             n = next(b for b in sc._buckets if b >= len(meta))
-            slab[len(meta) : n] = 0  # bucket padding rows are zero rows
-            item = (slab_id, n, meta)
+            item = compress_slab(n) if sc._codec is not None else None
+            if item is None:
+                # raw slab (codec off, or a batch that doesn't pay)
+                slab[len(meta) : n] = 0  # bucket padding rows are zero rows
+                stats.add(bytes_uploaded=n * chunk_len)
+                if sc._codec is not None:
+                    stats.add(bytes_raw_fallback=n * chunk_len, batches_raw_fallback=1)
+                item = (slab_id, n, meta)
+            else:
+                # the wire rides its own slab; the source slab is done the
+                # moment the encoder copied out of it
+                self.arena.release(slab_id)
             slab_id, slab, used, meta = None, None, 0, []
             while True:
                 if self._aborted():
@@ -567,6 +848,28 @@ class _ScanRun:
             items = list(pack_pending)
             pack_pending.clear()
             pack_len = 0
+            key = None
+            # the zero gate extends to single-file pack rows (a tree of
+            # zero-filled placeholder files), in the chunk rows' digest domain
+            single_zero = zero_gate and len(items) == 1 and not any(items[0][1])
+            if dedup or single_zero:
+                if len(items) == 1:
+                    # a single-segment row has the chunk-row layout: share
+                    # the chunk digest domain so it dedups across both paths
+                    key = blake2b(items[0][1], digest_size=16, key=fp_key).digest()
+                else:
+                    h = blake2b(digest_size=16, key=fp_key, person=b"packed-row")
+                    for _, d in items:
+                        h.update(len(d).to_bytes(4, "little"))
+                        h.update(d)
+                    key = h.digest()
+            segs = [(fidx, 0, len(d)) for fidx, d in items]
+            nbytes = sum(len(d) for _, d in items)
+            stats.add(chunks=1)
+            if route_row(key, segs, nbytes):
+                if single_zero:
+                    stats.add(bytes_gated=nbytes, chunks_gated_zero=1)
+                return
             ensure_slab()
             row = slab[used]
             row[:] = 0  # zero guard gaps + stale tail (slabs are reused)
@@ -574,10 +877,11 @@ class _ScanRun:
             for _, d in items:
                 row[off : off + len(d)] = np.frombuffer(d, dtype=np.uint8)
                 off += len(d) + gap
-            meta.append(([(fidx, 0, len(d)) for fidx, d in items], sum(len(d) for _, d in items)))
+            meta.append((key, segs, nbytes))
             used += 1
-            if len(items) > 1:
-                stats.add(rows_packed=1)
+            stats.add(chunks_uploaded=1)
+            if len(segs) > 1:
+                stats.add(rows_packed=1, files_packed=len(segs), bytes_packed=nbytes)
             if used == B:
                 flush()
 
@@ -600,9 +904,28 @@ class _ScanRun:
                 self.states[fidx] = new_state(path, data, len(starts))
             arr = np.frombuffer(data, dtype=np.uint8)
             n = arr.size
+            stats.add(bytes_in=len(data), chunks=len(starts))
             copy_win = row_windows(arr, chunk_len)
+            uploaded = 0
             for s in starts:
                 end = min(s + chunk_len, n)
+                # zero gate: all-zero rows (sparse files, zero pages) get a
+                # forced dedup key even with dedup off, so the first one
+                # ships and every other resolves through the dedup and
+                # coalesce machinery; the row still rides the real verdict
+                # path once, so a ruleset that matches NUL runs keeps its
+                # findings
+                is_zero = zero_gate and not arr[s:end].any()
+                key = (
+                    blake2b(arr[s:end], digest_size=16, key=fp_key).digest()
+                    if dedup or is_zero
+                    else None
+                )
+                segs = [(fidx, s, s + chunk_len)]
+                if route_row(key, segs, end - s):
+                    if is_zero:
+                        stats.add(bytes_gated=end - s, chunks_gated_zero=1)
+                    continue
                 ensure_slab()
                 if end - s == chunk_len:
                     copy_rows.append(used)
@@ -611,12 +934,15 @@ class _ScanRun:
                     # short tail row: copy, then zero the stale remainder
                     slab[used, : end - s] = arr[s:end]
                     slab[used, end - s :] = 0
-                meta.append(([(fidx, s, s + chunk_len)], end - s))
+                meta.append((key, segs, end - s))
                 used += 1
+                uploaded += 1
                 if used == B:
                     flush()
             flush_copies()  # the view dies with this file's scope
             copy_win = None
+            if uploaded:
+                stats.add(chunks_uploaded=uploaded)
 
         total = 0
         feed_ok = True
@@ -639,7 +965,6 @@ class _ScanRun:
                         self.states[fidx] = new_state(path, data, 1)
                     add_small(fidx, data)
                 else:
-                    stats.add(bytes_in=len(data))
                     feed_big(fidx, path, data)
             if not self._aborted():
                 emit_pack()  # the partial pack row
