@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's secret scan on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's secret and license scans on one NVIDIA card.
 
-    python3 chip_smoke.py [--e2e-mib 512] [--seed 0]
+    python3 chip_smoke.py [--e2e-mib 256] [--license-mib 128] [--seed 0]
 
 Phases, each printing JSON lines:
 
-1. build: compile ``trivy_tpu_torch/ops/csrc/match.cu`` and
-   ``csrc/decompress.cu`` with nvcc for sm_90a, both at once, with ptxas's
-   report of each kernel's registers, shared memory and spills; the card's
-   name and power limit from nvidia-smi.
+1. build: compile the five kernel sources ``trivy_tpu_torch/ops/csrc/
+   {match,decompress,gram_gate,bytes_gate,bytes_score}.cu`` with nvcc for
+   sm_90a, all at once, with ptxas's report of each kernel's registers,
+   shared memory and spills; the card's name and power limit from
+   nvidia-smi.
 2. check: the matcher against its plain PyTorch version (``match_plain``)
    on the card, for both uses of the matcher (the keyword prefilter and the
    anchored matcher), on a seeded batch at the scanner's dispatch shape with
@@ -23,7 +24,16 @@ Phases, each printing JSON lines:
    (streams at the buffer's edges, a token stream crossing the row end, a
    mode byte of 3, empty rows); the decoded rows must also equal the rows
    they were encoded from. Outputs are booleans or bytes: ``torch.equal``
-   is required (tolerance zero).
+   is required (tolerance zero). Then the license kernels against their
+   plain versions on the card, with the classifier's own tables: the gram
+   gate (``torch.equal`` on its lane bits) on a [1024, 16384] batch of
+   seeded text with planted license texts and non-ASCII bytes; the shingle
+   gate (``torch.equal``) at every rung of the text-row ladder; the scorer
+   at every rung and on an 8-row batch gathered from each as the
+   classifier gathers flagged rows, on license texts and a row whose
+   repeated grams exceed the cap while its distinct grams fit (``n_uniq``
+   and ``phrase`` with ``torch.equal``, ``full_w`` within rtol 1e-5, its
+   ``max_abs_err`` printed).
 3. timing: each matcher use over about 1 GiB of resident rows of each of
    four inputs (seeded source text; the checkout's own ``trivy_tpu/``
    Python files, real code whose words include many rule keywords; uniform
@@ -37,7 +47,10 @@ Phases, each printing JSON lines:
    frames, with its bound from each frame's actual wire bytes, the plain
    version's time, the host's encode time per batch (``plan`` + ``emit``)
    and the pinned host-to-card copy of the wire beside that of the raw
-   slab.
+   slab. The gram gate on [1024, 16384] batches, the shingle gate and the
+   scorer at their dispatch shapes, each beside its plain version, with
+   its bound from this run's inputs (the scorer's from the distinct credit
+   rows its rows actually gather).
 4. e2e: a seeded tree (1 MiB text files, 2% with a planted secret, some
    thousands of small files, binaries, node_modules/, a lockfile and a CRLF
    file) scanned by ``python -m trivy_tpu_torch fs --scanners secret``'s
@@ -57,8 +70,25 @@ Phases, each printing JSON lines:
    --no-secret-dedup --secret-compress off``, and with
    ``--secret-hit-cache --cache-dir`` a second run must dispatch no batch
    and give the same Results.
-6. kernels: every ported kernel with its launches on the main path, its
-   agreement with the plain version and its times.
+6. license: a seeded tree of about 128 MiB (``--license-mib``): the e2e
+   tree's source text, 2,048 license files (each of the 22 full texts raw,
+   re-wrapped and with CRLF line ends, padded with source text to every
+   width rung and past the widest), source files with license headers, and
+   a subset directory. ``fs --scanners secret,license --license-full`` on
+   the card, with the launch counters set to 0 just before and read just
+   after: every planted license must be reported under its name, and the
+   gram gate, shingle gate and scorer must have launched. The gate's
+   selection is printed, with the rows each of its lanes (gram, anchor,
+   non-ASCII) flagged. The same tree with ``--scanners secret`` gives the
+   secret-only MB/s beside it, and with ``--no-shared-arena`` (no gate)
+   the unfused MB/s and the same Results; on the subset the Results must
+   equal ``--device cpu``.
+7. license-repo: the same scans, fused, unfused and secret-only, twice
+   each, on the checkout's own code (``trivy_tpu/``, ``trivy_tpu_torch/``
+   and ``tests/``): the gate's selection on real code.
+8. kernels: every ported kernel with its launches on the main path, its
+   agreement with the plain version (bitwise, or within ``SCORE_RTOL`` for
+   the scorer's ``full_w``) and its times.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; the last line is ``{"ok": true, "device": {...}}``. Without a
@@ -83,8 +113,15 @@ import torch
 
 from trivy_tpu_torch import cli
 from trivy_tpu_torch.device import card_info
+from trivy_tpu_torch.licensing.classify import LicenseClassifier
+from trivy_tpu_torch.licensing.corpus_texts import FULL_TEXTS
+from trivy_tpu_torch.licensing.fused import get_gate_fn
 from trivy_tpu_torch.ops import _build
+from trivy_tpu_torch.ops.bytes_gate import bytes_gate_plain
+from trivy_tpu_torch.ops.bytes_score import bytes_score_plain, credited_keys, effective_cap
 from trivy_tpu_torch.ops.decompress import build_decompress_fn, decompress_plain
+from trivy_tpu_torch.ops.gram_gate import LANE_ANCHOR, LANE_GRAM, LANE_NONASCII, gram_gate_plain
+from trivy_tpu_torch.ops.ngram_score import BYTES_WIDTHS, DeviceBytesScorer
 from trivy_tpu_torch.ops.match import match_plain
 from trivy_tpu_torch.ops.match_cuda import (
     LAUNCHES, SCREEN_BYTES, build_match_fn_cuda, literals, pack_tables,
@@ -110,7 +147,16 @@ KERNEL_SOURCE = "trivy_tpu_torch/ops/csrc/match.cu"
 REPLACES = "trivy_tpu/ops/match_pallas.py:109"
 DECOMPRESS_SOURCE = "trivy_tpu_torch/ops/csrc/decompress.cu"
 DECOMPRESS_REPLACES = "trivy_tpu/ops/decompress.py:47"
-LIBRARIES = ("match", "decompress")  # csrc/<name>.cu, built at once
+# the license kernels: (launch counter, source, the JAX computation replaced)
+LICENSE_KERNELS = {
+    "gram_gate": ("trivy_tpu_torch/ops/csrc/gram_gate.cu", "trivy_tpu/ops/gram_gate.py:73"),
+    "bytes_gate": ("trivy_tpu_torch/ops/csrc/bytes_gate.cu", "trivy_tpu/ops/ngram_score.py:696"),
+    "bytes_score": ("trivy_tpu_torch/ops/csrc/bytes_score.cu",
+                    "trivy_tpu/ops/ngram_score.py:754"),
+}
+# csrc/<name>.cu, built at once
+LIBRARIES = ("match", "decompress", *LICENSE_KERNELS)
+SCORE_RTOL = 1e-5  # the scorer's full_w against its plain version (float32 sums)
 SHORT_BATCH = 8  # live rows of the short check batch
 
 # words of the generated source text; some are rule keywords, as in real code
@@ -461,6 +507,186 @@ def phase_timing_decompress(base: np.ndarray, rng, card: str) -> dict:
     return out
 
 
+def license_text(rng: random.Random, base: bytes, key: str, form: int, size: int) -> bytes:
+    """The full text of ``key`` raw (form 0), re-wrapped at eleven words a
+    line (1) or with CRLF line ends (2), followed by whole lines of source
+    text up to about ``size`` bytes."""
+    t = FULL_TEXTS[key]
+    if form == 1:
+        words = t.split(" ")
+        t = "\n".join(" ".join(words[i : i + 11]) for i in range(0, len(words), 11))
+    elif form == 2:
+        t = t.replace(". ", ".\r\n")
+    body = t.encode() + b"\n"
+    if size > len(body) + 64:
+        off = rng.randrange(0, len(base) - size)
+        fill = base[off : off + size - len(body)]
+        body += fill[: fill.rfind(b"\n") + 1]
+    return body
+
+
+def license_rows(rng: random.Random, base: bytes, width: int, n: int) -> np.ndarray:
+    """``[n, width]`` text rows as the classifier packs them (each text
+    shorter than the row, zero tail): license texts in all three forms at
+    seeded sizes, source text, and first the row whose repeated short words
+    give more grams than the scorer's cap while its distinct grams fit."""
+    keys = sorted(FULL_TEXTS)
+    rows = np.zeros((n, width), np.uint8)
+    for i in range(n):
+        size = rng.randrange(width // 4, width)
+        if i == 0:
+            body = (" a b" * 500 + "\n" + FULL_TEXTS["MIT"]).encode()
+        elif i % 4 == 3:
+            off = rng.randrange(0, len(base) - size)
+            body = base[off : off + size]
+        else:
+            body = license_text(rng, base, keys[i % len(keys)], i % 3, size)
+        body = body[: width - 1]
+        rows[i, : len(body)] = np.frombuffer(body, np.uint8)
+    return rows
+
+
+def gate_rows(rng: random.Random, base_np: np.ndarray, rows: int) -> np.ndarray:
+    """``[rows, CHUNK_LEN]`` rows of seeded source text; every third row
+    carries a license text at a seeded offset, every fifth some non-ASCII
+    bytes."""
+    keys = sorted(FULL_TEXTS)
+    out = base_np[np.asarray([rng.randrange(0, len(base_np) - CHUNK_LEN) for _ in range(rows)])
+                  [:, None] + np.arange(CHUNK_LEN)]
+    for i in range(0, rows, 3):
+        t = license_text(rng, b"", keys[i % len(keys)], i % 3, 0)[:CHUNK_LEN // 2]
+        pos = rng.randrange(0, CHUNK_LEN - len(t))
+        out[i, pos : pos + len(t)] = np.frombuffer(t, np.uint8)
+    for i in range(1, rows, 5):
+        pos = rng.randrange(0, CHUNK_LEN - 8)
+        out[i, pos : pos + 8] = 0xE9
+    return out
+
+
+def phase_check_license(base: bytes, base_np: np.ndarray, seed: int) -> dict:
+    """The three license kernels against their plain versions on the card,
+    with the classifier's tables: the gram gate (its three lanes) on a
+    [BATCH, CHUNK_LEN] batch, the shingle gate and the scorer at every rung,
+    the scorer also on an 8-row batch gathered as ``take_rows`` gathers
+    flagged rows."""
+    rng = random.Random(seed + 3)
+    gate = get_gate_fn(CHUNK_LEN, "cuda")
+    scorer = LicenseClassifier(device="cuda")._device_scorer()
+    g, sc = scorer._gate, scorer._score
+    x = torch.from_numpy(gate_rows(rng, base_np, BATCH)).cuda()
+    got = gate(x)
+    want = gram_gate_plain(x, gate.lut, gate.gate, gate.anchor, gate.p1, gate.p2, gate.hash_p,
+                           gate.block, gate.ngram)
+    torch.cuda.synchronize()
+    out = {"gram_gate": {"equal": torch.equal(got, want),
+                         "max_abs_err": int((got.int() - want.int()).abs().max()),
+                         "rows_flagged": int((want != 0).any(dim=1).sum()),
+                         "blocks_flagged": int((want != 0).sum()),
+                         **{f"rows_{name}": int((want & bit).any(dim=1).sum()) for name, bit in (
+                             ("gram", LANE_GRAM), ("anchor", LANE_ANCHOR),
+                             ("nonascii", LANE_NONASCII))}}}
+    log({"phase": "check", "use": "gram_gate", "shape": list(x.shape), **out["gram_gate"]})
+    check(out["gram_gate"]["equal"], "gram gate kernel disagrees with gram_gate_plain")
+    check(0 < out["gram_gate"]["rows_flagged"] < BATCH, "gram gate check flagged no row or all")
+    out["bytes_gate"] = {"equal": True, "max_abs_err": 0}
+    out["bytes_score"] = {"within_tol": True, "rtol": SCORE_RTOL, "max_abs_err": 0.0}
+    for width in BYTES_WIDTHS:
+        xr = torch.from_numpy(license_rows(rng, base, width, scorer.rows_per_dispatch(width)))
+        xr = xr.cuda()
+        got = g(xr)
+        want = bytes_gate_plain(xr, g.lut, g.bloom8, g.bloom4)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = max(int((a - b).abs().max()) for a, b in zip(got, want))
+        out["bytes_gate"]["equal"] &= same
+        out["bytes_gate"]["max_abs_err"] = max(out["bytes_gate"]["max_abs_err"], err)
+        log({"phase": "check", "use": "bytes_gate", "shape": list(xr.shape), "equal": same,
+             "max_abs_err": err, "rows_flagged": int((want[0].max(dim=1).values >= 16).sum())})
+        check(same, f"bytes gate kernel disagrees with bytes_gate_plain at {width}")
+        cap = effective_cap(scorer.gram_cap(width), width)
+        # the full dispatch, and a batch of flagged rows as the classifier
+        # gathers them (8 rows, padded with copies of row 0, the fault row)
+        picked = np.arange(0, min(5, xr.shape[0]))
+        for rows in (xr, scorer.take_rows(xr, picked, 8)):
+            fw, ph, nu = sc(rows, scorer.gram_cap(width))
+            pfw, pph, pnu = bytes_score_plain(rows, sc.lut, sc.keys, sc.credit, sc.p1, sc.p2,
+                                              sc.hash_p, cap, sc.ngram)
+            torch.cuda.synchronize()
+            err = float((fw - pfw).abs().max())
+            same = (torch.equal(nu, pnu) and torch.equal(ph, pph)
+                    and torch.allclose(fw, pfw, rtol=SCORE_RTOL, atol=0))
+            out["bytes_score"]["within_tol"] &= same
+            out["bytes_score"]["max_abs_err"] = max(out["bytes_score"]["max_abs_err"], err)
+            log({"phase": "check", "use": "bytes_score", "shape": list(rows.shape),
+                 "within_tol": same, "rtol": SCORE_RTOL, "full_w_max_abs_err": err,
+                 "full_w_max": float(pfw.max()), "n_uniq_over_cap": int((pnu > cap).sum()),
+                 "fault_row_n_uniq": int(pnu[0])})
+            check(same, f"bytes score kernel disagrees with bytes_score_plain at "
+                  f"{list(rows.shape)}")
+    return out
+
+
+def phase_timing_license(base: bytes, base_np: np.ndarray, seed: int, card: str) -> dict:
+    """The license kernels at their dispatch shapes behind the device spin,
+    beside their plain versions: the gram gate on four distinct [BATCH,
+    CHUNK_LEN] batches; the shingle gate and the scorer on eight distinct
+    full dispatches of license and source text at each rung. Bounds count
+    each input read once and each output written once at 3.35 TB/s: for the
+    gate the rows, the LUT and the key tables; for the shingle gate the rows
+    and the two 512 KiB bitsets; for the scorer the rows, the key column,
+    each credit row that some row of the dispatch credits (once, however
+    many rows credit it) and the sums."""
+    rng = random.Random(seed + 4)
+    gate = get_gate_fn(CHUNK_LEN, "cuda")
+    scorer = LicenseClassifier(device="cuda")._device_scorer()
+    g, sc = scorer._gate, scorer._score
+    xs = [torch.from_numpy(gate_rows(rng, base_np, BATCH)).cuda() for _ in range(4)]
+    ms, rounds, host_us = time_cuda(gate, xs, reps=4)
+    nbytes = BATCH * CHUNK_LEN * (1 + 1 / gate.block) + 4 * (256 + gate.gate.numel()
+                                                          + gate.anchor.numel())
+    plain_ms = time_cuda(lambda t: gram_gate_plain(t, gate.lut, gate.gate, gate.anchor, gate.p1,
+                                                   gate.p2, gate.hash_p, gate.block, gate.ngram),
+                         xs[:1], rounds=1)[0]
+    out = {"gram_gate": {"shape": [BATCH, CHUNK_LEN], "ms": ms, "ms_rounds": rounds,
+                         "host_us_per_call": host_us, "plain_ms": plain_ms,
+                         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                         "card": card}}
+    log({"phase": "timing", "use": "gram_gate", **out["gram_gate"]})
+    del xs
+    row_bytes = sc.credit.shape[1] * 4
+    for width in BYTES_WIDTHS:
+        R = scorer.rows_per_dispatch(width)
+        xs = [torch.from_numpy(license_rows(rng, base, width, R)).cuda() for _ in range(8)]
+        ms, rounds, host_us = time_cuda(g, xs, reps=4)
+        nbytes = R * width + 2 * (1 << 19) + 1024 + 4 * R * (width // 512 + 2)
+        res = {"shape": [R, width], "ms": ms, "ms_rounds": rounds, "host_us_per_call": host_us,
+               "plain_ms": time_cuda(lambda t: bytes_gate_plain(t, g.lut, g.bloom8, g.bloom4),
+                                     xs[:1], rounds=1)[0],
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "card": card}
+        out[f"bytes_gate_{width}"] = res
+        log({"phase": "timing", "use": "bytes_gate", **res})
+        gcap = scorer.gram_cap(width)
+        cap = effective_cap(gcap, width)
+        ms, rounds, host_us = time_cuda(lambda t: sc(t, gcap), xs, reps=2)
+        credited = [credited_keys(t, sc.lut, sc.keys, sc.p1, sc.p2, sc.hash_p, cap, sc.ngram)[1]
+                    for t in xs]
+        hits = float(np.mean([len(pos) for pos in credited]))
+        distinct = float(np.mean([torch.unique(pos).numel() for pos in credited]))
+        nbytes = R * width + 4 * sc.keys.numel() + distinct * row_bytes + R * (row_bytes + 4)
+        res = {"shape": [R, width], "ms": ms, "ms_rounds": rounds, "host_us_per_call": host_us,
+               "plain_ms": time_cuda(lambda t: bytes_score_plain(
+                   t, sc.lut, sc.keys, sc.credit, sc.p1, sc.p2, sc.hash_p, cap, sc.ngram),
+                   xs[:1], rounds=1)[0],
+               "credited_keys_per_batch": hits, "credit_rows_per_batch": distinct,
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes", "card": card}
+        out[f"bytes_score_{width}"] = res
+        log({"phase": "timing", "use": "bytes_score", **res})
+        del xs
+    torch.cuda.empty_cache()
+    return out
+
+
 def write_tree(root: Path, e2e_mib: int, seed: int, base: bytes) -> tuple[list, int]:
     """The e2e tree; returns the planted (relpath, rule_id, line) and the
     bytes written. ``root/sub16`` is a ~16 MiB subset with its own plants."""
@@ -515,9 +741,10 @@ def write_tree(root: Path, e2e_mib: int, seed: int, base: bytes) -> tuple[list, 
     return planted, written
 
 
-def run_cli(target: Path, out_dir: Path, tag: str, device: str, *extra: str) -> tuple[dict, dict]:
+def run_cli(target: Path, out_dir: Path, tag: str, device: str, *extra: str,
+            scanners: str = "secret") -> tuple[dict, dict]:
     out, stats = out_dir / f"{tag}.json", out_dir / f"{tag}.stats.json"
-    rc = cli.main(["fs", "--scanners", "secret", "--format", "json", "-o", str(out),
+    rc = cli.main(["fs", "--scanners", scanners, "--format", "json", "-o", str(out),
                    "--stats-out", str(stats), "--device", device, "-q", *extra, str(target)])
     check(rc == 0, f"fs scan ({tag}) exited {rc}")
     return json.loads(out.read_text()), json.loads(stats.read_text())
@@ -666,9 +893,175 @@ def phase_dedup(tmp: Path, tree: Path, planted: list, seed: int, base: bytes) ->
     return result
 
 
+# the size classes of the planted license files: below each rung of the
+# text-row ladder, and past the widest (the host oracle's)
+LICENSE_SIZES = (*BYTES_WIDTHS, 65536)
+LICENSE_NAMES = ("LICENSE", "COPYING", "LICENSE.txt", "NOTICE")
+HEADERS = {
+    ".py": "# Permission is hereby granted, free of charge, to any person obtaining a copy\n"
+           "# THE SOFTWARE IS PROVIDED \"AS IS\", WITHOUT WARRANTY OF ANY KIND\n"
+           "# The above copyright notice and this permission notice shall be included\n",
+    ".go": "// " + FULL_TEXTS["Apache-2.0"][:2500] + "\n",
+    ".c": "/* " + FULL_TEXTS["BSD-3-Clause"] + " */\n",
+}
+
+
+def write_license_tree(root: Path, mib: int, seed: int, base: bytes) -> tuple[dict, int]:
+    """The license tree; returns {relpath: license name} of the planted
+    license files and the bytes written. ``root/sub`` is a subset with its
+    own plants (each text in each form once), headers and source."""
+    rng = random.Random(seed + 7)
+    keys = sorted(FULL_TEXTS)
+    planted: dict[str, str] = {}
+    written = 0
+
+    def put(rel: str, data: bytes) -> None:
+        nonlocal written
+        p = root / rel
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_bytes(data)
+        written += len(data)
+
+    def license_file(folder: str, i: int) -> None:
+        key = keys[i % len(keys)]
+        top = LICENSE_SIZES[(i // (3 * len(keys))) % len(LICENSE_SIZES)]
+        name = f"LICENSE-{key}" if i % 5 == 4 else LICENSE_NAMES[i % len(LICENSE_NAMES)]
+        rel = f"{folder}/{name}"
+        put(rel, license_text(rng, base, key, (i // len(keys)) % 3, rng.randrange(top // 2, top)))
+        planted[rel] = key
+
+    def text(n: int) -> bytes:
+        off = rng.randrange(0, len(base) - n)
+        return base[off : off + n]
+
+    def header_file(rel: str, ext: str) -> None:
+        put(rel + ext, HEADERS[ext].encode() + text(rng.randrange(2048, 8192)))
+
+    for i in range(2048):
+        license_file(f"lic/d{i % 64}/p{i}", i)
+    for i in range(3 * len(keys)):
+        license_file(f"sub/lic/p{i}", i)
+    for i in range(32):
+        header_file(f"sub/hdr/mod_{i}", sorted(HEADERS)[i % len(HEADERS)])
+    put("sub/src/module.py", text(256 << 10))
+    for i in range(512):
+        header_file(f"hdr/h{i % 16}/mod_{i}", sorted(HEADERS)[i % len(HEADERS)])
+    i = 0
+    while written < mib << 20:
+        put(f"src{i % 16}/module_{i}.py", text(1 << 20))
+        i += 1
+    return planted, written
+
+
+def licenses_found(report: dict) -> dict[str, set]:
+    out: dict[str, set] = {}
+    for r in report["Results"]:
+        for d in r.get("Licenses", []):
+            out.setdefault(d["FilePath"], set()).add(d["Name"])
+    return out
+
+
+def phase_license(root: Path, mib: int, seed: int, base: bytes) -> dict:
+    """This slice's main path: ``fs --scanners secret,license
+    --license-full`` on the card over the license tree, with the launch
+    counters set to 0 just before and read just after; then the secret-only
+    scan of the same tree and the subset against ``--device cpu``."""
+    t0 = time.perf_counter()
+    planted, written = write_license_tree(root, mib, seed, base)
+    setup_s = time.perf_counter() - t0
+    LAUNCHES.clear()
+    report, stats = run_cli(root, root.parent, "license", "cuda", "--license-full",
+                            scanners="secret,license")
+    launches = dict(LAUNCHES)
+    got = licenses_found(report)
+    missed = sorted(rel for rel, key in planted.items() if key not in got.get(rel, ()))
+    headers = sum(1 for p in got if p.startswith(("hdr/", "sub/hdr/")))
+    _, secret_only = run_cli(root, root.parent, "license-secret-only", "cuda")
+    unfused, unfused_stats = run_cli(root, root.parent, "license-unfused", "cuda",
+                                     "--license-full", "--no-shared-arena",
+                                     scanners="secret,license")
+    sub = root / "sub"
+    on_card, _ = run_cli(sub, root.parent, "license-sub-cuda", "cuda", "--license-full",
+                         scanners="secret,license")
+    on_cpu, _ = run_cli(sub, root.parent, "license-sub-cpu", "cpu", "--license-full",
+                        scanners="secret,license")
+    result = {
+        "phase": "license", "tree_bytes": written, "setup_s": setup_s,
+        "files_walked": stats["files_walked"], "files_scanned": stats["files_scanned"],
+        "seconds": stats["seconds"], "MBps": written / stats["seconds"] / 1e6,
+        "secret_only_seconds": secret_only["seconds"],
+        "secret_only_MBps": written / secret_only["seconds"] / 1e6,
+        "unfused_seconds": unfused_stats["seconds"],
+        "unfused_MBps": written / unfused_stats["seconds"] / 1e6,
+        "unfused_results_equal": unfused["Results"] == report["Results"],
+        **gate_counters(stats), "rows": stats["rows"], "launches": launches,
+        "planted": len(planted), "missed": missed[:10], "files_with_licenses": len(got),
+        "headers_with_licenses": headers,
+        "subset_results_equal_cpu": on_card["Results"] == on_cpu["Results"],
+        "subset_files_with_licenses": len(licenses_found(on_card)),
+    }
+    log(result)
+    check(not missed, f"license: {len(missed)} planted licenses not reported: {missed[:5]}")
+    check(all(launches.get(k, 0) > 0 for k in (*LICENSE_KERNELS, "prefilter", "decompress")),
+          f"license: a kernel was not launched on the main path: {launches}")
+    check(headers > 0, "license: no header was classified")
+    check(result["subset_results_equal_cpu"], "license subset: Results differ from --device cpu")
+    check(result["unfused_results_equal"], "license: Results differ with --no-shared-arena")
+    return result
+
+
+def gate_counters(stats: dict) -> dict:
+    """The fused gate's selection from a scan's ``--stats-out``: rows gated
+    and flagged (in all and by each lane), files covered, flagged and
+    patched."""
+    keys = ("license_rows_gated", "license_rows_flagged", "license_rows_gram",
+            "license_rows_anchor", "license_rows_nonascii", "files_covered", "files_flagged",
+            "files_patched")
+    return {k: stats[k] for k in keys}
+
+
+# the repository's own code, scanned by phase license-repo; ``tests`` is
+# copied as ``suite`` because the secret rules' allow paths keep ``tests/``
+# off the feed (its files would be classified without the gate)
+REPO_TREES = {"trivy_tpu": "trivy_tpu", "trivy_tpu_torch": "trivy_tpu_torch", "tests": "suite"}
+
+
+def phase_license_repo(root: Path) -> dict:
+    """The fused gate on real code: the checkout's own packages and tests,
+    ``fs --scanners secret,license --license-full`` on the card, fused and
+    with ``--no-shared-arena`` (every wanted file classified, no gate), and
+    secret-only, twice each in alternating order; the gate's selection and
+    each scan's MB/s. Both license scans must give the same Results."""
+    for src, dst in REPO_TREES.items():
+        shutil.copytree(REPO / src, root / dst, ignore=shutil.ignore_patterns("__pycache__"))
+    written = sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+    runs = {"fused": ("--license-full",), "unfused": ("--license-full", "--no-shared-arena"),
+            "secret_only": ()}
+    mbps: dict[str, list] = {k: [] for k in runs}
+    reports, fused_stats = {}, None
+    for i in range(2):
+        for mode, extra in runs.items():
+            report, stats = run_cli(root, root.parent, f"repo-{mode}-{i}", "cuda", *extra,
+                                    scanners="secret" if mode == "secret_only" else
+                                    "secret,license")
+            mbps[mode].append(written / stats["seconds"] / 1e6)
+            reports[mode] = report
+            if mode == "fused":
+                fused_stats = stats
+    result = {"phase": "license-repo", "tree_bytes": written,
+              "files_walked": fused_stats["files_walked"], **gate_counters(fused_stats),
+              **{f"{mode}_MBps": v for mode, v in mbps.items()},
+              "results_equal": reports["fused"]["Results"] == reports["unfused"]["Results"],
+              "files_with_licenses": len(licenses_found(reports["fused"]))}
+    log(result)
+    check(result["results_equal"], "license-repo: fused Results differ from --no-shared-arena")
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--e2e-mib", type=int, default=512, help="size of the e2e tree")
+    ap.add_argument("--e2e-mib", type=int, default=256, help="size of the e2e tree")
+    ap.add_argument("--license-mib", type=int, default=128, help="size of the license tree")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -697,13 +1090,19 @@ def main() -> int:
     ]
     verdict = phase_check([(compiled, sorted(SAMPLES.values()), BATCH), *custom], base_np, rng)
     verdict["decompress"] = phase_check_decompress(base_np, rng)
+    verdict.update(phase_check_license(base, base_np, args.seed))
     timing = phase_timing(compiled, base_np, rng, card)
     dec_timing = phase_timing_decompress(base_np, rng, card)
+    lic_timing = phase_timing_license(base, base_np, args.seed, card)
     tmp = REPO / ".chip_tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     try:
         e2e, planted = phase_e2e(tmp / "tree", args.e2e_mib, args.seed, base)
         phase_dedup(tmp, tmp / "tree", planted, args.seed, base)
+        shutil.rmtree(tmp / "tree", ignore_errors=True)
+        lic = phase_license(tmp / "license", args.license_mib, args.seed, base)
+        shutil.rmtree(tmp / "license", ignore_errors=True)
+        phase_license_repo(tmp / "repo")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -731,6 +1130,24 @@ def main() -> int:
         "ms_source": source["ms"], "bound_ms_source": source["bound_ms"],
         "ms_mix": mix["ms"], "bound_ms_mix": mix["bound_ms"],
     })
+    # the license kernels: times at the gram gate's batch and at the 4096
+    # rung, the other rungs beside them
+    # (the scorer's agreement is within SCORE_RTOL, the others' bitwise)
+    for name, (src, replaces) in LICENSE_KERNELS.items():
+        t = lic_timing[name if name == "gram_gate" else f"{name}_4096"]
+        entry = {
+            "name": f"{name}_kernel", "route": "cuda", "source": src, "replaces": replaces,
+            "launches": lic["launches"].get(name, 0), "max_abs_err": verdict[name]["max_abs_err"],
+            **{k: verdict[name][k] for k in ("equal", "within_tol", "rtol") if k in verdict[name]},
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+            "shape": t["shape"],
+        }
+        if name != "gram_gate":
+            for w in BYTES_WIDTHS:
+                entry[f"ms_{w}"] = lic_timing[f"{name}_{w}"]["ms"]
+                entry[f"bound_ms_{w}"] = lic_timing[f"{name}_{w}"]["bound_ms"]
+        kernels.append(entry)
     log({"kernels": kernels})
     print(card, flush=True)
     name = torch.cuda.get_device_name(0)

@@ -1,5 +1,7 @@
 """The CUDA kernels on the card: the matcher held against ``match_plain``,
-the decompressor against ``decompress_plain``, and a compressed scan.
+the decompressor against ``decompress_plain``, the license gram gate,
+shingle gate and scorer against their plain versions, a compressed scan, a
+fused secret+license scan and the classifier on the card.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither ``jax`` nor ``trivy_tpu``, so on a machine with a card and
@@ -15,8 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+from trivy_tpu_torch.licensing.classify import LicenseClassifier
+from trivy_tpu_torch.licensing.corpus_texts import FULL_TEXTS
+from trivy_tpu_torch.licensing.fused import FusedLicenseGate, get_gate_fn
 from trivy_tpu_torch.ops import match_cuda
+from trivy_tpu_torch.ops.bytes_score import effective_cap
 from trivy_tpu_torch.ops.decompress import build_decompress_fn, decompress_plain
+from trivy_tpu_torch.ops.gram_gate import LANE_ANCHOR, LANE_GRAM, LANE_NONASCII
 from trivy_tpu_torch.ops.match import MatchTables, match_plain, match_tables
 from trivy_tpu_torch.ops.match_cuda import CudaMatcher
 from trivy_tpu_torch.ops.prefilter import _keyword_only
@@ -201,3 +208,100 @@ def test_compressed_scan_on_card(card):
     s = sc.stats.snapshot()
     assert s["batches_compressed"] > 0 and s["chunks_gated_zero"] > 0
     assert match_cuda.LAUNCHES["decompress"] - before == s["batches_compressed"]
+
+
+def license_rows(C: int, n: int, seed: int) -> np.ndarray:
+    """Rows of license text (raw, re-wrapped, CRLF, upper case), source
+    text, non-ASCII bytes, repeated short words (more grams than distinct
+    ones), a word running to the row's last byte and random bytes."""
+    rng = np.random.default_rng(seed)
+    keys = sorted(FULL_TEXTS)
+    out = np.zeros((n, C), np.uint8)
+    for i in range(n):
+        t = FULL_TEXTS[keys[i % len(keys)]]
+        t = [t, t.replace(". ", ".\r\n"), t.upper().replace(" ", "\n  "),
+             "def f(x):\n    return x + 1  # caf\xe9\n" * 40, " a b" * 500 + "\n" + t][i % 5]
+        b = (t * (C // len(t) + 2)).encode("latin-1")
+        s = int(rng.integers(0, 100))
+        cut = int(rng.integers(C // 2, C))  # zero tail: a text packed below its rung
+        out[i, :cut] = np.frombuffer(b[s : s + cut], np.uint8)
+    out[-2, -10:] = ord("w")  # a word to the row's last byte
+    out[-1] = rng.integers(0, 256, C, dtype=np.uint8)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16384, 2048, 1000])
+def test_gram_gate_kernel_equals_plain_on_card(card, C):
+    fn = get_gate_fn(C, card)
+    x = torch.from_numpy(license_rows(C, 40, C))
+    want = fn(x)
+    got = fn(x.to(card))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert want.any() and not want.all()
+    assert all((want & bit).any() for bit in (LANE_GRAM, LANE_ANCHOR, LANE_NONASCII))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1024, 4096, 49152])
+def test_bytes_gate_and_score_kernels_equal_plain_on_card(card, width):
+    """The shingle gate exactly; the scorer's n_uniq and phrase exactly and
+    full_w to rtol 1e-5 (float32 sums; both add in ascending key order)."""
+    scorer = LicenseClassifier(device=card)._device_scorer()
+    x = torch.from_numpy(license_rows(width, 12, width))
+    for got, want in zip(scorer._gate(x.to(card)), scorer._gate(x)):
+        assert torch.equal(got.cpu(), want)
+    cap = width // 4
+    got = scorer._score(x.to(card), cap)
+    want = scorer._score(x, cap)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2].cpu(), want[2]) and torch.equal(got[1].cpu(), want[1])
+    assert torch.allclose(got[0].cpu(), want[0], rtol=1e-5, atol=0)
+    assert want[0].max() > 1.0 and (want[2] <= effective_cap(cap, width)).any()
+
+
+@pytest.mark.cuda
+def test_license_launches_counted_once_per_launch(card):
+    scorer = LicenseClassifier(device=card)._device_scorer()
+    gate = get_gate_fn(2048, card)
+    x = torch.zeros((4, 2048), dtype=torch.uint8, device=card)
+    before = dict(match_cuda.LAUNCHES)
+    gate(x)
+    scorer._gate(x)
+    scorer._score(x, 512)
+    scorer._score(x[:0], 512)  # no rows: nothing launched
+    for name in ("gram_gate", "bytes_gate", "bytes_score"):
+        assert match_cuda.LAUNCHES[name] == before.get(name, 0) + 1, name
+
+
+@pytest.mark.cuda
+def test_classifier_on_card_equals_cpu(card):
+    texts = [FULL_TEXTS[k] for k in sorted(FULL_TEXTS)]
+    texts += [" a b" * 500 + "\n" + FULL_TEXTS["MIT"], "x = 1\n" * 300, ""]
+    before = dict(match_cuda.LAUNCHES)
+    got = LicenseClassifier(device=card).classify_batch(texts)
+    want = LicenseClassifier(device="cpu").classify_batch(texts)
+    assert [[f.to_dict() for f in g] for g in got] == [[f.to_dict() for f in w] for w in want]
+    assert got[-3][0].name == "MIT" and got[-3][0].confidence == 1.0
+    for name in ("bytes_gate", "bytes_score"):
+        assert match_cuda.LAUNCHES[name] > before.get(name, 0), name
+
+
+@pytest.mark.cuda
+def test_fused_scan_on_card_equals_cpu(card):
+    files = [(f"d{i}/LICENSE", FULL_TEXTS[k].encode()) for i, k in enumerate(sorted(FULL_TEXTS))]
+    files += [(f"s/n{i}.py", (f"# n{i}\n" + "plain code\n" * 30).encode()) for i in range(30)]
+    files += [("s/tok.py", f"key = '{SAMPLES['github-pat']}'\n".encode())]
+    verdicts = []
+    for dev in (card, "cpu"):
+        gate = FusedLicenseGate(license_full=True)
+        sc = TorchSecretScanner(chunk_len=2048, batch_size=8, device=dev, compress="off")
+        before = match_cuda.LAUNCHES["gram_gate"]
+        found = [s.to_dict() for s in sc.scan_files(files, license_gate=gate)]
+        verdicts.append((found, [gate.should_classify(p) for p, _ in files],
+                         sc.stats.snapshot()["license_rows_flagged"]))
+        if dev is card:
+            assert match_cuda.LAUNCHES["gram_gate"] > before
+    assert verdicts[0] == verdicts[1]
+    assert any(verdicts[0][1]) and not all(verdicts[0][1])

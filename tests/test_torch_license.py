@@ -1,0 +1,484 @@
+"""The port's license classifier against the JAX package's: the corpus and
+name tables, the raw-bytes corpus table, the text-row ladder, the shingle
+gate and the scorer (plain versions against the JAX functions on the same
+rows), numpy models of the two CUDA kernels' formulations, and the
+classifier on the CPU device pipeline against the JAX host oracle.
+
+Tolerances: booleans, counts and the phrase lane (sums of small integers in
+float32) must be equal; ``full_w``, a float32 sum of ``1/df`` weights whose
+low bits depend on the order of summation, agrees to rtol 1e-5 with the JAX
+function (which sums in chunks of 256), an order of magnitude inside the
+classifier's 1e-4 band.
+"""
+
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from tests.test_torch_match import few_torch_threads  # noqa: F401
+from trivy_tpu.licensing import corpus as jax_corpus
+from trivy_tpu.licensing import corpus_texts as jax_texts
+from trivy_tpu.licensing import expression as jax_expression
+from trivy_tpu.licensing import normalize as jax_normalize
+from trivy_tpu.licensing.classify import LicenseClassifier as JaxClassifier
+from trivy_tpu.licensing.scanner import LicenseCategorizer as JaxCategorizer
+from trivy_tpu.ops import ngram_score as jng
+from trivy_tpu_torch.licensing import corpus, corpus_texts, expression, normalize
+from trivy_tpu_torch.licensing.classify import LicenseClassifier
+from trivy_tpu_torch.licensing.corpus_texts import FULL_TEXTS
+from trivy_tpu_torch.licensing.scanner import LicenseCategorizer
+from trivy_tpu_torch.ops import ngram_score as ng
+from trivy_tpu_torch.ops.bytes_gate import bytes_gate_plain
+from trivy_tpu_torch.ops.bytes_score import SENT32, bytes_score_plain, effective_cap
+from trivy_tpu_torch.ops.gram_gate import M32
+
+# the text whose repeated grams overflow the reference's duplicate-counting
+# cap: 3,033 bytes (the 4096 rung, cap 1,024), 1,164 words, 166 distinct grams
+FAULT_TEXT = " a b" * 500 + "\n" + FULL_TEXTS["MIT"]
+
+
+@pytest.fixture(scope="module")
+def port_clf():
+    c = LicenseClassifier(device="cpu")
+    c._build_scoring()
+    return c
+
+
+@pytest.fixture(scope="module")
+def jax_clf():
+    c = JaxClassifier(backend="cpu")
+    c._build_scoring()
+    return c
+
+
+@pytest.fixture(scope="module")
+def jax_table(jax_clf):
+    """The JAX package's raw-bytes corpus table, built as its classifier
+    builds it, with one shard."""
+    c = jax_clf
+    gate_texts = []
+    for lic in sorted(jax_texts.FULL_TEXTS):
+        gate_texts += [jax_texts.FULL_TEXTS[lic], jax_corpus.normalize(jax_texts.FULL_TEXTS[lic])]
+    short = {ph for _li, ph, _a in c._short_gate}
+    gate_texts += [ph for _li, ph in c.phrases if ph not in short]
+    return jng.build_corpus_table32(
+        c.licenses, c._full_keys, c._full_weights, c._phrase_keys, c._phrase_short,
+        gate_texts, sorted(short), c._LUT, int(c._P1), int(c._P2), int(c._HASH_P), c._NGRAM)
+
+
+@pytest.fixture(scope="module")
+def table(jax_table):
+    """The same table carried into the port (``load_corpus_table32``)."""
+    t = jax_table
+    return ng.load_corpus_table32(
+        t.keys, t.credit, t.gate.bloom8, t.gate.bloom4, t.gate.anchor_min, t.lut, t.p1, t.p2,
+        t.hash_p, t.ngram, t.n_licenses, t.wtot, t.n_units, t.n_short)
+
+
+def t64(a) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a).astype(np.int64))
+
+
+def text_rows(texts: list[str], width: int) -> np.ndarray:
+    out = np.zeros((len(texts), width), np.uint8)
+    for i, t in enumerate(texts):
+        b = t.encode("latin-1", "replace")[: width - 1]
+        out[i, : len(b)] = np.frombuffer(b, np.uint8)
+    return out
+
+
+def mixed_texts(seed: int, n: int, width: int) -> list[str]:
+    """License texts (raw, re-wrapped, CRLF, cut at random points), source
+    text, non-ASCII and words running to the row's last byte."""
+    rng = np.random.default_rng(seed)
+    keys = sorted(FULL_TEXTS)
+    out = []
+    for i in range(n):
+        t = FULL_TEXTS[keys[i % len(keys)]]
+        t = [t, t.replace(". ", ".\r\n"), t.upper().replace(" ", "\n  "),
+             "def f(x):\n    return x + 1  # café\n" * 40, "é" * 7 + t][i % 5]
+        start = int(rng.integers(0, max(1, len(t) - width)))
+        out.append(t[start : start + width])
+    out[-1] = ("w" * (width + 8))  # one word over the whole row
+    return out
+
+
+# -- data copies ---------------------------------------------------------------
+
+
+def test_corpus_and_name_tables_equal_jax():
+    assert corpus_texts.FULL_TEXTS == jax_texts.FULL_TEXTS
+    assert corpus.NORMALIZED_FINGERPRINTS == jax_corpus.NORMALIZED_FINGERPRINTS
+    assert corpus.SUBSUMES == jax_corpus.SUBSUMES
+    assert corpus.MIN_CONFIDENCE == jax_corpus.MIN_CONFIDENCE
+    assert normalize._RAW_ALIASES == jax_normalize._RAW_ALIASES
+    assert normalize._ONLY_OR_LATER == jax_normalize._ONLY_OR_LATER
+    text = FULL_TEXTS["MIT"].upper().replace(" ", " \t\n ")
+    assert corpus.normalize(text) == jax_corpus.normalize(text)
+
+
+NAMES = [
+    "MIT", "Apache License, Version 2.0", "GPLv2+", "GPL-2.0-or-later", "LGPL-2.1-only",
+    "BSD", "bsd 3-clause", "(MIT OR GPL-2.0+) AND Apache 2.0", "Apache-2.0 WITH LLVM-exception",
+    "AGPL-3.0", "Nonsense License 9", "", "MPL 2.0 OR EPL-2.0", "GPL-3.0+ AND (BSD OR ISC)",
+]
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_normalize_expression_and_categories_equal_jax(name):
+    assert normalize.normalize(name) == jax_normalize.normalize(name)
+    assert expression.normalize_expression(name) == jax_expression.normalize_expression(name)
+    assert expression.leaf_licenses(name) == jax_expression.leaf_licenses(name)
+    user = {"forbidden": ["MIT"], "notice": ["GPL-2.0"]}
+    for cat, ref in ((LicenseCategorizer(), JaxCategorizer()),
+                     (LicenseCategorizer(user), JaxCategorizer(user))):
+        got, want = cat.detect(name, file_path="x"), ref.detect(name, file_path="x")
+        assert got.to_dict() == want.to_dict()
+
+
+# -- corpus table and row ladder -------------------------------------------------
+
+
+def test_corpus_table32_equals_jax(port_clf, jax_table):
+    """The port's own build, array for array, against the JAX package's."""
+    mine, theirs = port_clf.corpus_table(), jax_table
+    assert theirs.n_shards == 1
+    np.testing.assert_array_equal(mine.keys, theirs.keys[0])
+    np.testing.assert_array_equal(mine.credit, theirs.credit[0])
+    np.testing.assert_array_equal(mine.gate.bloom8, theirs.gate.bloom8)
+    np.testing.assert_array_equal(mine.gate.bloom4, theirs.gate.bloom4)
+    assert mine.gate.anchor_min == theirs.gate.anchor_min >= 1
+    np.testing.assert_array_equal(mine.lut, theirs.lut)
+    for f in ("wtot", "n_units", "n_short"):
+        np.testing.assert_array_equal(getattr(mine, f), getattr(theirs, f))
+    assert (mine.p1, mine.p2, mine.hash_p, mine.ngram, mine.n_licenses) == (
+        theirs.p1, theirs.p2, theirs.hash_p, theirs.ngram, theirs.n_licenses)
+    assert mine.lic_per_shard == theirs.lic_per_shard == len(port_clf.licenses)
+    assert mine.keys.shape[0] > 20000 and mine.credit.shape[1] == 2 * mine.lic_per_shard
+
+
+def test_load_corpus_table32_checks_shapes(jax_table):
+    t = jax_table
+    with pytest.raises(ValueError):
+        ng.load_corpus_table32(np.zeros((2, 4), np.uint32), np.zeros((2, 4, 2), np.float32),
+                               t.gate.bloom8, t.gate.bloom4, 1, t.lut, 1, 1, 1, 5, 1,
+                               t.wtot, t.n_units, t.n_short)
+
+
+def test_pack_text_rows_equal_jax():
+    encoded = [t.encode() for t in mixed_texts(1, 30, 3000)]
+    encoded += [b"", b"x" * 1023, b"y" * 1024, b"z" * 49151, b"q" * 49152, b"r" * 70000]
+    for cap in (0, 4096):
+        groups, wide = ng.pack_text_rows(encoded, max_width=cap)
+        jgroups, jwide = jng.pack_text_rows(encoded, max_width=cap)
+        assert wide == jwide and sorted(groups) == sorted(jgroups)
+        for w in groups:
+            np.testing.assert_array_equal(groups[w][0], jgroups[w][0])
+            np.testing.assert_array_equal(groups[w][1], jgroups[w][1])
+    assert ng.BYTES_WIDTHS == jng.BYTES_WIDTHS and ng.BYTES_ROW_ELEMS == jng.BYTES_ROW_ELEMS
+
+
+# -- the shingle gate ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("width", [1024, 4096, 49152])
+def test_bytes_gate_plain_equals_jax(table, width):
+    rows = text_rows(mixed_texts(width, 8, width), width)
+    rows[2, -3:] = 200  # non-ASCII at the row end, read past it as spaces
+    got = bytes_gate_plain(torch.from_numpy(rows), t64(ng.lut_low32(table.lut)),
+                           torch.from_numpy(table.gate.bloom8), torch.from_numpy(table.gate.bloom4))
+    want = jng.build_bytes_gate_fn(width, table.lut)(rows, table.gate.bloom8, table.gate.bloom4)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[0].max() > 16 and got[1].max() > 0  # license rows light both lanes
+
+
+def bytes_gate_model(rows: np.ndarray, lut32: np.ndarray, bloom8: np.ndarray,
+                     bloom4: np.ndarray):
+    """csrc/bytes_gate.cu's formulation: each 512-byte block staged with a
+    7-byte halo (past the row end: 0, read as a space), windows packed in
+    uint32, block counts written, row counts summed over the blocks."""
+    B, C = rows.shape
+    blk = np.zeros((B, C // 512), np.int32)
+    ah = np.zeros(B, np.int32)
+    nb = np.zeros(B, np.int32)
+    with np.errstate(over="ignore"):
+        for b in range(B):
+            for k in range(C // 512):
+                v = np.zeros(512 + 7, np.uint32)
+                seg = rows[b, k * 512 : k * 512 + 519]
+                v[: len(seg)] = lut32[seg]
+                sv = np.where(v == 0, np.uint32(32), v)
+                i = np.arange(512)
+                wlo = sv[i] | sv[i + 1] << 8 | sv[i + 2] << 16 | sv[i + 3] << 24
+                whi = sv[i + 4] | sv[i + 5] << 8 | sv[i + 6] << 16 | sv[i + 7] << 24
+                m = wlo * np.uint32(2654435761)
+                valid = v[:512] != 0
+                blk[b, k] = int((bloom8[(m + whi * np.uint32(40503)) >> np.uint32(10)].astype(bool)
+                                 & valid).sum())
+                ah[b] += int((bloom4[m >> np.uint32(10)].astype(bool) & valid).sum())
+                nb[b] += int(valid.sum())
+    return blk, ah, nb
+
+
+@settings(max_examples=25, deadline=None)
+@given(data=st.data())
+def test_bytes_gate_kernel_model_equals_plain(table, data):
+    width = data.draw(st.sampled_from([512, 1024, 2048]))
+    n = data.draw(st.integers(1, 3))
+    alphabet = list(b"the licens permito grant\n\r\t.,;") + [0, 200, 255]
+    rows = np.array(data.draw(st.lists(st.lists(st.sampled_from(alphabet), min_size=width,
+                                                max_size=width), min_size=n, max_size=n)),
+                    dtype=np.uint8)
+    lut32 = ng.lut_low32(table.lut)
+    want = bytes_gate_model(rows, lut32, table.gate.bloom8, table.gate.bloom4)
+    got = bytes_gate_plain(torch.from_numpy(rows), t64(lut32),
+                           torch.from_numpy(table.gate.bloom8), torch.from_numpy(table.gate.bloom4))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+# -- the scorer ---------------------------------------------------------------------
+
+
+def port_score(table, rows: np.ndarray, cap: int):
+    return bytes_score_plain(torch.from_numpy(rows), t64(ng.lut_low32(table.lut)), t64(table.keys),
+                             torch.from_numpy(table.credit), table.p1, table.p2, table.hash_p,
+                             cap, table.ngram)
+
+
+def jax_score(table, rows: np.ndarray, width: int):
+    fn = jng.build_bytes_score_fn(width, width // 4, table.lic_per_shard, table.lut, table.p1,
+                                  table.p2, table.hash_p, table.ngram)
+    return [np.asarray(a) for a in fn(rows, table.keys[None], table.credit[None])]
+
+
+@pytest.mark.parametrize("width", [1024, 4096])
+def test_bytes_score_plain_equals_jax_within_the_cap(table, width):
+    rows = text_rows(mixed_texts(width + 1, 8, width), width)
+    cap = width // 4
+    fw, ph, nu = port_score(table, rows, effective_cap(cap, width))
+    jfw, jph, jnu = jax_score(table, rows, width)
+    assert (jnu <= cap).sum() >= 4
+    within = jnu <= cap
+    np.testing.assert_array_equal(nu.numpy(), jnu)
+    np.testing.assert_array_equal(ph.numpy()[within], jph[within])
+    np.testing.assert_allclose(fw.numpy()[within], jfw[within], rtol=1e-5, atol=0)
+    assert fw.numpy()[within].max() > 1.0  # license rows score
+
+
+def test_scorer_cap_counts_distinct_keys(port_clf, jax_clf, table):
+    """The reference's fault: a row whose distinct grams fit the cap but
+    whose repeated ones do not. The port's full_w equals the host oracle's
+    matched weight; the JAX function's falls short, without a reroute."""
+    width = 4096
+    rows = text_rows([FAULT_TEXT], width)
+    fw, _, nu = port_score(table, rows, effective_cap(width // 4, width))
+    jfw, _, jnu = jax_score(table, rows, width)
+    assert len(FAULT_TEXT) == 3033 and int(nu[0]) == int(jnu[0]) == 166 <= width // 4
+    li = jax_clf.licenses.index("MIT")
+    norm = jax_corpus.normalize(FAULT_TEXT)
+    conf, matched_w = jax_clf._score(li, norm, jax_clf._text_grams(norm))
+    assert conf == 1.0
+    assert float(fw[0, li]) == pytest.approx(matched_w, rel=1e-5)
+    assert float(jfw[0, li]) < 0.99 * matched_w
+    # the classifiers: the port reports the oracle's confidence, the JAX
+    # device path a lower one
+    batch = [FAULT_TEXT] + [FULL_TEXTS[k] for k in sorted(FULL_TEXTS)[:7]]
+    oracle = jax_clf.classify_batch(batch)
+    assert [f.to_dict() for f in port_clf.classify_batch(batch)[0]] == [
+        f.to_dict() for f in oracle[0]]
+    assert oracle[0][0].confidence == 1.0
+    dev = JaxClassifier(backend="device").classify_batch(batch)
+    assert dev[0][0].name == "MIT" and dev[0][0].confidence < 1.0
+
+
+def bitonic(keys: np.ndarray) -> np.ndarray:
+    """The kernel's bitonic sorting network over a power-of-two array."""
+    s = keys.copy()
+    n = len(s)
+    i = np.arange(n)
+    k = 2
+    while k <= n:
+        j = k >> 1
+        while j > 0:
+            p = i ^ j
+            lo = p > i
+            a, b = s[i[lo]], s[p[lo]]
+            swap = (a > b) == ((i[lo] & k) == 0)
+            s[i[lo][swap]], s[p[lo][swap]] = b[swap], a[swap]
+            j >>= 1
+        k <<= 1
+    return s
+
+
+def bytes_score_model(rows, lut32, keys, credit, p1, p2, hp, gcap, ngram=5, threads=1024):
+    """csrc/bytes_score.cu's formulation: compacted word starts, one hash
+    per word summed to its separator, valid keys padded to a power of two
+    and bitonic-sorted, distinct keys ranked by a scan over contiguous
+    stretches, the first ``gcap`` looked up, one float32 sum per column in
+    rank order."""
+    B, C = rows.shape
+    L2 = credit.shape[1]
+    out = np.zeros((B, L2), np.float32)
+    nuniq = np.zeros(B, np.int32)
+    P1, P2, HP = np.uint32(p1 & M32), np.uint32(p2 & M32), np.uint32(hp & M32)
+    with np.errstate(over="ignore"):
+        for b in range(B):
+            v = lut32[rows[b]]
+            starts = [i for i in range(C) if v[i] and (i == 0 or not v[i - 1])]
+            H = []
+            for i in starts:
+                s0 = s1 = np.uint32(0)
+                k = i
+                while k < C and v[k]:
+                    s0 += v[k]
+                    s1 += v[k] * np.uint32(k - i)
+                    k += 1
+                H.append(s0 * P1 + s1 * P2)
+            nvalid = max(len(H) - ngram + 1, 0)
+            n = 1
+            while n < max(nvalid, 1):
+                n *= 2
+            s = np.full(n, SENT32, np.uint32)
+            for j in range(nvalid):
+                key = H[j]
+                for t in range(1, ngram):
+                    key = key * HP + H[j + t]
+                s[j] = min(key, np.uint32(SENT32 - 1))
+            s = bitonic(s)
+            fresh = (s != SENT32) & np.concatenate([[True], s[1:] != s[:-1]])
+            per = -(-n // threads)
+            counts = [int(fresh[t * per : (t + 1) * per].sum()) for t in range(threads)]
+            base = np.concatenate([[0], np.cumsum(counts)[:-1]])
+            hitpos = {}
+            for t in range(threads):
+                r = int(base[t])
+                for i in range(t * per, min((t + 1) * per, n)):
+                    if fresh[i] and r < gcap:
+                        p = int(np.searchsorted(keys, s[i]))
+                        hitpos[r] = p if p < len(keys) and keys[p] == s[i] else -1
+                        r += 1
+            nuniq[b] = int(fresh.sum())
+            acc = np.zeros(L2, np.float32)
+            for r in range(min(nuniq[b], gcap)):
+                if hitpos[r] >= 0:
+                    acc += credit[hitpos[r]]
+            out[b] = acc
+    return out[:, : L2 // 2], out[:, L2 // 2 :], nuniq
+
+
+@settings(max_examples=20, deadline=None)
+@given(data=st.data())
+def test_bytes_score_kernel_model_equals_plain(table, data):
+    """On random word soups, corpus sentences and a cap that cuts: the model
+    and the plain version agree exactly (both sum in ascending key order)."""
+    width = data.draw(st.sampled_from([64, 256, 1024]))
+    words = ["the", "software", "is", "provided", "as", "without", "warranty", "of", "any",
+             "kind", "x", "é", "a", "b"]
+    n = data.draw(st.integers(1, 3))
+    texts = []
+    for _ in range(n):
+        if data.draw(st.booleans()):
+            start = data.draw(st.integers(0, 900))
+            texts.append(FULL_TEXTS["MIT"][start:])
+        else:
+            texts.append(" ".join(data.draw(st.lists(st.sampled_from(words), max_size=200))))
+    rows = text_rows(texts, width)
+    cap = data.draw(st.sampled_from([1, 3, 256]))
+    lut32 = ng.lut_low32(table.lut)
+    want = bytes_score_model(rows, lut32, table.keys, table.credit, table.p1, table.p2,
+                             table.hash_p, cap)
+    got = port_score(table, rows, cap)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+# -- the classifier -----------------------------------------------------------------
+
+
+def assert_parity(port_clf, jax_clf, texts: list[str]) -> list:
+    """The port's classify_batch (device pipeline, plain versions) against
+    the JAX host oracle: findings equal, field for field."""
+    got = port_clf.classify_batch(texts)
+    want = jax_clf.classify_batch(texts)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert [f.to_dict() for f in a] == [f.to_dict() for f in b], (i, texts[i][:60])
+    return want
+
+
+@pytest.mark.parametrize("form", ["raw", "rewrapped", "crlf"])
+def test_classify_full_texts_equal_oracle(port_clf, jax_clf, form):
+    texts = []
+    for k in sorted(FULL_TEXTS):
+        t = FULL_TEXTS[k]
+        if form == "rewrapped":
+            words = t.split(" ")
+            t = "\n".join(" ".join(words[i : i + 9]) for i in range(0, len(words), 9)).upper()
+        elif form == "crlf":
+            t = t.replace(". ", ".\r\n")
+        texts.append(t)
+    want = assert_parity(port_clf, jax_clf, texts)
+    assert sum(1 for w in want if w) >= 20
+
+
+def test_classify_headers_phrases_and_odd_texts_equal_oracle(port_clf, jax_clf):
+    mit = FULL_TEXTS["MIT"]
+    texts = [
+        "# Licensed under the Apache License, Version 2.0 (the \"License\");\n"
+        "# you may not use this file except in compliance with the License.\n" + "x = 1\n" * 50,
+        "// SPDX-License-Identifier: MIT\n// Released under the MIT License\nint x;\n",
+        "This program is free software; you can redistribute it and/or modify it under "
+        "the terms of the GNU General Public License as published by the Free Software "
+        "Foundation; either version 2 of the License",
+        "mozilla public license, v. 2.0",
+        "apache license",
+        mit.replace("copyright", "cópyright “notice”"),
+        mit[: len(mit) // 2] + " 许可证 MIT 许可 " + mit[len(mit) // 2 :],
+        "\U0001f512 " + mit + " \U0001f513",
+        "договір " * 200,
+        "﻿" + mit,
+        "x" * 300 + " " + mit,
+        ("y" * 9 + " ") * 400,
+        "z" * 65600,
+        mit + " " + "w" * 70000,
+        "", " ", "\n\n\n", "\t \r\n \t", " " * 5000,
+        FAULT_TEXT,
+    ]
+    want = assert_parity(port_clf, jax_clf, texts)
+    assert want[-1] and sum(1 for w in want if w) >= 6
+
+
+def test_classify_every_width_rung_equal_oracle(port_clf, jax_clf):
+    mit = FULL_TEXTS["MIT"]
+
+    def sized(n: int) -> str:
+        body = mit + " "
+        while len(body) < n:
+            body += "filler words to reach the boundary "
+        return body[:n]
+
+    texts = []
+    for w in ng.BYTES_WIDTHS:
+        texts += [sized(w - 1), sized(w), sized(w + 1)]
+    want = assert_parity(port_clf, jax_clf, texts)
+    assert all(any(f.name == "MIT" for f in w) for w in want[:6])
+
+
+def test_device_path_runs_on_eight_texts_and_fails_loudly(port_clf, monkeypatch):
+    """Eight texts take the device pipeline; an error there fails the call
+    (no fallback to the host)."""
+    scorer = port_clf._device_scorer()
+    before = scorer.dispatch_count
+    port_clf.classify_batch([FULL_TEXTS["MIT"]] * 8)
+    assert scorer.dispatch_count >= before + 2  # a gate and a score dispatch
+
+    def boom(rows):
+        raise RuntimeError("kernel launch failed")
+
+    monkeypatch.setattr(scorer, "gate_bytes", boom)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        port_clf.classify_batch([FULL_TEXTS["MIT"]] * 8)
+    assert port_clf.classify_batch([FULL_TEXTS["MIT"]] * 3)[0][0].name == "MIT"  # host path

@@ -1,6 +1,7 @@
-"""Command line of the port: the ``fs`` secret scan.
+"""Command line of the port: the ``fs`` secret and license scans.
 
-    python -m trivy_tpu_torch fs --scanners secret [--secret-config F]
+    python -m trivy_tpu_torch fs [--scanners secret|license|secret,license]
+        [--license-full] [--no-shared-arena] [--secret-config F]
         [--format json|table] [-o OUT] [--device cuda|cpu]
         [--no-secret-dedup] [--secret-dedup-mb N]
         [--secret-hit-cache [--cache-dir D] [--cache-backend fs|memory]]
@@ -9,9 +10,12 @@
 
 Runs on the card unless ``--device cpu`` is given, and fails when CUDA is
 asked for and missing. Its JSON ``Results`` equal those of
-``python -m trivy_tpu.cli fs --scanners secret --backend cpu --format json``
-on the same tree, under every feed option. The feed options carry the
-meanings and defaults of the JAX package's flags of the same names.
+``python -m trivy_tpu.cli fs --scanners <same> [--license-full] --backend cpu
+--format json`` on the same tree, under every feed option. The options
+carry the meanings and defaults of the JAX package's flags of the same
+names: with both scanners, the secret feed's rows also run the license gram
+gate (the fused pass) unless ``--no-shared-arena`` is given, and
+``--license-full`` adds source-file headers to the license files.
 """
 
 from __future__ import annotations
@@ -26,30 +30,71 @@ import time
 from trivy_tpu_torch import log
 from trivy_tpu_torch.cache import BACKENDS, new_cache
 from trivy_tpu_torch.device import DEFAULT_DEVICE
+from trivy_tpu_torch.fanal.license import LicenseAnalyzer
 from trivy_tpu_torch.fanal.secret import SecretAnalyzer
 from trivy_tpu_torch.fanal.walker import FSWalker, WalkOption
+from trivy_tpu_torch.licensing.fused import FusedLicenseGate
+from trivy_tpu_torch.licensing.scanner import LicenseCategorizer
 from trivy_tpu_torch.report import WRITERS
-from trivy_tpu_torch.types import Report, Result
+from trivy_tpu_torch.types import Report, Result, ResultClass
 
 logger = log.logger("cli")
 
 DEFAULT_SECRET_CONFIG = "trivy-secret.yaml"
+SCANNERS = ("secret", "license")
+
+
+def license_result(files) -> list[Result]:
+    """The ``Loose File License(s)`` section of a report from the license
+    analyzers' ``LicenseFile``s, sorted as the JAX package's layer applier
+    sorts them (ref: pkg/scanner/local/scan.go)."""
+    cat = LicenseCategorizer()
+    found = []
+    for lf in sorted(files, key=lambda lf: (lf.file_path, lf.pkg_name, lf.type)):
+        for f in lf.findings:
+            d = cat.detect(f.name, file_path=lf.file_path)
+            d.confidence = f.confidence
+            d.link = f.link
+            found.append(d)
+    if not found:
+        return []
+    return [Result(target="Loose File License(s)", cls=ResultClass.LICENSE_FILE.value,
+                   licenses=found)]
 
 
 def scan_fs(root: str, config_path: str | None = None, device=DEFAULT_DEVICE,
-            skip_dirs=(), skip_files=(), **scanner_opts) -> tuple[Report, dict]:
-    """Secret-scan the tree under ``root``. Returns the report and the
-    scan's counters (files walked and scanned, seconds, and the device
-    scanner's feed counters). ``scanner_opts`` reach the
-    :class:`~trivy_tpu_torch.secret.scanner.TorchSecretScanner`."""
+            skip_dirs=(), skip_files=(), scanners=("secret",), license_full: bool = False,
+            shared_arena: bool = True, **scanner_opts) -> tuple[Report, dict]:
+    """Scan the tree under ``root`` with ``scanners`` (``secret``,
+    ``license`` or both). Returns the report and the scan's counters (files
+    walked and scanned, seconds, the secret scanner's feed counters, and
+    the fused gate's file counts). With both scanners and ``shared_arena``,
+    the license gram gate rides the secret feed's rows. ``scanner_opts``
+    reach the :class:`~trivy_tpu_torch.secret.scanner.TorchSecretScanner`."""
+    unknown = set(scanners) - set(SCANNERS)
+    if unknown or not scanners:
+        raise ValueError(f"unsupported scanners {sorted(unknown) or scanners!r}: "
+                         f"use {', '.join(SCANNERS)}")
     t0 = time.perf_counter()
-    analyzer = SecretAnalyzer(root, config_path=config_path, device=device, **scanner_opts)
+    gate = None
+    if "secret" in scanners and "license" in scanners and shared_arena:
+        gate = FusedLicenseGate(license_full=license_full)
+    analyzers: list = []
+    secret = None
+    if "secret" in scanners:
+        secret = SecretAnalyzer(root, config_path=config_path, device=device,
+                                license_gate=gate, **scanner_opts)
+        analyzers.append(secret)
+    if "license" in scanners:
+        kinds = ("license-file", "header") if license_full else ("license-file",)
+        analyzers += [LicenseAnalyzer(k, device, gate=gate) for k in kinds]
     walker = FSWalker(WalkOption(skip_files=list(skip_files), skip_dirs=list(skip_dirs)))
     walked = scanned = 0
     try:
         for rel, info, opener in walker.walk(root):
             walked += 1
-            if not analyzer.required(rel, info.size):
+            takers = [a for a in analyzers if a.required(rel, info.size)]
+            if not takers:
                 continue
             try:
                 content = opener()
@@ -58,35 +103,51 @@ def scan_fs(root: str, config_path: str | None = None, device=DEFAULT_DEVICE,
                 logger.debug("skipping unreadable %s: %s", rel, e)
                 continue
             scanned += 1
-            analyzer.collect(rel, content, dir_=root)
-        secrets = analyzer.finalize()
+            for a in takers:
+                if a is secret:
+                    a.collect(rel, content, dir_=root)
+                else:
+                    a.collect(rel, content)
+        # the secret finalize first: the fused gate is complete only then
+        secrets = secret.finalize() if secret is not None else []
+        licenses = [lf for a in analyzers if a is not secret for lf in a.finalize()]
     except BaseException:
-        analyzer.abort()
+        if secret is not None:
+            secret.abort()
         raise
     name = root if root == os.path.sep else root.rstrip(os.path.sep)
+    results = [Result(target=s.file_path, secrets=s.findings) for s in secrets]
+    if "license" in scanners:
+        results += license_result(licenses)
     report = Report(
         created_at=datetime.datetime.now(datetime.timezone.utc).isoformat(),
         artifact_name=name,
         artifact_type="filesystem",
         metadata={"ImageID": "", "DiffIDs": []},
-        results=[Result(target=s.file_path, secrets=s.findings) for s in secrets],
+        results=results,
     )
-    counters = {
-        "files_walked": walked,
-        "files_scanned": scanned,
-        "seconds": time.perf_counter() - t0,
-        **analyzer.scanner.stats.snapshot(),
-    }
+    counters = {"files_walked": walked, "files_scanned": scanned,
+                "seconds": time.perf_counter() - t0}
+    if secret is not None:
+        counters.update(secret.scanner.stats.snapshot())
+    if gate is not None:
+        counters.update(files_covered=gate.files_covered, files_flagged=gate.files_flagged,
+                        files_patched=gate.files_patched)
     return report, counters
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="trivy_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
-    fs = sub.add_parser("fs", help="scan a local filesystem for secrets")
+    fs = sub.add_parser("fs", help="scan a local filesystem for secrets and licenses")
     fs.add_argument("target", help="directory to scan")
     fs.add_argument("--scanners", default="secret",
-                    help="comma-separated scanners; only 'secret' is supported")
+                    help="comma-separated scanners: secret, license")
+    fs.add_argument("--license-full", action="store_true",
+                    help="also classify source-file headers, not only license files")
+    fs.add_argument("--no-shared-arena", action="store_true",
+                    help="with both scanners, classify every license candidate instead of "
+                         "gating them on the secret feed's rows")
     fs.add_argument("--secret-config", default=DEFAULT_SECRET_CONFIG,
                     help="secret rule config (YAML); used when the file exists")
     fs.add_argument("-f", "--format", choices=sorted(WRITERS), default="table")
@@ -129,12 +190,13 @@ def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     log.init(quiet=args.quiet)
     scanners = [s for s in args.scanners.split(",") if s]
-    if scanners != ["secret"]:
-        raise SystemExit(f"unsupported --scanners {args.scanners!r}: only 'secret'")
+    if not scanners or set(scanners) - set(SCANNERS):
+        raise SystemExit(f"unsupported --scanners {args.scanners!r}: use {', '.join(SCANNERS)}")
     config = args.secret_config if os.path.exists(args.secret_config) else None
     report, counters = scan_fs(
         args.target, config_path=config, device=args.device,
-        skip_dirs=args.skip_dirs, skip_files=args.skip_files,
+        skip_dirs=args.skip_dirs, skip_files=args.skip_files, scanners=scanners,
+        license_full=args.license_full, shared_arena=not args.no_shared_arena,
         dedup=not args.no_secret_dedup,
         hit_cache=(new_cache(args.cache_backend, args.cache_dir)
                    if args.secret_hit_cache else None),

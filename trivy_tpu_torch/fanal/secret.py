@@ -13,6 +13,12 @@ Files stream from the walk into one ``TorchSecretScanner.scan_files`` call
 running on a background thread, through a byte-bounded
 :class:`~trivy_tpu_torch.secret.feed.FileStream`, so reading overlaps
 chunking, copies and device matching.
+
+In a fused ``--scanners secret,license`` scan the analyzer hands the scan a
+:class:`~trivy_tpu_torch.licensing.fused.FusedLicenseGate` and marks as
+skipped every file the license analyzers want that the secret feed will not
+carry (too small, skipped dirs and names, allowed paths, binaries), so the
+license analyzers classify those themselves.
 """
 
 from __future__ import annotations
@@ -94,13 +100,15 @@ class SecretAnalyzer:
     files with findings. ``abort`` ends the background scan early.
     ``scanner_opts`` (``dedup``, ``hit_cache``, ``hit_cache_bytes``,
     ``compress``, ``compress_min_ratio``) reach the
-    :class:`TorchSecretScanner` it builds.
+    :class:`TorchSecretScanner` it builds. ``license_gate`` is the fused
+    scan's :class:`~trivy_tpu_torch.licensing.fused.FusedLicenseGate`.
     """
 
     def __init__(self, root: str, config_path: str | None = None,
                  device="cuda", scanner: TorchSecretScanner | None = None,
-                 **scanner_opts):
+                 license_gate=None, **scanner_opts):
         self.config_path = config_path
+        self.license_gate = license_gate
         # the config file's scan-root-relative path, so its self-exclusion
         # matches at any nesting depth
         self._config_rel_path = None
@@ -118,6 +126,18 @@ class SecretAnalyzer:
         self._error: BaseException | None = None
 
     def required(self, file_path: str, size: int) -> bool:
+        ok = self._required(file_path, size)
+        if not ok:
+            self._lic_skip(file_path)
+        return ok
+
+    def _lic_skip(self, file_path: str) -> None:
+        """The fused gate will have no verdict for this file: the license
+        analyzers (whose eligibility differs) must classify it."""
+        if self.license_gate is not None and self.license_gate.wants(file_path):
+            self.license_gate.skip(file_path)
+
+    def _required(self, file_path: str, size: int) -> bool:
         if size < MIN_FILE_SIZE:
             return False
         parts = file_path.split("/")
@@ -159,6 +179,7 @@ class SecretAnalyzer:
     def collect(self, file_path: str, content: bytes, dir_: str) -> None:
         prepared = self.prepare(file_path, content, dir_)
         if prepared is None:
+            self._lic_skip(file_path)  # binary-sniffed out of the feed
             return
         if self._stream is None:
             self._stream = FileStream(STREAM_BUFFER_BYTES)
@@ -173,7 +194,7 @@ class SecretAnalyzer:
 
     def _run(self) -> None:
         try:
-            for s in self.scanner.scan_files(self._stream):
+            for s in self.scanner.scan_files(self._stream, license_gate=self.license_gate):
                 if s.findings:
                     self._found.append(s)
         except BaseException as e:

@@ -35,6 +35,7 @@ _loaded: dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint32
 # C signatures of the exported entry points: (restype, argtypes)
 SIGNATURES = {
     "match": {
@@ -50,6 +51,28 @@ SIGNATURES = {
         "trivy_decompress_launch": (
             # buf, W, offs, clen, mode, B, C, tab_bytes, tab_len, out, stream
             _I, [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+        ),
+        "trivy_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "gram_gate": {
+        "trivy_gram_gate_launch": (
+            # x, B, C, blk, lut, gate, n_gate, anchor, n_anchor, P1, P2, HP, ngram, out, stream
+            _I, [_P, _I, _I, _I, _P, _P, _I, _P, _I, _U, _U, _U, _I, _P, _P],
+        ),
+        "trivy_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "bytes_gate": {
+        "trivy_bytes_gate_launch": (
+            # x, B, C, lut, bloom8, bloom4, blk, ah, nb, stream
+            _I, [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+        ),
+        "trivy_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "bytes_score": {
+        "trivy_bytes_score_launch": (
+            # x, B, C, lut, keys, Ku, credit, ls, gcap, P1, P2, HP, ngram, full_w, phrase,
+            # n_uniq, stream
+            _I, [_P, _I, _I, _P, _P, _I, _P, _I, _I, _U, _U, _U, _I, _P, _P, _P, _P],
         ),
         "trivy_cuda_error_string": (ctypes.c_char_p, [_I]),
     },

@@ -1,10 +1,11 @@
-"""Report writers for the secret scan (ref: pkg/report/writer.go).
+"""Report writers for the secret and license scans (ref:
+pkg/report/writer.go).
 
 ``json``: the reference's JSON schema (SchemaVersion, ArtifactName,
-Results[].Target/Class/Secrets...), byte for byte the JAX package's
-``report/json_.py``. ``table``: the secret section of the JAX package's
-``report/table.py`` — a header per file, then each finding with its
-censored code context.
+Results[].Target/Class/Secrets/Licenses...), byte for byte the JAX package's
+``report/json_.py``. ``table``: the secret and license sections of the JAX
+package's ``report/table.py`` — a header per file, then each secret finding
+with its censored code context; a grid of the licenses found.
 """
 
 from __future__ import annotations
@@ -57,13 +58,42 @@ def _write_secrets(result: Result, out) -> None:
         out.write(_rule(40) + "\n")
 
 
+def _write_licenses(result: Result, out) -> None:
+    counter = Counter(lic.severity for lic in result.licenses)
+    _header(
+        out,
+        f"{result.target} (license)",
+        f"— {len(result.licenses)} findings ({_severity_summary(counter)})",
+    )
+    _grid(out, ["Package/File", "License", "Category", "Severity"],
+          [[lic.pkg_name or lic.file_path, lic.name, lic.category, lic.severity]
+           for lic in result.licenses])
+
+
+def _grid(out, cols: list[str], rows: list[list[str]]) -> None:
+    widths = [len(c) for c in cols]
+    for row in rows:
+        for i, cell in enumerate(row):
+            widths[i] = max(widths[i], len(str(cell)))
+
+    def fmt(cells):
+        return "│".join(f" {str(c):<{widths[i]}} " for i, c in enumerate(cells))
+
+    out.write(fmt(cols) + "\n")
+    out.write("┼".join(_rule(w + 2) for w in widths) + "\n")
+    for row in rows:
+        out.write(fmt(row) + "\n")
+
+
 def write_table(report: Report, out) -> None:
-    if not any(r.secrets for r in report.results):
+    if not any(r.secrets or r.licenses for r in report.results):
         out.write(f"\n{report.artifact_name} ({report.artifact_type})\n")
         out.write("No issues detected.\n")
     for result in report.results:
         if result.secrets:
             _write_secrets(result, out)
+        if result.licenses:
+            _write_licenses(result, out)
 
 
 WRITERS = {"json": write_json, "table": write_table}

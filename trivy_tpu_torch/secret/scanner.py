@@ -14,6 +14,15 @@ Pipeline (the port of ``trivy_tpu/secret/tpu_scanner.py``):
   those rules → findings identical to the CPU engine, emitted in input
   order.
 
+With a :class:`~trivy_tpu_torch.licensing.fused.FusedLicenseGate` (``fs
+--scanners secret,license``), the license gram gate runs on the same
+resident rows as a fourth kernel, for batches that carry a file the license
+analyzers want, and its per-block verdicts flag those files in the gate
+(``_apply_lic``); each scanned byte crosses to the card once for both
+scanners. Row verdicts of such scans carry the gate's verdict and live
+under their own digest namespace (the ruleset fingerprint + ``:lic``), the
+JAX package's.
+
 Row overlap covers the compiled ruleset's widest device window, so every
 device-checkable window lies inside some row. Host confirmation is
 restricted to the flagged row windows only where a flagged row provably
@@ -48,6 +57,7 @@ import torch
 from trivy_tpu_torch import log
 from trivy_tpu_torch.device import resolve
 from trivy_tpu_torch.ops.decompress import build_decompress_fn
+from trivy_tpu_torch.ops.gram_gate import LANE_ANCHOR, LANE_GRAM, LANE_NONASCII
 from trivy_tpu_torch.ops.match_cuda import build_match_fn_cuda
 from trivy_tpu_torch.ops.prefilter import build_prefilter_fn
 from trivy_tpu_torch.secret.compress import COMPRESS_MIN_RATIO, CompressedSlab, SlabCodec
@@ -89,6 +99,8 @@ HIT_CACHE_ENTRIES = 1 << 16
 # namespace (v4: rows may reach the kernels through the decompressor, whose
 # output is byte-identical to a raw upload; keys hash UNCOMPRESSED rows)
 HIT_CACHE_VERSION = 4
+# the license gate's lanes, each counted in ScanStats as license_rows_<name>
+LIC_LANES = (("gram", LANE_GRAM), ("anchor", LANE_ANCHOR), ("nonascii", LANE_NONASCII))
 
 
 def chunk_spans(n: int, chunk_len: int, overlap: int) -> list[int]:
@@ -149,11 +161,16 @@ class ScanStats:
         "chunks_gated_zero",    # all-zero rows the zero gate resolved
         "batches_compressed",   # batches that shipped compressed
         "batches_raw_fallback",  # batches shipped raw with the codec on
+        "license_rows_gated",    # rows the license gram gate read
+        "license_rows_flagged",  # rows with a license candidate block
     )
+    # the port's own counters, which the JAX package does not keep: the rows
+    # each lane of the license gate flagged
+    PORT_FIELDS = tuple(f"license_rows_{name}" for name, _ in LIC_LANES)
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._v = dict.fromkeys(self.FIELDS, 0)
+        self._v = dict.fromkeys(self.FIELDS + self.PORT_FIELDS, 0)
 
     def add(self, **kw: int) -> None:
         with self._lock:
@@ -285,8 +302,9 @@ class TorchSecretScanner:
         #   matcher; replaying it marks every guarded anchored rule
         #   unchecked for the row's file, so a candidate there confirms by
         #   a full scan
-        # - lic: the fused license gate's verdict; always None here (the
-        #   port has no license gate yet)
+        # - lic: the fused license gate's verdict, a tuple of flagged
+        #   block indices, or None when the row's batch did not run the
+        #   gate (plain scans, or a batch with no file the gate wants)
         self._dedup = dedup
         self._hit_store = HitStore(
             self.ruleset_fingerprint,
@@ -330,6 +348,21 @@ class TorchSecretScanner:
                     rungs.append(rungs[-1] // 2)
                 self._wire_rungs[b] = sorted(rungs)
         self.compress_on = comp_on
+        # the license gram gate, built by the first fused scan
+        self._lic_lock = threading.Lock()
+        self._lic_gate_fn = None
+        self._lic_block = 0
+
+    def _ensure_license_stage(self) -> None:
+        """Build the license gram gate for this scanner's rows (once; the
+        gate and its tables are process-cached per row shape and device)."""
+        with self._lic_lock:
+            if self._lic_gate_fn is None:
+                from trivy_tpu_torch.licensing.fused import get_gate_fn
+
+                fn = get_gate_fn(self.chunk_len, self.device)
+                self._lic_block = fn.block
+                self._lic_gate_fn = fn
 
     def _alloc_slab(self, rows: int, row_len: int) -> np.ndarray:
         """Arena slab: pinned host memory on the card (one asynchronous
@@ -337,9 +370,14 @@ class TorchSecretScanner:
         pin = self.device.type == "cuda"
         return torch.zeros((rows, row_len), dtype=torch.uint8, pin_memory=pin).numpy()
 
-    def scan_files(self, files: Iterable[tuple[str, bytes]]) -> Iterator[Secret]:
-        """Scan many files; yields per-file results in input order."""
-        run = _ScanRun(self, files)
+    def scan_files(self, files: Iterable[tuple[str, bytes]],
+                   license_gate=None) -> Iterator[Secret]:
+        """Scan many files; yields per-file results in input order.
+        ``license_gate`` (a ``FusedLicenseGate``) runs the license gram gate
+        on the same rows and collects its verdicts."""
+        if license_gate is not None:
+            self._ensure_license_stage()
+        run = _ScanRun(self, files, license_gate)
         run.start()
         try:
             next_emit = 0
@@ -450,9 +488,13 @@ class _ScanRun:
     """One ``scan_files`` call: feeder thread, device worker, confirm pool
     and the reorder buffer the generator emits from."""
 
-    def __init__(self, sc: TorchSecretScanner, files):
+    def __init__(self, sc: TorchSecretScanner, files, license_gate=None):
         self.sc = sc
         self.files = files
+        # fused license pass: the scan's gate, and input index -> path of
+        # the files it wants verdicts for
+        self.lic_gate = license_gate
+        self.lic_paths: dict[int, str] = {}
         self.lock = threading.Lock()
         self.cond = threading.Condition(self.lock)
         self.states: dict[int, _FileState] = {}
@@ -548,15 +590,50 @@ class _ScanRun:
                     if st.pending == 0:
                         del self.states[fidx]
                         ready.append((fidx, st))
+        if self.lic_gate is not None:
+            for segs, _, _, _, lic in batch:
+                self._apply_lic(segs, lic)
         for fidx, st in ready:
             self._submit_confirm(fidx, st)
 
-    def _resolve(self, hits, meta: list, pre, nfa_ran: bool) -> None:
+    def _apply_lic(self, segs, lic) -> None:
+        """Fold one row's license verdict into the gate. ``lic`` holds the
+        row's flagged block indices, or is None when the row's batch never
+        ran the gate: a wanted file then goes to the classifier (``skip``),
+        never to a silent miss. Segment offsets are rebuilt from the packing
+        layout (``len + gap`` apart, as ``emit_pack`` lays them out), so a
+        block flags only the files it overlaps; a block across a boundary
+        flags both."""
+        gate = self.lic_gate
+        if lic is None:
+            for fidx, _, _ in segs:
+                path = self.lic_paths.get(fidx)
+                if path is not None:
+                    gate.skip(path)
+            return
+        if not lic:
+            return
+        blk = self.sc._lic_block
+        gap = self.sc.overlap
+        off = 0
+        for fidx, ws, we in segs:
+            if len(segs) == 1:
+                lo, hi = 0, self.sc.chunk_len  # a big file's row: the whole row
+            else:
+                lo, hi = off, off + (we - ws)
+                off = hi + gap
+            path = self.lic_paths.get(fidx)
+            if path is not None and any(b * blk < hi and (b + 1) * blk > lo for b in lic):
+                gate.flag(path)
+
+    def _resolve(self, hits, meta: list, pre, nfa_ran: bool, lic=None) -> None:
         """Fold one fetched batch into file state. ``hits`` is the anchored
         matcher's output (None when the batch skipped it), ``pre`` the
-        prefilter mask; both are sliced to the live rows here (rows past
-        ``len(meta)`` are bucket padding). Each keyed row's verdict goes
-        into the hit store and to the rows coalesced onto it."""
+        prefilter mask and ``lic`` the license gate's block flags (None when
+        the batch did not run it); all are sliced to the live rows here
+        (rows past ``len(meta)`` are bucket padding). Each keyed row's
+        verdict goes into the hit store and to the rows coalesced onto
+        it."""
         sc = self.sc
         n = len(meta)
         cand_by_row: dict[int, list[int]] = {}
@@ -579,10 +656,19 @@ class _ScanRun:
         by_row: dict[int, list[int]] = {}
         for row, r in zip(*(a.tolist() for a in np.nonzero(full))):
             by_row.setdefault(row, []).append(r)
+        lic_by_row: dict[int, list[int]] = {}
+        if lic is not None:
+            lic = lic[:n]
+            for row, b in zip(*(a.tolist() for a in np.nonzero(lic))):
+                lic_by_row.setdefault(row, []).append(b)
+            sc.stats.add(license_rows_gated=n, license_rows_flagged=int(lic.any(axis=1).sum()),
+                         **{f"license_rows_{name}": int((lic & bit).any(axis=1).sum())
+                            for name, bit in LIC_LANES})
         store = sc._hit_store
         apply: list = []
         for row, (key, segs, _) in enumerate(meta):
-            verdict = (tuple(by_row.get(row, ())), tuple(cand_by_row.get(row, ())), nfa_ran, None)
+            verdict = (tuple(by_row.get(row, ())), tuple(cand_by_row.get(row, ())), nfa_ran,
+                       None if lic is None else tuple(lic_by_row.get(row, ())))
             apply.append((segs,) + verdict)
             if key is not None:
                 store.put(key, verdict)
@@ -600,9 +686,10 @@ class _ScanRun:
         """The one transfer stream: each slab crosses to the device as one
         (pinned, non-blocking) copy, or as a compressed wire frame that the
         decompress kernel expands into the same ``[n, C]`` rows; both
-        matcher uses read the resident rows, and the slab returns to the
-        arena only after the results are fetched — by then every kernel
-        reading the copy has finished."""
+        matcher uses, and the license gram gate of a fused scan's batches
+        that carry a file it wants, read the resident rows, and the slab
+        returns to the arena only after the results are fetched: by then
+        every kernel reading the copy has finished."""
         sc = self.sc
         try:
             if sc.device.type == "cuda":
@@ -624,14 +711,25 @@ class _ScanRun:
                     rows = torch.from_numpy(self.arena.slab(slab_id)[:batch])
                     if sc.device.type == "cuda":
                         rows = rows.to(sc.device, non_blocking=True)
+                # the gate is queued ahead of the matcher on the same stream
+                lic = sc._lic_gate_fn(rows) if self._want_lic(meta) else None
                 hits, pre, nfa_ran = sc.run_batch(rows, len(meta))
+                if lic is not None:
+                    lic = lic.cpu().numpy()
                 self.arena.release(slab_id)
                 sc.stats.add(rows=len(meta), batches=1)
                 if not nfa_ran:
                     sc.stats.add(rows_nfa_skipped=len(meta), batches_nfa_skipped=1)
-                self._resolve(hits, meta, pre, nfa_ran)
+                self._resolve(hits, meta, pre, nfa_ran, lic)
         except BaseException as e:
             self._fail(e)
+
+    def _want_lic(self, meta) -> bool:
+        """Whether a batch carries a file the license gate wants: batches
+        that do not skip the gate, so secret-only traffic pays nothing."""
+        lp = self.lic_paths
+        return self.lic_gate is not None and any(
+            fidx in lp for _, segs, _ in meta for fidx, _, _ in segs)
 
     def _get_work(self):
         while not self._aborted():
@@ -656,7 +754,13 @@ class _ScanRun:
         B = sc.batch_size
         use_pf = sc._prefilter is not None
         dedup = sc._dedup
-        fp_key = sc.ruleset_fingerprint
+        lic_gate = self.lic_gate
+        # fused scans key rows in their own digest namespace: their verdicts
+        # carry the license gate's, which plain scans never set
+        fp_key = sc.ruleset_fingerprint + (b":lic" if lic_gate is not None else b"")
+        # the widest gram or anchor window the gate surely sees inside some
+        # row; the gate's host patch checks wider ones
+        lic_span_bound = sc.overlap - 2
         store = sc._hit_store
         persist_on = dedup and store.backend is not None
         # compressed feed on -> the zero gate is on (all-zero rows resolve
@@ -680,6 +784,19 @@ class _ScanRun:
 
         class _FeedAbort(Exception):
             pass
+
+        def lic_register(fidx: int, path: str, data: bytes) -> None:
+            """A file entering the device feed: coverage and the host
+            wide-window patch, and the index its rows' verdicts flag by."""
+            if lic_gate is not None and lic_gate.wants(path):
+                self.lic_paths[fidx] = path
+                lic_gate.feed_file(path, data, lic_span_bound)
+
+        def lic_skip(path: str) -> None:
+            """This file's bytes will not ride the device pass: the license
+            analyzers must classify it themselves."""
+            if lic_gate is not None and lic_gate.wants(path):
+                lic_gate.skip(path)
 
         def new_state(path: str, data: bytes, pending: int) -> _FileState:
             return _FileState(
@@ -902,6 +1019,7 @@ class _ScanRun:
             starts = chunk_spans(len(data), chunk_len, sc.overlap)
             with self.lock:
                 self.states[fidx] = new_state(path, data, len(starts))
+            lic_register(fidx, path, data)
             arr = np.frombuffer(data, dtype=np.uint8)
             n = arr.size
             stats.add(bytes_in=len(data), chunks=len(starts))
@@ -954,15 +1072,20 @@ class _ScanRun:
                 if sc.exact.allow_path(path):
                     # path-level global allowlist: skip the whole file
                     # (ref: scanner.go:388-392) — no device work
+                    lic_skip(path)
                     self._set_result(fidx, Secret(file_path=path))
                 elif not data:
                     # empty file: nothing for the device to match; host-lane
-                    # rules still run in the confirm
+                    # rules still run in the confirm, and the license gate
+                    # misses nothing in zero bytes
+                    if lic_gate is not None and lic_gate.wants(path):
+                        lic_gate.cover(path)
                     self._submit_confirm(fidx, new_state(path, data, 0))
                 elif len(data) <= pack_max:
                     stats.add(bytes_in=len(data))
                     with self.lock:
                         self.states[fidx] = new_state(path, data, 1)
+                    lic_register(fidx, path, data)
                     add_small(fidx, data)
                 else:
                     feed_big(fidx, path, data)

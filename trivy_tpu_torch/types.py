@@ -1,10 +1,11 @@
-"""Report types of the secret scan.
+"""Report types of the secret and license scans.
 
-The subset of ``trivy_tpu.types`` that a secret scan produces: findings, the
-per-file ``Secret``, the per-target ``Result`` and the top-level ``Report``.
-Their ``to_dict`` forms use the same JSON field names and order as the JAX
-package (and the reference's JSON schema), so the two packages' reports
-compare byte for byte.
+The subset of ``trivy_tpu.types`` that those scans produce: secret findings
+and the per-file ``Secret``; license findings, the per-file ``LicenseFile``
+and the report's ``DetectedLicense``; the per-target ``Result`` and the
+top-level ``Report``. Their ``to_dict`` forms use the same JSON field names
+and order as the JAX package (and the reference's JSON schema), so the two
+packages' reports compare byte for byte.
 """
 
 from __future__ import annotations
@@ -15,6 +16,18 @@ from dataclasses import dataclass, field
 from typing import Any
 
 SCHEMA_VERSION = 2  # report schema version (ref: pkg/fanal/types/const.go)
+
+
+class ResultClass(str, enum.Enum):
+    """Result classes in a report (ref: pkg/types/report.go)."""
+
+    OS_PKGS = "os-pkgs"
+    LANG_PKGS = "lang-pkgs"
+    CONFIG = "config"
+    SECRET = "secret"
+    LICENSE = "license"
+    LICENSE_FILE = "license-file"
+    CUSTOM = "custom"
 
 
 class Severity(str, enum.Enum):
@@ -105,18 +118,88 @@ class Secret:
 
 
 @dataclass
+class LicenseFinding:
+    """One license the classifier found in a file (ref: types.LicenseFinding)."""
+
+    name: str
+    confidence: float = 1.0
+    link: str = ""
+    category: str = ""
+    severity: str = "UNKNOWN"
+
+    def to_dict(self) -> dict[str, Any]:
+        return {
+            "Name": self.name,
+            "Confidence": self.confidence,
+            "Link": self.link,
+            "Category": self.category,
+            "Severity": self.severity,
+        }
+
+
+@dataclass
+class LicenseFile:
+    """Licenses classified from one file (ref: types.LicenseFile)."""
+
+    type: str  # "header" | "license-file"
+    file_path: str = ""
+    pkg_name: str = ""
+    findings: list[LicenseFinding] = field(default_factory=list)
+    layer: str = ""
+
+    def to_dict(self) -> dict[str, Any]:
+        return {
+            "Type": self.type,
+            "FilePath": self.file_path,
+            "PkgName": self.pkg_name,
+            "Findings": [f.to_dict() for f in self.findings],
+            "Layer": self.layer,
+        }
+
+
+@dataclass
+class DetectedLicense:
+    """One license in a report's license section (ref: types.DetectedLicense)."""
+
+    severity: str = "UNKNOWN"
+    category: str = ""
+    pkg_name: str = ""
+    file_path: str = ""
+    name: str = ""
+    text: str = ""
+    confidence: float = 1.0
+    link: str = ""
+
+    def to_dict(self) -> dict[str, Any]:
+        return {
+            "Severity": self.severity,
+            "Category": self.category,
+            "PkgName": self.pkg_name,
+            "FilePath": self.file_path,
+            "Name": self.name,
+            "Text": self.text,
+            "Confidence": self.confidence,
+            "Link": self.link,
+        }
+
+
+@dataclass
 class Result:
-    """One report section: the secret findings of one target file."""
+    """One report section: the secret findings of one target file, or a
+    license section."""
 
     target: str
-    cls: str = "secret"
+    cls: str = ResultClass.SECRET.value
     type: str = ""
     secrets: list[SecretFinding] = field(default_factory=list)
+    licenses: list[DetectedLicense] = field(default_factory=list)
 
     def to_dict(self) -> dict[str, Any]:
         d: dict[str, Any] = {"Target": self.target, "Class": self.cls, "Type": self.type}
         if self.secrets:
             d["Secrets"] = [s.to_dict() for s in self.secrets]
+        if self.licenses:
+            d["Licenses"] = [l.to_dict() for l in self.licenses]
         return d
 
 
