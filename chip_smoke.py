@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's secret and license scans on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's secret, license and SBOM vulnerability scans
+on one NVIDIA card.
 
     python3 chip_smoke.py [--e2e-mib 256] [--license-mib 128] [--seed 0]
 
 Phases, each printing JSON lines:
 
-1. build: compile the five kernel sources ``trivy_tpu_torch/ops/csrc/
-   {match,decompress,gram_gate,bytes_gate,bytes_score}.cu`` with nvcc for
+1. build: compile the six kernel sources ``trivy_tpu_torch/ops/csrc/
+   {match,decompress,gram_gate,bytes_gate,bytes_score,verscmp}.cu`` with nvcc for
    sm_90a, all at once, with ptxas's report of each kernel's registers,
    shared memory and spills; the card's name and power limit from
    nvidia-smi.
@@ -33,7 +34,11 @@ Phases, each printing JSON lines:
    classifier gathers flagged rows, on license texts and a row whose
    repeated grams exceed the cap while its distinct grams fit (``n_uniq``
    and ``phrase`` with ``torch.equal``, ``full_w`` within rtol 1e-5, its
-   ``max_abs_err`` printed).
+   ``max_abs_err`` printed). Then the version-constraint kernel against its
+   plain version (``torch.equal``) at widths 1, 8, 24, 40 and 72, on rows
+   that are equal, differ only in the last column or anywhere, with every
+   operator, through the gather entry and the null-index entries
+   (``lexcmp``, ``check_ops``).
 3. timing: each matcher use over about 1 GiB of resident rows of each of
    four inputs (seeded source text; the checkout's own ``trivy_tpu/``
    Python files, real code whose words include many rule keywords; uniform
@@ -86,7 +91,21 @@ Phases, each printing JSON lines:
 7. license-repo: the same scans, fused, unfused and secret-only, twice
    each, on the checkout's own code (``trivy_tpu/``, ``trivy_tpu_torch/``
    and ``tests/``): the gate's selection on real code.
-8. kernels: every ported kernel with its launches on the main path, its
+8. cve: this slice's main path. A seeded flattened advisory DB shaped
+   like ``bench.py::bench_cve``'s (106,000 advisories over ten real
+   trivy-db ``<eco>::<source>`` buckets, details for a quarter of the IDs)
+   with a ``debian 12`` bucket and 200 planted advisories; a CycloneDX SBOM
+   of 100,000 npm, golang and cargo components, 2,000 pypi components (the
+   host comparator), 500 debian packages with an operating-system component,
+   and each planted package at a version inside its vulnerable range and at
+   its patched version. ``cli.scan_sbom`` on the card twice with one loaded
+   DB, the launch counters set to 0 just before each scan and read just
+   after, then with ``device="cpu"``: equal ``Results``, every plant
+   reported, no patched plant reported, one ``verscmp`` launch per card scan
+   and no bound bytes uploaded by the second. The kernel is then held
+   against its plain version on the inputs captured from the first scan's
+   dispatch, and timed at that shape.
+9. kernels: every ported kernel with its launches on the main path, its
    agreement with the plain version (bitwise, or within ``SCORE_RTOL`` for
    the scorer's ``full_w``) and its times.
 
@@ -112,6 +131,8 @@ import numpy as np
 import torch
 
 from trivy_tpu_torch import cli
+from trivy_tpu_torch.db import VulnDB
+from trivy_tpu_torch.detector import library
 from trivy_tpu_torch.device import card_info
 from trivy_tpu_torch.licensing.classify import LicenseClassifier
 from trivy_tpu_torch.licensing.corpus_texts import FULL_TEXTS
@@ -126,7 +147,10 @@ from trivy_tpu_torch.ops.match import match_plain
 from trivy_tpu_torch.ops.match_cuda import (
     LAUNCHES, SCREEN_BYTES, build_match_fn_cuda, literals, pack_tables,
 )
+from trivy_tpu_torch.ops import verscmp
 from trivy_tpu_torch.ops.prefilter import build_prefilter_fn
+from trivy_tpu_torch.ops.verscmp import check_ops_gather_plain, check_ops_plain, lexcmp_plain
+from trivy_tpu_torch.ops.verscmp_cuda import check_ops, check_ops_gather, lexcmp
 from trivy_tpu_torch.secret.compress import MODE_PACK7, MODE_RAW, MODE_TOKEN, SlabCodec
 from trivy_tpu_torch.secret.device_compile import compile_rules
 from trivy_tpu_torch.secret.engine import ScannerConfig, SecretScanner
@@ -154,8 +178,10 @@ LICENSE_KERNELS = {
     "bytes_score": ("trivy_tpu_torch/ops/csrc/bytes_score.cu",
                     "trivy_tpu/ops/ngram_score.py:754"),
 }
+VERSCMP_SOURCE = "trivy_tpu_torch/ops/csrc/verscmp.cu"
+VERSCMP_REPLACES = "trivy_tpu/ops/verscmp.py:37"
 # csrc/<name>.cu, built at once
-LIBRARIES = ("match", "decompress", *LICENSE_KERNELS)
+LIBRARIES = ("match", "decompress", *LICENSE_KERNELS, "verscmp")
 SCORE_RTOL = 1e-5  # the scorer's full_w against its plain version (float32 sums)
 SHORT_BATCH = 8  # live rows of the short check batch
 
@@ -1057,6 +1083,250 @@ def phase_license_repo(root: Path) -> dict:
     check(result["results_equal"], "license-repo: fused Results differ from --no-shared-arena")
     return result
 
+VERSCMP_WIDTHS = (1, 8, 24, 40, 72)
+
+
+def version_rows(rng, n: int, L: int) -> tuple[np.ndarray, np.ndarray]:
+    """``n`` pairs of [L] int32 rows of small values (so that prefixes
+    repeat): a sixth equal, a sixth differing only in the last column (in
+    both directions), the rest differing anywhere."""
+    a = rng.integers(0, 4, (n, L), dtype=np.int32)
+    b = a.copy()
+    k = n // 6
+    b[2 * k :] = rng.integers(0, 4, (n - 2 * k, L), dtype=np.int32)
+    b[k : 2 * k, -1] = (a[k : 2 * k, -1] + rng.integers(1, 4, k)) % 4
+    return a, b
+
+
+def phase_check_verscmp(rng) -> dict:
+    """The version-constraint kernel against its plain version on the card,
+    at each of ``VERSCMP_WIDTHS``: the gather entry (every operator, indices
+    into both matrices) and the null-index entries, ``lexcmp`` (signs) and
+    ``check_ops``."""
+    equal, err, cases = True, 0, []
+    for L in VERSCMP_WIDTHS:
+        a_np, b_np = version_rows(rng, 3000, L)
+        a, b = torch.from_numpy(a_np).cuda(), torch.from_numpy(b_np).cuda()
+        R = 20000
+        a_idx = torch.from_numpy(rng.integers(0, len(a_np), R, dtype=np.int32)).cuda()
+        b_idx = torch.where(torch.from_numpy(rng.random(R) < 0.5).cuda(), a_idx,
+                            torch.from_numpy(rng.integers(0, len(b_np), R, dtype=np.int32))
+                            .cuda())
+        ops = torch.arange(R, dtype=torch.int32, device="cuda") % 6
+        pairs = [
+            ("gather", check_ops_gather(a, b, a_idx, b_idx, ops),
+             check_ops_gather_plain(a, b, a_idx, b_idx, ops)),
+            ("lexcmp", lexcmp(a, b), lexcmp_plain(a, b)),
+            ("check_ops", check_ops(a, b, ops[: len(a_np)]),
+             check_ops_plain(a, b, ops[: len(a_np)])),
+        ]
+        torch.cuda.synchronize()
+        for entry, got, want in pairs:
+            same = torch.equal(got, want)
+            e = int((got.int() - want.int()).abs().max())
+            equal &= same
+            err = max(err, e)
+            cases.append({"L": L, "entry": entry, "rows": int(got.shape[0]), "equal": same,
+                          "max_abs_err": e, "nonzero": int((want != 0).sum())})
+    log({"phase": "check", "use": "verscmp", "equal": equal, "max_abs_err": err,
+         "cases": cases})
+    check(equal, "verscmp kernel disagrees with its plain version")
+    return {"equal": equal, "max_abs_err": err}
+
+
+# bench.py::bench_cve's DB: real trivy-db source buckets, advisories each
+CVE_BUCKETS = (
+    ("npm::GitHub Security Advisory Npm", 30_000),
+    ("npm::Node.js Ecosystem Security Working Group", 10_000),
+    ("pip::GitHub Security Advisory Pip", 20_000),
+    ("pip::OSV/PyPA Advisory Database", 8_000),
+    ("go::GitHub Security Advisory Go", 15_000),
+    ("go::GitLab Advisory Database Community", 7_000),
+    ("composer::GitHub Security Advisory Composer", 6_000),
+    ("composer::php-security-advisories", 2_000),
+    ("rubygems::ruby-advisory-db", 4_000),
+    ("cargo::GitHub Security Advisory Rust", 4_000),
+)
+# the SBOM's applications: (purl type, bucket prefix, components, distinct names)
+CVE_APPS = (("npm", "npm", 50_000, 15_000), ("golang", "go", 30_000, 7_500),
+            ("cargo", "cargo", 20_000, 2_000), ("pypi", "pip", 2_000, 2_000))
+CVE_PLANTS = 200
+DEB_PACKAGES = 500
+
+
+def plants() -> list[tuple]:
+    """(purl type, bucket, name, vulnerability ID, vulnerable version, patched
+    version) of each planted package: its one advisory is ``>=lo, <hi``,
+    patched at ``hi``; every third vulnerable version is a prerelease of
+    ``hi``."""
+    out = []
+    for k in range(CVE_PLANTS):
+        ptype, prefix = (("npm", "npm"), ("golang", "go"), ("cargo", "cargo"))[k % 3]
+        hi = f"{2 + k % 5}.{k % 7}.0"
+        vuln = f"{hi}-rc.{k % 4}" if k % 3 == 0 else f"{1 + k % 5}.{k % 7}.{3 + k % 4}"
+        out.append((ptype, f"{prefix}::GitHub Security Advisory Plants",
+                    f"plant-{prefix}-{k:03d}", f"CVE-2099-{k:05d}", vuln, hi))
+    return out
+
+
+def write_cve_db(root: Path) -> int:
+    """The flattened advisory DB (``advisories.json``, ``vulnerability.json``
+    with details for every fourth ID, ``metadata.json``); returns the count
+    of advisories."""
+    suffixes = ["", "", "", "-beta.1", "-rc2", ""]
+    buckets: dict = {}
+    n_adv = 0
+    for bname, count in CVE_BUCKETS:
+        eco = bname.split("::", 1)[0]
+        rows: dict = {}
+        for i in range(count):
+            lo = f"{i % 9}.{i % 10}.0{suffixes[i % len(suffixes)]}"
+            hi = f"{i % 9 + 1}.{i % 10}.0"
+            rows.setdefault(f"{eco}-pkg-{i % (count // 2):05d}", []).append(
+                {"VulnerabilityID": f"CVE-2024-{n_adv:06d}",
+                 "VulnerableVersions": [f">={lo}, <{hi}"], "PatchedVersions": [hi]})
+            n_adv += 1
+        buckets[bname] = rows
+    for _ptype, bucket, name, vid, _vuln, hi in plants():
+        buckets.setdefault(bucket, {})[name] = [
+            {"VulnerabilityID": vid, "VulnerableVersions": [f">=1.0.0, <{hi}"],
+             "PatchedVersions": [hi], "Severity": "CRITICAL"}]
+        n_adv += 1
+    deb = buckets.setdefault("debian 12", {})
+    for k in range(0, DEB_PACKAGES, 2):
+        deb[f"deb-lib-{k:03d}"] = [{"VulnerabilityID": f"CVE-2023-{k:05d}",
+                                    "FixedVersion": f"1.{k % 7}.{k % 13}-2"}]
+        if k % 10 == 0:
+            deb[f"deb-lib-{k:03d}"].append({"VulnerabilityID": f"CVE-2022-{k:05d}",
+                                            "Status": "affected"})
+        n_adv += len(deb[f"deb-lib-{k:03d}"])
+    details = {f"CVE-2024-{i:06d}": {
+        "Title": f"synthetic advisory {i}", "Description": "seeded", "CweIDs": ["CWE-400"],
+        "References": [f"https://example.com/{i}"],
+        **({"Severity": "HIGH"} if i % 8 else {"VendorSeverity": {"ghsa": 2, "nvd": 3}})}
+        for i in range(0, n_adv, 4)}
+    root.mkdir(parents=True)
+    (root / "metadata.json").write_text(json.dumps({"Version": 2}))
+    (root / "advisories.json").write_text(json.dumps(buckets))
+    (root / "vulnerability.json").write_text(json.dumps(details))
+    return n_adv
+
+
+def write_cve_sbom(path: Path, seed: int) -> int:
+    """The CycloneDX SBOM; returns its component count."""
+    rng = np.random.default_rng(seed)
+    comps = []
+    for ptype, prefix, n, names in CVE_APPS:
+        ver = rng.integers(0, 10, (n, 3))
+        ver[:, 0] += ver[:, 0] == 0  # majors 1-9, as bench_cve's
+        for i in range(n):
+            v = f"{ver[i, 0]}.{ver[i, 1]}.{ver[i, 2]}"
+            comps.append({"type": "library", "name": f"{prefix}-pkg-{i % names:05d}",
+                          "version": v, "purl": f"pkg:{ptype}/{prefix}-pkg-{i % names:05d}@{v}"})
+    for ptype, _bucket, name, _vid, vuln, hi in plants():
+        for v in (vuln, hi):
+            comps.append({"type": "library", "name": name, "version": v,
+                          "purl": f"pkg:{ptype}/{name}@{v}"})
+    for k in range(DEB_PACKAGES):
+        v = f"1.{(k * 5) % 7}.{k % 13}-{k % 4}"
+        comps.append({"type": "library", "name": f"deb-lib-{k:03d}", "version": v,
+                      "purl": f"pkg:deb/debian/deb-lib-{k:03d}@{v}?arch=amd64&distro=debian-12"})
+    comps.append({"type": "operating-system", "name": "debian", "version": "12"})
+    path.write_text(json.dumps({"bomFormat": "CycloneDX", "specVersion": "1.5",
+                                "components": comps}))
+    return len(comps)
+
+
+def phase_cve(root: Path, seed: int, card: str) -> dict:
+    """``cli.scan_sbom`` over the cve SBOM: twice on the card with one loaded
+    DB (launch counters to 0 just before each scan, read just after), once
+    with ``device="cpu"``; then the kernel against its plain version on the
+    first scan's captured dispatch, and its time at that shape."""
+    t0 = time.perf_counter()
+    n_adv = write_cve_db(root / "db")
+    bom = root / "bom.json"
+    n_comp = write_cve_sbom(bom, seed)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    db = VulnDB.load(str(root / "db"))
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rj = library._resident_join(db)
+    join_build_s = time.perf_counter() - t0
+    captured = []
+    original = verscmp.check_ops_gather_bucketed
+
+    def capture(inst, bounds_dev, a_idx, b_idx, ops):
+        captured.append((inst.copy(), bounds_dev, a_idx.copy(), b_idx.copy(), ops.copy()))
+        return original(inst, bounds_dev, a_idx, b_idx, ops)
+
+    verscmp.check_ops_gather_bucketed = capture
+    scans = []
+    try:
+        for device in ("cuda", "cuda", "cpu"):
+            LAUNCHES.clear()
+            report, stats = cli.scan_sbom(str(bom), db=db, device=device)
+            launches = dict(LAUNCHES)
+            scans.append((device, report.to_dict(), stats, launches))
+    finally:
+        verscmp.check_ops_gather_bucketed = original
+    results = [r["Results"] for _d, r, _s, _l in scans]
+    found = {(v["PkgName"], v["VulnerabilityID"], v["InstalledVersion"])
+             for r in results[0] for v in r.get("Vulnerabilities", [])}
+    missed = [p for p in plants() if (p[2], p[3], p[4]) not in found]
+    patched = [p for p in plants() if any(k[0] == p[2] and k[2] == p[5] for k in found)]
+    per_scan = [{
+        "device": d, "seconds": st["seconds"], "components_per_s": n_comp / st["seconds"],
+        "decode_s": st["decode.seconds"], "detect_s": st["detect.seconds"],
+        "join_s": st["cve.join.seconds"], "dispatch_s": st["cve.dispatch.seconds"],
+        "candidate_pairs": st["cve.candidate_pairs"], "rows": st["cve.resident_rows"],
+        "dispatches": st["cve.dispatch_count"],
+        "rows_per_dispatch": st["cve.resident_rows"] / max(1, st["cve.dispatch_count"]),
+        "bounds_bytes_uploaded": st["cve.bounds_bytes_uploaded"], "launches": lc,
+    } for d, _r, st, lc in scans]
+    result = {
+        "phase": "cve", "advisories": n_adv, "components": n_comp, "setup_s": setup_s,
+        "db_load_s": load_s, "join_build_s": join_build_s, "scans": per_scan,
+        "resident_bound_bytes": int(rj.bounds.nbytes), "bound_matrix": list(rj.bounds.shape),
+        "results": len(results[0]), "findings": sum(len(r.get("Vulnerabilities", []))
+                                                    for r in results[0]),
+        "results_equal": results[0] == results[1] == results[2],
+        "planted": len(plants()), "missed": missed[:5], "patched_reported": patched[:5],
+        "card": card,
+    }
+    log(result)
+    check(result["results_equal"], "cve: Results differ between the card scans and the CPU")
+    check(not missed, f"cve: {len(missed)} planted vulnerable components not reported")
+    check(not patched, f"cve: {len(patched)} components at their patched version reported")
+    check([lc.get("verscmp", 0) for _d, _r, _s, lc in scans] == [1, 1, 0],
+          f"cve: verscmp launches per scan {[lc for *_, lc in scans]}")
+    check(per_scan[1]["bounds_bytes_uploaded"] == 0, "cve: the second scan uploaded bounds")
+    check(len(captured) == 3, f"cve: {len(captured)} dispatches captured, want 3")
+    # the kernel against its plain version on the first scan's dispatch, and its time there
+    inst_np, bounds_dev, a_np, b_np, ops_np = captured[0]
+    inst = torch.from_numpy(inst_np).cuda()
+    a_idx, b_idx, ops = (torch.from_numpy(x).cuda() for x in (a_np, b_np, ops_np))
+    got = check_ops_gather(inst, bounds_dev, a_idx, b_idx, ops)
+    want = check_ops_gather_plain(inst, bounds_dev, a_idx, b_idx, ops)
+    torch.cuda.synchronize()
+    equal = torch.equal(got, want)
+    check(equal, "verscmp kernel disagrees with its plain version on the cve dispatch")
+    R, L = len(ops_np), inst_np.shape[1]
+    args = (inst, bounds_dev, a_idx, b_idx, ops)
+    ms, rounds, host_us = time_cuda(lambda x: check_ops_gather(*x), [args], reps=20)
+    plain_ms = time_cuda(lambda x: check_ops_gather_plain(*x), [args], reps=2)[0]
+    # each index, op and verdict once; each distinct inst and bound row gathered once
+    nbytes = R * (3 * 4 + 1) + 4 * L * (len(np.unique(a_np)) + len(np.unique(b_np)))
+    timing = {"shape": [R, L], "inst_rows": int(inst_np.shape[0]),
+              "bound_rows": int(bounds_dev.shape[0]), "distinct_bound_rows":
+              int(len(np.unique(b_np))), "ms": ms, "ms_rounds": rounds, "host_us_per_call":
+              host_us, "plain_ms": plain_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+              "bound_by": "bytes", "equal": equal, "vulnerable_rows": int(want.sum()),
+              "card": card}
+    log({"phase": "timing", "use": "verscmp", **timing})
+    result["timing"] = timing
+    return result
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1091,6 +1361,7 @@ def main() -> int:
     verdict = phase_check([(compiled, sorted(SAMPLES.values()), BATCH), *custom], base_np, rng)
     verdict["decompress"] = phase_check_decompress(base_np, rng)
     verdict.update(phase_check_license(base, base_np, args.seed))
+    verdict["verscmp"] = phase_check_verscmp(rng)
     timing = phase_timing(compiled, base_np, rng, card)
     dec_timing = phase_timing_decompress(base_np, rng, card)
     lic_timing = phase_timing_license(base, base_np, args.seed, card)
@@ -1103,6 +1374,8 @@ def main() -> int:
         lic = phase_license(tmp / "license", args.license_mib, args.seed, base)
         shutil.rmtree(tmp / "license", ignore_errors=True)
         phase_license_repo(tmp / "repo")
+        shutil.rmtree(tmp / "repo", ignore_errors=True)
+        cve = phase_cve(tmp / "cve", args.seed, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1148,6 +1421,15 @@ def main() -> int:
                 entry[f"ms_{w}"] = lic_timing[f"{name}_{w}"]["ms"]
                 entry[f"bound_ms_{w}"] = lic_timing[f"{name}_{w}"]["bound_ms"]
         kernels.append(entry)
+    t = cve["timing"]
+    kernels.append({
+        "name": "verscmp_kernel", "route": "cuda", "source": VERSCMP_SOURCE,
+        "replaces": VERSCMP_REPLACES, "launches": cve["scans"][0]["launches"].get("verscmp", 0),
+        "max_abs_err": verdict["verscmp"]["max_abs_err"],
+        "equal": verdict["verscmp"]["equal"] and t["equal"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None, "shape": t["shape"],
+    })
     log({"kernels": kernels})
     print(card, flush=True)
     name = torch.cuda.get_device_name(0)

@@ -1,7 +1,8 @@
 """The CUDA kernels on the card: the matcher held against ``match_plain``,
 the decompressor against ``decompress_plain``, the license gram gate,
-shingle gate and scorer against their plain versions, a compressed scan, a
-fused secret+license scan and the classifier on the card.
+shingle gate and scorer against their plain versions, the version-constraint
+check against its plain versions, a compressed scan, a fused secret+license
+scan, the classifier and an SBOM scan on the card.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither ``jax`` nor ``trivy_tpu``, so on a machine with a card and
@@ -10,6 +11,7 @@ no JAX it runs without the suite's conftest:
     python -m pytest --noconftest -q tests/test_torch_card.py
 """
 
+import json
 import runpy
 from pathlib import Path
 
@@ -17,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+from trivy_tpu_torch import cli
+from trivy_tpu_torch.db import VulnDB
 from trivy_tpu_torch.licensing.classify import LicenseClassifier
 from trivy_tpu_torch.licensing.corpus_texts import FULL_TEXTS
 from trivy_tpu_torch.licensing.fused import FusedLicenseGate, get_gate_fn
@@ -27,6 +31,8 @@ from trivy_tpu_torch.ops.gram_gate import LANE_ANCHOR, LANE_GRAM, LANE_NONASCII
 from trivy_tpu_torch.ops.match import MatchTables, match_plain, match_tables
 from trivy_tpu_torch.ops.match_cuda import CudaMatcher
 from trivy_tpu_torch.ops.prefilter import _keyword_only
+from trivy_tpu_torch.ops.verscmp import check_ops_gather_plain, check_ops_plain, lexcmp_plain
+from trivy_tpu_torch.ops.verscmp_cuda import check_ops, check_ops_gather, lexcmp
 from trivy_tpu_torch.secret.compress import MODE_PACK7, MODE_RAW, MODE_TOKEN, SlabCodec
 from trivy_tpu_torch.secret.device_compile import compile_rules
 from trivy_tpu_torch.secret.engine import ScannerConfig, SecretScanner
@@ -36,6 +42,7 @@ from trivy_tpu_torch.secret.scanner import TorchSecretScanner
 # named ``tests`` installed on the machine would shadow this directory
 HERE = Path(__file__).resolve().parent
 SAMPLES = runpy.run_path(str(HERE / "secret_samples.py"))["SAMPLES"]
+BUILD_DB = runpy.run_path(str(HERE / "dbtest.py"))["build_db"]
 CUSTOM = runpy.run_path(str(HERE / "test_torch_rulesets.py"))
 # samples of the built-in rules and of the custom rulesets that widen the
 # tables (edges) and go below the screen's width (short)
@@ -305,3 +312,68 @@ def test_fused_scan_on_card_equals_cpu(card):
             assert match_cuda.LAUNCHES["gram_gate"] > before
     assert verdicts[0] == verdicts[1]
     assert any(verdicts[0][1]) and not all(verdicts[0][1])
+
+
+def version_pairs(L: int, n: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Seeded [n, L] int32 row pairs on the card: a third equal, a third
+    differing only in the last column, a third anywhere."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 3, (n, L), dtype=np.int32)
+    b = a.copy()
+    k = n // 3
+    b[k : 2 * k, -1] = (a[k : 2 * k, -1] + 1 + (np.arange(k) % 2)) % 3
+    b[2 * k :] = rng.integers(0, 3, (n - 2 * k, L), dtype=np.int32)
+    return torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 8, 24, 40, 72])
+def test_verscmp_kernel_equals_plain_on_card(card, L):
+    a, b = version_pairs(L, 999, L)
+    rng = np.random.default_rng(L + 1)
+    R = 5000
+    a_idx = torch.from_numpy(rng.integers(0, 999, R, dtype=np.int32)).cuda()
+    b_idx = torch.from_numpy(rng.integers(0, 999, R, dtype=np.int32)).cuda()
+    ops = torch.arange(R, dtype=torch.int32, device=card) % 6
+    assert torch.equal(check_ops_gather(a, b, a_idx, b_idx, ops),
+                       check_ops_gather_plain(a, b, a_idx, b_idx, ops))
+    assert torch.equal(check_ops_gather(a, b, a_idx, a_idx, ops),
+                       check_ops_gather_plain(a, b, a_idx, a_idx, ops))
+    # the null-index entries
+    assert torch.equal(lexcmp(a, b), lexcmp_plain(a, b))
+    assert torch.equal(check_ops(a, b, ops[:999]), check_ops_plain(a, b, ops[:999]))
+    assert set(lexcmp(a, b).tolist()) == {-1, 0, 1}
+
+
+@pytest.mark.cuda
+def test_verscmp_launches_counted_once_per_launch(card):
+    a, b = version_pairs(8, 30, 0)
+    idx = torch.arange(30, dtype=torch.int32, device=card)
+    before = match_cuda.LAUNCHES["verscmp"]
+    check_ops_gather(a, b, idx, idx, idx % 6)
+    check_ops(a, b, idx % 6)
+    lexcmp(a, b)
+    lexcmp(a[:0], b[:0])  # no rows: nothing launched
+    torch.cuda.synchronize()
+    assert match_cuda.LAUNCHES["verscmp"] == before + 3
+
+
+@pytest.mark.cuda
+def test_sbom_scan_on_card_equals_cpu(card, tmp_path):
+    rng = np.random.default_rng(3)
+    comps = [{"type": "library", "name": name, "version": v, "purl": f"pkg:npm/{name}@{v}"}
+             for name, v in ((["lodash", "minimist", "other"][i % 3],
+                              f"{rng.integers(0, 5)}.{rng.integers(0, 21)}.{rng.integers(0, 26)}")
+                             for i in range(1000))]
+    comps.append({"type": "library", "name": "musl", "version": "1.2.3-r0",
+                  "purl": "pkg:apk/alpine/musl@1.2.3-r0?distro=alpine-3.18"})
+    comps.append({"type": "operating-system", "name": "alpine", "version": "3.18"})
+    bom = tmp_path / "bom.json"
+    bom.write_text(json.dumps({"bomFormat": "CycloneDX", "components": comps}))
+    db = VulnDB.load(BUILD_DB(tmp_path))
+    before = match_cuda.LAUNCHES["verscmp"]
+    on_card, stats = cli.scan_sbom(str(bom), db=db, device=card)
+    assert match_cuda.LAUNCHES["verscmp"] == before + 1 and stats["cve.dispatch_count"] == 1
+    on_cpu, _ = cli.scan_sbom(str(bom), db=VulnDB.load(BUILD_DB(tmp_path / "b")), device="cpu")
+    assert on_card.to_dict()["Results"] == on_cpu.to_dict()["Results"]
+    assert sum(len(r.vulnerabilities) for r in on_card.results) > 100

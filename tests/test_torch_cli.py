@@ -5,6 +5,7 @@ the CPU was asked for."""
 
 import ast
 import json
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -15,6 +16,7 @@ from tests.secret_samples import SAMPLES
 from tests.test_torch_match import few_torch_threads  # noqa: F401
 from trivy_tpu import cli as jax_cli
 from trivy_tpu_torch import cli
+from trivy_tpu_torch.detector.library import _upload
 from trivy_tpu_torch.device import resolve
 from trivy_tpu_torch.fanal.license import LicenseAnalyzer
 from trivy_tpu_torch.licensing.classify import LicenseClassifier
@@ -26,6 +28,8 @@ from trivy_tpu_torch.ops.gram_gate import build_gram_gate_fn
 from trivy_tpu_torch.ops.ngram_score import get_bytes_scorer
 from trivy_tpu_torch.ops.match_cuda import build_match_fn_cuda
 from trivy_tpu_torch.ops.prefilter import build_prefilter_fn
+from trivy_tpu_torch.ops.verscmp import batch_compare
+from trivy_tpu_torch.ops.verscmp_cuda import check_ops_gather
 from trivy_tpu_torch.secret.device_compile import compile_rules
 from trivy_tpu_torch.secret.rules import builtin_rules
 from trivy_tpu_torch.secret.scanner import TorchSecretScanner
@@ -233,6 +237,20 @@ def test_entry_points_raise_without_cuda(tree, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         CudaBytesScorer(lut, np.zeros(1, np.uint32), np.zeros((1, 2), np.float32), 1, 1, 1, 5,
                         "cuda")
+    bom = tree / "bom.json"
+    bom.write_text(json.dumps({"bomFormat": "CycloneDX", "components": []}))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["sbom", "-q", "--db-repository", str(tree), str(bom)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.scan_sbom(str(bom), db=object())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batch_compare("npm", [("1.0.0", "1.0.1")], device="cuda")
+    one = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _upload(one.numpy(), "cuda", Counter())
+    with pytest.raises(ValueError, match="device"):
+        check_ops_gather(one.to("meta"), one.to("meta"), *[torch.zeros(1, dtype=torch.int32,
+                                                                       device="meta")] * 3)
     with pytest.raises(ValueError):
         resolve("mps")
     assert resolve("cpu").type == "cpu"

@@ -1,4 +1,5 @@
-"""Command line of the port: the ``fs`` secret and license scans.
+"""Command line of the port: the ``fs`` secret and license scans and the
+``sbom`` vulnerability scan.
 
     python -m trivy_tpu_torch fs [--scanners secret|license|secret,license]
         [--license-full] [--no-shared-arena] [--secret-config F]
@@ -7,6 +8,8 @@
         [--secret-hit-cache [--cache-dir D] [--cache-backend fs|memory]]
         [--secret-compress auto|on|off | --no-secret-compress]
         [--secret-compress-min-ratio R] <dir>
+    python -m trivy_tpu_torch sbom [--db-repository DIR] [--cache-dir D]
+        [--format json|table] [-o OUT] [--stats-out F] [--device cuda|cpu] <bom>
 
 Runs on the card unless ``--device cpu`` is given, and fails when CUDA is
 asked for and missing. Its JSON ``Results`` equal those of
@@ -16,6 +19,11 @@ carry the meanings and defaults of the JAX package's flags of the same
 names: with both scanners, the secret feed's rows also run the license gram
 gate (the fused pass) unless ``--no-shared-arena`` is given, and
 ``--license-full`` adds source-file headers to the license files.
+
+``sbom`` matches a CycloneDX (plain or in an in-toto attestation) or SPDX
+(JSON or tag-value) document against the advisory DB of ``--db-repository``
+or else ``<cache-dir>/db``; its JSON ``Results`` and ``Metadata`` equal
+those of ``python -m trivy_tpu.cli sbom --format json`` with the same DB.
 """
 
 from __future__ import annotations
@@ -26,22 +34,31 @@ import json
 import os
 import sys
 import time
+from collections import Counter
 
 from trivy_tpu_torch import log
 from trivy_tpu_torch.cache import BACKENDS, new_cache
-from trivy_tpu_torch.device import DEFAULT_DEVICE
+from trivy_tpu_torch.db import load_default_db
+from trivy_tpu_torch.detector import detect_all
+from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve
+from trivy_tpu_torch.fanal.applier import apply_layers
 from trivy_tpu_torch.fanal.license import LicenseAnalyzer
 from trivy_tpu_torch.fanal.secret import SecretAnalyzer
 from trivy_tpu_torch.fanal.walker import FSWalker, WalkOption
 from trivy_tpu_torch.licensing.fused import FusedLicenseGate
 from trivy_tpu_torch.licensing.scanner import LicenseCategorizer
 from trivy_tpu_torch.report import WRITERS
-from trivy_tpu_torch.types import Report, Result, ResultClass
+from trivy_tpu_torch.sbom import detect_format
+from trivy_tpu_torch.sbom.decode import decode
+from trivy_tpu_torch.types import DetectedVulnerability, Report, Result, ResultClass
 
 logger = log.logger("cli")
 
 DEFAULT_SECRET_CONFIG = "trivy-secret.yaml"
 SCANNERS = ("secret", "license")
+# the CVE join's counters in an sbom scan's counters (the JAX package's names)
+CVE_COUNTERS = ("cve.bounds_bytes_uploaded", "cve.resident_rows", "cve.dispatch_count",
+                "cve.candidate_pairs", "cve.join.seconds", "cve.dispatch.seconds")
 
 
 def license_result(files) -> list[Result]:
@@ -136,9 +153,87 @@ def scan_fs(root: str, config_path: str | None = None, device=DEFAULT_DEVICE,
     return report, counters
 
 
+def load_db(db_repository: str | None = None, cache_dir: str | None = None):
+    """The advisory DB of ``db_repository``, else ``<cache_dir>/db`` (a
+    ``trivy.db`` there is flattened on first use); None, with a warning,
+    when neither holds one."""
+    db = load_default_db(db_repository, cache_dir)
+    if db is None:
+        logger.warning("vulnerability DB not available; skipping vuln detection")
+    return db
+
+
+def dedup_sorted(vulns: list[DetectedVulnerability]) -> list[DetectedVulnerability]:
+    """One finding per (ID, package, path, installed version), in the
+    report's order (ref: pkg/result/filter.go:77-120)."""
+    seen = set()
+    out = []
+    for v in sorted(vulns, key=lambda v: (v.pkg_name, v.vulnerability_id, v.pkg_path,
+                                          v.fixed_version)):
+        key = (v.vulnerability_id, v.pkg_name, v.pkg_path, v.installed_version)
+        if key not in seen:
+            seen.add(key)
+            out.append(v)
+    return out
+
+
+def scan_sbom(path: str, db=None, device=DEFAULT_DEVICE, db_repository: str | None = None,
+              cache_dir: str | None = None) -> tuple[Report, dict]:
+    """Match the SBOM at ``path`` against the advisory DB: ``db`` when
+    given (a loaded DB keeps its resident join across scans), else the one
+    :func:`load_db` finds. Returns the report and the scan's counters: the
+    join's (``cve.*``, under the JAX package's names), the seconds of the
+    decode, the detection and the whole scan, and, when this call loaded
+    the DB, ``db_load_seconds`` (not part of ``seconds``)."""
+    dev = resolve(device)
+    stats: Counter = Counter()
+    if db is None:
+        t0 = time.perf_counter()
+        db = load_db(db_repository, cache_dir)
+        stats["db_load_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(path, "rb") as f:
+        data = f.read()
+    fmt = detect_format(data)
+    detail = apply_layers([decode(data)])
+    t1 = time.perf_counter()
+    results = detect_all(db, path, detail, dev, stats) if db is not None else []
+    t2 = time.perf_counter()
+    for r in results:
+        r.vulnerabilities = dedup_sorted(r.vulnerabilities)
+    metadata = {"ImageID": "", "DiffIDs": []}
+    if detail.os is not None:
+        metadata["OS"] = detail.os.to_dict()
+    report = Report(
+        created_at=datetime.datetime.now(datetime.timezone.utc).isoformat(),
+        artifact_name=path,
+        artifact_type="spdx" if fmt.startswith("spdx") else "cyclonedx",
+        metadata=metadata,
+        results=[r for r in results if not r.is_empty],
+    )
+    stats.update({
+        "components": len(detail.packages) + sum(len(a.packages) for a in detail.applications),
+        "decode.seconds": t1 - t0, "detect.seconds": t2 - t1,
+        "seconds": time.perf_counter() - t0,
+    })
+    return report, {**dict.fromkeys(CVE_COUNTERS, 0), **stats}
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="trivy_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
+    sb = sub.add_parser("sbom", help="scan an SBOM (CycloneDX/SPDX) for vulnerabilities")
+    sb.add_argument("target", help="SBOM file")
+    sb.add_argument("--db-repository", default=None,
+                    help="advisory DB directory (default: <cache-dir>/db)")
+    sb.add_argument("--cache-dir", default=None, help="cache directory")
+    sb.add_argument("-f", "--format", choices=sorted(WRITERS), default="table")
+    sb.add_argument("-o", "--output", default="", help="output file (default stdout)")
+    sb.add_argument("--device", choices=["cuda", "cpu"], default=DEFAULT_DEVICE)
+    sb.add_argument("--stats-out", default="",
+                    help="write the scan's counters (components, seconds, the CVE join's "
+                         "rows, dispatches and bound bytes uploaded) as JSON")
+    sb.add_argument("-q", "--quiet", action="store_true")
     fs = sub.add_parser("fs", help="scan a local filesystem for secrets and licenses")
     fs.add_argument("target", help="directory to scan")
     fs.add_argument("--scanners", default="secret",
@@ -189,11 +284,29 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     log.init(quiet=args.quiet)
+    if args.command == "sbom":
+        report, counters = scan_sbom(args.target, device=args.device,
+                                     db_repository=args.db_repository, cache_dir=args.cache_dir)
+    else:
+        report, counters = _run_fs(args)
+    if args.stats_out:
+        with open(args.stats_out, "w", encoding="utf-8") as f:
+            json.dump(counters, f, indent=2)
+    write = WRITERS[args.format]
+    if args.output:
+        with open(args.output, "w", encoding="utf-8") as f:
+            write(report, f)
+    else:
+        write(report, sys.stdout)
+    return 0
+
+
+def _run_fs(args) -> tuple[Report, dict]:
     scanners = [s for s in args.scanners.split(",") if s]
     if not scanners or set(scanners) - set(SCANNERS):
         raise SystemExit(f"unsupported --scanners {args.scanners!r}: use {', '.join(SCANNERS)}")
     config = args.secret_config if os.path.exists(args.secret_config) else None
-    report, counters = scan_fs(
+    return scan_fs(
         args.target, config_path=config, device=args.device,
         skip_dirs=args.skip_dirs, skip_files=args.skip_files, scanners=scanners,
         license_full=args.license_full, shared_arena=not args.no_shared_arena,
@@ -205,16 +318,6 @@ def main(argv: list[str] | None = None) -> int:
         compress="off" if args.no_secret_compress else (args.secret_compress or ""),
         compress_min_ratio=args.secret_compress_min_ratio or 0.0,
     )
-    if args.stats_out:
-        with open(args.stats_out, "w", encoding="utf-8") as f:
-            json.dump(counters, f, indent=2)
-    write = WRITERS[args.format]
-    if args.output:
-        with open(args.output, "w", encoding="utf-8") as f:
-            write(report, f)
-    else:
-        write(report, sys.stdout)
-    return 0
 
 
 if __name__ == "__main__":

@@ -1,0 +1,48 @@
+"""Vulnerability detection layer (ref: pkg/detector)."""
+
+from __future__ import annotations
+
+from collections import Counter
+
+from trivy_tpu_torch.device import DEFAULT_DEVICE
+from trivy_tpu_torch.types import ArtifactDetail, Result, ResultClass
+
+
+def detect_all(db, target: str, detail: ArtifactDetail, device=DEFAULT_DEVICE,
+               stats: Counter | None = None) -> list[Result]:
+    """OS packages + every application (ref: pkg/scanner/local/scan.go:153-247,
+    pkg/scanner/langpkg/scan.go:36), as the JAX package's ``detect_all``
+    with both package types and without ``--list-all-pkgs``. The
+    applications' constraint checks run on ``device``; ``stats`` gathers
+    the join's counters."""
+    from trivy_tpu_torch.detector import library, ospkg
+    from trivy_tpu_torch.vulnerability import fill_infos
+
+    results: list[Result] = []
+    if detail.os and detail.packages:
+        vulns = ospkg.detect(db, detail.os, detail.packages)
+        fill_infos(db, vulns)
+        results.append(
+            Result(
+                target=f"{target} ({detail.os.family} {detail.os.name})",
+                cls=ResultClass.OS_PKGS.value,
+                type=detail.os.family,
+                vulnerabilities=vulns,
+            )
+        )
+    apps = sorted(detail.applications, key=lambda a: (a.file_path, a.type))
+    # whole-SBOM one-pass join: every app's packages hash-join and
+    # dispatch together against the card-resident global bound matrix
+    for app, vulns in zip(apps, library.detect_batch(db, apps, device, stats)):
+        fill_infos(db, vulns)
+        if not vulns:
+            continue
+        results.append(
+            Result(
+                target=app.file_path or app.type,
+                cls=ResultClass.LANG_PKGS.value,
+                type=app.type,
+                vulnerabilities=vulns,
+            )
+        )
+    return results

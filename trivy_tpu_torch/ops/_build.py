@@ -68,6 +68,13 @@ SIGNATURES = {
         ),
         "trivy_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
+    "verscmp": {
+        "trivy_verscmp_launch": (
+            # inst, n_inst, bounds, n_bounds, L, a_idx, b_idx, ops, R, verdict, sign, stream
+            _I, [_P, _I, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P],
+        ),
+        "trivy_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
     "bytes_score": {
         "trivy_bytes_score_launch": (
             # x, B, C, lut, keys, Ku, credit, ls, gcap, P1, P2, HP, ngram, full_w, phrase,

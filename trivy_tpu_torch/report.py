@@ -1,10 +1,11 @@
-"""Report writers for the secret and license scans (ref:
+"""Report writers for the secret, license and vulnerability scans (ref:
 pkg/report/writer.go).
 
 ``json``: the reference's JSON schema (SchemaVersion, ArtifactName,
-Results[].Target/Class/Secrets/Licenses...), byte for byte the JAX package's
-``report/json_.py``. ``table``: the secret and license sections of the JAX
-package's ``report/table.py`` — a header per file, then each secret finding
+Results[].Target/Class/Vulnerabilities/Secrets/Licenses...), byte for byte
+the JAX package's ``report/json_.py``. ``table``: the vulnerability, secret
+and license sections of the JAX package's ``report/table.py`` — a grid of
+each target's vulnerabilities; a header per file, then each secret finding
 with its censored code context; a grid of the licenses found.
 """
 
@@ -35,6 +36,18 @@ def _severity_summary(counter: Counter) -> str:
 def _header(out, title: str, extra: str = "") -> None:
     out.write(f"\n{title}{(' ' + extra) if extra else ''}\n")
     out.write(_rule(max(20, len(title) + len(extra) + 1)) + "\n")
+
+
+def _write_vulnerabilities(result: Result, out) -> None:
+    counter = Counter(v.severity for v in result.vulnerabilities)
+    _header(
+        out,
+        f"{result.target} ({result.type})",
+        f"— {len(result.vulnerabilities)} vulnerabilities ({_severity_summary(counter)})",
+    )
+    _grid(out, ["Library", "Vulnerability", "Severity", "Installed", "Fixed", "Title"],
+          [[v.pkg_name, v.vulnerability_id, v.severity, v.installed_version,
+            v.fixed_version or "—", (v.title or "")[:60]] for v in result.vulnerabilities])
 
 
 def _write_secrets(result: Result, out) -> None:
@@ -86,10 +99,12 @@ def _grid(out, cols: list[str], rows: list[list[str]]) -> None:
 
 
 def write_table(report: Report, out) -> None:
-    if not any(r.secrets or r.licenses for r in report.results):
+    if not any(r.vulnerabilities or r.secrets or r.licenses for r in report.results):
         out.write(f"\n{report.artifact_name} ({report.artifact_type})\n")
         out.write("No issues detected.\n")
     for result in report.results:
+        if result.vulnerabilities:
+            _write_vulnerabilities(result, out)
         if result.secrets:
             _write_secrets(result, out)
         if result.licenses:

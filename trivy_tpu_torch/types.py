@@ -1,9 +1,11 @@
-"""Report types of the secret and license scans.
+"""Report types of the secret, license and vulnerability scans.
 
 The subset of ``trivy_tpu.types`` that those scans produce: secret findings
 and the per-file ``Secret``; license findings, the per-file ``LicenseFile``
-and the report's ``DetectedLicense``; the per-target ``Result`` and the
-top-level ``Report``. Their ``to_dict`` forms use the same JSON field names
+and the report's ``DetectedLicense``; packages, applications, the OS, the
+SBOM's ``BlobInfo`` and its merged ``ArtifactDetail``, and the
+``DetectedVulnerability``; the per-target ``Result`` and the top-level
+``Report``. Their ``to_dict`` forms use the same JSON field names
 and order as the JAX package (and the reference's JSON schema), so the two
 packages' reports compare byte for byte.
 """
@@ -184,23 +186,211 @@ class DetectedLicense:
 
 
 @dataclass
+class PkgIdentifier:
+    purl: str = ""
+    uid: str = ""
+
+    def to_dict(self) -> dict[str, Any]:
+        return {"PURL": self.purl, "UID": self.uid}
+
+
+@dataclass
+class Package:
+    """A software package (OS or language ecosystem).
+
+    Subset of the reference's ``types.Package`` (ref: pkg/fanal/types/artifact.go)
+    sufficient for detection: identity, version triple (epoch/version/release
+    for rpm-style), source package for OS advisories, relationships and
+    dependency edges for SBOM graphs.
+    """
+
+    name: str
+    version: str
+    id: str = ""
+    release: str = ""
+    epoch: int = 0
+    arch: str = ""
+    src_name: str = ""
+    src_version: str = ""
+    src_release: str = ""
+    src_epoch: int = 0
+    licenses: list[str] = field(default_factory=list)
+    file_path: str = ""
+    dev: bool = False
+    indirect: bool = False
+    relationship: str = ""  # root|workspace|direct|indirect
+    depends_on: list[str] = field(default_factory=list)
+    identifier: PkgIdentifier = field(default_factory=PkgIdentifier)
+    layer: str = ""
+    locations: list[dict[str, int]] = field(default_factory=list)  # [{"StartLine":..,"EndLine":..}]
+    maintainer: str = ""  # vendor for rpm packages
+    modularitylabel: str = ""  # RedHat module stream, e.g. nodejs:10:...
+    digest: str = ""  # e.g. md5:<sigmd5> for rpm
+
+    def to_dict(self) -> dict[str, Any]:
+        return {
+            "ID": self.id,
+            "Name": self.name,
+            "Version": self.version,
+            "Release": self.release,
+            "Epoch": self.epoch,
+            "Arch": self.arch,
+            "SrcName": self.src_name,
+            "SrcVersion": self.src_version,
+            "SrcRelease": self.src_release,
+            "SrcEpoch": self.src_epoch,
+            "Licenses": list(self.licenses),
+            "FilePath": self.file_path,
+            "Dev": self.dev,
+            "Indirect": self.indirect,
+            "Relationship": self.relationship,
+            "DependsOn": list(self.depends_on),
+            "Identifier": self.identifier.to_dict(),
+            "Layer": self.layer,
+            "Locations": list(self.locations),
+            "Maintainer": self.maintainer,
+            "Modularitylabel": self.modularitylabel,
+            "Digest": self.digest,
+        }
+
+
+@dataclass
+class PackageInfo:
+    """OS packages found under one path (e.g. var/lib/dpkg/status)."""
+
+    file_path: str = ""
+    packages: list[Package] = field(default_factory=list)
+
+
+@dataclass
+class Application:
+    """Language-ecosystem packages from one lockfile/binary (ref: types.Application)."""
+
+    type: str  # ecosystem type, e.g. "npm", "pip", "gomod"
+    file_path: str = ""
+    packages: list[Package] = field(default_factory=list)
+
+
+@dataclass
+class OS:
+    family: str = ""
+    name: str = ""
+    eosl: bool = False
+    extended: bool = False  # e.g. ubuntu ESM
+
+    def to_dict(self) -> dict[str, Any]:
+        return {"Family": self.family, "Name": self.name, "Eosl": self.eosl, "Extended": self.extended}
+
+    def merge(self, other: "OS") -> "OS":
+        """Later layers win, but never blank out earlier values (applier semantics)."""
+        return OS(
+            family=other.family or self.family,
+            name=other.name or self.name,
+            eosl=other.eosl or self.eosl,
+            extended=other.extended or self.extended,
+        )
+
+
+@dataclass
+class BlobInfo:
+    """The analysis result of one blob: the fields an SBOM fills (ref:
+    pkg/fanal/types BlobInfo). ``diff_id`` is the layer its packages carry."""
+
+    os: OS | None = None
+    package_infos: list[PackageInfo] = field(default_factory=list)
+    applications: list[Application] = field(default_factory=list)
+    diff_id: str = ""
+
+
+@dataclass
+class ArtifactDetail:
+    """Merged view of the blobs (ref: pkg/fanal/types ArtifactDetail): the
+    OS, its packages and the applications."""
+
+    os: OS | None = None
+    packages: list[Package] = field(default_factory=list)
+    applications: list[Application] = field(default_factory=list)
+
+
+@dataclass
+class DetectedVulnerability:
+    """A matched advisory against an installed package (ref: types.DetectedVulnerability)."""
+
+    vulnerability_id: str
+    pkg_name: str
+    installed_version: str
+    fixed_version: str = ""
+    status: str = ""  # fixed | affected | will_not_fix | end_of_life ...
+    pkg_id: str = ""
+    pkg_path: str = ""
+    pkg_identifier: PkgIdentifier = field(default_factory=PkgIdentifier)
+    severity: str = "UNKNOWN"
+    severity_source: str = ""
+    title: str = ""
+    description: str = ""
+    references: list[str] = field(default_factory=list)
+    cvss: dict[str, Any] = field(default_factory=dict)
+    cwe_ids: list[str] = field(default_factory=list)
+    primary_url: str = ""
+    data_source: dict[str, str] = field(default_factory=dict)
+    layer: str = ""
+    published_date: str = ""
+    last_modified_date: str = ""
+
+    def to_dict(self) -> dict[str, Any]:
+        return {
+            "VulnerabilityID": self.vulnerability_id,
+            "PkgID": self.pkg_id,
+            "PkgName": self.pkg_name,
+            "PkgPath": self.pkg_path,
+            "PkgIdentifier": self.pkg_identifier.to_dict(),
+            "InstalledVersion": self.installed_version,
+            "FixedVersion": self.fixed_version,
+            "Status": self.status,
+            "Severity": self.severity,
+            "SeveritySource": self.severity_source,
+            "Title": self.title,
+            "Description": self.description,
+            "References": list(self.references),
+            "CVSS": dict(self.cvss),
+            "CweIDs": list(self.cwe_ids),
+            "PrimaryURL": self.primary_url,
+            "DataSource": dict(self.data_source),
+            "Layer": self.layer,
+            "PublishedDate": self.published_date,
+            "LastModifiedDate": self.last_modified_date,
+        }
+
+
+@dataclass
 class Result:
-    """One report section: the secret findings of one target file, or a
-    license section."""
+    """One report section: the secret findings of one target file, a license
+    section, or the vulnerabilities of the OS packages or of one
+    application."""
 
     target: str
     cls: str = ResultClass.SECRET.value
     type: str = ""
+    packages: list[Package] = field(default_factory=list)
+    vulnerabilities: list[DetectedVulnerability] = field(default_factory=list)
     secrets: list[SecretFinding] = field(default_factory=list)
     licenses: list[DetectedLicense] = field(default_factory=list)
 
     def to_dict(self) -> dict[str, Any]:
         d: dict[str, Any] = {"Target": self.target, "Class": self.cls, "Type": self.type}
+        if self.packages:
+            d["Packages"] = [p.to_dict() for p in self.packages]
+        if self.vulnerabilities:
+            d["Vulnerabilities"] = [v.to_dict() for v in self.vulnerabilities]
         if self.secrets:
             d["Secrets"] = [s.to_dict() for s in self.secrets]
         if self.licenses:
             d["Licenses"] = [l.to_dict() for l in self.licenses]
         return d
+
+    @property
+    def is_empty(self) -> bool:
+        return not (self.packages or self.vulnerabilities or self.secrets or self.licenses)
 
 
 @dataclass
