@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's secret, license and SBOM vulnerability scans
-on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's secret, license, SBOM and filesystem
+vulnerability scans on one NVIDIA card.
 
     python3 chip_smoke.py [--e2e-mib 256] [--license-mib 128] [--seed 0]
 
@@ -105,9 +105,24 @@ Phases, each printing JSON lines:
    and no bound bytes uploaded by the second. The kernel is then held
    against its plain version on the inputs captured from the first scan's
    dispatch, and timed at that shape.
-9. kernels: every ported kernel with its launches on the main path, its
-   agreement with the plain version (bitwise, or within ``SCORE_RTOL`` for
-   the scorer's ``full_w``) and its times.
+9. fs-vuln: this slice's path. A seeded monorepo tree holding the cve
+   SBOM's components as lockfiles (npm in 25 ``package-lock.json`` v3
+   files, golang in 30 ``go.mod``, cargo in 10 ``Cargo.lock``, pypi in a
+   ``poetry.lock`` and a ``requirements.txt``, each plant at its vulnerable
+   and its patched version), a debian 12 root with the 500 ``deb-lib-*``
+   packages in ``var/lib/dpkg/status``, 2,000 ``node_modules`` packages
+   with licenses and 4 MiB of the seeded text with planted secrets.
+   ``cli.scan_fs`` with ``--scanners vuln`` on the card twice with one
+   freshly loaded cve DB (launch counters to 0 just before each scan, read
+   just after), then on the CPU; then ``vuln,secret,license`` on the card
+   and on the CPU. ``Results`` and ``Metadata`` must be equal between card
+   and CPU, every plant reported and none at its patched version, every
+   planted secret and package license reported, one ``verscmp`` launch per
+   card scan and no bound bytes uploaded by the second; the kernel must
+   equal its plain version on the first scan's captured dispatch.
+10. kernels: every ported kernel with its launches on the main path, its
+    agreement with the plain version (bitwise, or within ``SCORE_RTOL`` for
+    the scorer's ``full_w``) and its times.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; the last line is ``{"ok": true, "device": {...}}``. Without a
@@ -1328,6 +1343,186 @@ def phase_cve(root: Path, seed: int, card: str) -> dict:
     return result
 
 
+# the fs-vuln tree: (purl type as in CVE_APPS, lockfile, files)
+FS_LOCKFILES = {"npm": ("package-lock.json", 25), "golang": ("go.mod", 30),
+                "cargo": ("Cargo.lock", 10)}
+FS_NODE_MODULES = 2_000
+FS_LICENSES = ("MIT", "Apache-2.0", "ISC", "BSD-3-Clause", "GPL-3.0-only")
+
+
+def write_fs_tree(root: Path, seed: int, base: bytes) -> tuple[int, list]:
+    """A seeded monorepo holding the cve SBOM's components as lockfiles:
+    npm in 25 ``package-lock.json`` v3 files, golang in 30 ``go.mod``
+    files, cargo in 10 ``Cargo.lock`` files, pypi in a ``poetry.lock`` and
+    a ``requirements.txt``, each plant at its vulnerable version in one file
+    and at its patched version in the next; a debian 12 root with the 500
+    ``deb-lib-*`` packages in ``var/lib/dpkg/status``; 2,000
+    ``node_modules/<name>/package.json`` with licenses; 4 MiB of the seeded
+    text with planted secrets. Returns the lockfile components and the
+    planted (relpath, rule_id, line)."""
+    rng = np.random.default_rng(seed)
+    comps: dict[str, list] = {}
+    for ptype, prefix, n, names in CVE_APPS:
+        ver = rng.integers(0, 10, (n, 3))
+        ver[:, 0] += ver[:, 0] == 0
+        comps[ptype] = [(f"{prefix}-pkg-{i % names:05d}", f"{ver[i, 0]}.{ver[i, 1]}.{ver[i, 2]}")
+                        for i in range(n)]
+    n_comp = sum(len(c) for c in comps.values())
+    files: dict[str, list[list]] = {}
+    for ptype, (_name, n_files) in FS_LOCKFILES.items():
+        per = len(comps[ptype]) // n_files
+        files[ptype] = [comps[ptype][i * per:(i + 1) * per] for i in range(n_files)]
+    for k, (ptype, _bucket, name, _vid, vuln, hi) in enumerate(plants()):
+        n_files = len(files[ptype])
+        files[ptype][k % n_files].append((name, vuln))
+        files[ptype][(k + 1) % n_files].append((name, hi))
+        n_comp += 2
+
+    def put(rel: str, data: bytes) -> None:
+        path = root / rel
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(data)
+
+    for j, pkgs in enumerate(files["npm"]):
+        lock = {"name": f"web{j}", "lockfileVersion": 3, "packages": {
+            "": {"name": f"web{j}", "dependencies": {n: "*" for n, _v in pkgs}},
+            **{f"node_modules/{n}": {"version": v} for n, v in pkgs}}}
+        put(f"services/web{j:02d}/package-lock.json", json.dumps(lock).encode())
+    for j, pkgs in enumerate(files["golang"]):
+        body = "\n".join(f"\t{n} v{v}" for n, v in pkgs)
+        put(f"services/go{j:02d}/go.mod",
+            f"module example.com/go{j}\n\ngo 1.22\n\nrequire (\n{body}\n)\n".encode())
+    for j, pkgs in enumerate(files["cargo"]):
+        put(f"crates/c{j:02d}/Cargo.lock", "".join(
+            f'[[package]]\nname = "{n}"\nversion = "{v}"\n\n' for n, v in pkgs).encode())
+    pypi = comps["pypi"]
+    half = len(pypi) // 2
+    put("py/poetry.lock", "".join(f'[[package]]\nname = "{n}"\nversion = "{v}"\n'
+                                  f'category = "main"\n\n' for n, v in pypi[:half]).encode())
+    put("py/requirements.txt", "".join(f"{n}=={v}\n" for n, v in pypi[half:]).encode())
+    put("etc/os-release", b'PRETTY_NAME="Debian GNU/Linux 12"\nID=debian\nVERSION_ID="12"\n')
+    put("var/lib/dpkg/status", "".join(
+        f"Package: deb-lib-{k:03d}\nStatus: install ok installed\nArchitecture: amd64\n"
+        f"Version: 1.{(k * 5) % 7}.{k % 13}-{k % 4}\n\n" for k in range(DEB_PACKAGES)).encode())
+    for k in range(FS_NODE_MODULES):
+        put(f"web/node_modules/nm-pkg-{k:04d}/package.json", json.dumps({
+            "name": f"nm-pkg-{k:04d}", "version": f"1.{k % 10}.0",
+            "license": FS_LICENSES[k % len(FS_LICENSES)]}).encode())
+    text_rng = random.Random(seed)
+    planted = []
+    for i in range(4):
+        off = text_rng.randrange(0, len(base) - (1 << 20))
+        body = base[off:off + (1 << 20)]
+        cut = body.rfind(b"\n", 0, text_rng.randrange(1, len(body))) + 1
+        rid = sorted(SAMPLES)[(seed + 7 * i) % len(SAMPLES)]
+        rel = f"src/module_{i}.py"
+        put(rel, body[:cut] + SAMPLES[rid].encode() + b"\n" + body[cut:])
+        planted.append((rel, rid, body[:cut].count(b"\n") + 1))
+    return n_comp, planted
+
+
+def phase_fs_vuln(root: Path, db_dir: Path, seed: int, base: bytes, card: str) -> dict:
+    """``cli.scan_fs`` over the monorepo tree with ``--scanners vuln``:
+    twice on the card with one loaded DB (launch counters to 0 just before
+    each scan, read just after), once with ``device="cpu"``; then
+    ``vuln,secret,license`` once on the card and once on the CPU; then the
+    kernel against its plain version on the first scan's captured
+    dispatch."""
+    t0 = time.perf_counter()
+    n_comp, planted = write_fs_tree(root / "tree", seed, base)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    db = VulnDB.load(str(db_dir))
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    library._resident_join(db)
+    join_build_s = time.perf_counter() - t0
+    captured = []
+    original = verscmp.check_ops_gather_bucketed
+
+    def capture(inst, bounds_dev, a_idx, b_idx, ops):
+        captured.append((inst.copy(), bounds_dev, a_idx.copy(), b_idx.copy(), ops.copy()))
+        return original(inst, bounds_dev, a_idx, b_idx, ops)
+
+    verscmp.check_ops_gather_bucketed = capture
+    scans = []
+    try:
+        for scanners, device in ((("vuln",), "cuda"), (("vuln",), "cuda"), (("vuln",), "cpu"),
+                                 (("vuln", "secret", "license"), "cuda"),
+                                 (("vuln", "secret", "license"), "cpu")):
+            LAUNCHES.clear()
+            report, stats = cli.scan_fs(str(root / "tree"), scanners=scanners, db=db,
+                                        device=device)
+            launches = dict(LAUNCHES)
+            scans.append((",".join(scanners), device, report.to_dict(), stats, launches))
+    finally:
+        verscmp.check_ops_gather_bucketed = original
+    vuln_reports = [r for _s, _d, r, _st, _l in scans[:3]]
+    full_reports = [r for _s, _d, r, _st, _l in scans[3:]]
+    found_v = {(v["PkgName"], v["VulnerabilityID"], v["InstalledVersion"])
+               for r in vuln_reports[0]["Results"] for v in r.get("Vulnerabilities", [])}
+    missed = [p for p in plants() if (p[2], p[3], p[4]) not in found_v]
+    patched = [p for p in plants() if any(k[0] == p[2] and k[2] == p[5] for k in found_v)]
+    secrets = found(full_reports[0])
+    missed_secrets = [p for p in planted if p not in secrets]
+    pkg_licenses = [d for r in full_reports[0]["Results"] if r["Target"] == "Language Packages"
+                    for d in r["Licenses"]]
+    per_scan = [{
+        "scanners": s, "device": d, "seconds": st["seconds"],
+        "components": st["components"], "components_per_s": st["components"] / st["seconds"],
+        "analyze_s": st["analyze.seconds"], "detect_s": st["detect.seconds"],
+        "join_s": st["cve.join.seconds"], "dispatch_s": st["cve.dispatch.seconds"],
+        "candidate_pairs": st["cve.candidate_pairs"], "rows": st["cve.resident_rows"],
+        "dispatches": st["cve.dispatch_count"],
+        "bounds_bytes_uploaded": st["cve.bounds_bytes_uploaded"],
+        "files_walked": st["files_walked"], "files_scanned": st["files_scanned"],
+        "launches": lc,
+    } for s, d, _r, st, lc in scans]
+
+    def same(reports):
+        return all(r[k] == reports[0][k] for r in reports for k in ("Results", "Metadata"))
+
+    result = {
+        "phase": "fs-vuln", "lockfile_components": n_comp, "setup_s": setup_s,
+        "db_load_s": load_s, "join_build_s": join_build_s, "scans": per_scan,
+        "results": len(vuln_reports[0]["Results"]),
+        "findings": len(found_v), "vuln_equal": same(vuln_reports),
+        "full_equal": same(full_reports), "os": vuln_reports[0]["Metadata"].get("OS"),
+        "planted": len(plants()), "missed": missed[:5], "patched_reported": patched[:5],
+        "secrets_planted": len(planted), "secrets_missed": missed_secrets,
+        "package_licenses": len(pkg_licenses), "card": card,
+    }
+    log(result)
+    check(result["vuln_equal"], "fs-vuln: Results or Metadata differ between card and CPU")
+    check(result["full_equal"],
+          "fs-vuln: vuln,secret,license Results or Metadata differ between card and CPU")
+    check(not missed, f"fs-vuln: {len(missed)} planted vulnerable components not reported")
+    check(not patched, f"fs-vuln: {len(patched)} components at their patched version reported")
+    check(not missed_secrets, f"fs-vuln: planted secrets not reported: {missed_secrets}")
+    check(len(pkg_licenses) >= FS_NODE_MODULES, "fs-vuln: package licenses not reported")
+    check((result["os"] or {}).get("Family") == "debian", "fs-vuln: Metadata.OS missing")
+    check([lc.get("verscmp", 0) for *_x, lc in scans] == [1, 1, 0, 1, 0],
+          f"fs-vuln: verscmp launches per scan {[lc for *_x, lc in scans]}")
+    check(per_scan[0]["bounds_bytes_uploaded"] > 0, "fs-vuln: the first scan uploaded no bounds")
+    check(per_scan[1]["bounds_bytes_uploaded"] == 0, "fs-vuln: the second scan uploaded bounds")
+    check(all(scans[3][4].get(k, 0) > 0 for k in ("prefilter", "anchored")),
+          f"fs-vuln: the matcher was not launched by the full scan: {scans[3][4]}")
+    check(len(captured) == 5, f"fs-vuln: {len(captured)} dispatches captured, want 5")
+    inst_np, bounds_dev, a_np, b_np, ops_np = captured[0]
+    inst = torch.from_numpy(inst_np).cuda()
+    a_idx, b_idx, ops = (torch.from_numpy(x).cuda() for x in (a_np, b_np, ops_np))
+    got = check_ops_gather(inst, bounds_dev, a_idx, b_idx, ops)
+    want = check_ops_gather_plain(inst, bounds_dev, a_idx, b_idx, ops)
+    torch.cuda.synchronize()
+    result["kernel_equal"] = torch.equal(got, want)
+    result["kernel_shape"] = [len(ops_np), int(inst_np.shape[1])]
+    log({"phase": "fs-vuln-kernel", "equal": result["kernel_equal"],
+         "shape": result["kernel_shape"], "vulnerable_rows": int(want.sum())})
+    check(result["kernel_equal"],
+          "verscmp kernel disagrees with its plain version on the fs-vuln dispatch")
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--e2e-mib", type=int, default=256, help="size of the e2e tree")
@@ -1376,6 +1571,7 @@ def main() -> int:
         phase_license_repo(tmp / "repo")
         shutil.rmtree(tmp / "repo", ignore_errors=True)
         cve = phase_cve(tmp / "cve", args.seed, card)
+        fs_vuln = phase_fs_vuln(tmp / "fs-vuln", tmp / "cve" / "db", args.seed, base, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1425,8 +1621,10 @@ def main() -> int:
     kernels.append({
         "name": "verscmp_kernel", "route": "cuda", "source": VERSCMP_SOURCE,
         "replaces": VERSCMP_REPLACES, "launches": cve["scans"][0]["launches"].get("verscmp", 0),
+        "launches_fs_vuln": fs_vuln["scans"][0]["launches"].get("verscmp", 0),
         "max_abs_err": verdict["verscmp"]["max_abs_err"],
-        "equal": verdict["verscmp"]["equal"] and t["equal"], "ms": t["ms"],
+        "equal": verdict["verscmp"]["equal"] and t["equal"] and fs_vuln["kernel_equal"],
+        "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "shape": t["shape"],
     })

@@ -2,7 +2,7 @@
 the decompressor against ``decompress_plain``, the license gram gate,
 shingle gate and scorer against their plain versions, the version-constraint
 check against its plain versions, a compressed scan, a fused secret+license
-scan, the classifier and an SBOM scan on the card.
+scan, the classifier, an SBOM scan and an fs vuln scan on the card.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither ``jax`` nor ``trivy_tpu``, so on a machine with a card and
@@ -376,4 +376,28 @@ def test_sbom_scan_on_card_equals_cpu(card, tmp_path):
     assert match_cuda.LAUNCHES["verscmp"] == before + 1 and stats["cve.dispatch_count"] == 1
     on_cpu, _ = cli.scan_sbom(str(bom), db=VulnDB.load(BUILD_DB(tmp_path / "b")), device="cpu")
     assert on_card.to_dict()["Results"] == on_cpu.to_dict()["Results"]
+    assert sum(len(r.vulnerabilities) for r in on_card.results) > 100
+
+
+@pytest.mark.cuda
+def test_fs_vuln_scan_on_card_equals_cpu(card, tmp_path):
+    """``scan_fs`` with vuln and secret over a tree of 1,000 npm packages
+    and a secret: one ``verscmp`` launch, the report the CPU gives."""
+    rng = np.random.default_rng(4)
+    pkgs = {f"node_modules/p{i}/node_modules/{['lodash', 'minimist', 'other'][i % 3]}": {
+        "version": f"{rng.integers(0, 5)}.{rng.integers(0, 21)}.{rng.integers(0, 26)}"}
+        for i in range(1000)}
+    (tmp_path / "tree" / "web").mkdir(parents=True)
+    (tmp_path / "tree" / "web" / "package-lock.json").write_text(
+        json.dumps({"lockfileVersion": 3, "packages": pkgs}))
+    (tmp_path / "tree" / "key.py").write_text(f"k = '{SAMPLES['github-pat']}'\n")
+    db = VulnDB.load(BUILD_DB(tmp_path))
+    before = match_cuda.LAUNCHES["verscmp"]
+    on_card, stats = cli.scan_fs(str(tmp_path / "tree"), scanners=("vuln", "secret"), db=db,
+                                 device=card)
+    assert match_cuda.LAUNCHES["verscmp"] == before + 1 and stats["cve.dispatch_count"] == 1
+    on_cpu, _ = cli.scan_fs(str(tmp_path / "tree"), scanners=("vuln", "secret"),
+                            db=VulnDB.load(BUILD_DB(tmp_path / "b")), device="cpu")
+    assert on_card.to_dict()["Results"] == on_cpu.to_dict()["Results"]
+    assert {r.cls for r in on_card.results} == {"lang-pkgs", "secret"}
     assert sum(len(r.vulnerabilities) for r in on_card.results) > 100

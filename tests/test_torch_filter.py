@@ -1,0 +1,249 @@
+"""The port's report filter and flag layer against the JAX package's CLI,
+both run in-process from one fresh working directory: a plain
+``.trivyignore`` there, a YAML ignore file with an expired entry and
+``paths``, ``--severity``, ``trivy-tpu.yaml`` (``scan.skip-dirs``,
+``severity``), ``TRIVY_TPU_SEVERITY``, a Python ``--ignore-policy`` with
+``--show-suppressed``, ``--exit-code``, over ``fs --scanners secret``, ``fs
+--scanners vuln`` and ``sbom``. A rego policy and ``--vex`` are refused by
+the port (exit code 2, an error), never ignored."""
+
+import json
+from pathlib import Path
+
+import pytest
+
+from tests.dbtest import build_db
+from tests.secret_samples import SAMPLES
+from tests.test_torch_match import few_torch_threads  # noqa: F401
+from trivy_tpu import cli as jax_cli
+from trivy_tpu_torch import cli
+
+YAML_IGNORE = """\
+vulnerabilities:
+  - id: CVE-2021-23337
+    paths: ["lod*"]
+  - id: CVE-2023-2222
+    paths: ["nomatch/*"]
+  - id: CVE-2023-0002
+    expired_at: 2000-01-01
+  - id: CVE-2020-7598
+    statement: accepted risk
+secrets:
+  - id: github-pat
+    paths: ["src/*"]
+"""
+
+POLICY = """\
+def ignore_vulnerability(v):
+    return v["Severity"] == "MEDIUM"
+
+
+def ignore(finding, kind):
+    return kind == "secret" and finding["RuleID"] == "aws-access-key-id"
+"""
+
+REGO = """\
+package trivy
+
+default ignore = false
+
+ignore {
+    input.VulnerabilityID == "CVE-2023-0001"
+}
+"""
+
+
+def make_tree(root: Path) -> None:
+    files = {
+        "src/a.py": f"key = '{SAMPLES['github-pat']}'\n",
+        "lib/b.env": f"AWS={SAMPLES['aws-access-key-id']}\n",
+        "sub/creds.txt": f"aws = {SAMPLES['aws-access-key-id']}\n",
+        "etc/alpine-release": "3.18.4\n",
+        "lib/apk/db/installed": "P:musl\nV:1.2.3-r0\nL:MIT\n\nP:busybox\nV:1.36.0-r0\n"
+                                "L:GPL-2.0-only\n",
+        "web/package-lock.json": json.dumps({"lockfileVersion": 3, "packages": {
+            "node_modules/lodash": {"version": "4.17.15"},
+            "node_modules/minimist": {"version": "1.2.0"}}}),
+        "py/requirements.txt": "django==4.0.1\n",
+    }
+    for rel, text in files.items():
+        (root / rel).parent.mkdir(parents=True, exist_ok=True)
+        (root / rel).write_text(text)
+
+
+BOM = {"bomFormat": "CycloneDX", "specVersion": "1.5", "components": [
+    {"type": "operating-system", "name": "alpine", "version": "3.18"},
+    {"type": "library", "name": "musl", "version": "1.2.3-r0",
+     "purl": "pkg:apk/alpine/musl@1.2.3-r0?distro=alpine-3.18"},
+    {"type": "library", "name": "busybox", "version": "1.36.0-r0",
+     "purl": "pkg:apk/alpine/busybox@1.36.0-r0?distro=alpine-3.18"},
+    {"type": "library", "name": "lodash", "version": "4.17.15", "purl": "pkg:npm/lodash@4.17.15"},
+    {"type": "library", "name": "minimist", "version": "1.2.0",
+     "purl": "pkg:npm/minimist@1.2.0"},
+]}
+
+
+@pytest.fixture(scope="module")
+def env(tmp_path_factory):
+    base = tmp_path_factory.mktemp("filter")
+    make_tree(base / "tree")
+    (base / "bom.json").write_text(json.dumps(BOM))
+    return {"tree": base / "tree", "bom": base / "bom.json", "db": build_db(base)}
+
+
+@pytest.fixture
+def wd(tmp_path, monkeypatch):
+    d = tmp_path / "wd"
+    d.mkdir()
+    monkeypatch.chdir(d)
+    monkeypatch.delenv("TRIVY_TPU_SEVERITY", raising=False)
+    return d
+
+
+COMMANDS = {
+    "fs-secret": lambda e: ["fs", "--scanners", "secret"],
+    "fs-vuln": lambda e: ["fs", "--scanners", "vuln", "--db-repository", e["db"]],
+    "sbom": lambda e: ["sbom", "--db-repository", e["db"]],
+}
+
+
+def run_both(e, wd: Path, command: str, *extra) -> tuple[dict, dict, int, int]:
+    target = str(e["bom"] if command == "sbom" else e["tree"])
+    head = COMMANDS[command](e)
+    out1, out2 = wd / "port.json", wd / "jax.json"
+    rc1 = cli.main([*head, "--device", "cpu", "--format", "json", "-o", str(out1), "-q",
+                    "--cache-dir", str(wd / "c1"), *extra, target])
+    rc2 = jax_cli.main([*head, "--backend", "cpu", "--format", "json", "-o", str(out2), "-q",
+                        "--cache-dir", str(wd / "c2"), *extra, target])
+    return json.loads(out1.read_text()), json.loads(out2.read_text()), rc1, rc2
+
+
+def ids(report, key="VulnerabilityID"):
+    return sorted(f.get(key) for r in report["Results"]
+                  for f in r.get("Vulnerabilities", []) + r.get("Secrets", [])
+                  if f.get(key))
+
+
+def assert_equal(mine, ref):
+    assert mine["Results"] == ref["Results"]
+    assert mine["Metadata"] == ref["Metadata"]
+
+
+@pytest.mark.parametrize("command", sorted(COMMANDS))
+def test_unfiltered_equals_jax(env, wd, command):
+    mine, ref, rc1, rc2 = run_both(env, wd, command)
+    assert_equal(mine, ref)
+    assert rc1 == rc2 == 0 and mine["Results"]
+
+
+@pytest.mark.parametrize("command", sorted(COMMANDS))
+def test_trivyignore_in_working_directory(env, wd, command):
+    """A plain ``.trivyignore`` in the working directory applies."""
+    (wd / ".trivyignore").write_text("# accepted\nCVE-2021-23337\nCVE-2023-0003  # unfixed\n"
+                                     "github-pat\n")
+    mine, ref, _rc1, _rc2 = run_both(env, wd, command)
+    assert_equal(mine, ref)
+    got = ids(mine) + ids(mine, "RuleID")
+    assert got and not {"CVE-2021-23337", "CVE-2023-0003", "github-pat"} & set(got)
+
+
+@pytest.mark.parametrize("command", sorted(COMMANDS))
+def test_yaml_ignorefile_expiry_and_paths(env, wd, command):
+    (wd / "ignore.yaml").write_text(YAML_IGNORE)
+    mine, ref, _rc1, _rc2 = run_both(env, wd, command, "--ignorefile", "ignore.yaml",
+                                     "--show-suppressed")
+    assert_equal(mine, ref)
+    got = set(ids(mine) + ids(mine, "RuleID"))
+    assert "CVE-2020-7598" not in got
+    if command == "fs-vuln":  # an expired entry, and a path that matches nothing
+        assert {"CVE-2023-0002", "CVE-2023-2222"} <= got
+    if command != "fs-secret":
+        assert "CVE-2021-23337" not in got
+    if command == "fs-secret":
+        assert "github-pat" not in got and "aws-access-key-id" in got
+    suppressed = [m for r in mine["Results"] for m in r.get("ExperimentalModifiedFindings", [])]
+    assert suppressed and all(m["Status"] == "ignored" for m in suppressed)
+
+
+@pytest.mark.parametrize("command", sorted(COMMANDS))
+def test_severity_flag(env, wd, command):
+    mine, ref, _rc1, _rc2 = run_both(env, wd, command, "--severity", "HIGH,CRITICAL")
+    assert_equal(mine, ref)
+    sevs = {f["Severity"] for r in mine["Results"]
+            for f in r.get("Vulnerabilities", []) + r.get("Secrets", [])}
+    assert sevs and sevs <= {"HIGH", "CRITICAL"}
+
+
+def test_config_file_skip_dirs(env, wd):
+    """``trivy-tpu.yaml`` in the working directory applies: ``sub/`` is not
+    scanned."""
+    (wd / "trivy-tpu.yaml").write_text('scan:\n  skip-dirs: ["sub"]\n')
+    mine, ref, _rc1, _rc2 = run_both(env, wd, "fs-secret")
+    assert_equal(mine, ref)
+    targets = {r["Target"] for r in mine["Results"]}
+    assert "sub/creds.txt" not in targets and "lib/b.env" in targets
+
+
+@pytest.mark.parametrize("command", sorted(COMMANDS))
+def test_config_file_severity_and_explicit_config(env, wd, command):
+    (wd / "trivy-tpu.yaml").write_text("severity: [CRITICAL]\n")
+    (wd / "other.yaml").write_text("severity: [LOW, MEDIUM]\n")
+    mine, ref, _rc1, _rc2 = run_both(env, wd, command)
+    assert_equal(mine, ref)
+    mine2, ref2, _rc1, _rc2 = run_both(env, wd, command, "-c", "other.yaml")
+    assert_equal(mine2, ref2)
+    assert mine != mine2 or not mine["Results"]
+
+
+@pytest.mark.parametrize("command", sorted(COMMANDS))
+def test_severity_from_environment(env, wd, command, monkeypatch):
+    (wd / "trivy-tpu.yaml").write_text("severity: [CRITICAL]\n")
+    monkeypatch.setenv("TRIVY_TPU_SEVERITY", "HIGH")  # env beats the config file
+    mine, ref, _rc1, _rc2 = run_both(env, wd, command)
+    assert_equal(mine, ref)
+    sevs = {f["Severity"] for r in mine["Results"]
+            for f in r.get("Vulnerabilities", []) + r.get("Secrets", [])}
+    assert sevs <= {"HIGH"}
+    mine2, ref2, _rc1, _rc2 = run_both(env, wd, command, "--severity", "LOW")  # CLI beats env
+    assert_equal(mine2, ref2)
+
+
+@pytest.mark.parametrize("command", sorted(COMMANDS))
+def test_python_ignore_policy_show_suppressed(env, wd, command):
+    (wd / "policy.py").write_text(POLICY)
+    for extra in ([], ["--show-suppressed"]):
+        mine, ref, _rc1, _rc2 = run_both(env, wd, command, "--ignore-policy", "policy.py",
+                                         *extra)
+        assert_equal(mine, ref)
+        got = set(ids(mine) + ids(mine, "RuleID"))
+        assert "aws-access-key-id" not in got and "CVE-2020-7598" not in got
+
+
+@pytest.mark.parametrize("command", sorted(COMMANDS))
+def test_exit_code(env, wd, command):
+    mine, ref, rc1, rc2 = run_both(env, wd, command, "--exit-code", "3")
+    assert_equal(mine, ref)
+    assert rc1 == rc2 == 3
+    (wd / ".trivyignore").write_text("CVE-2023-0001\nCVE-2023-0002\nCVE-2023-0003\n"
+                                     "CVE-2021-23337\nCVE-2020-7598\nCVE-2023-2222\n"
+                                     "github-pat\naws-access-key-id\n")
+    mine, ref, rc1, rc2 = run_both(env, wd, command, "--exit-code", "3")
+    assert_equal(mine, ref)
+    assert rc1 == rc2 == 0 and mine["Results"] == []
+
+
+@pytest.mark.parametrize("flag,text", [("--ignore-policy", REGO), ("--vex", "{}")])
+def test_rego_and_vex_refused(env, wd, flag, text, capsys):
+    path = wd / ("policy.rego" if flag == "--ignore-policy" else "doc.openvex.json")
+    path.write_text(text)
+    out = wd / "port.json"
+    rc = cli.main(["fs", "--scanners", "vuln", "--db-repository", env["db"], "--device", "cpu",
+                   "--format", "json", "-o", str(out), flag, str(path), str(env["tree"])])
+    assert rc == 2 and not out.exists()
+    assert "not supported by trivy_tpu_torch" in capsys.readouterr().err
+
+
+def test_bad_flag_values_refused(env, wd):
+    for args in (["--severity", "SEVERE"], ["--exit-code", "x"], ["-c", "missing.yaml"]):
+        with pytest.raises(SystemExit):
+            cli.main(["fs", "--device", "cpu", "-q", *args, str(env["tree"])])

@@ -1,35 +1,44 @@
-"""Command line of the port: the ``fs`` secret and license scans and the
-``sbom`` vulnerability scan.
+"""Command line of the port: the ``fs`` vulnerability, secret and license
+scans and the ``sbom`` vulnerability scan.
 
-    python -m trivy_tpu_torch fs [--scanners secret|license|secret,license]
+    python -m trivy_tpu_torch fs [--scanners vuln,secret,license]
+        [--db-repository DIR] [--cache-dir D] [--java-db DIR] [--list-all-pkgs]
         [--license-full] [--no-shared-arena] [--secret-config F]
+        [--severity S,..] [--ignorefile F] [--ignore-policy F.py]
+        [--show-suppressed] [--exit-code N] [-c CONFIG]
         [--format json|table] [-o OUT] [--device cuda|cpu]
         [--no-secret-dedup] [--secret-dedup-mb N]
-        [--secret-hit-cache [--cache-dir D] [--cache-backend fs|memory]]
+        [--secret-hit-cache [--cache-backend fs|memory]]
         [--secret-compress auto|on|off | --no-secret-compress]
-        [--secret-compress-min-ratio R] <dir>
+        [--secret-compress-min-ratio R] [--stats-out F] <dir>
     python -m trivy_tpu_torch sbom [--db-repository DIR] [--cache-dir D]
+        [--list-all-pkgs] [report flags as above]
         [--format json|table] [-o OUT] [--stats-out F] [--device cuda|cpu] <bom>
 
 Runs on the card unless ``--device cpu`` is given, and fails when CUDA is
-asked for and missing. Its JSON ``Results`` equal those of
-``python -m trivy_tpu.cli fs --scanners <same> [--license-full] --backend cpu
---format json`` on the same tree, under every feed option. The options
-carry the meanings and defaults of the JAX package's flags of the same
-names: with both scanners, the secret feed's rows also run the license gram
-gate (the fused pass) unless ``--no-shared-arena`` is given, and
-``--license-full`` adds source-file headers to the license files.
+asked for and missing. Flags resolve as the JAX package's do (``flag.py``):
+the command line, then ``TRIVY_TPU_<NAME>`` in the environment, then the
+config file (``-c``, else ``trivy-tpu.yaml`` or ``trivy_tpu.yaml`` in the
+working directory), then the default; ``--device`` and ``--stats-out`` are
+the port's own and come from the command line only. The report then passes
+the JAX package's filter: ``--severity``, the ignore file (``.trivyignore``
+in the working directory by default, plain or YAML), a Python
+``--ignore-policy``, and the dedup. Rego policies and ``--vex`` are refused.
 
-``sbom`` matches a CycloneDX (plain or in an in-toto attestation) or SPDX
-(JSON or tag-value) document against the advisory DB of ``--db-repository``
-or else ``<cache-dir>/db``; its JSON ``Results`` and ``Metadata`` equal
-those of ``python -m trivy_tpu.cli sbom --format json`` with the same DB.
+``fs`` walks the tree once: the OS identity analyzers always run, the
+lockfile, installed-package, binary and OS package DB analyzers when the
+report can show packages (``vuln``, ``license`` or ``--list-all-pkgs``),
+the secret and license analyzers as their scanners ask. Every application's
+packages then meet the advisory DB of ``--db-repository`` (or
+``<cache-dir>/db``) in one resident CVE join. Its JSON ``Results`` and
+``Metadata`` equal those of ``python -m trivy_tpu.cli fs --scanners <same>
+--backend cpu --format json`` on the same tree, DB and working directory;
+``sbom``'s equal those of ``python -m trivy_tpu.cli sbom --format json``.
 """
 
 from __future__ import annotations
 
 import argparse
-import datetime
 import json
 import os
 import sys
@@ -39,118 +48,34 @@ from collections import Counter
 from trivy_tpu_torch import log
 from trivy_tpu_torch.cache import BACKENDS, new_cache
 from trivy_tpu_torch.db import load_default_db
-from trivy_tpu_torch.detector import detect_all
 from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve
-from trivy_tpu_torch.fanal.applier import apply_layers
+from trivy_tpu_torch.fanal.analyzer import (
+    OS_IDENTITY,
+    AnalysisResult,
+    AnalyzerGroup,
+    AnalyzerOptions,
+)
+from trivy_tpu_torch.fanal.handler import HandlerManager
 from trivy_tpu_torch.fanal.license import LicenseAnalyzer
 from trivy_tpu_torch.fanal.secret import SecretAnalyzer
 from trivy_tpu_torch.fanal.walker import FSWalker, WalkOption
+from trivy_tpu_torch.flag import Flag, FlagGroup, load_config_file, resolve_all
 from trivy_tpu_torch.licensing.fused import FusedLicenseGate
-from trivy_tpu_torch.licensing.scanner import LicenseCategorizer
 from trivy_tpu_torch.report import WRITERS
+from trivy_tpu_torch.result import FilterOptions, IgnorePolicy, PolicyError, filter_report
 from trivy_tpu_torch.sbom import detect_format
 from trivy_tpu_torch.sbom.decode import decode
-from trivy_tpu_torch.types import DetectedVulnerability, Report, Result, ResultClass
+from trivy_tpu_torch.scanner import ScanOptions, build_report
+from trivy_tpu_torch.scanner.local_driver import LocalDriver
+from trivy_tpu_torch.types import Report
 
 logger = log.logger("cli")
 
-DEFAULT_SECRET_CONFIG = "trivy-secret.yaml"
-SCANNERS = ("secret", "license")
-# the CVE join's counters in an sbom scan's counters (the JAX package's names)
+SCANNERS = ("vuln", "secret", "license")
+SEVERITIES = ["UNKNOWN", "LOW", "MEDIUM", "HIGH", "CRITICAL"]
+# the CVE join's counters in a scan's counters (the JAX package's names)
 CVE_COUNTERS = ("cve.bounds_bytes_uploaded", "cve.resident_rows", "cve.dispatch_count",
                 "cve.candidate_pairs", "cve.join.seconds", "cve.dispatch.seconds")
-
-
-def license_result(files) -> list[Result]:
-    """The ``Loose File License(s)`` section of a report from the license
-    analyzers' ``LicenseFile``s, sorted as the JAX package's layer applier
-    sorts them (ref: pkg/scanner/local/scan.go)."""
-    cat = LicenseCategorizer()
-    found = []
-    for lf in sorted(files, key=lambda lf: (lf.file_path, lf.pkg_name, lf.type)):
-        for f in lf.findings:
-            d = cat.detect(f.name, file_path=lf.file_path)
-            d.confidence = f.confidence
-            d.link = f.link
-            found.append(d)
-    if not found:
-        return []
-    return [Result(target="Loose File License(s)", cls=ResultClass.LICENSE_FILE.value,
-                   licenses=found)]
-
-
-def scan_fs(root: str, config_path: str | None = None, device=DEFAULT_DEVICE,
-            skip_dirs=(), skip_files=(), scanners=("secret",), license_full: bool = False,
-            shared_arena: bool = True, **scanner_opts) -> tuple[Report, dict]:
-    """Scan the tree under ``root`` with ``scanners`` (``secret``,
-    ``license`` or both). Returns the report and the scan's counters (files
-    walked and scanned, seconds, the secret scanner's feed counters, and
-    the fused gate's file counts). With both scanners and ``shared_arena``,
-    the license gram gate rides the secret feed's rows. ``scanner_opts``
-    reach the :class:`~trivy_tpu_torch.secret.scanner.TorchSecretScanner`."""
-    unknown = set(scanners) - set(SCANNERS)
-    if unknown or not scanners:
-        raise ValueError(f"unsupported scanners {sorted(unknown) or scanners!r}: "
-                         f"use {', '.join(SCANNERS)}")
-    t0 = time.perf_counter()
-    gate = None
-    if "secret" in scanners and "license" in scanners and shared_arena:
-        gate = FusedLicenseGate(license_full=license_full)
-    analyzers: list = []
-    secret = None
-    if "secret" in scanners:
-        secret = SecretAnalyzer(root, config_path=config_path, device=device,
-                                license_gate=gate, **scanner_opts)
-        analyzers.append(secret)
-    if "license" in scanners:
-        kinds = ("license-file", "header") if license_full else ("license-file",)
-        analyzers += [LicenseAnalyzer(k, device, gate=gate) for k in kinds]
-    walker = FSWalker(WalkOption(skip_files=list(skip_files), skip_dirs=list(skip_dirs)))
-    walked = scanned = 0
-    try:
-        for rel, info, opener in walker.walk(root):
-            walked += 1
-            takers = [a for a in analyzers if a.required(rel, info.size)]
-            if not takers:
-                continue
-            try:
-                content = opener()
-            except OSError as e:
-                # the file vanished or turned unreadable after the walk
-                logger.debug("skipping unreadable %s: %s", rel, e)
-                continue
-            scanned += 1
-            for a in takers:
-                if a is secret:
-                    a.collect(rel, content, dir_=root)
-                else:
-                    a.collect(rel, content)
-        # the secret finalize first: the fused gate is complete only then
-        secrets = secret.finalize() if secret is not None else []
-        licenses = [lf for a in analyzers if a is not secret for lf in a.finalize()]
-    except BaseException:
-        if secret is not None:
-            secret.abort()
-        raise
-    name = root if root == os.path.sep else root.rstrip(os.path.sep)
-    results = [Result(target=s.file_path, secrets=s.findings) for s in secrets]
-    if "license" in scanners:
-        results += license_result(licenses)
-    report = Report(
-        created_at=datetime.datetime.now(datetime.timezone.utc).isoformat(),
-        artifact_name=name,
-        artifact_type="filesystem",
-        metadata={"ImageID": "", "DiffIDs": []},
-        results=results,
-    )
-    counters = {"files_walked": walked, "files_scanned": scanned,
-                "seconds": time.perf_counter() - t0}
-    if secret is not None:
-        counters.update(secret.scanner.stats.snapshot())
-    if gate is not None:
-        counters.update(files_covered=gate.files_covered, files_flagged=gate.files_flagged,
-                        files_patched=gate.files_patched)
-    return report, counters
 
 
 def load_db(db_repository: str | None = None, cache_dir: str | None = None):
@@ -163,28 +88,122 @@ def load_db(db_repository: str | None = None, cache_dir: str | None = None):
     return db
 
 
-def dedup_sorted(vulns: list[DetectedVulnerability]) -> list[DetectedVulnerability]:
-    """One finding per (ID, package, path, installed version), in the
-    report's order (ref: pkg/result/filter.go:77-120)."""
-    seen = set()
-    out = []
-    for v in sorted(vulns, key=lambda v: (v.pkg_name, v.vulnerability_id, v.pkg_path,
-                                          v.fixed_version)):
-        key = (v.vulnerability_id, v.pkg_name, v.pkg_path, v.installed_version)
-        if key not in seen:
-            seen.add(key)
-            out.append(v)
-    return out
+def _components(blob) -> int:
+    return (sum(len(pi.packages) for pi in blob.package_infos)
+            + sum(len(a.packages) for a in blob.applications))
+
+
+def _detect(blob, target: str, artifact_type: str, scanners, db, dev, list_all_pkgs: bool,
+            stats: Counter) -> Report:
+    """The report of one analyzed blob: detection, the result sections in
+    the reference's order and the metadata."""
+    t0 = time.perf_counter()
+    results, os_info = LocalDriver(db, dev, stats).scan(
+        target, [blob], ScanOptions(scanners=list(scanners), list_all_pkgs=list_all_pkgs))
+    stats["detect.seconds"] += time.perf_counter() - t0
+    return build_report(target, artifact_type, results, os_info)
+
+
+def scan_fs(root: str, config_path: str | None = None, device=DEFAULT_DEVICE,
+            skip_dirs=(), skip_files=(), scanners=("secret",), license_full: bool = False,
+            shared_arena: bool = True, db=None, db_repository: str | None = None,
+            cache_dir: str | None = None, java_db: str | None = None,
+            list_all_pkgs: bool = False, **scanner_opts) -> tuple[Report, dict]:
+    """Scan the tree under ``root`` with ``scanners`` (any of ``vuln``,
+    ``secret``, ``license``). With ``vuln``, packages meet ``db`` when given
+    (a loaded DB keeps its resident join across scans), else the DB that
+    :func:`load_db` finds. Returns the unfiltered report (the CLI filters
+    it) and the scan's counters: files walked and scanned, components, the
+    seconds of the walk with its analyzers (``analyze.seconds``), of the
+    detection and of the whole scan, the CVE join's (``cve.*``), the secret
+    feed's, the fused gate's file counts, and ``db_load_seconds`` when this
+    call loaded the DB (not part of ``seconds``). ``scanner_opts`` reach the
+    :class:`~trivy_tpu_torch.secret.scanner.TorchSecretScanner`."""
+    unknown = set(scanners) - set(SCANNERS)
+    if unknown or not scanners:
+        raise ValueError(f"unsupported scanners {sorted(unknown) or scanners!r}: "
+                         f"use {', '.join(SCANNERS)}")
+    dev = resolve(device)
+    stats: Counter = Counter()
+    if "vuln" in scanners and db is None:
+        t0 = time.perf_counter()
+        db = load_db(db_repository, cache_dir)
+        stats["db_load_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gate = None
+    if "secret" in scanners and "license" in scanners and shared_arena:
+        gate = FusedLicenseGate(license_full=license_full)
+    batch: list = []
+    secret = None
+    if "secret" in scanners:
+        secret = SecretAnalyzer(root, config_path=config_path, device=dev,
+                                license_gate=gate, **scanner_opts)
+        batch.append(secret)
+    if "license" in scanners:
+        kinds = ("license-file", "header") if license_full else ("license-file",)
+        batch += [LicenseAnalyzer(k, dev, gate=gate) for k in kinds]
+    # the package analyzers run only when the report can show packages; the
+    # OS identity ones always (Metadata.OS)
+    packages = "vuln" in scanners or "license" in scanners or list_all_pkgs
+    group = AnalyzerGroup(AnalyzerOptions(enabled=None if packages else OS_IDENTITY,
+                                          extra={"java_db_path": java_db}))
+    result = AnalysisResult()
+    walker = FSWalker(WalkOption(skip_files=list(skip_files), skip_dirs=list(skip_dirs)))
+    walked = scanned = 0
+    try:
+        for rel, info, opener in walker.walk(root):
+            walked += 1
+            takers = group.required(rel, info)
+            batch_takers = [a for a in batch if a.required(rel, info.size)]
+            if not takers and not batch_takers:
+                continue
+            try:
+                content = opener()
+            except OSError as e:
+                # the file vanished or turned unreadable after the walk
+                logger.debug("skipping unreadable %s: %s", rel, e)
+                continue
+            scanned += 1
+            group.analyze_file(result, takers, root, rel, info, content)
+            for a in batch_takers:
+                if a is secret:
+                    a.collect(rel, content, dir_=root)
+                else:
+                    a.collect(rel, content)
+        # the secret finalize first: the fused gate is complete only then
+        if secret is not None:
+            result.secrets = secret.finalize()
+        result.licenses = [lf for a in batch if a is not secret for lf in a.finalize()]
+    except BaseException:
+        if secret is not None:
+            secret.abort()
+        raise
+    blob = result.to_blob_info()
+    HandlerManager().post_handle(result, blob)
+    stats["analyze.seconds"] = time.perf_counter() - t0
+    name = root if root == os.path.sep else root.rstrip(os.path.sep)
+    report = _detect(blob, name, "filesystem", scanners, db, dev, list_all_pkgs, stats)
+    stats.update({"files_walked": walked, "files_scanned": scanned,
+                  "components": _components(blob), "seconds": time.perf_counter() - t0})
+    if secret is not None:
+        stats.update(secret.scanner.stats.snapshot())
+    if gate is not None:
+        stats.update(files_covered=gate.files_covered, files_flagged=gate.files_flagged,
+                     files_patched=gate.files_patched)
+    if "vuln" in scanners:
+        stats = Counter({**dict.fromkeys(CVE_COUNTERS, 0), **stats})
+    return report, dict(stats)
 
 
 def scan_sbom(path: str, db=None, device=DEFAULT_DEVICE, db_repository: str | None = None,
-              cache_dir: str | None = None) -> tuple[Report, dict]:
+              cache_dir: str | None = None, list_all_pkgs: bool = False) -> tuple[Report, dict]:
     """Match the SBOM at ``path`` against the advisory DB: ``db`` when
     given (a loaded DB keeps its resident join across scans), else the one
-    :func:`load_db` finds. Returns the report and the scan's counters: the
-    join's (``cve.*``, under the JAX package's names), the seconds of the
-    decode, the detection and the whole scan, and, when this call loaded
-    the DB, ``db_load_seconds`` (not part of ``seconds``)."""
+    :func:`load_db` finds. Returns the unfiltered report (the CLI filters
+    it) and the scan's counters: the join's (``cve.*``, under the JAX
+    package's names), the seconds of the decode, the detection and the
+    whole scan, and, when this call loaded the DB, ``db_load_seconds`` (not
+    part of ``seconds``)."""
     dev = resolve(device)
     stats: Counter = Counter()
     if db is None:
@@ -195,128 +214,209 @@ def scan_sbom(path: str, db=None, device=DEFAULT_DEVICE, db_repository: str | No
     with open(path, "rb") as f:
         data = f.read()
     fmt = detect_format(data)
-    detail = apply_layers([decode(data)])
-    t1 = time.perf_counter()
-    results = detect_all(db, path, detail, dev, stats) if db is not None else []
-    t2 = time.perf_counter()
-    for r in results:
-        r.vulnerabilities = dedup_sorted(r.vulnerabilities)
-    metadata = {"ImageID": "", "DiffIDs": []}
-    if detail.os is not None:
-        metadata["OS"] = detail.os.to_dict()
-    report = Report(
-        created_at=datetime.datetime.now(datetime.timezone.utc).isoformat(),
-        artifact_name=path,
-        artifact_type="spdx" if fmt.startswith("spdx") else "cyclonedx",
-        metadata=metadata,
-        results=[r for r in results if not r.is_empty],
-    )
-    stats.update({
-        "components": len(detail.packages) + sum(len(a.packages) for a in detail.applications),
-        "decode.seconds": t1 - t0, "detect.seconds": t2 - t1,
-        "seconds": time.perf_counter() - t0,
-    })
+    blob = decode(data)
+    stats["decode.seconds"] = time.perf_counter() - t0
+    report = _detect(blob, path, "spdx" if fmt.startswith("spdx") else "cyclonedx", ("vuln",),
+                     db, dev, list_all_pkgs, stats)
+    stats.update({"components": _components(blob), "seconds": time.perf_counter() - t0})
     return report, {**dict.fromkeys(CVE_COUNTERS, 0), **stats}
+
+
+# -- flags: the JAX package's names, defaults and config keys (trivy_tpu/cli.py)
+
+
+def global_flags() -> FlagGroup:
+    return FlagGroup("global", [
+        Flag("quiet", default=False, value_type=bool, help="errors only",
+             config_name="quiet", short="q"),
+        Flag("cache-dir", default=None, help="cache directory", config_name="cache.dir"),
+        Flag("cache-backend", default=None, choices=list(BACKENDS),
+             config_name="cache.backend", help="scan cache backend: fs, memory"),
+        Flag("config", default=None, help="config file path", short="c"),
+    ])
+
+
+def scan_flags() -> FlagGroup:
+    return FlagGroup("scan", [
+        Flag("scanners", default=["secret"], is_list=True, choices=list(SCANNERS),
+             config_name="scan.scanners", help="comma-separated scanners"),
+        Flag("skip-dirs", default=[], is_list=True, config_name="scan.skip-dirs",
+             help="directories to skip"),
+        Flag("skip-files", default=[], is_list=True, config_name="scan.skip-files",
+             help="files to skip"),
+    ])
+
+
+def report_flags() -> FlagGroup:
+    return FlagGroup("report", [
+        Flag("format", default="table", choices=sorted(WRITERS), short="f",
+             config_name="format", help="output format"),
+        Flag("output", default=None, short="o", config_name="output",
+             help="output file (default stdout)"),
+        Flag("severity", default=[], is_list=True, choices=SEVERITIES,
+             config_name="severity", help="severities to include"),
+        Flag("exit-code", default=0, value_type=int, config_name="exit-code",
+             help="exit code when findings exist"),
+        Flag("ignorefile", default=".trivyignore", config_name="ignorefile",
+             help="ignore file path"),
+        Flag("ignore-policy", default=None, config_name="ignore-policy",
+             help="suppress findings with a Python predicate file "
+                  "(ignore_vulnerability/ignore_secret/... or ignore()); "
+                  "rego policies are refused"),
+        Flag("vex", default=[], is_list=True, config_name="vex",
+             help="VEX document paths (refused: not supported by this port yet)"),
+        Flag("show-suppressed", default=False, value_type=bool,
+             config_name="show-suppressed", help="list policy-suppressed findings"),
+        Flag("list-all-pkgs", default=False, value_type=bool,
+             config_name="list-all-pkgs", help="include all packages in report"),
+    ])
+
+
+def secret_flags() -> FlagGroup:
+    return FlagGroup("secret", [
+        Flag("secret-config", default="trivy-secret.yaml", config_name="secret.config",
+             help="secret rule config (YAML); used when the file exists"),
+        Flag("no-secret-dedup", default=False, value_type=bool,
+             config_name="secret.no-dedup",
+             help="disable the chunk-dedup hit cache on the device feed"),
+        Flag("secret-hit-cache", default=False, value_type=bool,
+             config_name="secret.hit-cache",
+             help="persist chunk hit vectors in the scan cache backend for "
+                  "cross-scan dedup"),
+        Flag("no-shared-arena", default=False, value_type=bool,
+             config_name="secret.no-shared-arena",
+             help="with both scanners, classify every license candidate instead of "
+                  "gating them on the secret feed's rows"),
+        Flag("secret-dedup-mb", default=0, value_type=int, config_name="secret.dedup-mb",
+             help="byte budget (MB) for the in-process dedup hit-store LRU "
+                  "(0 = default 32; the bound is bytes, not entries, so "
+                  "streaming scans keep flat RSS)"),
+        Flag("secret-compress", default=None, choices=["auto", "on", "off"],
+             config_name="secret.compress",
+             help="compressed slab wire format on the device feed: auto (on "
+                  "for the card, off for --device cpu), on, off"),
+        Flag("no-secret-compress", default=False, value_type=bool,
+             config_name="secret.no-compress",
+             help="ship raw slabs unconditionally (shorthand for --secret-compress off)"),
+        Flag("secret-compress-min-ratio", default=None, value_type=float,
+             config_name="secret.compress-min-ratio",
+             help="per-batch wire budget as a fraction of the raw slab: a "
+                  "batch that can't compress below this ships raw (default "
+                  "0.875, the 7-bit-packing line)"),
+    ])
+
+
+def license_flags() -> FlagGroup:
+    return FlagGroup("license", [
+        Flag("license-full", default=False, value_type=bool, config_name="license.full",
+             help="also classify source-file headers, not only license files"),
+    ])
+
+
+def db_flags() -> FlagGroup:
+    return FlagGroup("db", [
+        Flag("db-repository", default=None, config_name="db.repository",
+             help="advisory DB directory (default: <cache-dir>/db)"),
+        Flag("java-db", default=None, config_name="db.java-repository",
+             help="java DB directory (jar sha1 -> maven coordinates)"),
+    ])
+
+
+_TARGET_GROUPS = {
+    "fs": [global_flags, scan_flags, report_flags, secret_flags, license_flags, db_flags],
+    "sbom": [global_flags, report_flags, db_flags],
+}
+_HELP = {
+    "fs": "scan a local filesystem for vulnerabilities, secrets and licenses",
+    "sbom": "scan an SBOM (CycloneDX/SPDX) for vulnerabilities",
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="trivy_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
-    sb = sub.add_parser("sbom", help="scan an SBOM (CycloneDX/SPDX) for vulnerabilities")
-    sb.add_argument("target", help="SBOM file")
-    sb.add_argument("--db-repository", default=None,
-                    help="advisory DB directory (default: <cache-dir>/db)")
-    sb.add_argument("--cache-dir", default=None, help="cache directory")
-    sb.add_argument("-f", "--format", choices=sorted(WRITERS), default="table")
-    sb.add_argument("-o", "--output", default="", help="output file (default stdout)")
-    sb.add_argument("--device", choices=["cuda", "cpu"], default=DEFAULT_DEVICE)
-    sb.add_argument("--stats-out", default="",
-                    help="write the scan's counters (components, seconds, the CVE join's "
-                         "rows, dispatches and bound bytes uploaded) as JSON")
-    sb.add_argument("-q", "--quiet", action="store_true")
-    fs = sub.add_parser("fs", help="scan a local filesystem for secrets and licenses")
-    fs.add_argument("target", help="directory to scan")
-    fs.add_argument("--scanners", default="secret",
-                    help="comma-separated scanners: secret, license")
-    fs.add_argument("--license-full", action="store_true",
-                    help="also classify source-file headers, not only license files")
-    fs.add_argument("--no-shared-arena", action="store_true",
-                    help="with both scanners, classify every license candidate instead of "
-                         "gating them on the secret feed's rows")
-    fs.add_argument("--secret-config", default=DEFAULT_SECRET_CONFIG,
-                    help="secret rule config (YAML); used when the file exists")
-    fs.add_argument("-f", "--format", choices=sorted(WRITERS), default="table")
-    fs.add_argument("-o", "--output", default="", help="output file (default stdout)")
-    fs.add_argument("--device", choices=["cuda", "cpu"], default=DEFAULT_DEVICE)
-    fs.add_argument("--skip-dirs", action="append", default=[],
-                    help="glob of directories to skip (repeatable)")
-    fs.add_argument("--skip-files", action="append", default=[],
-                    help="glob of files to skip (repeatable)")
-    fs.add_argument("--stats-out", default="",
-                    help="write the scan's counters (files, seconds, rows, dedup and "
-                         "wire bytes) as JSON")
-    fs.add_argument("--no-secret-dedup", action="store_true",
-                    help="disable the chunk-dedup hit cache on the device feed")
-    fs.add_argument("--secret-dedup-mb", type=int, default=0,
-                    help="byte budget (MB) for the in-process dedup hit-store LRU "
-                         "(0 = default 32; the bound is bytes, not entries, so "
-                         "streaming scans keep flat RSS)")
-    fs.add_argument("--secret-hit-cache", action="store_true",
-                    help="persist chunk hit vectors in the scan cache backend for "
-                         "cross-scan dedup")
-    fs.add_argument("--cache-dir", default=None, help="cache directory")
-    fs.add_argument("--cache-backend", choices=BACKENDS, default="fs",
-                    help="scan cache backend")
-    fs.add_argument("--secret-compress", choices=["auto", "on", "off"], default=None,
-                    help="compressed slab wire format on the device feed: auto (on "
-                         "for the card, off for --device cpu), on, off")
-    fs.add_argument("--no-secret-compress", action="store_true",
-                    help="ship raw slabs unconditionally (shorthand for "
-                         "--secret-compress off)")
-    fs.add_argument("--secret-compress-min-ratio", type=float, default=None,
-                    help="per-batch wire budget as a fraction of the raw slab: a "
-                         "batch that can't compress below this ships raw (default "
-                         "0.875, the 7-bit-packing line)")
-    fs.add_argument("-q", "--quiet", action="store_true")
+    groups_by_cmd = {}
+    for cmd, factories in _TARGET_GROUPS.items():
+        sp = sub.add_parser(cmd, help=_HELP[cmd])
+        groups = [f() for f in factories]
+        for g in groups:
+            g.add_to_parser(sp)
+        groups_by_cmd[cmd] = groups
+        # the port's own flags: the command line only
+        sp.add_argument("--device", choices=["cuda", "cpu"], default=DEFAULT_DEVICE)
+        sp.add_argument("--stats-out", default="",
+                        help="write the scan's counters (files, components, seconds, the "
+                             "CVE join's rows, dispatches and bound bytes uploaded, the "
+                             "secret feed's rows, dedup and wire bytes) as JSON")
+        sp.add_argument("target", help="directory to scan" if cmd == "fs" else "SBOM file")
+    p.set_defaults(_groups_by_cmd=groups_by_cmd)
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(argv)
-    log.init(quiet=args.quiet)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    try:
+        config = load_config_file(args.config)
+        opts = resolve_all(args._groups_by_cmd[args.command], args, config)
+    except (ValueError, FileNotFoundError) as e:
+        parser.error(str(e))
+    log.init(quiet=opts["quiet"])
+    try:
+        # refuse what the filter cannot apply before paying for a scan
+        if opts["vex"]:
+            raise PolicyError("--vex is not supported by trivy_tpu_torch yet")
+        if opts["ignore_policy"]:
+            IgnorePolicy(opts["ignore_policy"])
+    except PolicyError as e:
+        logger.error("%s", e)
+        return 2
     if args.command == "sbom":
         report, counters = scan_sbom(args.target, device=args.device,
-                                     db_repository=args.db_repository, cache_dir=args.cache_dir)
+                                     db_repository=opts["db_repository"],
+                                     cache_dir=opts["cache_dir"],
+                                     list_all_pkgs=opts["list_all_pkgs"])
     else:
-        report, counters = _run_fs(args)
+        report, counters = _run_fs(args, opts)
     if args.stats_out:
         with open(args.stats_out, "w", encoding="utf-8") as f:
             json.dump(counters, f, indent=2)
-    write = WRITERS[args.format]
-    if args.output:
-        with open(args.output, "w", encoding="utf-8") as f:
-            write(report, f)
+    return _emit(report, opts)
+
+
+def _emit(report: Report, opts: dict) -> int:
+    """Filter, write, and the exit code (ref: pkg/commands/artifact/run.go;
+    the JAX package's ``commands._emit``)."""
+    filter_report(report, FilterOptions(
+        severities=opts["severity"], ignore_file=opts["ignorefile"],
+        vex_sources=opts["vex"], policy_file=opts["ignore_policy"],
+        show_suppressed=opts["show_suppressed"]))
+    write = WRITERS[opts["format"]]
+    if opts["output"]:
+        with open(opts["output"], "w", encoding="utf-8") as f:
+            write(report, f, show_suppressed=opts["show_suppressed"])
     else:
-        write(report, sys.stdout)
+        write(report, sys.stdout, show_suppressed=opts["show_suppressed"])
+    if opts["exit_code"] and any(not r.is_empty for r in report.results):
+        return opts["exit_code"]
     return 0
 
 
-def _run_fs(args) -> tuple[Report, dict]:
-    scanners = [s for s in args.scanners.split(",") if s]
-    if not scanners or set(scanners) - set(SCANNERS):
-        raise SystemExit(f"unsupported --scanners {args.scanners!r}: use {', '.join(SCANNERS)}")
-    config = args.secret_config if os.path.exists(args.secret_config) else None
+def _run_fs(args, opts: dict) -> tuple[Report, dict]:
+    config = opts["secret_config"] if os.path.exists(opts["secret_config"]) else None
     return scan_fs(
         args.target, config_path=config, device=args.device,
-        skip_dirs=args.skip_dirs, skip_files=args.skip_files, scanners=scanners,
-        license_full=args.license_full, shared_arena=not args.no_shared_arena,
-        dedup=not args.no_secret_dedup,
-        hit_cache=(new_cache(args.cache_backend, args.cache_dir)
-                   if args.secret_hit_cache else None),
-        hit_cache_bytes=max(0, args.secret_dedup_mb) << 20,
+        skip_dirs=opts["skip_dirs"], skip_files=opts["skip_files"], scanners=opts["scanners"],
+        license_full=opts["license_full"], shared_arena=not opts["no_shared_arena"],
+        db_repository=opts["db_repository"], cache_dir=opts["cache_dir"],
+        java_db=opts["java_db"], list_all_pkgs=opts["list_all_pkgs"],
+        dedup=not opts["no_secret_dedup"],
+        hit_cache=(new_cache(opts["cache_backend"] or "fs", opts["cache_dir"])
+                   if opts["secret_hit_cache"] else None),
+        hit_cache_bytes=max(0, opts["secret_dedup_mb"]) << 20,
         # --no-secret-compress is the loud opt-out shorthand
-        compress="off" if args.no_secret_compress else (args.secret_compress or ""),
-        compress_min_ratio=args.secret_compress_min_ratio or 0.0,
+        compress="off" if opts["no_secret_compress"] else (opts["secret_compress"] or ""),
+        compress_min_ratio=opts["secret_compress_min_ratio"] or 0.0,
     )
 
 

@@ -9,12 +9,13 @@ from trivy_tpu_torch.types import ArtifactDetail, Result, ResultClass
 
 
 def detect_all(db, target: str, detail: ArtifactDetail, device=DEFAULT_DEVICE,
-               stats: Counter | None = None) -> list[Result]:
+               stats: Counter | None = None, list_all_pkgs: bool = False) -> list[Result]:
     """OS packages + every application (ref: pkg/scanner/local/scan.go:153-247,
     pkg/scanner/langpkg/scan.go:36), as the JAX package's ``detect_all``
-    with both package types and without ``--list-all-pkgs``. The
-    applications' constraint checks run on ``device``; ``stats`` gathers
-    the join's counters."""
+    with both package types. The applications' constraint checks run on
+    ``device``; ``stats`` gathers the join's counters. ``list_all_pkgs``
+    (``--list-all-pkgs``) keeps every package in its section and the
+    applications without findings."""
     from trivy_tpu_torch.detector import library, ospkg
     from trivy_tpu_torch.vulnerability import fill_infos
 
@@ -28,6 +29,7 @@ def detect_all(db, target: str, detail: ArtifactDetail, device=DEFAULT_DEVICE,
                 cls=ResultClass.OS_PKGS.value,
                 type=detail.os.family,
                 vulnerabilities=vulns,
+                packages=detail.packages if list_all_pkgs else [],
             )
         )
     apps = sorted(detail.applications, key=lambda a: (a.file_path, a.type))
@@ -35,7 +37,7 @@ def detect_all(db, target: str, detail: ArtifactDetail, device=DEFAULT_DEVICE,
     # dispatch together against the card-resident global bound matrix
     for app, vulns in zip(apps, library.detect_batch(db, apps, device, stats)):
         fill_infos(db, vulns)
-        if not vulns:
+        if not vulns and not list_all_pkgs:
             continue
         results.append(
             Result(
@@ -43,6 +45,7 @@ def detect_all(db, target: str, detail: ArtifactDetail, device=DEFAULT_DEVICE,
                 cls=ResultClass.LANG_PKGS.value,
                 type=app.type,
                 vulnerabilities=vulns,
+                packages=app.packages if list_all_pkgs else [],
             )
         )
     return results

@@ -27,6 +27,7 @@ import os.path
 import threading
 
 from trivy_tpu_torch import log
+from trivy_tpu_torch.fanal.utils import extract_printable_bytes, is_binary
 from trivy_tpu_torch.secret.engine import ScannerConfig
 from trivy_tpu_torch.secret.feed import FileStream
 from trivy_tpu_torch.secret.scanner import TorchSecretScanner
@@ -56,41 +57,6 @@ LARGE_FILE_WARN = 10 * 1024 * 1024  # ref: secret.go:110
 # byte budget of the walk→device handoff: the walk blocks once this much
 # read content waits on the device pipeline
 STREAM_BUFFER_BYTES = 64 * 1024 * 1024
-
-# Control bytes that mark content as binary when found in the head
-# (ref: pkg/fanal/utils/utils.go:85-100 — a 300-byte sniff).
-_SNIFF_LEN = 300
-_PRINTABLE_MIN = 7  # below \a => control
-_MIN_PRINTABLE_RUN = 4
-
-
-def is_binary(head: bytes) -> bool:
-    """True when any of the first 300 bytes is a control byte."""
-    for b in head[:_SNIFF_LEN]:
-        if b < _PRINTABLE_MIN or (13 < b < 27) or (27 < b < 32) or b == 127:
-            return True
-    return False
-
-
-def extract_printable_bytes(data: bytes) -> bytes:
-    """strings(1)-like extraction of printable runs from binary content
-    (ref: pkg/fanal/utils/utils.go:128+): runs of >=4 printable characters,
-    newline-joined."""
-    out = bytearray()
-    run = bytearray()
-    for b in data:
-        if 32 <= b < 127 or b == 9:
-            run.append(b)
-        else:
-            if len(run) >= _MIN_PRINTABLE_RUN:
-                out += run
-                out += b"\n"
-            run.clear()
-    if len(run) >= _MIN_PRINTABLE_RUN:
-        out += run
-        out += b"\n"
-    return bytes(out)
-
 
 class SecretAnalyzer:
     """Selects and prepares files for one scan and streams them to a
@@ -162,7 +128,7 @@ class SecretAnalyzer:
     def prepare(self, file_path: str, content: bytes, dir_: str) -> tuple[str, bytes] | None:
         """The (path, content) the scanner sees, or None for a binary file
         whose extension is not an allowed binary."""
-        binary = is_binary(content[:_SNIFF_LEN])
+        binary = is_binary(content)
         if binary and os.path.splitext(file_path)[1] not in ALLOWED_BINARIES:
             return None
         if len(content) > LARGE_FILE_WARN:

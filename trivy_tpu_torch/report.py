@@ -6,7 +6,8 @@ Results[].Target/Class/Vulnerabilities/Secrets/Licenses...), byte for byte
 the JAX package's ``report/json_.py``. ``table``: the vulnerability, secret
 and license sections of the JAX package's ``report/table.py`` — a grid of
 each target's vulnerabilities; a header per file, then each secret finding
-with its censored code context; a grid of the licenses found.
+with its censored code context; a grid of the licenses found; with
+``--show-suppressed``, a grid of the findings the filter suppressed.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from trivy_tpu_torch.types import Report, Result
 SEV_ORDER = ["CRITICAL", "HIGH", "MEDIUM", "LOW", "UNKNOWN"]
 
 
-def write_json(report: Report, out) -> None:
+def write_json(report: Report, out, **_kw) -> None:
     json.dump(report.to_dict(), out, indent=2, ensure_ascii=False)
     out.write("\n")
 
@@ -98,10 +99,24 @@ def _grid(out, cols: list[str], rows: list[list[str]]) -> None:
         out.write(fmt(row) + "\n")
 
 
-def write_table(report: Report, out) -> None:
+def _write_suppressed(result: Result, out) -> None:
+    """Suppressed-findings table (ref: pkg/report/table --show-suppressed)."""
+    _header(out, f"{result.target} (suppressed)", f"— {len(result.modified_findings)} findings")
+    _grid(out, ["ID", "Type", "Status", "Statement", "Source"],
+          [[m.finding.get("VulnerabilityID") or m.finding.get("ID")
+            or m.finding.get("RuleID") or m.finding.get("Name", ""),
+            m.type, m.status, (m.statement or "")[:50], m.source]
+           for m in result.modified_findings])
+
+
+def write_table(report: Report, out, show_suppressed: bool = False) -> None:
+    n_suppressed = sum(len(r.modified_findings) for r in report.results)
     if not any(r.vulnerabilities or r.secrets or r.licenses for r in report.results):
         out.write(f"\n{report.artifact_name} ({report.artifact_type})\n")
         out.write("No issues detected.\n")
+        if n_suppressed and not show_suppressed:
+            out.write(f"({n_suppressed} suppressed finding{'s' if n_suppressed != 1 else ''}; "
+                      "--show-suppressed lists them)\n")
     for result in report.results:
         if result.vulnerabilities:
             _write_vulnerabilities(result, out)
@@ -109,6 +124,8 @@ def write_table(report: Report, out) -> None:
             _write_secrets(result, out)
         if result.licenses:
             _write_licenses(result, out)
+        if show_suppressed and result.modified_findings:
+            _write_suppressed(result, out)
 
 
 WRITERS = {"json": write_json, "table": write_table}

@@ -261,6 +261,9 @@ class PackageInfo:
     file_path: str = ""
     packages: list[Package] = field(default_factory=list)
 
+    def to_dict(self) -> dict[str, Any]:
+        return {"FilePath": self.file_path, "Packages": [p.to_dict() for p in self.packages]}
+
 
 @dataclass
 class Application:
@@ -269,6 +272,13 @@ class Application:
     type: str  # ecosystem type, e.g. "npm", "pip", "gomod"
     file_path: str = ""
     packages: list[Package] = field(default_factory=list)
+
+    def to_dict(self) -> dict[str, Any]:
+        return {
+            "Type": self.type,
+            "FilePath": self.file_path,
+            "Packages": [p.to_dict() for p in self.packages],
+        }
 
 
 @dataclass
@@ -293,23 +303,37 @@ class OS:
 
 @dataclass
 class BlobInfo:
-    """The analysis result of one blob: the fields an SBOM fills (ref:
-    pkg/fanal/types BlobInfo). ``diff_id`` is the layer its packages carry."""
+    """The analysis result of one blob (ref: pkg/fanal/types BlobInfo): the
+    fields a filesystem scan or an SBOM fills. ``diff_id`` is the layer its
+    findings carry; whiteouts and opaque dirs delete what lower layers put
+    at those paths."""
 
     os: OS | None = None
+    repository: dict[str, str] | None = None  # {"Family":..., "Release":...}
+    # Red Hat build metadata: {"ContentSets": [...]} or {"Nvr":..., "Arch":...}
+    build_info: dict | None = None
+    digests: dict[str, str] = field(default_factory=dict)  # executable sha256s
     package_infos: list[PackageInfo] = field(default_factory=list)
     applications: list[Application] = field(default_factory=list)
+    secrets: list[Secret] = field(default_factory=list)
+    licenses: list[LicenseFile] = field(default_factory=list)
     diff_id: str = ""
+    opaque_dirs: list[str] = field(default_factory=list)
+    whiteout_files: list[str] = field(default_factory=list)
 
 
 @dataclass
 class ArtifactDetail:
-    """Merged view of the blobs (ref: pkg/fanal/types ArtifactDetail): the
-    OS, its packages and the applications."""
+    """Merged view of the blobs (ref: pkg/fanal/types ArtifactDetail)."""
 
     os: OS | None = None
+    repository: dict[str, str] | None = None
+    build_info: dict | None = None
+    digests: dict[str, str] = field(default_factory=dict)
     packages: list[Package] = field(default_factory=list)
     applications: list[Application] = field(default_factory=list)
+    secrets: list[Secret] = field(default_factory=list)
+    licenses: list[LicenseFile] = field(default_factory=list)
 
 
 @dataclass
@@ -363,10 +387,31 @@ class DetectedVulnerability:
 
 
 @dataclass
+class ModifiedFinding:
+    """A finding suppressed after the scan by an ignore file or an ignore
+    policy (ref: pkg/types/finding.go ModifiedFinding)."""
+
+    type: str = "vulnerability"
+    status: str = ""  # ignored
+    statement: str = ""
+    source: str = ""
+    finding: dict[str, Any] = field(default_factory=dict)
+
+    def to_dict(self) -> dict[str, Any]:
+        return {
+            "Type": self.type,
+            "Status": self.status,
+            "Statement": self.statement,
+            "Source": self.source,
+            "Finding": dict(self.finding),
+        }
+
+
+@dataclass
 class Result:
     """One report section: the secret findings of one target file, a license
-    section, or the vulnerabilities of the OS packages or of one
-    application."""
+    section, or the vulnerabilities (and, with ``--list-all-pkgs``, the
+    packages) of the OS packages or of one application."""
 
     target: str
     cls: str = ResultClass.SECRET.value
@@ -375,6 +420,7 @@ class Result:
     vulnerabilities: list[DetectedVulnerability] = field(default_factory=list)
     secrets: list[SecretFinding] = field(default_factory=list)
     licenses: list[DetectedLicense] = field(default_factory=list)
+    modified_findings: list[ModifiedFinding] = field(default_factory=list)
 
     def to_dict(self) -> dict[str, Any]:
         d: dict[str, Any] = {"Target": self.target, "Class": self.cls, "Type": self.type}
@@ -386,6 +432,8 @@ class Result:
             d["Secrets"] = [s.to_dict() for s in self.secrets]
         if self.licenses:
             d["Licenses"] = [l.to_dict() for l in self.licenses]
+        if self.modified_findings:
+            d["ExperimentalModifiedFindings"] = [m.to_dict() for m in self.modified_findings]
         return d
 
     @property
