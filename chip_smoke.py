@@ -27,13 +27,19 @@ Phases, each printing JSON lines:
    they were encoded from. Outputs are booleans or bytes: ``torch.equal``
    is required (tolerance zero). Then the license kernels against their
    plain versions on the card, with the classifier's own tables: the gram
-   gate (``torch.equal`` on its lane bits) on a [1024, 16384] batch of
-   seeded text with planted license texts and non-ASCII bytes; the shingle
-   gate (``torch.equal``) at every rung of the text-row ladder; the scorer
-   at every rung and on an 8-row batch gathered from each as the
-   classifier gathers flagged rows, on license texts and a row whose
-   repeated grams exceed the cap while its distinct grams fit (``n_uniq``
-   and ``phrase`` with ``torch.equal``, ``full_w`` within rtol 1e-5, its
+   gate (``torch.equal`` on its lane bits) on [1024, 16384] batches of
+   seeded text with planted license texts and non-ASCII bytes, of license
+   text (the prescreen's hits) and of random bytes, with the share of
+   gram keys that pass the prescreen; the shingle gate (``torch.equal``)
+   at every rung of the text-row ladder; the scorer at every rung, at
+   every cluster size its launch policy can choose there, on the full
+   dispatch and on batches of 8, 16 and 64 rows gathered from it as the
+   classifier gathers flagged rows, on license texts, a row whose
+   repeated grams exceed the cap while its distinct grams fit, a row
+   without words, one word over the whole row, a word across every
+   16-byte boundary and one key repeated ~2,000 times (a bucket that
+   spills to the device scratch) (``n_uniq`` and ``phrase`` with
+   ``torch.equal``, ``full_w`` within rtol 1e-5, its
    ``max_abs_err`` printed). Then the version-constraint kernel against its
    plain version (``torch.equal``) at widths 1, 8, 24, 40 and 72, on rows
    that are equal, differ only in the last column or anywhere, with every
@@ -52,10 +58,14 @@ Phases, each printing JSON lines:
    frames, with its bound from each frame's actual wire bytes, the plain
    version's time, the host's encode time per batch (``plan`` + ``emit``)
    and the pinned host-to-card copy of the wire beside that of the raw
-   slab. The gram gate on [1024, 16384] batches, the shingle gate and the
-   scorer at their dispatch shapes, each beside its plain version, with
-   its bound from this run's inputs (the scorer's from the distinct credit
-   rows its rows actually gather).
+   slab. The gram gate on four [1024, 16384] batches of seeded text and
+   one of license text, the shingle gate and the scorer at their dispatch
+   shapes, and the scorer on gathered batches of 8 and 64 rows at 1024,
+   16384 and 49152, each beside its plain version, with its bound from
+   this run's inputs (the scorer's from the distinct credit rows its rows
+   actually gather), the scorer with its cluster size, threads, shared
+   memory and blocks per SM, and at 1024, 16384 and 49152 also its time at
+   every other cluster size whose slices hold up to 16 KiB.
 4. e2e: a seeded tree (1 MiB text files, 2% with a planted secret, some
    thousands of small files, binaries, node_modules/, a lockfile and a CRLF
    file) scanned by ``python -m trivy_tpu_torch fs --scanners secret``'s
@@ -82,7 +92,8 @@ Phases, each printing JSON lines:
    a subset directory. ``fs --scanners secret,license --license-full`` on
    the card, with the launch counters set to 0 just before and read just
    after: every planted license must be reported under its name, and the
-   gram gate, shingle gate and scorer must have launched. The gate's
+   gram gate, shingle gate and scorer must have launched (the shingle
+   gate's and the scorer's launches are also counted per [rows, width]). The gate's
    selection is printed, with the rows each of its lanes (gram, anchor,
    non-ASCII) flagged. The same tree with ``--scanners secret`` gives the
    secret-only MB/s beside it, and with ``--no-shared-arena`` (no gate)
@@ -155,12 +166,16 @@ from trivy_tpu_torch.licensing.fused import get_gate_fn
 from trivy_tpu_torch.ops import _build
 from trivy_tpu_torch.ops.bytes_gate import bytes_gate_plain
 from trivy_tpu_torch.ops.bytes_score import bytes_score_plain, credited_keys, effective_cap
+from trivy_tpu_torch.ops.bytes_score_cuda import CLUSTER_SIZES, SLICE_MAX, cluster_size
 from trivy_tpu_torch.ops.decompress import build_decompress_fn, decompress_plain
-from trivy_tpu_torch.ops.gram_gate import LANE_ANCHOR, LANE_GRAM, LANE_NONASCII, gram_gate_plain
+from trivy_tpu_torch.ops.gram_gate import (
+    LANE_ANCHOR, LANE_GRAM, LANE_NONASCII, gram_gate_plain, gram_keys, lut_image,
+    screen_bits, screen_pass, word_hashes,
+)
 from trivy_tpu_torch.ops.ngram_score import BYTES_WIDTHS, DeviceBytesScorer
 from trivy_tpu_torch.ops.match import match_plain
 from trivy_tpu_torch.ops.match_cuda import (
-    LAUNCHES, SCREEN_BYTES, build_match_fn_cuda, literals, pack_tables,
+    LAUNCH_SHAPES, LAUNCHES, SCREEN_BYTES, build_match_fn_cuda, literals, pack_tables,
 )
 from trivy_tpu_torch.ops import verscmp
 from trivy_tpu_torch.ops.prefilter import build_prefilter_fn
@@ -198,6 +213,7 @@ VERSCMP_REPLACES = "trivy_tpu/ops/verscmp.py:37"
 # csrc/<name>.cu, built at once
 LIBRARIES = ("match", "decompress", *LICENSE_KERNELS, "verscmp")
 SCORE_RTOL = 1e-5  # the scorer's full_w against its plain version (float32 sums)
+GATHER_WIDTHS = (1024, 16384, 49152)  # rungs where the scorer is also timed on gathered rows
 SHORT_BATCH = 8  # live rows of the short check batch
 
 # words of the generated source text; some are rule keywords, as in real code
@@ -604,35 +620,92 @@ def gate_rows(rng: random.Random, base_np: np.ndarray, rows: int) -> np.ndarray:
     return out
 
 
+def scorer_rows(rng: random.Random, base: bytes, width: int, n: int) -> np.ndarray:
+    """``license_rows`` with the scorer's edge rows after the over-cap row:
+    a row with no words, one word over the whole row (it spans every
+    slice), a word across every possible slice end (every 16 bytes), and
+    one gram key repeated ~2,000 times (it overfills a bucket, which then
+    spills to the device scratch)."""
+    rows = license_rows(rng, base, width, n)
+    edge = bytearray(b" " * (width - 1))
+    for e in range(16, width - 2, 16):
+        edge[e - 2 : e + 2] = b"abcd"
+    for i, body in enumerate((b"", b"w" * (width - 1), bytes(edge),
+                              (b" a" * 2000)[: width - 1]), start=1):
+        if i < n:
+            rows[i] = 0
+            rows[i, : len(body)] = np.frombuffer(body, np.uint8)
+    return rows
+
+
+def cluster_choices(width: int) -> tuple:
+    """The cluster sizes the scorer is checked and timed at, at ``width``:
+    every size whose slices hold at most 2 * SLICE_MAX bytes (the launch
+    policy's choice among them)."""
+    return tuple(s for s in CLUSTER_SIZES if -(-width // s) <= 2 * SLICE_MAX)
+
+
+def screen_share(gate, x: torch.Tensor) -> dict:
+    """The prescreen on the gram keys of ``x`` (computed on the host from
+    the plain helpers): valid keys, the share that passes the screen, and
+    the share that is a gate key."""
+    starts, H = word_hashes(lut_image(x.cpu(), gate.lut.cpu()), gate.p1, gate.p2)
+    key, valid = gram_keys(starts, H, gate.hash_p, gate.ngram)
+    k = key[valid].numpy().astype(np.uint32)
+    g32 = gate.gate.cpu().numpy().astype(np.uint32)
+    return {"gram_keys": int(k.size),
+            "screen_pass_share": float(screen_pass(screen_bits(g32), k).mean()) if k.size else 0.0,
+            "gate_key_share": float(np.isin(k, g32).mean()) if k.size else 0.0}
+
+
+def gate_inputs(rng: random.Random, base: bytes, base_np: np.ndarray, n_seeded: int) -> dict:
+    """[BATCH, CHUNK_LEN] gate batches on the card: ``n_seeded`` of seeded
+    source text with planted licenses (``gate_rows``), one of license text
+    (``license_rows``: the prescreen's hits), one of uniform random bytes."""
+    out = {f"seeded{i}": torch.from_numpy(gate_rows(rng, base_np, BATCH)).cuda()
+           for i in range(n_seeded)}
+    out["license"] = torch.from_numpy(license_rows(rng, base, CHUNK_LEN, BATCH)).cuda()
+    out["random"] = torch.from_numpy(np.random.default_rng(rng.randrange(1 << 30)).integers(
+        0, 256, (BATCH, CHUNK_LEN), dtype=np.uint8)).cuda()
+    return out
+
+
 def phase_check_license(base: bytes, base_np: np.ndarray, seed: int) -> dict:
     """The three license kernels against their plain versions on the card,
-    with the classifier's tables: the gram gate (its three lanes) on a
-    [BATCH, CHUNK_LEN] batch, the shingle gate and the scorer at every rung,
-    the scorer also on an 8-row batch gathered as ``take_rows`` gathers
-    flagged rows."""
+    with the classifier's tables: the gram gate (its three lanes) on
+    [BATCH, CHUNK_LEN] batches of seeded text, license text and random
+    bytes; the shingle gate at every rung; the scorer at every rung and
+    every cluster size its launch policy can choose there, on the full
+    dispatch and on batches of 8, 16 and 64 rows gathered as ``take_rows``
+    gathers flagged rows."""
     rng = random.Random(seed + 3)
     gate = get_gate_fn(CHUNK_LEN, "cuda")
     scorer = LicenseClassifier(device="cuda")._device_scorer()
     g, sc = scorer._gate, scorer._score
-    x = torch.from_numpy(gate_rows(rng, base_np, BATCH)).cuda()
-    got = gate(x)
-    want = gram_gate_plain(x, gate.lut, gate.gate, gate.anchor, gate.p1, gate.p2, gate.hash_p,
-                           gate.block, gate.ngram)
-    torch.cuda.synchronize()
-    out = {"gram_gate": {"equal": torch.equal(got, want),
-                         "max_abs_err": int((got.int() - want.int()).abs().max()),
-                         "rows_flagged": int((want != 0).any(dim=1).sum()),
-                         "blocks_flagged": int((want != 0).sum()),
-                         **{f"rows_{name}": int((want & bit).any(dim=1).sum()) for name, bit in (
-                             ("gram", LANE_GRAM), ("anchor", LANE_ANCHOR),
-                             ("nonascii", LANE_NONASCII))}}}
-    log({"phase": "check", "use": "gram_gate", "shape": list(x.shape), **out["gram_gate"]})
-    check(out["gram_gate"]["equal"], "gram gate kernel disagrees with gram_gate_plain")
-    check(0 < out["gram_gate"]["rows_flagged"] < BATCH, "gram gate check flagged no row or all")
+    out = {"gram_gate": {"equal": True, "max_abs_err": 0}}
+    for kind, x in gate_inputs(rng, base, base_np, 1).items():
+        got = gate(x)
+        want = gram_gate_plain(x, gate.lut, gate.gate, gate.anchor, gate.p1, gate.p2,
+                               gate.hash_p, gate.block, gate.ngram)
+        torch.cuda.synchronize()
+        res = {"equal": torch.equal(got, want),
+               "max_abs_err": int((got.int() - want.int()).abs().max()),
+               "rows_flagged": int((want != 0).any(dim=1).sum()),
+               "blocks_flagged": int((want != 0).sum()),
+               **{f"rows_{name}": int((want & bit).any(dim=1).sum()) for name, bit in (
+                   ("gram", LANE_GRAM), ("anchor", LANE_ANCHOR), ("nonascii", LANE_NONASCII))},
+               **screen_share(gate, x)}
+        log({"phase": "check", "use": "gram_gate", "input": kind, "shape": list(x.shape), **res})
+        out["gram_gate"]["equal"] &= res["equal"]
+        out["gram_gate"]["max_abs_err"] = max(out["gram_gate"]["max_abs_err"], res["max_abs_err"])
+        check(res["equal"], f"gram gate kernel disagrees with gram_gate_plain on {kind} rows")
+        if kind.startswith("seeded"):
+            check(0 < res["rows_flagged"] < BATCH, "gram gate check flagged no row or all")
     out["bytes_gate"] = {"equal": True, "max_abs_err": 0}
-    out["bytes_score"] = {"within_tol": True, "rtol": SCORE_RTOL, "max_abs_err": 0.0}
+    out["bytes_score"] = {"within_tol": True, "rtol": SCORE_RTOL, "max_abs_err": 0.0,
+                          "checked": 0}
     for width in BYTES_WIDTHS:
-        xr = torch.from_numpy(license_rows(rng, base, width, scorer.rows_per_dispatch(width)))
+        xr = torch.from_numpy(scorer_rows(rng, base, width, scorer.rows_per_dispatch(width)))
         xr = xr.cuda()
         got = g(xr)
         want = bytes_gate_plain(xr, g.lut, g.bloom8, g.bloom4)
@@ -644,57 +717,81 @@ def phase_check_license(base: bytes, base_np: np.ndarray, seed: int) -> dict:
         log({"phase": "check", "use": "bytes_gate", "shape": list(xr.shape), "equal": same,
              "max_abs_err": err, "rows_flagged": int((want[0].max(dim=1).values >= 16).sum())})
         check(same, f"bytes gate kernel disagrees with bytes_gate_plain at {width}")
-        cap = effective_cap(scorer.gram_cap(width), width)
-        # the full dispatch, and a batch of flagged rows as the classifier
-        # gathers them (8 rows, padded with copies of row 0, the fault row)
-        picked = np.arange(0, min(5, xr.shape[0]))
-        for rows in (xr, scorer.take_rows(xr, picked, 8)):
-            fw, ph, nu = sc(rows, scorer.gram_cap(width))
+        gcap = scorer.gram_cap(width)
+        cap = effective_cap(gcap, width)
+        # the full dispatch, and batches of flagged rows as the classifier
+        # gathers them (padded with copies of row 0, the over-cap row)
+        for n_rows in (None, 8, 16, 64):
+            rows = xr if n_rows is None else scorer.take_rows(
+                xr, np.arange(min(n_rows - 3, xr.shape[0])), n_rows)
             pfw, pph, pnu = bytes_score_plain(rows, sc.lut, sc.keys, sc.credit, sc.p1, sc.p2,
                                               sc.hash_p, cap, sc.ngram)
-            torch.cuda.synchronize()
-            err = float((fw - pfw).abs().max())
-            same = (torch.equal(nu, pnu) and torch.equal(ph, pph)
-                    and torch.allclose(fw, pfw, rtol=SCORE_RTOL, atol=0))
-            out["bytes_score"]["within_tol"] &= same
-            out["bytes_score"]["max_abs_err"] = max(out["bytes_score"]["max_abs_err"], err)
-            log({"phase": "check", "use": "bytes_score", "shape": list(rows.shape),
-                 "within_tol": same, "rtol": SCORE_RTOL, "full_w_max_abs_err": err,
-                 "full_w_max": float(pfw.max()), "n_uniq_over_cap": int((pnu > cap).sum()),
-                 "fault_row_n_uniq": int(pnu[0])})
-            check(same, f"bytes score kernel disagrees with bytes_score_plain at "
-                  f"{list(rows.shape)}")
+            for S in cluster_choices(width):
+                fw, ph, nu = sc(rows, gcap, cluster=S)
+                torch.cuda.synchronize()
+                err = float((fw - pfw).abs().max())
+                same = (torch.equal(nu, pnu) and torch.equal(ph, pph)
+                        and torch.allclose(fw, pfw, rtol=SCORE_RTOL, atol=0))
+                out["bytes_score"]["within_tol"] &= same
+                out["bytes_score"]["max_abs_err"] = max(out["bytes_score"]["max_abs_err"], err)
+                out["bytes_score"]["checked"] += 1
+                log({"phase": "check", "use": "bytes_score", "shape": list(rows.shape),
+                     "cluster": S, "policy_cluster": cluster_size(width),
+                     "within_tol": same, "rtol": SCORE_RTOL, "full_w_max_abs_err": err,
+                     "full_w_max": float(pfw.max()), "n_uniq_over_cap": int((pnu > cap).sum()),
+                     "fault_row_n_uniq": int(pnu[0])})
+                check(same, f"bytes score kernel disagrees with bytes_score_plain at "
+                      f"{list(rows.shape)} in clusters of {S}")
     return out
+
+
+def score_bound_ms(sc, xs: list, cap: int) -> tuple[float, float, float]:
+    """The scorer's bound over dispatches ``xs`` (ms per dispatch at 3.35
+    TB/s): the rows, the key column, each credit row that some row of the
+    dispatch credits (once, however many rows credit it) and the sums; with
+    the credited keys and distinct credit rows per dispatch."""
+    R, width = xs[0].shape
+    row_bytes = sc.credit.shape[1] * 4
+    credited = [credited_keys(t, sc.lut, sc.keys, sc.p1, sc.p2, sc.hash_p, cap, sc.ngram)[1]
+                for t in xs]
+    hits = float(np.mean([len(pos) for pos in credited]))
+    distinct = float(np.mean([torch.unique(pos).numel() for pos in credited]))
+    nbytes = R * width + 4 * sc.keys.numel() + distinct * row_bytes + R * (row_bytes + 4)
+    return nbytes / HBM_BYTES_PER_S * 1e3, hits, distinct
 
 
 def phase_timing_license(base: bytes, base_np: np.ndarray, seed: int, card: str) -> dict:
     """The license kernels at their dispatch shapes behind the device spin,
     beside their plain versions: the gram gate on four distinct [BATCH,
-    CHUNK_LEN] batches; the shingle gate and the scorer on eight distinct
-    full dispatches of license and source text at each rung. Bounds count
+    CHUNK_LEN] batches of seeded text and on one of license text; the
+    shingle gate and the scorer on eight distinct full dispatches of
+    license and source text at each rung, and the scorer on batches of 8
+    and 64 rows gathered from them at 1024, 16384 and 49152. Bounds count
     each input read once and each output written once at 3.35 TB/s: for the
-    gate the rows, the LUT and the key tables; for the shingle gate the rows
-    and the two 512 KiB bitsets; for the scorer the rows, the key column,
-    each credit row that some row of the dispatch credits (once, however
-    many rows credit it) and the sums."""
+    gate the rows, the LUT, the two key tables and the flags; for
+    the shingle gate the rows and the two 512 KiB bitsets; for the scorer
+    see ``score_bound_ms``."""
     rng = random.Random(seed + 4)
     gate = get_gate_fn(CHUNK_LEN, "cuda")
     scorer = LicenseClassifier(device="cuda")._device_scorer()
     g, sc = scorer._gate, scorer._score
-    xs = [torch.from_numpy(gate_rows(rng, base_np, BATCH)).cuda() for _ in range(4)]
-    ms, rounds, host_us = time_cuda(gate, xs, reps=4)
-    nbytes = BATCH * CHUNK_LEN * (1 + 1 / gate.block) + 4 * (256 + gate.gate.numel()
-                                                          + gate.anchor.numel())
-    plain_ms = time_cuda(lambda t: gram_gate_plain(t, gate.lut, gate.gate, gate.anchor, gate.p1,
-                                                   gate.p2, gate.hash_p, gate.block, gate.ngram),
-                         xs[:1], rounds=1)[0]
-    out = {"gram_gate": {"shape": [BATCH, CHUNK_LEN], "ms": ms, "ms_rounds": rounds,
-                         "host_us_per_call": host_us, "plain_ms": plain_ms,
-                         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-                         "card": card}}
-    log({"phase": "timing", "use": "gram_gate", **out["gram_gate"]})
-    del xs
-    row_bytes = sc.credit.shape[1] * 4
+    inputs = gate_inputs(rng, base, base_np, 4)
+    nbytes = BATCH * CHUNK_LEN * (1 + 1 / gate.block) + 4 * (
+        256 + gate.gate.numel() + gate.anchor.numel())
+    out = {}
+    for kind, xs in (("seeded", [inputs[f"seeded{i}"] for i in range(4)]),
+                     ("license", [inputs["license"]])):
+        ms, rounds, host_us = time_cuda(gate, xs, reps=16 // len(xs))
+        plain_ms = time_cuda(lambda t: gram_gate_plain(
+            t, gate.lut, gate.gate, gate.anchor, gate.p1, gate.p2, gate.hash_p, gate.block,
+            gate.ngram), xs[:1], rounds=1)[0]
+        res = {"shape": [BATCH, CHUNK_LEN], "input": kind, "ms": ms, "ms_rounds": rounds,
+               "host_us_per_call": host_us, "plain_ms": plain_ms,
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+               **screen_share(gate, xs[0]), "card": card}
+        out["gram_gate" if kind == "seeded" else "gram_gate_license"] = res
+        log({"phase": "timing", "use": "gram_gate", **res})
+    del inputs
     for width in BYTES_WIDTHS:
         R = scorer.rows_per_dispatch(width)
         xs = [torch.from_numpy(license_rows(rng, base, width, R)).cuda() for _ in range(8)]
@@ -708,22 +805,32 @@ def phase_timing_license(base: bytes, base_np: np.ndarray, seed: int, card: str)
         log({"phase": "timing", "use": "bytes_gate", **res})
         gcap = scorer.gram_cap(width)
         cap = effective_cap(gcap, width)
-        ms, rounds, host_us = time_cuda(lambda t: sc(t, gcap), xs, reps=2)
-        credited = [credited_keys(t, sc.lut, sc.keys, sc.p1, sc.p2, sc.hash_p, cap, sc.ngram)[1]
-                    for t in xs]
-        hits = float(np.mean([len(pos) for pos in credited]))
-        distinct = float(np.mean([torch.unique(pos).numel() for pos in credited]))
-        nbytes = R * width + 4 * sc.keys.numel() + distinct * row_bytes + R * (row_bytes + 4)
-        res = {"shape": [R, width], "ms": ms, "ms_rounds": rounds, "host_us_per_call": host_us,
-               "plain_ms": time_cuda(lambda t: bytes_score_plain(
-                   t, sc.lut, sc.keys, sc.credit, sc.p1, sc.p2, sc.hash_p, cap, sc.ngram),
-                   xs[:1], rounds=1)[0],
-               "credited_keys_per_batch": hits, "credit_rows_per_batch": distinct,
-               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-               "bound_by": "bytes", "card": card}
-        out[f"bytes_score_{width}"] = res
-        log({"phase": "timing", "use": "bytes_score", **res})
-        del xs
+        batches = {R: xs}
+        if width in GATHER_WIDTHS:
+            for n_rows in (8, 64):  # flagged rows gathered from each dispatch
+                batches[n_rows] = [scorer.take_rows(t, np.arange(min(n_rows, R)), n_rows)
+                                   for t in xs]
+        for n_rows, ts in batches.items():
+            S = cluster_size(width)
+            ms, rounds, host_us = time_cuda(lambda t: sc(t, gcap), ts, reps=2)
+            bound_ms, hits, distinct = score_bound_ms(sc, ts, cap)
+            # the other cluster sizes on the same batches: the launch
+            # policy's evidence
+            by_cluster = {s: time_cuda(lambda t: sc(t, gcap, cluster=s), ts, reps=2)[0]
+                          for s in cluster_choices(width) if s != S and width in GATHER_WIDTHS}
+            res = {"shape": [n_rows, width], "ms": ms, "ms_rounds": rounds,
+                   "host_us_per_call": host_us,
+                   "plain_ms": time_cuda(lambda t: bytes_score_plain(
+                       t, sc.lut, sc.keys, sc.credit, sc.p1, sc.p2, sc.hash_p, cap, sc.ngram),
+                       ts[:1], rounds=1)[0],
+                   "credited_keys_per_batch": hits, "credit_rows_per_batch": distinct,
+                   "bound_ms": bound_ms, "bound_by": "bytes", "cluster": S,
+                   **sc.plan(width, S),
+                   "ms_by_cluster": {str(k): v for k, v in sorted({S: ms, **by_cluster}.items())},
+                   "card": card}
+            out[f"bytes_score_{width}" if n_rows == R else f"bytes_score_{n_rows}x{width}"] = res
+            log({"phase": "timing", "use": "bytes_score", **res})
+        del xs, batches
     torch.cuda.empty_cache()
     return out
 
@@ -1011,9 +1118,12 @@ def phase_license(root: Path, mib: int, seed: int, base: bytes) -> dict:
     planted, written = write_license_tree(root, mib, seed, base)
     setup_s = time.perf_counter() - t0
     LAUNCHES.clear()
+    LAUNCH_SHAPES.clear()
     report, stats = run_cli(root, root.parent, "license", "cuda", "--license-full",
                             scanners="secret,license")
     launches = dict(LAUNCHES)
+    by_shape = {name: {f"{b}x{c}": n for (k, b, c), n in sorted(LAUNCH_SHAPES.items())
+                       if k == name} for name in ("bytes_gate", "bytes_score")}
     got = licenses_found(report)
     missed = sorted(rel for rel, key in planted.items() if key not in got.get(rel, ()))
     headers = sum(1 for p in got if p.startswith(("hdr/", "sub/hdr/")))
@@ -1036,6 +1146,7 @@ def phase_license(root: Path, mib: int, seed: int, base: bytes) -> dict:
         "unfused_MBps": written / unfused_stats["seconds"] / 1e6,
         "unfused_results_equal": unfused["Results"] == report["Results"],
         **gate_counters(stats), "rows": stats["rows"], "launches": launches,
+        "launches_by_shape": by_shape,
         "planted": len(planted), "missed": missed[:10], "files_with_licenses": len(got),
         "headers_with_licenses": headers,
         "subset_results_equal_cpu": on_card["Results"] == on_cpu["Results"],
@@ -1599,8 +1710,9 @@ def main() -> int:
         "ms_source": source["ms"], "bound_ms_source": source["bound_ms"],
         "ms_mix": mix["ms"], "bound_ms_mix": mix["bound_ms"],
     })
-    # the license kernels: times at the gram gate's batch and at the 4096
-    # rung, the other rungs beside them
+    # the license kernels: times at the gram gate's seeded batch and at the
+    # 4096 rung, the other inputs, rungs and gathered batches beside them,
+    # with the launches on the main path by [rows, width]
     # (the scorer's agreement is within SCORE_RTOL, the others' bitwise)
     for name, (src, replaces) in LICENSE_KERNELS.items():
         t = lic_timing[name if name == "gram_gate" else f"{name}_4096"]
@@ -1612,10 +1724,17 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "shape": t["shape"],
         }
-        if name != "gram_gate":
-            for w in BYTES_WIDTHS:
-                entry[f"ms_{w}"] = lic_timing[f"{name}_{w}"]["ms"]
-                entry[f"bound_ms_{w}"] = lic_timing[f"{name}_{w}"]["bound_ms"]
+        if name == "gram_gate":
+            lt = lic_timing["gram_gate_license"]
+            entry.update(ms_license=lt["ms"], screen_pass_share=t["screen_pass_share"],
+                         screen_pass_share_license=lt["screen_pass_share"])
+        else:
+            for key, res in lic_timing.items():
+                if key.startswith(f"{name}_") and key != f"{name}_4096":
+                    tag = key[len(name) + 1 :]
+                    entry[f"ms_{tag}"] = res["ms"]
+                    entry[f"bound_ms_{tag}"] = res["bound_ms"]
+            entry["launches_by_shape"] = lic["launches_by_shape"][name]
         kernels.append(entry)
     t = cve["timing"]
     kernels.append({

@@ -237,35 +237,91 @@ def license_rows(C: int, n: int, seed: int) -> np.ndarray:
     return out
 
 
+def full_text_rows(C: int, n: int) -> np.ndarray:
+    """Rows of license texts only, each repeated to the row's end: the
+    prescreen passes their grams and the exact search finds them."""
+    keys = sorted(FULL_TEXTS)
+    out = np.zeros((n, C), np.uint8)
+    for i in range(n):
+        b = (FULL_TEXTS[keys[i % len(keys)]] + "\n") * (C // 200 + 1)
+        out[i] = np.frombuffer(b.encode("latin-1", "replace")[:C], np.uint8)
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("C", [16384, 2048, 1000])
 def test_gram_gate_kernel_equals_plain_on_card(card, C):
+    """Mixed rows (every lane fires) and rows of license text only (most
+    grams pass the prescreen and are found)."""
     fn = get_gate_fn(C, card)
-    x = torch.from_numpy(license_rows(C, 40, C))
-    want = fn(x)
-    got = fn(x.to(card))
-    torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), want)
-    assert want.any() and not want.all()
-    assert all((want & bit).any() for bit in (LANE_GRAM, LANE_ANCHOR, LANE_NONASCII))
+    for i, rows in enumerate((license_rows(C, 40, C), full_text_rows(C, 40))):
+        x = torch.from_numpy(rows)
+        want = fn(x)
+        got = fn(x.to(card))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+        assert (want & LANE_GRAM).any()
+        if i == 0:
+            assert want.any() and not want.all()
+            assert all((want & bit).any() for bit in (LANE_GRAM, LANE_ANCHOR, LANE_NONASCII))
+
+
+def scorer_rows(width: int, n: int) -> np.ndarray:
+    """``license_rows`` with a row without words, one word over the whole
+    row, a word across every 16-byte boundary, and one gram key repeated
+    ~2,000 times (its bucket spills to the device scratch)."""
+    x = license_rows(width, n, width)
+    edge = bytearray(b" " * width)
+    for e in range(16, width - 2, 16):
+        edge[e - 2 : e + 2] = b"abcd"
+    for i, body in enumerate((b"", b"w" * (width - 1), bytes(edge[:-1]),
+                              (b" a" * 2000)[: width - 1]), start=1):
+        x[i] = 0
+        x[i, : len(body)] = np.frombuffer(body, np.uint8)
+    return x
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [1024, 4096, 49152])
+@pytest.mark.parametrize("width", [1024, 2048, 4096, 8192, 16384, 32768, 49152])
 def test_bytes_gate_and_score_kernels_equal_plain_on_card(card, width):
     """The shingle gate exactly; the scorer's n_uniq and phrase exactly and
-    full_w to rtol 1e-5 (float32 sums; both add in ascending key order)."""
+    full_w to rtol 1e-5 (float32 sums; both add in ascending key order), at
+    every cluster size whose slices hold at most twice the launch policy's
+    bound (and at the policy's own), on 12 rows and on batches of 8, 16 and
+    64 gathered as the classifier gathers flagged rows."""
+    from trivy_tpu_torch.ops.bytes_score_cuda import CLUSTER_SIZES, SLICE_MAX
+
     scorer = LicenseClassifier(device=card)._device_scorer()
-    x = torch.from_numpy(license_rows(width, 12, width))
+    x = torch.from_numpy(scorer_rows(width, 12))
     for got, want in zip(scorer._gate(x.to(card)), scorer._gate(x)):
         assert torch.equal(got.cpu(), want)
     cap = width // 4
-    got = scorer._score(x.to(card), cap)
-    want = scorer._score(x, cap)
-    torch.cuda.synchronize()
-    assert torch.equal(got[2].cpu(), want[2]) and torch.equal(got[1].cpu(), want[1])
-    assert torch.allclose(got[0].cpu(), want[0], rtol=1e-5, atol=0)
-    assert want[0].max() > 1.0 and (want[2] <= effective_cap(cap, width)).any()
+    for n in (12, 8, 16, 64):
+        rows = x if n == 12 else scorer.take_rows(x, np.arange(min(n - 2, 12)), n)
+        want = scorer._score(rows, cap)
+        for S in [s for s in CLUSTER_SIZES if -(-width // s) <= 2 * SLICE_MAX] + [None]:
+            got = scorer._score(rows.to(card), cap, cluster=S)
+            torch.cuda.synchronize()
+            assert torch.equal(got[2].cpu(), want[2]) and torch.equal(got[1].cpu(), want[1]), S
+            assert torch.allclose(got[0].cpu(), want[0], rtol=1e-5, atol=0), S
+        assert want[0].max() > 1.0 and (want[2] <= effective_cap(cap, width)).any()
+
+
+@pytest.mark.cuda
+def test_scorer_cluster_that_cannot_be_scheduled_raises(card):
+    """One block for a 49,152-byte row needs more shared memory than a
+    block may have: the launch raises, it does not fall back to another
+    cluster size or to the plain version; a size that is not a power of two
+    is refused."""
+    scorer = LicenseClassifier(device=card)._device_scorer()
+    x = torch.zeros((4, 49152), dtype=torch.uint8, device=card)
+    before = match_cuda.LAUNCHES["bytes_score"]
+    with pytest.raises(RuntimeError):
+        scorer._score(x, 12288, cluster=1)
+    with pytest.raises(ValueError):
+        scorer._score(x, 12288, cluster=3)
+    assert match_cuda.LAUNCHES["bytes_score"] == before
+    assert scorer._score(x, 12288, cluster=8)[2].tolist() == [0, 0, 0, 0]
 
 
 @pytest.mark.cuda
@@ -280,6 +336,7 @@ def test_license_launches_counted_once_per_launch(card):
     scorer._score(x[:0], 512)  # no rows: nothing launched
     for name in ("gram_gate", "bytes_gate", "bytes_score"):
         assert match_cuda.LAUNCHES[name] == before.get(name, 0) + 1, name
+    assert match_cuda.LAUNCH_SHAPES["bytes_score", 4, 2048] >= 1
 
 
 @pytest.mark.cuda

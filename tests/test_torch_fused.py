@@ -1,11 +1,13 @@
 """The fused secret+license pass of the port against the JAX package's: the
 license gram gate (plain version against ``build_byte_gate_fn``, exactly,
-and a numpy model of the CUDA kernel's formulation), the
+a numpy model of the CUDA kernel's formulation with its prescreen, and the
+prescreen bitset itself), the
 ``FusedLicenseGate`` verdicts after the same scan, the mirrored cases of
 ``tests/test_fused_license.py``, and the ``:lic`` hit-store documents read
 by either package."""
 
 import random
+import re
 import runpy
 from pathlib import Path
 
@@ -27,7 +29,8 @@ from trivy_tpu_torch.licensing.classify import LicenseClassifier, classifier_tab
 from trivy_tpu_torch.licensing.corpus_texts import FULL_TEXTS
 from trivy_tpu_torch.licensing.fused import FusedLicenseGate, get_gate_fn, wants_license_path
 from trivy_tpu_torch.ops.gram_gate import (
-    LANE_ANCHOR, LANE_GRAM, LANE_NONASCII, M32, fold_low32, gate_block, gram_gate_plain,
+    DIR_BITS, LANE_ANCHOR, LANE_GRAM, LANE_NONASCII, M32, SCREEN_BITS, SCREEN_MUL, fold_low32,
+    gate_block, gram_gate_plain, gram_keys, lut_image, screen_bits, screen_pass, word_hashes,
 )
 from trivy_tpu_torch.secret.engine import ScannerConfig
 from trivy_tpu_torch.secret.scanner import TorchSecretScanner
@@ -117,29 +120,35 @@ def test_gram_gate_on_the_smoke_trees_equals_jax():
     assert (got[0] & LANE_GRAM).any()  # the first row carries a license text
 
 
-def gram_gate_model(rows, lut32, gate32, anchor32, p1, p2, hp, blk, ngram=5, threads=512):
-    """csrc/gram_gate.cu's formulation: word starts compacted by a scan over
-    contiguous stretches, one uint32 hash per word summed to its separator
-    (or the row end), gram keys over the compacted list, binary searches,
-    and each lane's bit on the block where the word starts."""
+def gram_gate_model(rows, lut32, gate32, anchor32, p1, p2, hp, blk, screen, ngram=5,
+                    threads=512):
+    """csrc/gram_gate.cu's formulation: word starts compacted by warps over
+    runs of 4-byte words (popc per lane, a warp scan, a scan of the warps'
+    counts), one uint32 hash per word summed to its separator (or the row
+    end), gram keys over the compacted list through the prescreen bitset
+    ``screen`` and then the exact search (over the run of the table that
+    shares the key's top bits: the same answer), and each lane's bit on
+    the block where the word starts."""
     B, C = rows.shape
     out = np.zeros((B, C // blk), np.uint8)
     P1, P2, HP = np.uint32(p1 & M32), np.uint32(p2 & M32), np.uint32(hp & M32)
-    per = -(-C // threads)
+    warps = threads // 32
+    nq = -(-C // 4)
+    per = (-(-nq // warps) + 31) & ~31
     with np.errstate(over="ignore"):
         for b in range(B):
             v = lut32[rows[b]]
             out[b, np.nonzero(rows[b] >= 128)[0] // blk] |= LANE_NONASCII
-            is_start = [bool(v[i]) and (i == 0 or not v[i - 1]) for i in range(C)]
-            counts = [sum(is_start[t * per : (t + 1) * per]) for t in range(threads)]
-            base = np.concatenate([[0], np.cumsum(counts)[:-1]])
+            bits = [[4 * q + j for j in range(4) if 4 * q + j < C and v[4 * q + j]
+                     and (4 * q + j == 0 or not v[4 * q + j - 1])] for q in range(nq)]
+            runs = [bits[min(w * per, nq) : min(w * per + per, nq)] for w in range(warps)]
+            counts = [sum(len(x) for x in run) for run in runs]
             starts = [0] * sum(counts)
-            for t in range(threads):
-                at = int(base[t])
-                for i in range(t * per, min((t + 1) * per, C)):
-                    if is_start[i]:
-                        starts[at] = i
-                        at += 1
+            for w, run in enumerate(runs):
+                at = sum(counts[:w])
+                for x in run:  # lanes in order, a warp scan over their counts
+                    starts[at : at + len(x)] = x
+                    at += len(x)
             H = []
             for i in starts:
                 s0 = s1 = np.uint32(0)
@@ -154,7 +163,7 @@ def gram_gate_model(rows, lut32, gate32, anchor32, p1, p2, hp, blk, ngram=5, thr
                     key = H[j]
                     for t in range(1, ngram):
                         key = key * HP + H[j + t]
-                    if key in gate32:
+                    if screen_pass(screen, np.uint32(key)) and key in gate32:
                         out[b, i // blk] |= LANE_GRAM
                 if H[j] in anchor32:
                     out[b, i // blk] |= LANE_ANCHOR
@@ -184,8 +193,47 @@ def test_gram_gate_kernel_model_equals_plain(data):
     blk = gate_block(C)
     got = gram_gate_plain(torch.from_numpy(rows), lut, gate, anchor, p1, p2, hp, blk)
     want = gram_gate_model(rows, lut.numpy().astype(np.uint32), set(gate.numpy().tolist()),
-                           set(anchor.numpy().tolist()), p1, p2, hp, blk)
+                           set(anchor.numpy().tolist()), p1, p2, hp, blk,
+                           screen_bits(gate.numpy().astype(np.uint32)))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# the prescreen's pass rate on the gram keys of seeded source text that are
+# not gate keys (PERF.md states it): gate_rows(random.Random(3), base, 8)
+# of chip_smoke.py's text_base(random.Random(0), 1 << 16)
+SCREEN_FALSE_PASS = 0.0264
+
+
+def test_screen_holds_every_gate_key_and_passes_few_others():
+    """The prescreen bitset built from the port's gate keys: no false
+    negative, and few false positives on seeded source text."""
+    lut, gate, anchor, p1, p2, hp = port_gate_args()
+    g32 = gate.numpy().astype(np.uint32)
+    screen = screen_bits(g32)
+    assert screen.shape == ((1 << SCREEN_BITS) // 32,) and screen_pass(screen, g32).all()
+    smoke = runpy.run_path(str(REPO / "chip_smoke.py"))
+    base = np.frombuffer(smoke["text_base"](random.Random(0), 1 << 16), np.uint8)
+    rows = torch.from_numpy(smoke["gate_rows"](random.Random(3), base, 8))
+    starts, H = word_hashes(lut_image(rows, lut), p1, p2)
+    key, valid = gram_keys(starts, H, hp, 5)
+    k = key[valid].numpy().astype(np.uint32)
+    other = k[~np.isin(k, g32)]
+    rate = float(screen_pass(screen, other).mean())
+    assert len(other) > 10_000 and round(rate, 3) == round(SCREEN_FALSE_PASS, 3), rate
+
+
+def test_device_table_formats_match_the_host():
+    """The directory and prescreen formats the kernels read
+    (``csrc/license_words.cuh``, their one definition on the device) are
+    the ones ``ops/gram_gate.py`` builds."""
+    src = (REPO / "trivy_tpu_torch/ops/csrc/license_words.cuh").read_text()
+    consts = dict(re.findall(r"constexpr \w+ (k\w+) = ([^;]+);", src))
+    assert consts["kDirShift"] == f"32 - {DIR_BITS}"
+    assert consts["kScreenShift"] == f"32 - {SCREEN_BITS}"
+    assert int(consts["kScreenMul"].rstrip("u"), 16) == SCREEN_MUL
+    for cu in ("gram_gate.cu", "bytes_score.cu"):
+        body = (REPO / "trivy_tpu_torch/ops/csrc" / cu).read_text()
+        assert not re.search(r"constexpr \w+ k(Dir|Screen)", body), cu
 
 
 # -- the gate after a scan -------------------------------------------------------

@@ -56,8 +56,9 @@ SIGNATURES = {
     },
     "gram_gate": {
         "trivy_gram_gate_launch": (
-            # x, B, C, blk, lut, gate, n_gate, anchor, n_anchor, P1, P2, HP, ngram, out, stream
-            _I, [_P, _I, _I, _I, _P, _P, _I, _P, _I, _U, _U, _U, _I, _P, _P],
+            # x, B, C, blk, lut, gate, n_gate, anchor, n_anchor, screen, dir, P1, P2, HP,
+            # ngram, out, stream
+            _I, [_P, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P, _U, _U, _U, _I, _P, _P],
         ),
         "trivy_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
@@ -76,10 +77,12 @@ SIGNATURES = {
         "trivy_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "bytes_score": {
+        # C, S, out [threads, smem, clusters, blocks per SM]
+        "trivy_bytes_score_plan": (_I, [_I, _I, ctypes.POINTER(_I)]),
         "trivy_bytes_score_launch": (
-            # x, B, C, lut, keys, Ku, credit, ls, gcap, P1, P2, HP, ngram, full_w, phrase,
-            # n_uniq, stream
-            _I, [_P, _I, _I, _P, _P, _I, _P, _I, _I, _U, _U, _U, _I, _P, _P, _P, _P],
+            # x, B, C, S, lut, keys, kdir, credit, ls, gcap, P1, P2, HP, ngram, full_w, phrase,
+            # n_uniq, scratch, stream
+            _I, [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _U, _U, _U, _I, _P, _P, _P, _P, _P],
         ),
         "trivy_cuda_error_string": (ctypes.c_char_p, [_I]),
     },

@@ -21,7 +21,7 @@ from trivy_tpu_torch.device import resolve
 from trivy_tpu_torch.ops import _build
 from trivy_tpu_torch.ops.bytes_gate import SHINGLE_BITS, SHINGLE_BLOCK, bytes_gate_plain
 from trivy_tpu_torch.ops.gram_gate_cuda import check_rows, launch_error, lut32, on_card
-from trivy_tpu_torch.ops.match_cuda import LAUNCHES
+from trivy_tpu_torch.ops.match_cuda import LAUNCH_SHAPES, LAUNCHES
 
 # the key this kernel's launches are counted under in match_cuda.LAUNCHES
 NAME = "bytes_gate"
@@ -79,4 +79,5 @@ class CudaBytesGate:
         if rc != 0:
             raise launch_error(lib, rc, "bytes gate")
         LAUNCHES[NAME] += 1
+        LAUNCH_SHAPES[NAME, B, C] += 1
         return blk, ah, nb

@@ -42,6 +42,12 @@ GATE_BLOCK = 256
 LANE_GRAM, LANE_ANCHOR, LANE_NONASCII = 1, 2, 4
 # rows per step of the plain versions: bounds their int64 intermediates
 PLAIN_ELEMS = 1 << 22
+# the CUDA gate's membership prescreen: a 2^SCREEN_BITS-bit set holding, for
+# every gate key k, bits k >> (32 - SCREEN_BITS) and
+# (k * SCREEN_MUL mod 2^32) >> (32 - SCREEN_BITS)
+SCREEN_BITS = 18
+SCREEN_MUL = 0x9E3779B1
+DIR_BITS = 12  # the CUDA kernels' directories of their key tables, by top bits
 
 
 def gate_block(chunk_len: int) -> int:
@@ -58,6 +64,41 @@ def fold_low32(keys64: np.ndarray) -> np.ndarray:
     unique, as uint32 (the ring-homomorphic image the gate computes)."""
     k = np.asarray(keys64, dtype=np.int64).astype(np.uint64) & np.uint64(M32)
     return np.unique(k.astype(np.uint32))
+
+
+def screen_index(keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The two prescreen bit indices of each uint32 key."""
+    k = np.asarray(keys, dtype=np.uint32)
+    with np.errstate(over="ignore"):
+        shift = np.uint32(32 - SCREEN_BITS)
+        return k >> shift, (k * np.uint32(SCREEN_MUL)) >> shift
+
+
+def screen_bits(gate32: np.ndarray) -> np.ndarray:
+    """The prescreen bitset of the gate keys, ``[2^SCREEN_BITS / 32]`` uint32
+    words (bit ``i`` is bit ``i % 32`` of word ``i // 32``)."""
+    words = np.zeros((1 << SCREEN_BITS) // 32, dtype=np.uint32)
+    for idx in screen_index(gate32):
+        np.bitwise_or.at(words, idx >> 5, np.uint32(1) << (idx & np.uint32(31)))
+    return words
+
+
+def key_directory(keys32: np.ndarray) -> np.ndarray:
+    """``[2^DIR_BITS + 1]`` uint32: entry ``b`` is the index of the first
+    key of the sorted ``keys32`` whose top ``DIR_BITS`` bits are ``b`` or
+    more (the last entry is the table's length). The CUDA kernels search a
+    key only in its run ``[dir[b], dir[b + 1])``."""
+    bounds = np.arange((1 << DIR_BITS) + 1, dtype=np.uint64) << np.uint64(32 - DIR_BITS)
+    return np.searchsorted(np.asarray(keys32, np.uint64), bounds).astype(np.uint32)
+
+
+def screen_pass(words: np.ndarray, keys: np.ndarray) -> np.ndarray:
+    """Whether each uint32 key passes the prescreen ``words``: both its bits
+    set (every gate key passes; a key that fails is not a gate key)."""
+    a, b = screen_index(keys)
+    w = np.asarray(words, dtype=np.uint32)
+    one = np.uint32(1)
+    return (((w[a >> 5] >> (a & 31)) & (w[b >> 5] >> (b & 31)) & one) == one)
 
 
 def u32(v: int) -> int:

@@ -3,8 +3,11 @@
 Replaces the JAX package's device computation
 ``trivy_tpu/ops/gram_gate.py::build_byte_gate_fn`` with
 ``csrc/gram_gate.cu`` (one thread block per row; see the source for the
-design). This module keeps the LUT and the two key tables resident on the
-card and launches the kernel. The function computed is that of
+design). This module keeps the LUT, the two key tables, the gate keys'
+prescreen bitset (:func:`~trivy_tpu_torch.ops.gram_gate.screen_bits`) and
+the gate table's directory
+(:func:`~trivy_tpu_torch.ops.gram_gate.key_directory`), both built once
+here, resident on the card and launches the kernel. The function computed is that of
 :func:`trivy_tpu_torch.ops.gram_gate.gram_gate_plain`.
 
 A gate called with a CUDA tensor launches the kernel (or raises); with a CPU
@@ -19,7 +22,9 @@ import torch
 
 from trivy_tpu_torch.device import resolve
 from trivy_tpu_torch.ops import _build
-from trivy_tpu_torch.ops.gram_gate import M32, gate_block, gram_gate_plain, u32
+from trivy_tpu_torch.ops.gram_gate import (
+    M32, gate_block, key_directory, gram_gate_plain, screen_bits, u32,
+)
 from trivy_tpu_torch.ops.match_cuda import LAUNCHES
 
 # the key this kernel's launches are counted under in match_cuda.LAUNCHES
@@ -75,7 +80,8 @@ class CudaGramGate:
         self.gate = torch.from_numpy(gate32.astype(np.int64)).to(self.device)
         self.anchor = torch.from_numpy(anchor32.astype(np.int64)).to(self.device)
         if self.device.type == "cuda":
-            self._k = tuple(on_card(a, self.device) for a in (lut, gate32, anchor32))
+            self._k = tuple(on_card(a, self.device) for a in (
+                lut, gate32, anchor32, screen_bits(gate32), key_directory(gate32)))
 
     def __call__(self, rows: torch.Tensor) -> torch.Tensor:
         check_rows(rows, self.chunk_len)
@@ -91,13 +97,14 @@ class CudaGramGate:
         out = torch.zeros((B, C // self.block), dtype=torch.uint8, device=dev)
         if B == 0:
             return out
-        lut, gate, anchor = self._k
+        lut, gate, anchor, screen, directory = self._k
         lib = _build.load("gram_gate")
         with torch.cuda.device(dev):
             rc = lib.trivy_gram_gate_launch(
                 rows.data_ptr(), B, C, self.block, lut.data_ptr(), gate.data_ptr(),
-                gate.numel(), anchor.data_ptr(), anchor.numel(), self.p1, self.p2,
-                self.hash_p, self.ngram, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+                gate.numel(), anchor.data_ptr(), anchor.numel(), screen.data_ptr(),
+                directory.data_ptr(), self.p1, self.p2, self.hash_p, self.ngram, out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream,
             )
         if rc != 0:
             raise launch_error(lib, rc, "gram gate")

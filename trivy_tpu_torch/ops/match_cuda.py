@@ -37,6 +37,9 @@ from trivy_tpu_torch.secret.device_compile import CompiledRules
 # kernel launches per matcher name ("anchored", "prefilter"), counted where
 # the kernel is launched and nowhere else; callers may clear it
 LAUNCHES: Counter = Counter()
+# launches of the license classifier's kernels per (name, rows, width),
+# counted beside LAUNCHES; callers may clear it
+LAUNCH_SHAPES: Counter = Counter()
 
 # the image layout, as csrc/match.cu reads it
 SCREEN_BYTES = 4  # k: tables T_0..T_{k-1}, bytes s[p..p+k) screened
