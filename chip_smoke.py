@@ -23,15 +23,19 @@ Phases, each printing JSON lines:
    text, random-byte, zero and mixed rows, at the dispatch shape and at a
    short batch padded to the smallest bucket, and on hand-built edge frames
    (streams at the buffer's edges, a token stream crossing the row end, a
-   mode byte of 3, empty rows); the decoded rows must also equal the rows
-   they were encoded from. Outputs are booleans or bytes: ``torch.equal``
+   mode byte of 3, empty rows), on a wire buffer whose length is no
+   multiple of 16 with streams at every offset mod 16, and on the mixed
+   frame from a wire buffer one byte off 16-byte alignment; the decoded
+   rows must also equal the rows they were encoded from. Outputs are booleans or bytes: ``torch.equal``
    is required (tolerance zero). Then the license kernels against their
    plain versions on the card, with the classifier's own tables: the gram
    gate (``torch.equal`` on its lane bits) on [1024, 16384] batches of
    seeded text with planted license texts and non-ASCII bytes, of license
    text (the prescreen's hits) and of random bytes, with the share of
    gram keys that pass the prescreen; the shingle gate (``torch.equal``)
-   at every rung of the text-row ladder; the scorer at every rung, at
+   at every rung of the text-row ladder, and, called twice each, on rows
+   inside one tile, on rows that straddle or span its tiles, on more tiles than the
+   card has SMs and on rows one byte off 16-byte alignment; the scorer at every rung, at
    every cluster size its launch policy can choose there, on the full
    dispatch and on batches of 8, 16 and 64 rows gathered from it as the
    classifier gathers flagged rows, on license texts, a row whose
@@ -58,9 +62,12 @@ Phases, each printing JSON lines:
    frames, with its bound from each frame's actual wire bytes, the plain
    version's time, the host's encode time per batch (``plan`` + ``emit``)
    and the pinned host-to-card copy of the wire beside that of the raw
-   slab. The gram gate on four [1024, 16384] batches of seeded text and
-   one of license text, the shingle gate and the scorer at their dispatch
-   shapes, and the scorer on gathered batches of 8 and 64 rows at 1024,
+   slab, and the work (kernels, fills, copies) one wrapper call puts on
+   the stream: the nodes of a CUDA graph captured around it. The gram gate on four
+   [1024, 16384] batches of seeded text and one of license text, the
+   shingle gate (with its work per call, which must be one kernel and
+   nothing else, and the share of windows its screens pass on license and on
+   source rows) and the scorer at their dispatch shapes, and the scorer on gathered batches of 8 and 64 rows at 1024,
    16384 and 49152, each beside its plain version, with its bound from
    this run's inputs (the scorer's from the distinct credit rows its rows
    actually gather), the scorer with its cluster size, threads, shared
@@ -164,12 +171,15 @@ from trivy_tpu_torch.licensing.classify import LicenseClassifier
 from trivy_tpu_torch.licensing.corpus_texts import FULL_TEXTS
 from trivy_tpu_torch.licensing.fused import get_gate_fn
 from trivy_tpu_torch.ops import _build
-from trivy_tpu_torch.ops.bytes_gate import bytes_gate_plain
+from trivy_tpu_torch.ops.bytes_gate import (
+    SHINGLE_BITS, SHINGLE_MIX, SHINGLE_P2, bytes_gate_plain, pack_windows,
+)
+from trivy_tpu_torch.ops.bytes_gate_cuda import SCREEN4_BITS, SCREEN8_BITS, fold
 from trivy_tpu_torch.ops.bytes_score import bytes_score_plain, credited_keys, effective_cap
 from trivy_tpu_torch.ops.bytes_score_cuda import CLUSTER_SIZES, SLICE_MAX, cluster_size
 from trivy_tpu_torch.ops.decompress import build_decompress_fn, decompress_plain
 from trivy_tpu_torch.ops.gram_gate import (
-    LANE_ANCHOR, LANE_GRAM, LANE_NONASCII, gram_gate_plain, gram_keys, lut_image,
+    LANE_ANCHOR, LANE_GRAM, LANE_NONASCII, M32, gram_gate_plain, gram_keys, lut_image, mul32,
     screen_bits, screen_pass, word_hashes,
 )
 from trivy_tpu_torch.ops.ngram_score import BYTES_WIDTHS, DeviceBytesScorer
@@ -292,6 +302,46 @@ def time_cuda(fn, inputs: list, reps: int = 1, rounds: int = 3) -> tuple[float, 
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / (reps * len(inputs)))
     return float(np.median(times)), times, min(host) / (reps * len(inputs)) * 1e6
+
+
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}  # CUgraphNodeType
+
+
+def work_per_call(fn, inputs: list) -> dict:
+    """The work one call of ``fn`` puts on the stream: the nodes of a CUDA
+    graph captured around a call on each of ``inputs`` (after a warm-up
+    call on the capture stream, so that the wrapper's one-time set-up is
+    not counted), per call, in all (``per_call``) and by type (kernels,
+    copies, fills). Fails where this PyTorch cannot hand out the graph."""
+    import ctypes
+
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn(inputs[0])
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError as e:
+        raise AssertionError(f"cannot read a captured graph's nodes: {e}") from e
+    with torch.cuda.graph(graph, stream=stream):
+        for x in inputs:
+            fn(x)
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    check(cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    by_type: dict[str, float] = {}
+    for node in nodes[: n.value]:
+        kind = ctypes.c_int(-1)
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        name = GRAPH_NODE_TYPES.get(kind.value, "other")
+        by_type[name] = by_type.get(name, 0) + 1 / len(inputs)
+    del graph
+    torch.cuda.synchronize()
+    return {"per_call": n.value / len(inputs), "by_type": by_type}
 
 
 def phase_check(rulesets: list, base, rng) -> dict:
@@ -474,6 +524,20 @@ def edge_frame(C: int) -> tuple:
     return buf, offs, clen, mode
 
 
+def odd_frame(C: int, rng) -> tuple:
+    """A wire buffer whose length is no multiple of 16, with 64 streams at
+    seeded offsets (every shift mod 16) in every mode, and streams that
+    start before the buffer, end past it, lie wholly past it, clen 0 and
+    clen > C."""
+    W = 5 * C + 13
+    buf = rng.choice(np.array([0x80, 0x81, 0x88, 0x20, ord("a"), 0, 0xFF], np.uint8), W)
+    B = 64
+    offs = np.r_[rng.integers(0, W - C, B - 6), [-9, -C - 3, W - 5, W + 7, 3, W - C]]
+    clen = np.r_[rng.integers(1, C + 1, B - 6), [C, C, 40, 12, 0, 2 * C]]
+    return (buf, offs.astype(np.int32), clen.astype(np.int32),
+            (np.arange(B) % 4).astype(np.uint8))
+
+
 def phase_check_decompress(base: np.ndarray, rng) -> dict:
     """The decompress kernel against decompress_plain on the card: frames of
     seeded text, the repo's source, random-byte, zero and mixed rows at
@@ -510,6 +574,18 @@ def phase_check_decompress(base: np.ndarray, rng) -> dict:
             rows = kind_rows(kind, rng, source if kind == "source" else base, live)
             compare(encode(codec, rows, pad)[0].arrays(), f"{kind}-{live}", rows)
     compare(edge_frame(CHUNK_LEN), "edges")
+    compare(odd_frame(CHUNK_LEN, rng), "odd-length wire")
+    # the mixed frame from a wire buffer one byte off 16-byte alignment
+    frame = encode(codec, kind_rows("mix", rng, base, BATCH), BATCH)[0].arrays()
+    wire = torch.zeros(len(frame[0]) + 1, dtype=torch.uint8, device="cuda")
+    wire[1:] = torch.from_numpy(frame[0]).cuda()
+    got = fn(wire[1:], *(torch.from_numpy(a).cuda() for a in frame[1:]))
+    want = decompress_plain(fn.tab_bytes, fn.tab_len, *(torch.from_numpy(a).cuda() for a in frame),
+                            CHUNK_LEN)
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    cases.append({"case": "mix, misaligned wire", "rows": BATCH, "equal": same})
+    equal &= same
     log({"phase": "check", "use": "decompress", "equal": equal, "max_abs_err": err,
          "cases": cases})
     check(equal, "decompress kernel disagrees with decompress_plain")
@@ -522,8 +598,9 @@ def phase_timing_decompress(base: np.ndarray, rng, card: str) -> dict:
     of mixed rows (about 120 MB of wire and rows each, past the 50 MB L2),
     timed as the matcher is; its bound from the frames' actual
     wire bytes (payload and framing read once, the tables read once, the
-    rows written once); the plain version's time; the host's encode time
-    per batch; the pinned copy of a frame's wire beside the raw slab's."""
+    rows written once); the work one wrapper call puts on the stream; the plain
+    version's time; the host's encode time per batch; the pinned copy of a
+    frame's wire beside the raw slab's."""
     codec = SlabCodec(CHUNK_LEN)
     fn = build_decompress_fn(CHUNK_LEN, codec.tab_bytes, codec.tab_len, "cuda")
     raw = torch.zeros((BATCH, CHUNK_LEN), dtype=torch.uint8, pin_memory=True)
@@ -550,7 +627,9 @@ def phase_timing_decompress(base: np.ndarray, rng, card: str) -> dict:
         wire_ms = time_cuda(lambda t: wire_d.copy_(t, non_blocking=True), [wire_h] * 20)[0]
         res = {
             "shape": [BATCH, CHUNK_LEN], "frames": len(frames), "ms": ms, "ms_rounds": rounds,
-            "host_us_per_call": host_us, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "host_us_per_call": host_us,
+            "launches_per_call": work_per_call(lambda f: fn(*f), dev[:2]),
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes", "bound_share": bound_ms / ms, "wire_bytes": wire,
             "wire_ratio": wire / (BATCH * CHUNK_LEN),
             "modes": np.bincount(frames[0].mode, minlength=3).tolist(),
@@ -702,6 +781,23 @@ def phase_check_license(base: bytes, base_np: np.ndarray, seed: int) -> dict:
         if kind.startswith("seeded"):
             check(0 < res["rows_flagged"] < BATCH, "gram gate check flagged no row or all")
     out["bytes_gate"] = {"equal": True, "max_abs_err": 0}
+    # uneven shapes: rows straddling and spanning tiles, more tiles than
+    # the card has SMs (256 and 384), rows one byte off 16-byte alignment;
+    # each twice (the last block's ticket must be back at 0)
+    for R, width, offset in ((3, 1024, 0), (5, 49152, 0), (7, 1536, 0), (9, 5120, 0),
+                             (64, 8192, 1), (33, 2048, 1), (2048, 1024, 0), (64, 49152, 0)):
+        x = torch.from_numpy(scorer_rows(rng, base, width, R))
+        flat = torch.zeros(R * width + offset, dtype=torch.uint8, device="cuda")
+        flat[offset:] = x.reshape(-1).cuda()
+        xr = flat[offset:].view(R, width)
+        want = bytes_gate_plain(xr, g.lut, g.bloom8, g.bloom4)
+        first, again = g(xr), g(xr)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, w) and torch.equal(b, w) for a, b, w in zip(first, again, want))
+        out["bytes_gate"]["equal"] &= same
+        log({"phase": "check", "use": "bytes_gate", "shape": [R, width],
+             "rows_aligned": offset == 0, "equal": same, "calls": 2})
+        check(same, f"bytes gate kernel disagrees with bytes_gate_plain at {[R, width]}")
     out["bytes_score"] = {"within_tol": True, "rtol": SCORE_RTOL, "max_abs_err": 0.0,
                           "checked": 0}
     for width in BYTES_WIDTHS:
@@ -760,6 +856,29 @@ def score_bound_ms(sc, xs: list, cap: int) -> tuple[float, float, float]:
     return nbytes / HBM_BYTES_PER_S * 1e3, hits, distinct
 
 
+def shingle_screen_shares(g, x: torch.Tensor) -> dict:
+    """The shingle gate's screens on the windows of ``x`` that start on a
+    word byte (computed on the host from the plain helpers): the share that
+    passes bloom4's screen (2^SCREEN4_BITS bits) and bloom8's at 2^17, 2^18
+    and 2^19 bits, beside the share each bloom holds."""
+    v = lut_image(x.cpu(), g.lut.cpu())
+    valid = v != 0
+    wlo, whi = pack_windows(torch.where(valid, v, 32))
+    m = mul32(wlo, SHINGLE_MIX)
+    h8 = (((m + mul32(whi, SHINGLE_P2)) & M32) >> (32 - SHINGLE_BITS))[valid].numpy()
+    h4 = (m >> (32 - SHINGLE_BITS))[valid].numpy()
+    b4, b8 = g.bloom4.cpu().numpy() != 0, g.bloom8.cpu().numpy() != 0
+
+    def passes(bloom: np.ndarray, h: np.ndarray, bits: int) -> float:
+        screen = bloom.reshape(1 << bits, -1).any(axis=1)
+        return float(screen[h >> (SHINGLE_BITS - bits)].mean()) if h.size else 0.0
+
+    return {"windows": int(h4.size), "bloom4_hit_share": float(b4[h4].mean()) if h4.size else 0.0,
+            "bloom8_hit_share": float(b8[h8].mean()) if h8.size else 0.0,
+            f"screen4_{SCREEN4_BITS}_pass_share": passes(b4, h4, SCREEN4_BITS),
+            **{f"screen8_{bits}_pass_share": passes(b8, h8, bits) for bits in (17, 18, 19)}}
+
+
 def phase_timing_license(base: bytes, base_np: np.ndarray, seed: int, card: str) -> dict:
     """The license kernels at their dispatch shapes behind the device spin,
     beside their plain versions: the gram gate on four distinct [BATCH,
@@ -770,7 +889,9 @@ def phase_timing_license(base: bytes, base_np: np.ndarray, seed: int, card: str)
     each input read once and each output written once at 3.35 TB/s: for the
     gate the rows, the LUT, the two key tables and the flags; for
     the shingle gate the rows and the two 512 KiB bitsets; for the scorer
-    see ``score_bound_ms``."""
+    see ``score_bound_ms``. The shingle gate also with the work one call
+    puts on the stream and its screens' pass shares on these license rows
+    and on source text."""
     rng = random.Random(seed + 4)
     gate = get_gate_fn(CHUNK_LEN, "cuda")
     scorer = LicenseClassifier(device="cuda")._device_scorer()
@@ -796,11 +917,21 @@ def phase_timing_license(base: bytes, base_np: np.ndarray, seed: int, card: str)
         R = scorer.rows_per_dispatch(width)
         xs = [torch.from_numpy(license_rows(rng, base, width, R)).cuda() for _ in range(8)]
         ms, rounds, host_us = time_cuda(g, xs, reps=4)
+        per_call = work_per_call(g, xs[:2])
+        check(per_call["by_type"] == {"kernel": 1.0},
+              f"the shingle gate put {per_call} on the stream per call")
         nbytes = R * width + 2 * (1 << 19) + 1024 + 4 * R * (width // 512 + 2)
         res = {"shape": [R, width], "ms": ms, "ms_rounds": rounds, "host_us_per_call": host_us,
+               "launches_per_call": per_call,
                "plain_ms": time_cuda(lambda t: bytes_gate_plain(t, g.lut, g.bloom8, g.bloom4),
                                      xs[:1], rounds=1)[0],
-               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "card": card}
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+               "screen8_bits": SCREEN8_BITS, "screens_license": shingle_screen_shares(g, xs[0]),
+               "card": card}
+        if width == 4096:
+            src = base_np[np.asarray([rng.randrange(0, len(base_np) - width) for _ in range(R)])
+                          [:, None] + np.arange(width)]
+            res["screens_source"] = shingle_screen_shares(g, torch.from_numpy(src))
         out[f"bytes_gate_{width}"] = res
         log({"phase": "timing", "use": "bytes_gate", **res})
         gcap = scorer.gram_cap(width)
@@ -1709,6 +1840,7 @@ def main() -> int:
         "bound_by": text["bound_by"], "library_ms": None,
         "ms_source": source["ms"], "bound_ms_source": source["bound_ms"],
         "ms_mix": mix["ms"], "bound_ms_mix": mix["bound_ms"],
+        "launches_per_call": text["launches_per_call"]["by_type"].get("kernel"),
     })
     # the license kernels: times at the gram gate's seeded batch and at the
     # 4096 rung, the other inputs, rungs and gathered batches beside them,
@@ -1735,6 +1867,8 @@ def main() -> int:
                     entry[f"ms_{tag}"] = res["ms"]
                     entry[f"bound_ms_{tag}"] = res["bound_ms"]
             entry["launches_by_shape"] = lic["launches_by_shape"][name]
+        if name == "bytes_gate":
+            entry["launches_per_call"] = t["launches_per_call"]["by_type"].get("kernel")
         kernels.append(entry)
     t = cve["timing"]
     kernels.append({

@@ -180,6 +180,37 @@ def test_decompress_kernel_equals_plain_on_card(card, C):
     assert (got[: len(rows)] == rows).all() and not got[len(rows):].any()
 
 
+def odd_frame(C: int, seed: int) -> tuple:
+    """A wire buffer whose length is no multiple of 16 and 64 streams at
+    seeded offsets (every shift mod 16), in every mode, with streams that
+    start before the buffer, end past it, lie wholly past it, clen 0 and
+    clen > C."""
+    rng = np.random.default_rng(seed)
+    W = 5 * C + 13
+    buf = rng.choice(np.array([0x80, 0x81, 0x88, 0x20, ord("a"), 0, 0xFF], np.uint8), W)
+    offs = np.r_[rng.integers(0, W - C, 58), [-9, -C - 3, W - 5, W + 7, 3, W - C]]
+    clen = np.r_[rng.integers(1, C + 1, 58), [C, C, 40, 12, 0, 2 * C]]
+    return (buf, offs.astype(np.int32), clen.astype(np.int32), (np.arange(64) % 4).astype(np.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16384, 1000])
+def test_decompress_unaligned_streams_and_odd_wire_on_card(card, C):
+    """Streams at every offset mod 16 in a wire buffer of odd length, from
+    a buffer at each of the 16 alignments: the vector staging's scalar
+    edges read exactly what the clamp reads."""
+    codec = SlabCodec(C)
+    fn = build_decompress_fn(C, codec.tab_bytes, codec.tab_len, card)
+    f = odd_frame(C, C)
+    parts = [torch.from_numpy(a) for a in f]
+    want = decompress_plain(fn.tab_bytes.cpu(), fn.tab_len.cpu(), *parts, C)
+    dev = [t.to(card) for t in parts]
+    for shift in range(16):
+        buf = torch.zeros(dev[0].numel() + shift, dtype=torch.uint8, device=card)
+        buf[shift:] = dev[0]
+        assert torch.equal(fn(buf[shift:], *dev[1:]).cpu(), want), (C, shift)
+
+
 @pytest.mark.cuda
 def test_decompress_launches_counted_once_per_launch(card):
     codec = SlabCodec(1024)
@@ -305,6 +336,41 @@ def test_bytes_gate_and_score_kernels_equal_plain_on_card(card, width):
             assert torch.equal(got[2].cpu(), want[2]) and torch.equal(got[1].cpu(), want[1]), S
             assert torch.allclose(got[0].cpu(), want[0], rtol=1e-5, atol=0), S
         assert want[0].max() > 1.0 and (want[2] <= effective_cap(cap, width)).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1024, 2048, 4096, 8192, 16384, 32768, 49152])
+def test_bytes_gate_full_dispatch_twice_on_card(card, width):
+    """The gate at the classifier's dispatch shape of every rung, called
+    twice on one gate: both calls equal the plain version (the last block
+    leaves its ticket at 0 for the next launch)."""
+    scorer = LicenseClassifier(device=card)._device_scorer()
+    R = scorer.rows_per_dispatch(width)
+    x = torch.from_numpy(license_rows(width, R, width + 1))
+    want = scorer._gate(x)
+    xd = x.to(card)
+    first, again = scorer._gate(xd), scorer._gate(xd)
+    for a, b, w in zip(first, again, want):
+        assert torch.equal(a.cpu(), w) and torch.equal(b.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows, width, offset", [
+    (2, 1024, 0), (3, 49152, 0), (5, 1536, 0), (9, 5120, 0), (40, 8192, 1), (17, 2048, 3),
+    (2048, 1024, 0), (64, 49152, 0),
+])
+def test_bytes_gate_uneven_shapes_on_card(card, rows, width, offset):
+    """Rows inside one tile, rows straddling and spanning tiles, more tiles
+    than the card has SMs (256 and 384), and rows off 16-byte alignment
+    (the byte staging); each called twice on one gate."""
+    scorer = LicenseClassifier(device=card)._device_scorer()
+    x = torch.from_numpy(license_rows(width, rows, rows))
+    flat = torch.zeros(rows * width + offset, dtype=torch.uint8, device=card)
+    flat[offset:] = x.reshape(-1).to(card)
+    xd = flat[offset:].view(rows, width)
+    first, again = scorer._gate(xd), scorer._gate(xd)
+    for a, b, w in zip(first, again, scorer._gate(x)):
+        assert torch.equal(a.cpu(), w) and torch.equal(b.cpu(), w)
 
 
 @pytest.mark.cuda

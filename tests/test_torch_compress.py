@@ -220,72 +220,121 @@ def warp_scan(v: np.ndarray) -> np.ndarray:
     return v
 
 
-def kernel_model(tab_bytes, tab_len, buf, offs, clen, mode, C, threads=KERNEL_THREADS):
-    """``csrc/decompress.cu`` step by step in numpy: a block per row; the
-    stream staged with every read clamped into the buffer (asserted); PACK7
-    and RAW written from the staged stream in 16-byte pieces (8 at a ragged
-    end); TOKEN by per-thread stretches, the shuffle scan of their totals
-    within each warp and over the warp totals, and each stretch expanded
-    into a zeroed shared row, asserting no byte is written twice. Output
-    bytes start as 0xAB, so a byte the kernel never writes shows."""
+def kernel_model(tab_bytes, tab_len, buf, offs, clen, mode, C, threads=KERNEL_THREADS, grid=3,
+                 addr=0):
+    """``csrc/decompress.cu`` step by step in numpy: ``grid`` persistent
+    blocks, block b taking row b and then its share of the other rows
+    (TOKEN rows dealt out first), each block with two stream buffers and a
+    TOKEN row that keep what earlier rows left in them. A row's stream is
+    staged at its shift (``addr``, the buffer's address mod 16, plus its
+    offset), as the 16-byte pieces that hold it: a piece wholly inside the
+    buffer is copied whole (bytes past the stream included), any other
+    byte by byte with the clamp (asserted inside the buffer). Every read of
+    the stream is masked past ``n`` in registers: RAW in 16-byte chunks,
+    PACK7 as two 7-byte groups per 16 output bytes decoded as 56-bit
+    big-endian values, TOKEN by per-warp stretches whose totals a scan
+    places, each expanded 128 tokens at a time, four neighbouring tokens a
+    lane (a shuffle scan of the lanes' lengths, asserting no byte is written
+    twice) into the shared row, which
+    goes out masked past its expanded length. Output bytes start as 0xAB,
+    so a byte the kernel never writes shows."""
     W = len(buf)
-    pad = -(-C // 16) * 16 + 16
-    out = np.full((len(offs), C), 0xAB, np.uint8)
-    for i in range(len(offs)):
-        n = min(max(int(clen[i]), 0), C)
-        chunks = [(j0, min(16, C - j0)) for j0 in range(0, C, 16)]
-        if n == 0:
-            for j0, cnt in chunks:
-                out[i, j0 : j0 + cnt] = 0
-            continue
-        j = np.arange(pad)
-        g = np.clip(int(offs[i]) + j[:n], 0, W - 1)
-        assert g.min() >= 0 and g.max() < W
-        s = np.zeros(pad, np.uint8)
-        s[:n] = buf[g]
-        m = int(mode[i])
-        if m == PC.MODE_PACK7:
-            jj = np.arange(C)
-            p = (7 * jj) >> 3
-            nxt = np.where(p + 1 < C, s[np.minimum(p + 1, pad - 1)], 0).astype(np.uint32)
-            w = (s[p].astype(np.uint32) << 8) | nxt
-            row = ((w >> (9 - ((7 * jj) & 7))) & 0x7F).astype(np.uint8)
-        elif m != PC.MODE_TOKEN:
-            row = s
-        else:
-            per = -(-n // threads)
-            t0 = np.minimum(np.arange(threads) * per, n)
-            t1 = np.minimum(t0 + per, n)
-            lens = tab_len[s[:n]].astype(np.int64)
-            total = np.array([lens[a:b].sum() for a, b in zip(t0, t1)])
-            incl = np.concatenate([warp_scan(total[w : w + 32]) for w in range(0, threads, 32)])
-            warp_tot = incl[31::32]
-            w_in = np.r_[warp_tot, np.zeros(32 - len(warp_tot), np.int64)]
-            warp_off = (warp_scan(w_in) - w_in)[: len(warp_tot)]
-            start = warp_off[np.arange(threads) // 32] + incl - total
-            shared = np.zeros(pad, np.uint8)
-            written = np.zeros(pad, bool)
-            for t in range(threads):
-                pos = int(start[t])
-                for k in range(t0[t], t1[t]):
-                    if pos >= C:
-                        break
-                    tok = s[k]
-                    for e in range(int(tab_len[tok])):
-                        if pos + e >= C:
+    B = len(offs)
+    G = min(grid, B)
+    warps = threads // 32
+    pad = -(-C // 16) * 16
+    chunks = [(16 * c, min(16, C - 16 * c)) for c in range(-(-C // 16))]
+    out = np.full((B, C), 0xAB, np.uint8)
+    sbuf = [[np.full(pad + 32, 0xCD, np.uint8) for _ in range(2)] for _ in range(G)]
+    rowbuf = [np.full(pad + 16, 0xEF, np.uint8) for _ in range(G)]
+    # row b first, then positions b, b + G, ... of the other rows ordered
+    # TOKEN rows first (ascending), the rest after them (descending)
+    rest = [r for r in range(G, B) if mode[r] == PC.MODE_TOKEN]
+    rest += [r for r in range(B - 1, G - 1, -1) if mode[r] != PC.MODE_TOKEN]
+    rows = [[b] + rest[b::G] for b in range(G)]
+
+    def load16(s, p):  # two aligned 16-byte words, shifted: inside the buffer
+        assert (p & ~15) + 32 <= len(s)
+        return s[p : p + 16].copy()
+
+    def first(x, v):
+        x[max(0, min(16, v)) :] = 0
+        return x
+
+    for b in range(G):
+        row = rowbuf[b]
+        for it, i in enumerate(rows[b]):
+            s = sbuf[b][it & 1]
+            off, n = int(offs[i]), min(max(int(clen[i]), 0), C)
+            shift = (addr + off) & 15
+            a0 = addr + off - shift
+            for q in range((shift + n + 15) >> 4 if n else 0):
+                g = a0 + 16 * q
+                if g >= addr and g + 16 <= addr + W:
+                    s[16 * q : 16 * q + 16] = buf[g - addr : g - addr + 16]
+                    continue
+                for e in range(16):
+                    j = 16 * q + e - shift
+                    if 0 <= j < n:
+                        k = min(max(off + j, 0), W - 1)
+                        assert 0 <= k < W
+                        s[16 * q + e] = buf[k]
+                    else:
+                        s[16 * q + e] = 0
+            m = int(mode[i])
+            if n == 0:
+                for j0, cnt in chunks:
+                    out[i, j0 : j0 + cnt] = 0
+            elif m == PC.MODE_PACK7:
+                for c, (j0, cnt) in enumerate(chunks):
+                    x = first(load16(s, shift + 14 * c), n - 14 * c)
+                    ga = int.from_bytes(x[:7].tobytes(), "big")
+                    gb = int.from_bytes(x[7:14].tobytes(), "big")
+                    dec = [(g >> (49 - 7 * k)) & 0x7F for g in (ga, gb) for k in range(8)]
+                    out[i, j0 : j0 + cnt] = np.array(dec[:cnt], np.uint8)
+            elif m != PC.MODE_TOKEN:
+                for j0, cnt in chunks:
+                    out[i, j0 : j0 + cnt] = first(load16(s, shift + j0), n - j0)[:cnt]
+            else:
+                tok = s[shift : shift + n]
+                per = -(-n // warps)
+                t0 = np.minimum(np.arange(warps) * per, n)
+                t1 = np.minimum(t0 + per, n)
+                lens = tab_len[tok].astype(np.int64)
+                totals = np.array([lens[a:z].sum() for a, z in zip(t0, t1)])
+                w_in = np.r_[totals, np.zeros(32 - warps, np.int64)]
+                w_incl = warp_scan(w_in)
+                warp_off = (w_incl - w_in)[:warps]
+                L = min(int(w_incl[warps - 1]), C)
+                written = np.zeros(pad + 16, bool)
+                for w in range(warps):
+                    base = int(warp_off[w])
+                    for k0 in range(int(t0[w]), int(t1[w]), 128):
+                        if base >= C:
                             break
-                        assert not written[pos + e]
-                        written[pos + e] = True
-                        shared[pos + e] = tab_bytes[tok, e]
-                    pos += int(tab_len[tok])
-            row = shared
-        for j0, cnt in chunks:
-            out[i, j0 : j0 + cnt] = row[j0 : j0 + cnt]
+                        k = k0 + np.arange(128).reshape(32, 4)  # four tokens a lane
+                        live = k < t1[w]
+                        t = np.where(live, tok[np.minimum(k, n - 1)], 0)
+                        ln = np.where(live, tab_len[t], 0).astype(np.int64)
+                        sums = ln.sum(axis=1)
+                        incl = warp_scan(sums)
+                        for lane in range(32):
+                            pos = base + int(incl[lane] - sums[lane])
+                            for u in range(4):
+                                for e in range(min(int(ln[lane, u]), C - pos)):
+                                    assert not written[pos + e]
+                                    written[pos + e] = True
+                                    row[pos + e] = tab_bytes[t[lane, u], e]
+                                pos += int(ln[lane, u])
+                        base += int(incl[31])
+                assert written[:L].all()
+                for j0, cnt in chunks:
+                    out[i, j0 : j0 + cnt] = first(row[j0 : j0 + 16].copy(), L - j0)[:cnt]
     return out
 
 
-def model(codec, C, frame, threads=KERNEL_THREADS):
-    return kernel_model(codec.tab_bytes, codec.tab_len, *frame, C, threads)
+def model(codec, C, frame, threads=KERNEL_THREADS, **kw):
+    return kernel_model(codec.tab_bytes, codec.tab_len, *frame, C, threads, **kw)
 
 
 @pytest.mark.parametrize("threads", [KERNEL_THREADS, 64])
@@ -298,7 +347,35 @@ def test_kernel_model_equals_plain(threads):
     for C in (1024, 1000):
         codec = PC.SlabCodec(C)
         for frame in edge_frames(C, rng):
-            np.testing.assert_array_equal(model(codec, C, frame, threads), plain(codec, *frame))
+            for addr in (0, 5):
+                np.testing.assert_array_equal(model(codec, C, frame, threads, addr=addr),
+                                              plain(codec, *frame))
+
+
+def odd_frame(C: int, rng) -> tuple:
+    """A wire buffer whose length is no multiple of 16, with streams at
+    every shift: negative offsets, streams past either end, a stream wholly
+    past the buffer, clen 0 and clen > C, in every mode."""
+    W = 5 * C + 13
+    buf = rng.choice(np.array([0x80, 0x81, 0x88, 0x20, ord("a"), 0, 0xFF], np.uint8), W)
+    B = 24
+    offs = np.r_[rng.integers(0, W - C, B - 6), [-9, -C - 3, W - 5, W + 7, 3, W - C]]
+    clen = np.r_[rng.integers(1, C + 1, B - 6), [C, C, 40, 12, 0, 2 * C]]
+    mode = (np.arange(B) % 4).astype(np.uint8)
+    return buf, offs.astype(np.int32), clen.astype(np.int32), mode
+
+
+@pytest.mark.parametrize("C, grid, addr", [
+    (1024, 1, 0),      # one block walks every row, both buffers reused
+    (1024, 4, 3),      # a buffer address off 16-byte alignment
+    (1000, 2, 15),     # rows of 8-byte stores
+    (256, 64, 8),      # more blocks than rows
+])
+def test_kernel_model_edges_equal_plain(C, grid, addr):
+    codec = PC.SlabCodec(C)
+    frame = odd_frame(C, np.random.default_rng(C + grid))
+    assert len(frame[0]) % 16 and (frame[1] < 0).any() and (frame[1] >= len(frame[0])).any()
+    np.testing.assert_array_equal(model(codec, C, frame, grid=grid, addr=addr), plain(codec, *frame))
 
 
 @st.composite
@@ -326,11 +403,13 @@ def frames(draw):
 
 
 @settings(max_examples=40, deadline=None)
-@given(frames())
-def test_kernel_model_equals_plain_property(frame):
+@given(frames(), st.integers(1, 6), st.integers(0, 15))
+def test_kernel_model_equals_plain_property(frame, grid, addr):
+    """Random frames, grids and buffer alignments."""
     C, f = frame
     codec = PC.SlabCodec(C)
-    np.testing.assert_array_equal(model(codec, C, f, threads=64), plain(codec, *f))
+    np.testing.assert_array_equal(model(codec, C, f, threads=64, grid=grid, addr=addr),
+                                  plain(codec, *f))
 
 
 def test_wrapper_checks_input_and_counts_no_cpu_launch():

@@ -14,18 +14,17 @@ def gate_source() -> str:
     return (_build.CSRC / "gram_gate.cu").read_text()
 
 
-@pytest.mark.parametrize("kernel, source, barrier, after, steps", [
-    ("gram_gate_kernel", "gram_gate.cu", "__syncthreads();", r"compact_starts<[^;]*;",
-     ks.GATE_STEPS),
-    ("bytes_score_kernel", "bytes_score.cu", "cluster.sync();", r"radix_sort<T>\([^;]*;",
-     ks.SCORE_STEPS),
+@pytest.mark.parametrize("kernel, source, marks, steps", [
+    ("gram_gate_kernel", "gram_gate.cu", ks.GATE_MARKS, ks.GATE_STEPS),
+    ("bytes_score_kernel", "bytes_score.cu", ks.SCORE_MARKS, ks.SCORE_STEPS),
 ])
-def test_stamped_marks_every_step(kernel, source, barrier, after, steps):
+def test_stamped_marks_every_step(kernel, source, marks, steps):
     src = (_build.CSRC / source).read_text()
-    out = ks.stamped(src, kernel, barrier, after)
-    # a stamp at the start and one after each step
-    assert out.count("clock64()") >= len(steps) + 1
-    assert out.count("trivy_clk[") == out.count("clock64()") + 1  # and its declaration
+    out = ks.marked(src, kernel, marks)
+    # a mark for each step, each adding to its own sum, and the prelude's stamp
+    assert [m[1] for m in marks] == list(steps)
+    assert out.count("+= trivy_t - trivy_last") == len(steps)
+    assert out.count("clock64()") == len(steps) + 1
     assert 'extern "C" int trivy_clocks' in out
     # the text before the kernel is kept (beside the stamps' declaration)
     head = src[:src.index(kernel + "(")]
@@ -34,9 +33,12 @@ def test_stamped_marks_every_step(kernel, source, barrier, after, steps):
 
 
 def test_gate_stamps_one_per_step():
-    out = ks.stamped(gate_source(), "gram_gate_kernel", "__syncthreads();",
-                     r"compact_starts<[^;]*;")
+    """The gram gate's marks land after each of its six barriers and
+    compactions and at its body's end."""
+    out = ks.marked(gate_source(), "gram_gate_kernel", ks.GATE_MARKS)
     assert out.count("clock64()") == len(ks.GATE_STEPS) + 1
+    body = out[ks.kernel_body(out, "gram_gate_kernel")[0] :]
+    assert body.index(f"trivy_acc[{len(ks.GATE_STEPS) - 1}] +=") > body.rindex("__syncthreads(); {")
 
 
 def test_screen_in_shared_reads_the_copy():
@@ -46,9 +48,9 @@ def test_screen_in_shared_reads_the_copy():
     assert "screened(screen, k)" not in body and "screened_s(screen_s, k)" in body
     assert "screen_s[k] = screen[k]" in body
     assert "align16(smem_bytes(C)) + 4 * ((1 << (32 - kScreenShift)) / 32)" in out
-    # the variant's stamped copy still marks every step
-    stamped = ks.stamped(out, "gram_gate_kernel", "__syncthreads();", r"compact_starts<[^;]*;")
-    assert stamped.count("clock64()") == len(ks.GATE_STEPS) + 1
+    # the variant's marked copy still marks every step
+    marked = ks.marked(out, "gram_gate_kernel", ks.GATE_MARKS)
+    assert marked.count("clock64()") == len(ks.GATE_STEPS) + 1
 
 
 def test_screen_in_shared_refuses_a_source_without_the_screen():
@@ -70,3 +72,89 @@ def test_gate_launcher_signature_drops_screen_and_dir():
     for with_screen, n in ((True, len(argtypes)), (False, len(argtypes) - 2)):
         ks.gate_launcher(Lib, with_screen, Gate, None)
         assert len(Lib.trivy_gram_gate_launch.argtypes) == n
+
+
+@pytest.mark.parametrize("kernel, marks", [
+    ("bytes_gate", ks.BYTES_GATE_MARKS["new"]),
+    ("decompress", ks.DECOMPRESS_MARKS["new"]),
+])
+def test_marked_marks_every_step_of_the_redesigns(kernel, marks):
+    src = (_build.CSRC / f"{kernel}.cu").read_text()
+    assert ks.version(src, kernel) == "new"
+    out = ks.marked(src, f"{kernel}_kernel", marks)
+    start, end = ks.kernel_body(src, f"{kernel}_kernel")
+    src = src[start:end]  # the body's returns flush the sums
+    # one mark per step, each adding to its own sum, the prelude's stamp,
+    # and the sums written out at the body's end
+    assert out.count("+= trivy_t - trivy_last") == len(marks)
+    for k in range(len(marks)):
+        assert f"trivy_acc[{k}] +=" in out
+    assert out.count("clock64()") == len(marks) + 1
+    assert out.count("trivy_clk[trivy_id * ") == 2 * (1 + src.count("return;"))
+    assert 'extern "C" int trivy_clocks(' in out and 'extern "C" int trivy_clocks_reset()' in out
+    # the kernel's text is kept, with the marks inserted
+    full = (_build.CSRC / f"{kernel}.cu").read_text()
+    assert out.startswith(full[: full.index("#include <cuda_runtime.h>")])
+    assert full[ks.kernel_body(full, f"{kernel}_kernel")[1] :] in out
+
+
+def test_marks_stay_in_order_in_the_decompressor():
+    """The mode steps land in their own branches: zero before PACK7, PACK7
+    before RAW, RAW before TOKEN."""
+    src = (_build.CSRC / "decompress.cu").read_text()
+    out = ks.marked(src, "decompress_kernel", ks.DECOMPRESS_MARKS["new"])
+    steps = [step for _, step, _ in ks.DECOMPRESS_MARKS["new"]]
+    at = [out.index(f"trivy_acc[{steps.index(s)}] +=") for s in ("zero", "pack7", "raw", "token_sum")]
+    assert at == sorted(at)
+    assert out.index("kModePack7) {") < at[1] < out.index("m != kModeToken) {  // RAW")
+
+
+def test_screens_via_ldg_reads_device_memory():
+    src = (_build.CSRC / "bytes_gate.cu").read_text()
+    out = ks.screens_via_ldg(src)
+    assert "stage_words(sm.s4" not in out and "stage_words(sm.s8" not in out
+    assert "const uint32_t* s4 = screen4;" in out and "__ldg(s + (b >> 5))" in out
+    assert "*smem = smem_bytes(0, 0);" in out
+    # its marked copy still marks every step
+    marked = ks.marked(out, "bytes_gate_kernel", ks.BYTES_GATE_MARKS["new"])
+    assert marked.count("+= trivy_t - trivy_last") == len(ks.BYTES_GATE_MARKS["new"])
+
+
+def test_marked_refuses_a_source_without_a_step():
+    src = (_build.CSRC / "decompress.cu").read_text().replace("if (nx < B) stage_row", "stage_row")
+    with pytest.raises(ValueError, match="issue"):
+        ks.marked(src, "decompress_kernel", ks.DECOMPRESS_MARKS["new"])
+    with pytest.raises(ValueError, match="no longer has one"):
+        ks.screens_via_ldg(ks.screens_via_ldg((_build.CSRC / "bytes_gate.cu").read_text()))
+
+
+def test_version_tells_a_parent_source_apart():
+    for kernel in ("bytes_gate", "decompress"):
+        src = (_build.CSRC / f"{kernel}.cu").read_text()
+        assert ks.version(src, kernel) == "new"
+        assert ks.version(src.replace(ks.VERSION_MARKERS[kernel], "gone"), kernel) == "old"
+
+
+def test_no_screen8_reads_every_bloom8_word():
+    """The variant without bloom8's screen neither stages nor reads it and
+    sizes its shared memory without it; bloom4's screen stays."""
+    src = (_build.CSRC / "bytes_gate.cu").read_text()
+    out = ks.no_screen8(src)
+    assert "screened(s8," not in out and "need8 |= 1u << j;" in out
+    assert "stage_words(sm.s8" not in out and "stage_words(sm.s4, screen4, s4_words);" in out
+    assert "screened(s4, h4[j], s4_bits)" in out
+    assert "*smem = smem_bytes((1 << s4_bits) / 32, 0);" in out
+    marked = ks.marked(out, "bytes_gate_kernel", ks.BYTES_GATE_MARKS["new"])
+    assert marked.count("+= trivy_t - trivy_last") == len(ks.BYTES_GATE_MARKS["new"])
+    with pytest.raises(ValueError, match="no longer has one"):
+        ks.no_screen8(out)
+
+
+def test_narrow_blocks_halves_the_block():
+    src = (_build.CSRC / "bytes_gate.cu").read_text()
+    out = ks.narrow_blocks(src)
+    assert "constexpr int kThreads = 256;" in out and "kThreads = 512" not in out
+    marked = ks.marked(out, "bytes_gate_kernel", ks.BYTES_GATE_MARKS["new"])
+    assert marked.count("+= trivy_t - trivy_last") == len(ks.BYTES_GATE_MARKS["new"])
+    with pytest.raises(ValueError, match="kThreads"):
+        ks.narrow_blocks(out)

@@ -11,6 +11,9 @@ function (which sums in chunks of 256), an order of magnitude inside the
 classifier's 1e-4 band.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +32,7 @@ from trivy_tpu_torch.licensing import corpus, corpus_texts, expression, normaliz
 from trivy_tpu_torch.licensing.classify import LicenseClassifier
 from trivy_tpu_torch.licensing.corpus_texts import FULL_TEXTS
 from trivy_tpu_torch.licensing.scanner import LicenseCategorizer
+from trivy_tpu_torch.ops import bytes_gate_cuda
 from trivy_tpu_torch.ops import ngram_score as ng
 from trivy_tpu_torch.ops.bytes_gate import bytes_gate_plain
 from trivy_tpu_torch.ops.bytes_score import SENT32, bytes_score_plain, effective_cap
@@ -195,49 +199,173 @@ def test_bytes_gate_plain_equals_jax(table, width):
     assert got[0].max() > 16 and got[1].max() > 0  # license rows light both lanes
 
 
+# csrc/bytes_gate.cu's tile: a 512-byte density block per warp, 16 positions a lane
+GATE_SRC = (Path(bytes_gate_cuda.__file__).parent / "csrc" / "bytes_gate.cu").read_text()
+WARPS = int(re.search(r"constexpr int kThreads = (\d+);", GATE_SRC).group(1)) // 32
+TILE = WARPS * 512
+HALO_STAGE = 16  # the halo piece staged after a tile
+
+
+def screen_bits(screen: np.ndarray, h: np.ndarray, bits: int) -> np.ndarray:
+    """Bit ``h >> (22 - bits)`` of a uint32 bitset screen."""
+    b = h >> np.uint32(22 - bits)
+    return ((screen[b >> np.uint32(5)] >> (b & np.uint32(31))) & np.uint32(1)).astype(bool)
+
+
 def bytes_gate_model(rows: np.ndarray, lut32: np.ndarray, bloom8: np.ndarray,
-                     bloom4: np.ndarray):
-    """csrc/bytes_gate.cu's formulation: each 512-byte block staged with a
-    7-byte halo (past the row end: 0, read as a space), windows packed in
-    uint32, block counts written, row counts summed over the blocks."""
+                     bloom4: np.ndarray, s4_bits: int = 15, s8_bits: int = 18,
+                     unaligned: bool = False):
+    """csrc/bytes_gate.cu's formulation: a block per tile of WARPS density
+    blocks of the flattened rows, each staged with a 16-byte halo piece
+    (bytes past the input are not staged: they hold garbage); warp w of a tile counts
+    density block ``WARPS t + w`` over its 512 positions, its 7-byte halo read from the tile
+    or as spaces at a row end; each window reads the screen first and the
+    bitset only when the screen passes (asserting the screen never rejects
+    a set bit); a row inside one tile is written by its block, the pieces
+    of a row across tiles go to a scratch at their first block, and the
+    last block sums them in order. Outputs start at -1, so a count never
+    written shows."""
     B, C = rows.shape
-    blk = np.zeros((B, C // 512), np.int32)
-    ah = np.zeros(B, np.int32)
-    nb = np.zeros(B, np.int32)
+    nblk = C // 512
+    flat = rows.reshape(-1)
+    total = B * C
+    tiles = -(-total // TILE)
+    b4, b8 = bytes_gate_cuda.bitset(bloom4), bytes_gate_cuda.bitset(bloom8)
+    s4 = bytes_gate_cuda.fold(bloom4, s4_bits)
+    s8 = bytes_gate_cuda.fold(bloom8, s8_bits)
+    blk = np.full(B * nblk, -1, np.int64)
+    ah = np.full(B, -1, np.int64)
+    nb = np.full(B, -1, np.int64)
+    partial = np.full((B * nblk, 2), -1, np.int64)
+
+    def lookup(screen, bits, bitset_, h, valid):
+        hit = ((bitset_[h >> np.uint32(5)] >> (h & np.uint32(31))) & np.uint32(1)).astype(bool)
+        passed = screen_bits(screen, h, bits)
+        assert not (hit & ~passed).any()  # a screen never rejects a set bit
+        return passed & hit & valid
+
     with np.errstate(over="ignore"):
-        for b in range(B):
-            for k in range(C // 512):
-                v = np.zeros(512 + 7, np.uint32)
-                seg = rows[b, k * 512 : k * 512 + 519]
-                v[: len(seg)] = lut32[seg]
+        for t in range(tiles):
+            stage = np.full(TILE + HALO_STAGE, 0xEE, np.uint8)  # garbage where not staged
+            seg = flat[t * TILE : min(total, t * TILE + TILE + HALO_STAGE)]
+            # the vector path stages whole 16-byte pieces; the byte path every byte
+            n_staged = len(seg) if unaligned else len(seg) // 16 * 16
+            stage[:n_staged] = seg[:n_staged]
+            sums = np.zeros((WARPS, 2), np.int64)
+            for w in range(WARPS):
+                d = t * WARPS + w
+                if d >= B * nblk:
+                    continue
+                v = lut32[stage[512 * w : 512 * w + 520]].astype(np.uint32)
+                if d % nblk == nblk - 1:
+                    v[512:] = 0  # past the row end: spaces
                 sv = np.where(v == 0, np.uint32(32), v)
                 i = np.arange(512)
                 wlo = sv[i] | sv[i + 1] << 8 | sv[i + 2] << 16 | sv[i + 3] << 24
                 whi = sv[i + 4] | sv[i + 5] << 8 | sv[i + 6] << 16 | sv[i + 7] << 24
                 m = wlo * np.uint32(2654435761)
                 valid = v[:512] != 0
-                blk[b, k] = int((bloom8[(m + whi * np.uint32(40503)) >> np.uint32(10)].astype(bool)
-                                 & valid).sum())
-                ah[b] += int((bloom4[m >> np.uint32(10)].astype(bool) & valid).sum())
-                nb[b] += int(valid.sum())
-    return blk, ah, nb
+                h4 = m >> np.uint32(10)
+                h8 = (m + whi * np.uint32(40503)) >> np.uint32(10)
+                blk[d] = int(lookup(s8, s8_bits, b8, h8, valid).sum())
+                sums[w] = (int(lookup(s4, s4_bits, b4, h4, valid).sum()), int(valid.sum()))
+            for w in range(WARPS):
+                dw = t * WARPS + w
+                if dw >= B * nblk or not (w == 0 or dw % nblk == 0):
+                    continue
+                row = dw // nblk
+                row_last = (row + 1) * nblk - 1
+                e = w
+                while e < WARPS and t * WARPS + e <= row_last:
+                    e += 1
+                a, n = sums[w:e].sum(axis=0)
+                if dw % nblk == 0 and t * WARPS + e - 1 == row_last:
+                    ah[row], nb[row] = a, n
+                else:
+                    partial[dw] = (a, n)
+        # the last block: rows across tiles, pieces in order
+        for row in range(B):
+            first, end = row * nblk, (row + 1) * nblk
+            b1 = (first // WARPS + 1) * WARPS
+            if b1 >= end:
+                continue
+            pieces = [first] + list(range(b1, end, WARPS))
+            assert (partial[pieces] >= 0).all()
+            ah[row], nb[row] = partial[pieces].sum(axis=0)
+    assert (blk >= 0).all() and (ah >= 0).all() and (nb >= 0).all()
+    return (blk.reshape(B, nblk).astype(np.int32), ah.astype(np.int32), nb.astype(np.int32))
+
+
+def gate_rows(rng: np.random.Generator, n: int, width: int) -> np.ndarray:
+    """Rows of license text cut at random points (the blooms' hits), random
+    bytes from a small alphabet with separators and non-ASCII, and words
+    running to the row's last byte."""
+    texts = mixed_texts(int(rng.integers(1 << 30)), n, width)
+    rows = text_rows(texts, width)
+    alphabet = np.frombuffer(b"the licens permito grant\n\r\t.,;\x00\xc8\xff", np.uint8)
+    for i in range(2, n, 3):
+        rows[i] = alphabet[rng.integers(0, len(alphabet), width)]
+    if n > 1:
+        rows[1, -5:] = ord("w")  # a word to the row's last byte
+    return rows
+
+
+def port_gate(table, rows: np.ndarray):
+    return [g.numpy() for g in bytes_gate_plain(
+        torch.from_numpy(rows), t64(ng.lut_low32(table.lut)), torch.from_numpy(table.gate.bloom8),
+        torch.from_numpy(table.gate.bloom4))]
 
 
 @settings(max_examples=25, deadline=None)
 @given(data=st.data())
 def test_bytes_gate_kernel_model_equals_plain(table, data):
-    width = data.draw(st.sampled_from([512, 1024, 2048]))
-    n = data.draw(st.integers(1, 3))
-    alphabet = list(b"the licens permito grant\n\r\t.,;") + [0, 200, 255]
-    rows = np.array(data.draw(st.lists(st.lists(st.sampled_from(alphabet), min_size=width,
-                                                max_size=width), min_size=n, max_size=n)),
-                    dtype=np.uint8)
-    lut32 = ng.lut_low32(table.lut)
-    want = bytes_gate_model(rows, lut32, table.gate.bloom8, table.gate.bloom4)
-    got = bytes_gate_plain(torch.from_numpy(rows), t64(lut32),
-                           torch.from_numpy(table.gate.bloom8), torch.from_numpy(table.gate.bloom4))
+    """The model at row widths whose rows fit a tile (512-2048), straddle
+    tiles (1536, 5120) and span several (16384), on 1-5 rows, with bloom8
+    screens of 2^17-2^19 bits, on aligned and unaligned rows."""
+    width = data.draw(st.sampled_from([512, 1024, 1536, 2048, 5120, 16384]))
+    n = data.draw(st.integers(1, 5))
+    rows = gate_rows(np.random.default_rng(data.draw(st.integers(0, 2**31))), n, width)
+    kw = {"s8_bits": data.draw(st.sampled_from([17, 18, 19])),
+          "unaligned": data.draw(st.booleans())}
+    want = port_gate(table, rows)
+    got = bytes_gate_model(rows, ng.lut_low32(table.lut), table.gate.bloom8, table.gate.bloom4,
+                           **kw)
     for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.numpy(), w)
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("width, n, unaligned", [
+    (49152, 3, False),  # a row spans 12 tiles
+    (49152, 2, True),   # the same through the byte staging
+    (1024, 1, False),   # one row, half a tile
+    (1536, 7, True),    # rows straddling tile boundaries
+    (4096, 4, False),   # two rows a tile
+])
+def test_bytes_gate_model_edges_equal_plain(table, width, n, unaligned):
+    rows = gate_rows(np.random.default_rng(width + n), n, width)
+    want = port_gate(table, rows)
+    for s8_bits in (17, 19):
+        got = bytes_gate_model(rows, ng.lut_low32(table.lut), table.gate.bloom8,
+                               table.gate.bloom4, s8_bits=s8_bits, unaligned=unaligned)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    if n > 1:  # a license row lights both lanes
+        assert want[0].max() > 16 and want[1].max() > 0
+
+
+@pytest.mark.parametrize("bits", [17, 18, 19])
+def test_folded_screens_never_reject_a_set_bloom_bit(table, bits):
+    """On the real corpus table: every set slot of either bloom passes its
+    folded screen, and the screens are as sparse as the kernel counts on
+    (bloom4's screen under 2% set)."""
+    for bloom in (table.gate.bloom4, table.gate.bloom8):
+        screen = bytes_gate_cuda.fold(bloom, bits)
+        h = np.nonzero(bloom)[0].astype(np.uint32)
+        assert h.size and screen_bits(screen, h, bits).all()
+        set_share = np.unpackbits(screen.view(np.uint8)).mean()
+        assert set_share <= h.size / (1 << bits)
+    s4 = bytes_gate_cuda.fold(table.gate.bloom4, bytes_gate_cuda.SCREEN4_BITS)
+    assert np.unpackbits(s4.view(np.uint8)).mean() < 0.02
 
 
 # -- the scorer ---------------------------------------------------------------------

@@ -2,16 +2,20 @@
 
     python -m tools.kernel_study gate [--source PATH] [--batches 4] [--seed 0]
     python -m tools.kernel_study score [--seed 0]
+    python -m tools.kernel_study bytes-gate [--source PATH ...] [--seed 0]
+    python -m tools.kernel_study decompress [--source PATH ...] [--seed 0]
 
 (from the repository root). A development tool: nothing in the package
 imports it.
 
-Builds copies of a kernel's source with a ``clock64()`` stamp taken by
-thread 0 of each block at the kernel's start, after each of its top-level
-barriers and at its end, and prints one JSON line per case: the mean cycles
-of each step over the blocks (``cycles``, ``share``), beside the case's time
-per launch from an unstamped copy (CUDA events behind a device spin, median
-of three rounds) and whether its output equals the plain version's.
+Builds copies of a kernel's source with step marks (``marked``): at each,
+a barrier, then thread 0 adds the ``clock64()`` cycles since the last mark
+to its block's sum for the step, so a step that runs once per tile or row
+(a persistent grid) is summed over them. Prints one JSON line per case: the
+mean cycles of each step over the blocks that ran (``cycles``, ``share``),
+beside the case's time per launch from an unmarked copy (CUDA events behind
+a device spin, median of three rounds) and whether its output equals the
+plain version's.
 
 ``gate``: ``csrc/gram_gate.cu`` (or ``--source``, for example the kernel of
 an earlier commit, compiled with the ``license_words.cuh`` beside it) on
@@ -28,12 +32,40 @@ every gram key runs the search). A source without them runs as it is.
 
 ``score``: ``csrc/bytes_score.cu`` on ``chip_smoke.py``'s license rows at
 every rung's dispatch shape and on gathered batches of 8 and 64 rows at
-1024, 16384 and 49152, at the launch policy's cluster size. Steps (stamped
+1024, 16384 and 49152, at the launch policy's cluster size. Steps (marked
 after each cluster barrier and after the sort): ``scan`` (LUT, slice image,
 the stretch scan), ``sums`` (word sums by start and end), ``hash``,
 ``keys`` (gram keys, bucket counts), ``push`` (keys into buckets), ``sort``,
 ``distinct``, ``find`` (lookups, the compacted list), ``sum`` (the credit
 columns).
+
+``bytes-gate`` and ``decompress``: ``csrc/bytes_gate.cu`` and
+``csrc/decompress.cu``, or each ``--source`` given (the kernel of an earlier
+commit, whose launch has the earlier signature, is recognised by the
+missing set-up function, ``VERSION_MARKERS``), all in one process on the
+same inputs. ``bytes-gate`` runs the license rows of every rung of
+the classifier's ladder and, at 16384, rows of source text, and reports
+the work one dispatch puts on the stream (``chip_smoke.py``'s
+``work_per_call``). Steps of the
+earlier kernel: ``tables`` (the LUT), ``stage`` (the block's LUT image),
+``hash`` (windows, bitset reads, warp sums), ``partials`` (block count and
+row atomics); its time per dispatch includes the two fills its wrapper
+launched before it. Steps of the redesign: ``tables`` (the LUT and screens,
+waited for apart in the marked copy), ``stage`` (the tile's copies landing),
+``hash`` (LUT image, windows, screens, bitset reads, warp sums), ``rows``
+(row counts and partials), ``ticket`` (the last block's sums of split
+rows). Variants of the redesign: bloom4's screen at 2^15 and 2^17 bits and
+bloom8's at 2^18 and 2^19 bits (launch arguments); and, with the package's
+screens, copies of the source: ``no_screen8`` reads bloom8's bitset for
+every window (``no_screen8``), ``ldg`` reads the screens from device
+memory with ``__ldg`` instead of staging them (``screens_via_ldg``),
+``narrow`` has blocks of 256 threads (``narrow_blocks``). ``decompress`` runs frames
+the codec encodes from seeded text (PACK7 rows), the checkout's source
+(RAW and TOKEN), zero rows (TOKEN), random bytes (RAW) and a mix; its
+steps are split by mode: ``zero``, ``pack7``, ``raw`` and the TOKEN steps
+``token_sum``, ``token_scan``, ``token_expand``, ``token_write``, beside
+``stage`` (the earlier kernel's byte staging) or ``tables``, ``issue`` and
+``wait`` (the redesign's).
 
 Needs a CUDA card and nvcc.
 """
@@ -57,10 +89,14 @@ import torch
 from trivy_tpu_torch.licensing.classify import LicenseClassifier
 from trivy_tpu_torch.licensing.fused import get_gate_fn
 from trivy_tpu_torch.ops import _build
+from trivy_tpu_torch.ops.bytes_gate import bytes_gate_plain
+from trivy_tpu_torch.ops.bytes_gate_cuda import SCREEN4_BITS, SCREEN8_BITS, fold
 from trivy_tpu_torch.ops.bytes_score import bytes_score_plain, effective_cap
 from trivy_tpu_torch.ops.bytes_score_cuda import cluster_size
+from trivy_tpu_torch.ops.decompress import decompress_plain
 from trivy_tpu_torch.ops.gram_gate import gram_gate_plain
-from trivy_tpu_torch.ops.ngram_score import BYTES_WIDTHS
+from trivy_tpu_torch.ops.ngram_score import BYTES_WIDTHS, DeviceBytesScorer
+from trivy_tpu_torch.secret.compress import SlabCodec
 
 REPO = Path(__file__).resolve().parents[1]
 GATE_STEPS = ("lut", "stage", "compact", "hash", "lanes", "search", "merge")
@@ -68,30 +104,161 @@ SCORE_STEPS = ("scan", "sums", "hash", "keys", "push", "sort", "distinct", "find
 MAX_STAMPS = 16
 MAX_BLOCKS = 4096
 SPIN_CYCLES = 200_000_000  # about 0.1 s of the card's clock ahead of each round
-STAMP = ("{ if (threadIdx.x == 0) trivy_clk[blockIdx.x * %d + trivy_step] = clock64(); "
-         "++trivy_step; }" % MAX_STAMPS)
+# a mark of ``marked``: the step's cycles since the last mark, summed per
+# block in thread 0's registers, and the kernel's prelude and flush
+MARK = ("{ __syncthreads(); if (threadIdx.x == 0) { const long long trivy_t = clock64(); "
+        "trivy_acc[%d] += trivy_t - trivy_last; trivy_last = trivy_t; } }")
+MARK_PRELUDE = ("\n  const long long trivy_id = blockIdx.x + static_cast<long long>(gridDim.x) * "
+                "blockIdx.y;\n  long long trivy_acc[%d] = {};\n  long long trivy_last = clock64();"
+                "\n" % (MAX_STAMPS - 1))
+FLUSH = ("{ if (threadIdx.x == 0 && trivy_id < %d) { for (int trivy_k = 0; trivy_k < %d; ++trivy_k) "
+         "trivy_clk[trivy_id * %d + trivy_k] = trivy_acc[trivy_k]; trivy_clk[trivy_id * %d + %d] = "
+         "1; } }" % (MAX_BLOCKS, MAX_STAMPS - 1, MAX_STAMPS, MAX_STAMPS, MAX_STAMPS - 1))
+WAIT_ALL = ('asm volatile("cp.async.commit_group;\\n" ::: "memory"); '
+            'asm volatile("cp.async.wait_group 0;\\n" ::: "memory");')
+# (regex, step, code run before the mark's barrier): each regex is searched
+# after the previous mark; an END step closes the kernel's body
+END = "END"
+# the gram gate: a mark after each barrier and after the word-start
+# compaction, the last step closed by the body's end; the scorer: after each
+# cluster barrier and after the radix sort (its tail is not a step)
+GATE_MARKS = [(r"__syncthreads\(\);|compact_starts<[^;]*;", step, "") for step in GATE_STEPS[:-1]]
+GATE_MARKS.append((END, GATE_STEPS[-1], ""))
+SCORE_MARKS = [(r"cluster\.sync\(\);|radix_sort<T>\([^;]*;", step, "") for step in SCORE_STEPS]
+BYTES_GATE_MARKS = {
+    "old": [(r"__syncthreads\(\);", "tables", ""), (r"__syncthreads\(\);", "stage", ""),
+            (r"__syncthreads\(\);", "hash", ""), (END, "partials", "")],
+    "new": [(r"stage_words\(sm\.lut, lut, 256\);(\s*stage_words\([^;]*;)*", "tables", WAIT_ALL),
+            (r"__syncthreads\(\);", "stage", ""), (r"__syncthreads\(\);", "hash", ""),
+            (r"__syncthreads\(\);", "rows", ""), (END, "ticket", "")],
+}
+DECOMPRESS_MARKS = {
+    "old": [(r"(?=return;)", "zero", ""), (r"__syncthreads\(\);", "stage", ""),
+            (r"(?=return;)", "pack7", ""), (r"(?=return;)", "raw", ""),
+            (r"__syncthreads\(\);", "token_sum", ""), (r"__syncthreads\(\);", "token_scan", ""),
+            (r"__syncthreads\(\);", "token_expand", ""), (END, "token_write", "")],
+    "new": [(r"cp_async16\(tb \+ 16 \* k, tab_bytes \+ 16 \* k\);\n  \}", "tables", WAIT_ALL),
+            (r"if \(nx < B\) stage_row\([^;]*;", "issue", ""),
+            (r"__syncthreads\(\);", "wait", ""),
+            (r"(?=\} else if \(m == kModePack7\))", "zero", ""),
+            (r"(?=\} else if \(m != kModeToken\))", "pack7", ""),
+            (r"(?=\} else \{)", "raw", ""),
+            (r"__syncthreads\(\);", "token_sum", ""), (r"__syncthreads\(\);", "token_scan", ""),
+            (r"__syncthreads\(\);", "token_expand", ""),
+            (r"(?=\}\n    __syncthreads\(\);  // this row)", "token_write", "")],
+}
+# a function only the redesigned source of each kernel exports
+VERSION_MARKERS = {"bytes_gate": "trivy_bytes_gate_smem", "decompress": "trivy_decompress_grid"}
+# the launch signatures of the kernels before their redesign
+_P, _I = ctypes.c_void_p, ctypes.c_int
+OLD_SIGNATURES = {
+    # x, B, C, lut, bloom8, bloom4, blk, ah, nb, stream
+    "trivy_bytes_gate_launch": (_I, [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P]),
+    # buf, W, offs, clen, mode, B, C, tab_bytes, tab_len, out, stream
+    "trivy_decompress_launch": (_I, [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _P, _P, _P, _P]),
+}
 
 
-def stamped(src: str, kernel: str, barrier: str, after: str) -> str:
-    """``src`` with clock stamps in the body of ``kernel``: at its start,
-    after each ``barrier`` statement and each statement matching the regex
-    ``after``, and at its end; plus ``trivy_clocks(out, n)``, which copies
-    the first ``n`` stamps to the host."""
+def kernel_body(src: str, kernel: str) -> tuple[int, int]:
+    """Offsets of the opening and closing brace of ``kernel``'s body."""
     head = src.index(f"{kernel}(", src.index("__global__"))
     start = src.index("{", head)
-    depth, end = 0, start
+    depth = 0
     for end in range(start, len(src)):
         depth += {"{": 1, "}": -1}.get(src[end], 0)
         if depth == 0:
-            break
-    body = src[start + 1 : end].replace(barrier, f"{barrier} {STAMP}")
-    body = re.sub(f"({after})", r"\1 __syncthreads(); " + STAMP, body)
-    body = f"\n  int trivy_step = 0; {STAMP}{body}  __syncthreads(); {STAMP}\n"
+            return start, end
+    raise ValueError(f"{kernel}'s body does not close")
+
+
+def marked(src: str, kernel: str, marks: list) -> str:
+    """``src`` with step marks in the body of ``kernel``, for kernels whose
+    steps run many times (a persistent grid): each mark, inserted after the
+    first match of its regex past the previous mark (or at the body's end
+    for ``END``), runs its code, a barrier, and has thread 0 add the cycles
+    since the last mark to its step's sum in registers; the sums go to the
+    device array at every ``return`` and at the body's end, with slot
+    ``MAX_STAMPS - 1`` flagging the blocks that ran. Adds
+    ``trivy_clocks(out, n)`` and ``trivy_clocks_reset()``. Raises when a
+    regex is not found in order."""
+    start, end = kernel_body(src, kernel)
+    body = src[start + 1 : end]
+    pos = 0
+    tail = ""
+    for k, (pattern, step, code) in enumerate(marks):
+        stamp = f"{code} {MARK % k}"
+        if pattern == END:
+            tail = f"  {stamp}"
+            continue
+        m = re.compile(pattern).search(body, pos)
+        if m is None:
+            raise ValueError(f"{kernel} has no {pattern!r} for step {step!r} where expected")
+        body = body[: m.end()] + stamp + body[m.end() :]
+        pos = m.end() + len(stamp)
+    body = re.sub(r"\breturn;", FLUSH + " return;", body)
+    tail += f"  {FLUSH}\n"
+    inc = src.index("#include <cuda_runtime.h>\n") + len("#include <cuda_runtime.h>\n")
     prelude = f"__device__ long long trivy_clk[{MAX_BLOCKS * MAX_STAMPS}];\n"
-    inc = src.index('#include "license_words.cuh"')
     getter = ('\nextern "C" int trivy_clocks(long long* out, int n) {\n'
-              "  return static_cast<int>(cudaMemcpyFromSymbol(out, trivy_clk, n * 8));\n}\n")
-    return src[:inc] + prelude + src[inc : start + 1] + body + src[end:] + getter
+              "  return static_cast<int>(cudaMemcpyFromSymbol(out, trivy_clk, n * 8));\n}\n"
+              'extern "C" int trivy_clocks_reset() {\n  void* p = nullptr;\n'
+              "  cudaError_t err = cudaGetSymbolAddress(&p, trivy_clk);\n"
+              "  if (err == cudaSuccess) err = cudaMemset(p, 0, sizeof(trivy_clk));\n"
+              "  return static_cast<int>(err);\n}\n")
+    return (src[:inc] + prelude + src[inc : start + 1] + MARK_PRELUDE + body + tail
+            + src[end:] + getter)
+
+
+def screens_via_ldg(src: str) -> str:
+    """The shingle gate's source reading its screens in device memory with
+    ``__ldg`` in place of staging them in shared memory (which then holds
+    no screen)."""
+    edits = [
+        ("  stage_words(sm.s4, screen4, s4_words);\n  stage_words(sm.s8, screen8, s8_words);\n",
+         ""),
+        ("const uint32_t* s4 = sm.s4;", "const uint32_t* s4 = screen4;"),
+        ("const uint32_t* s8 = sm.s8;", "const uint32_t* s8 = screen8;"),
+        ("return (s[b >> 5] >> (b & 31)) & 1u;", "return (__ldg(s + (b >> 5)) >> (b & 31)) & 1u;"),
+        ("carve(reinterpret_cast<uint8_t*>(smem_raw), s4_words, s8_words)",
+         "carve(reinterpret_cast<uint8_t*>(smem_raw), 0, 0)"),
+        ("*smem = smem_bytes((1 << s4_bits) / 32, (1 << s8_bits) / 32);",
+         "*smem = smem_bytes(0, 0);"),
+    ]
+    return edited(src, edits)
+
+
+def no_screen8(src: str) -> str:
+    """The shingle gate's source without bloom8's screen: every window
+    that starts on a word byte reads bloom8's bitset (bloom4's screen
+    stays)."""
+    edits = [
+        ("need8 |= static_cast<uint32_t>(screened(s8, h8[j], s8_bits)) << j;",
+         "need8 |= 1u << j;"),
+        ("  stage_words(sm.s8, screen8, s8_words);\n", ""),
+        ("const int s8_words = (1 << s8_bits) / 32;", "const int s8_words = 0;"),
+        ("*smem = smem_bytes((1 << s4_bits) / 32, (1 << s8_bits) / 32);",
+         "*smem = smem_bytes((1 << s4_bits) / 32, 0);"),
+    ]
+    return edited(src, edits)
+
+
+def edited(src: str, edits: list) -> str:
+    """``src`` with each (old, new) replaced; raises unless each ``old``
+    occurs exactly once."""
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise ValueError(f"the shingle gate's source no longer has one {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def narrow_blocks(src: str) -> str:
+    """The shingle gate's source with blocks of 256 threads (4 KiB tiles):
+    twice the blocks, so twice the tables staged per dispatch."""
+    old = "constexpr int kThreads = 512;"
+    if src.count(old) != 1:
+        raise ValueError(f"the shingle gate's source no longer has one {old!r}")
+    return src.replace(old, "constexpr int kThreads = 256;")
 
 
 def screen_in_shared(src: str) -> str:
@@ -131,14 +298,15 @@ def build(src: str, source: Path, out: Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(out))
 
 
-def step_cycles(lib: ctypes.CDLL, blocks: int, steps: tuple) -> np.ndarray:
-    """Mean cycles of each step over the first ``blocks`` blocks of the
-    last stamped launch."""
+def marked_cycles(lib: ctypes.CDLL, steps: tuple) -> tuple[np.ndarray, int]:
+    """Mean cycles of each step over the blocks that ran since the last
+    ``trivy_clocks_reset()``, and how many ran."""
     clk = (ctypes.c_longlong * (MAX_BLOCKS * MAX_STAMPS))()
     if lib.trivy_clocks(clk, MAX_BLOCKS * MAX_STAMPS) != 0:
         raise RuntimeError("could not read the stamps")
     stamps = np.asarray(clk, np.int64).reshape(MAX_BLOCKS, MAX_STAMPS)
-    return np.diff(stamps[:blocks, : len(steps) + 1], axis=1).mean(axis=0)
+    ran = stamps[:, MAX_STAMPS - 1] == 1  # a block's flag, written with its sums
+    return stamps[ran, : len(steps)].mean(axis=0), int(ran.sum())
 
 
 def time_ms(run, args: list, reps: int = 8) -> float:
@@ -202,10 +370,9 @@ def study_gate(smoke: dict, source: Path, batches: int, seed: int) -> None:
                             gate.block, gate.ngram) for x in xs]
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(2 * len(variants)) as pool:
         jobs = {(name, kind): pool.submit(
-                    build, stamped(text, "gram_gate_kernel", "__syncthreads();",
-                                   r"compact_starts<[^;]*;") if kind == "stamped" else text,
-                    source, Path(tmp) / f"{name}_{kind}.so")
-                for name, (text, _) in variants.items() for kind in ("stamped", "plain")}
+                    build, marked(text, "gram_gate_kernel", GATE_MARKS) if kind == "marked"
+                    else text, source, Path(tmp) / f"{name}_{kind}.so")
+                for name, (text, _) in variants.items() for kind in ("marked", "plain")}
         for name, (_, screen) in variants.items():
             run = gate_launcher(jobs[name, "plain"].result(), with_screen, gate, screen)
             pairs = [(x, torch.zeros_like(w)) for x, w in zip(xs, want)]
@@ -214,21 +381,17 @@ def study_gate(smoke: dict, source: Path, batches: int, seed: int) -> None:
             torch.cuda.synchronize()
             equal = all(torch.equal(o, w) for (_, o), w in zip(pairs, want))
             ms = time_ms(run, pairs)
-            lib = jobs[name, "stamped"].result()
-            srun = gate_launcher(lib, with_screen, gate, screen)
-            cycles = []
-            for x in xs:
-                srun((x, torch.zeros_like(want[0])))
-                torch.cuda.synchronize()
-                cycles.append(step_cycles(lib, B, GATE_STEPS))
+            lib = jobs[name, "marked"].result()
+            mean, _ = run_marked(lib, gate_launcher(lib, with_screen, gate, screen),
+                                 [(x, torch.zeros_like(want[0])) for x in xs], GATE_STEPS)
             report({"kernel": "gram_gate", "source": str(source), "variant": name, "ms": ms,
-                    "equal_plain": equal}, GATE_STEPS, np.mean(cycles, axis=0))
+                    "equal_plain": equal}, GATE_STEPS, mean)
 
 
 def study_score(smoke: dict, seed: int) -> None:
     source = _build.CSRC / "bytes_score.cu"
     src = source.read_text()
-    marked = stamped(src, "bytes_score_kernel", "cluster.sync();", r"radix_sort<T>\([^;]*;")
+    stamps = marked(src, "bytes_score_kernel", SCORE_MARKS)
     base = smoke["text_base"](random.Random(seed), 1 << 20)
     rng = random.Random(seed + 5)
     scorer = LicenseClassifier(device="cuda")._device_scorer()
@@ -236,9 +399,9 @@ def study_score(smoke: dict, seed: int) -> None:
     lut, keys, kdir = sc._k
     ls = sc.credit.shape[1] // 2
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(2) as pool:
-        libs = dict(zip(("stamped", "plain"), pool.map(
+        libs = dict(zip(("marked", "plain"), pool.map(
             lambda kv: build(kv[1], source, Path(tmp) / f"{kv[0]}.so"),
-            (("stamped", marked), ("plain", src)))))
+            (("marked", stamps), ("plain", src)))))
         for lib in libs.values():
             for fn, (restype, argtypes) in _build.SIGNATURES["bytes_score"].items():
                 getattr(lib, fn).restype = restype
@@ -264,9 +427,7 @@ def study_score(smoke: dict, seed: int) -> None:
                     if rc != 0:
                         raise RuntimeError(f"bytes score launch failed ({rc})")
 
-                run(libs["stamped"])
-                torch.cuda.synchronize()
-                mean = step_cycles(libs["stamped"], B * S, SCORE_STEPS)
+                mean, _ = run_marked(libs["marked"], run, [libs["marked"]], SCORE_STEPS)
                 want = bytes_score_plain(rows, sc.lut, sc.keys, sc.credit, sc.p1, sc.p2,
                                          sc.hash_p, cap, sc.ngram)
                 run(libs["plain"])
@@ -278,21 +439,218 @@ def study_score(smoke: dict, seed: int) -> None:
                         "within_tol_plain": equal}, SCORE_STEPS, mean)
 
 
+def version(src: str, kernel: str) -> str:
+    """``new`` for a redesigned source (it exports its
+    ``VERSION_MARKERS`` function), else ``old``."""
+    return "new" if VERSION_MARKERS[kernel] in src else "old"
+
+
+def load(src: str, source: Path, out: Path, kernel: str) -> ctypes.CDLL:
+    """``build``, with the C signatures of the source's version declared."""
+    lib = build(src, source, out)
+    sigs = (_build.SIGNATURES[kernel] if version(src, kernel) == "new" else
+            {f"trivy_{kernel}_launch": OLD_SIGNATURES[f"trivy_{kernel}_launch"]})
+    for fn, (restype, argtypes) in sigs.items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+    return lib
+
+
+def bytes_gate_runner(lib: ctypes.CDLL, src: str, gate, s4_bits: int = SCREEN4_BITS,
+                      s8_bits: int = SCREEN8_BITS):
+    """``fn(rows) -> (blk, ah, nb)``: one dispatch of the library's shingle
+    gate as its wrapper makes it (the earlier kernel: two fills and the
+    launch), with ``gate``'s tables and, for a redesign, screens of
+    2^s4_bits bits for bloom4 and 2^s8_bits for bloom8."""
+    lut, b8, b4 = gate._k[:3]
+    if version(src, "bytes_gate") == "old":
+        def run(x):
+            B, C = x.shape
+            blk = torch.empty((B, C // 512), dtype=torch.int32, device=x.device)
+            ah = torch.zeros(B, dtype=torch.int32, device=x.device)
+            nb = torch.zeros(B, dtype=torch.int32, device=x.device)
+            if lib.trivy_bytes_gate_launch(x.data_ptr(), B, C, lut.data_ptr(), b8.data_ptr(),
+                                           b4.data_ptr(), blk.data_ptr(), ah.data_ptr(),
+                                           nb.data_ptr(), torch.cuda.current_stream().cuda_stream):
+                raise RuntimeError("bytes gate launch failed")
+            return blk, ah, nb
+        return run
+    s4, s8 = (torch.from_numpy(fold(bloom.cpu().numpy(), bits).view(np.int32)).cuda()
+              for bloom, bits in ((gate.bloom4, s4_bits), (gate.bloom8, s8_bits)))
+    smem = ctypes.c_int()
+    if lib.trivy_bytes_gate_smem(s4_bits, s8_bits, smem) != 0:
+        raise RuntimeError("bytes gate set-up failed")
+    scratch = {}
+
+    def run(x):
+        B, C = x.shape
+        blk = torch.empty((B, C // 512), dtype=torch.int32, device=x.device)
+        ah = torch.empty(B, dtype=torch.int32, device=x.device)
+        nb = torch.empty(B, dtype=torch.int32, device=x.device)
+        if not scratch or scratch["part"].numel() < 2 * blk.numel():
+            scratch["part"] = torch.empty(2 * blk.numel(), dtype=torch.int32, device=x.device)
+            scratch.setdefault("ticket", torch.zeros(1, dtype=torch.int32, device=x.device))
+        if lib.trivy_bytes_gate_launch(
+                x.data_ptr(), B, C, lut.data_ptr(), b8.data_ptr(), b4.data_ptr(), s4.data_ptr(),
+                s4_bits, s8.data_ptr(), s8_bits, blk.data_ptr(), ah.data_ptr(), nb.data_ptr(),
+                scratch["part"].data_ptr(), scratch["ticket"].data_ptr(), smem.value,
+                torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("bytes gate launch failed")
+        return blk, ah, nb
+    return run
+
+
+def decompress_runner(lib: ctypes.CDLL, src: str, fn):
+    """``run(frame) -> [B, C]``: one launch of the library's decompressor
+    with the tables of ``fn`` (a ``CudaDecompressor``)."""
+    C = fn.chunk_len
+    new = version(src, "decompress") == "new"
+    grid, smem = ctypes.c_int(), ctypes.c_int()
+    if new and lib.trivy_decompress_grid(C, grid, smem) != 0:
+        raise RuntimeError("decompress grid query failed")
+
+    def run(frame):
+        buf, offs, clen, mode = frame
+        B = offs.shape[0]
+        out = torch.empty((B, C), dtype=torch.uint8, device=buf.device)
+        args = [buf.data_ptr(), buf.numel(), offs.data_ptr(), clen.data_ptr(), mode.data_ptr(), B,
+                C, fn.tab_bytes.data_ptr(), fn.tab_len.data_ptr(), out.data_ptr()]
+        args += [grid.value, smem.value] if new else []
+        if lib.trivy_decompress_launch(*args, torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("decompress launch failed")
+        return out
+    return run
+
+
+def run_marked(lib: ctypes.CDLL, run, inputs: list, steps: tuple) -> tuple[np.ndarray, int]:
+    """Step cycles of ``run`` over ``inputs`` with a marked library: the
+    mean over inputs of the per-block means."""
+    cycles, blocks = [], 0
+    for a in inputs:
+        torch.cuda.synchronize()
+        if lib.trivy_clocks_reset() != 0:
+            raise RuntimeError("could not reset the stamps")
+        run(a)
+        torch.cuda.synchronize()
+        mean, blocks = marked_cycles(lib, steps)
+        cycles.append(mean)
+    return np.mean(cycles, axis=0), blocks
+
+
+def study_bytes_gate(smoke: dict, sources: list, seed: int) -> None:
+    rng = random.Random(seed + 6)
+    base = smoke["text_base"](random.Random(seed), 1 << 20)
+    gate = LicenseClassifier(device="cuda")._device_scorer()._gate
+    cases = []
+    for width in BYTES_WIDTHS:
+        R = DeviceBytesScorer.rows_per_dispatch(width)
+        cases.append((f"license_{width}", [torch.from_numpy(smoke["license_rows"](
+            rng, base, width, R)).cuda() for _ in range(4)]))
+    base_np = np.frombuffer(base, np.uint8)
+    R = DeviceBytesScorer.rows_per_dispatch(16384)
+    cases.append(("source_16384", [torch.from_numpy(base_np[np.asarray(
+        [rng.randrange(0, len(base_np) - 16384) for _ in range(R)])[:, None]
+        + np.arange(16384)]).cuda() for _ in range(4)]))
+    want = {name: [bytes_gate_plain(x, gate.lut, gate.bloom8, gate.bloom4) for x in xs]
+            for name, xs in cases}
+    jobs = []
+    for source in sources:
+        src = source.read_text()
+        ver = version(src, "bytes_gate")
+        texts = ({"shared": src, "no_screen8": no_screen8(src), "ldg": screens_via_ldg(src),
+                  "narrow": narrow_blocks(src)} if ver == "new" else {"as_is": src})
+        bits = {"shared": ((15, 18), (17, 18), (15, 19))}
+        for name, text in texts.items():
+            default = (SCREEN4_BITS, SCREEN8_BITS) if ver == "new" else (None, None)
+            for pair in bits.get(name, (default,)):
+                jobs.append((source, ver, name, text, pair))
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(8) as pool:
+        libs = {}
+        for i, (source, ver, name, text, _) in enumerate(jobs):
+            key = (str(source), name)
+            if key not in libs:
+                libs[key] = (pool.submit(load, text, source, Path(tmp) / f"g{i}.so", "bytes_gate"),
+                             pool.submit(load, marked(text, "bytes_gate_kernel",
+                                                      BYTES_GATE_MARKS[ver]),
+                                         source, Path(tmp) / f"g{i}m.so", "bytes_gate"))
+        for source, ver, name, text, (s4, s8) in jobs:
+            plain_lib, marked_lib = (f.result() for f in libs[str(source), name])
+            run = bytes_gate_runner(plain_lib, text, gate, s4, s8)
+            mrun = bytes_gate_runner(marked_lib, text, gate, s4, s8)
+            steps = tuple(step for _, step, _ in BYTES_GATE_MARKS[ver])
+            for case, xs in cases:
+                equal = all(all(torch.equal(a, b) for a, b in zip(run(x), w))
+                            for x, w in zip(xs, want[case]))
+                ms = time_ms(run, xs)
+                mean, blocks = run_marked(marked_lib, mrun, xs, steps)
+                report({"kernel": "bytes_gate", "source": str(source), "version": ver,
+                        "variant": name, "screen4_bits": s4, "screen8_bits": s8, "case": case,
+                        "shape": list(xs[0].shape), "ms": ms,
+                        "work_per_call": smoke["work_per_call"](run, xs[:2]),
+                        "blocks": blocks, "equal_plain": equal}, steps, mean)
+
+
+def study_decompress(smoke: dict, sources: list, seed: int) -> None:
+    rng = np.random.default_rng(seed + 7)
+    C, B = smoke["CHUNK_LEN"], smoke["BATCH"]
+    base = np.frombuffer(smoke["text_base"](random.Random(seed), 1 << 20), np.uint8)
+    source_text = smoke["repo_source"]()
+    codec = SlabCodec(C)
+    fn = smoke["build_decompress_fn"](C, codec.tab_bytes, codec.tab_len, "cuda")
+    cases = []
+    for kind in ("text", "source", "zero", "random", "mix"):
+        frames = []
+        for _ in range(2):
+            rows = smoke["kind_rows"](kind, rng, source_text if kind == "source" else base, B)
+            cs = smoke["encode"](codec, rows, B)[0]
+            frames.append(tuple(torch.from_numpy(a).cuda() for a in cs.arrays()))
+        cases.append((kind, frames))
+    want = {kind: [decompress_plain(fn.tab_bytes, fn.tab_len, *f, C) for f in frames]
+            for kind, frames in cases}
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(8) as pool:
+        texts = [(source, source.read_text()) for source in sources]
+        libs = [(pool.submit(load, text, source, Path(tmp) / f"d{i}.so", "decompress"),
+                 pool.submit(load, marked(text, "decompress_kernel",
+                                          DECOMPRESS_MARKS[version(text, "decompress")]),
+                             source, Path(tmp) / f"d{i}m.so", "decompress"))
+                for i, (source, text) in enumerate(texts)]
+        for (source, text), (plain_f, marked_f) in zip(texts, libs):
+            ver = version(text, "decompress")
+            run = decompress_runner(plain_f.result(), text, fn)
+            mrun = decompress_runner(marked_f.result(), text, fn)
+            steps = tuple(step for _, step, _ in DECOMPRESS_MARKS[ver])
+            for kind, frames in cases:
+                equal = all(torch.equal(run(f), w) for f, w in zip(frames, want[kind]))
+                ms = time_ms(run, frames)
+                mean, blocks = run_marked(marked_f.result(), mrun, frames, steps)
+                report({"kernel": "decompress", "source": str(source), "version": ver,
+                        "input": kind, "shape": [B, C], "ms": ms, "blocks": blocks,
+                        "modes": np.bincount(frames[0][3].cpu().numpy(), minlength=3).tolist(),
+                        "equal_plain": equal}, steps, mean)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("kernel", choices=("gate", "score"))
-    ap.add_argument("--source", type=Path, default=_build.CSRC / "gram_gate.cu",
-                    help="the gram gate's source (gate only)")
+    ap.add_argument("kernel", choices=("gate", "score", "bytes-gate", "decompress"))
+    ap.add_argument("--source", type=Path, action="append",
+                    help="the kernel's source (gate, bytes-gate, decompress; the last two "
+                         "take several); default: the package's")
     ap.add_argument("--batches", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_study needs a CUDA card")
     smoke = runpy.run_path(str(REPO / "chip_smoke.py"))
+    name = {"gate": "gram_gate", "bytes-gate": "bytes_gate"}.get(args.kernel, args.kernel)
+    sources = args.source or [_build.CSRC / f"{name}.cu"]
     if args.kernel == "gate":
-        study_gate(smoke, args.source, args.batches, args.seed)
-    else:
+        study_gate(smoke, sources[-1], args.batches, args.seed)
+    elif args.kernel == "score":
         study_score(smoke, args.seed)
+    elif args.kernel == "bytes-gate":
+        study_bytes_gate(smoke, sources, args.seed)
+    else:
+        study_decompress(smoke, sources, args.seed)
     return 0
 
 

@@ -48,9 +48,11 @@ SIGNATURES = {
         "trivy_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "decompress": {
+        # C, grid (out), smem (out)
+        "trivy_decompress_grid": (_I, [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]),
         "trivy_decompress_launch": (
-            # buf, W, offs, clen, mode, B, C, tab_bytes, tab_len, out, stream
-            _I, [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+            # buf, W, offs, clen, mode, B, C, tab_bytes, tab_len, out, grid, smem, stream
+            _I, [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P],
         ),
         "trivy_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
@@ -63,9 +65,12 @@ SIGNATURES = {
         "trivy_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "bytes_gate": {
+        # s4_bits, s8_bits, smem (out)
+        "trivy_bytes_gate_smem": (_I, [_I, _I, ctypes.POINTER(_I)]),
         "trivy_bytes_gate_launch": (
-            # x, B, C, lut, bloom8, bloom4, blk, ah, nb, stream
-            _I, [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+            # x, B, C, lut, bloom8, bloom4, screen4, s4_bits, screen8, s8_bits, blk, ah, nb,
+            # partial, ticket, smem, stream
+            _I, [_P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P],
         ),
         "trivy_cuda_error_string": (ctypes.c_char_p, [_I]),
     },

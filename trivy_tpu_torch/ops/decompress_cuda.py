@@ -2,7 +2,8 @@
 
 Replaces the JAX package's device computation
 ``trivy_tpu/ops/decompress.py::build_decompress_fn`` with
-``csrc/decompress.cu`` (one thread block per row; see the source for the
+``csrc/decompress.cu`` (a persistent grid that stages each row's stream in
+16-byte pieces while it expands the row before; see the source for the
 design). This module keeps the codec's TOKEN tables resident on the card,
 checks the frame it is given and launches the kernel. The function computed
 is that of :func:`trivy_tpu_torch.ops.decompress.decompress_plain`.
@@ -13,6 +14,8 @@ There is no fallback from one to the other.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -41,10 +44,27 @@ class CudaDecompressor:
             raise ValueError(
                 f"tables must be [256, {MAX_EXPANSION}] and [256], got "
                 f"{tab_bytes.shape} and {tab_len.shape}")
+        if tab_len.min() < 0 or tab_len.max() > MAX_EXPANSION:
+            raise ValueError(f"tab_len must lie in [0, {MAX_EXPANSION}]")
         self.chunk_len = chunk_len
         self.device = resolve(device)
         self.tab_bytes = torch.from_numpy(tab_bytes).to(self.device)
         self.tab_len = torch.from_numpy(tab_len).to(self.device)
+        self._plan: tuple[int, int] | None = None  # (grid, smem), from the first launch
+
+    def plan(self) -> tuple[int, int]:
+        """(blocks resident on the card at once, dynamic shared memory of
+        each): the kernel's grid is this, capped by the rows."""
+        if self._plan is None:
+            grid, smem = ctypes.c_int(), ctypes.c_int()
+            lib = _build.load("decompress")
+            with torch.cuda.device(self.device):
+                rc = lib.trivy_decompress_grid(self.chunk_len, grid, smem)
+            if rc != 0:
+                msg = lib.trivy_cuda_error_string(rc).decode()
+                raise RuntimeError(f"decompress kernel launch failed: {msg} ({rc})")
+            self._plan = (grid.value, smem.value)
+        return self._plan
 
     def __call__(self, buf: torch.Tensor, offs: torch.Tensor, clen: torch.Tensor,
                  mode: torch.Tensor) -> torch.Tensor:
@@ -61,12 +81,13 @@ class CudaDecompressor:
         out = torch.empty((B, C), dtype=torch.uint8, device=dev)
         if B == 0:
             return out
+        grid, smem = self.plan()
         lib = _build.load("decompress")
         with torch.cuda.device(dev):  # the kernel runs on the current device
             rc = lib.trivy_decompress_launch(
                 buf.data_ptr(), buf.numel(), offs.data_ptr(), clen.data_ptr(), mode.data_ptr(),
                 B, C, self.tab_bytes.data_ptr(), self.tab_len.data_ptr(), out.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream,
+                grid, smem, torch.cuda.current_stream(dev).cuda_stream,
             )
         if rc != 0:
             msg = lib.trivy_cuda_error_string(rc).decode()
