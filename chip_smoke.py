@@ -48,7 +48,9 @@ Phases, each printing JSON lines:
    plain version (``torch.equal``) at widths 1, 8, 24, 40 and 72, on rows
    that are equal, differ only in the last column or anywhere, with every
    operator, through the gather entry and the null-index entries
-   (``lexcmp``, ``check_ops``).
+   (``lexcmp``, ``check_ops``); in phase 8 also on the captured ``cve``
+   dispatch and, with its inst rows, indices and ops, against a DB of
+   212,000 distinct bound rows (the ``check`` line ``verscmp-distinct``).
 3. timing: each matcher use over about 1 GiB of resident rows of each of
    four inputs (seeded source text; the checkout's own ``trivy_tpu/``
    Python files, real code whose words include many rule keywords; uniform
@@ -72,7 +74,17 @@ Phases, each printing JSON lines:
    this run's inputs (the scorer's from the distinct credit rows its rows
    actually gather), the scorer with its cluster size, threads, shared
    memory and blocks per SM, and at 1024, 16384 and 49152 also its time at
-   every other cluster size whose slices hold up to 16 KiB.
+   every other cluster size whose slices hold up to 16 KiB. In phase 8
+   the version-constraint kernel on the captured ``cve`` dispatch and on
+   distinct bounds, warm (``time_cuda``) and with a cold L2 (a 256 MiB
+   write before each launch, events around the launch alone, median of
+   25), each beside its bound and plain version, with the launch's plan
+   (lanes per row, rows per group, vector path, grid); and the dispatch
+   split (the ``verscmp-dispatch`` line): the arrays gathered into the
+   pinned buffer, the one host-to-card copy, the kernel and the copy back,
+   in turns with the route it replaced (the same gathers into new arrays,
+   four pageable uploads, the kernel, ``.cpu()``), and the work one
+   dispatch puts on the stream.
 4. e2e: a seeded tree (1 MiB text files, 2% with a planted secret, some
    thousands of small files, binaries, node_modules/, a lockfile and a CRLF
    file) scanned by ``python -m trivy_tpu_torch fs --scanners secret``'s
@@ -122,7 +134,7 @@ Phases, each printing JSON lines:
    reported, no patched plant reported, one ``verscmp`` launch per card scan
    and no bound bytes uploaded by the second. The kernel is then held
    against its plain version on the inputs captured from the first scan's
-   dispatch, and timed at that shape.
+   dispatch and on distinct bounds, and timed there (phases 2 and 3).
 9. fs-vuln: this slice's path. A seeded monorepo tree holding the cve
    SBOM's components as lockfiles (npm in 25 ``package-lock.json`` v3
    files, golang in 30 ``go.mod``, cargo in 10 ``Cargo.lock``, pypi in a
@@ -158,6 +170,7 @@ import shutil
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -187,7 +200,7 @@ from trivy_tpu_torch.ops.match import match_plain
 from trivy_tpu_torch.ops.match_cuda import (
     LAUNCH_SHAPES, LAUNCHES, SCREEN_BYTES, build_match_fn_cuda, literals, pack_tables,
 )
-from trivy_tpu_torch.ops import verscmp
+from trivy_tpu_torch.ops import verscmp, verscmp_cuda
 from trivy_tpu_torch.ops.prefilter import build_prefilter_fn
 from trivy_tpu_torch.ops.verscmp import check_ops_gather_plain, check_ops_plain, lexcmp_plain
 from trivy_tpu_torch.ops.verscmp_cuda import check_ops, check_ops_gather, lexcmp
@@ -207,6 +220,7 @@ CUSTOM = runpy.run_path(str(REPO / "tests" / "test_torch_rulesets.py"))
 CHECK_RULESETS = ("edges", "short")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 SPIN_CYCLES = 200_000_000  # about 0.1 s of the card's clock, ahead of each timed round
+FLUSH_BYTES = 256 << 20  # written before each cold launch: five times the card's 50 MB L2
 KERNEL_SOURCE = "trivy_tpu_torch/ops/csrc/match.cu"
 REPLACES = "trivy_tpu/ops/match_pallas.py:109"
 DECOMPRESS_SOURCE = "trivy_tpu_torch/ops/csrc/decompress.cu"
@@ -302,6 +316,30 @@ def time_cuda(fn, inputs: list, reps: int = 1, rounds: int = 3) -> tuple[float, 
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / (reps * len(inputs)))
     return float(np.median(times)), times, min(host) / (reps * len(inputs)) * 1e6
+
+
+def time_cold(fn, inputs: list, reps: int = 25) -> tuple[float, list]:
+    """Device ms per call of ``fn`` with a cold L2: before each call a
+    ``FLUSH_BYTES`` buffer is written, and CUDA events time the call alone;
+    the median of ``reps`` calls on each input (after one warm-up pass),
+    all queued behind a device spin, and the times themselves."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    for x in inputs[:2]:
+        fn(x)
+    torch.cuda.synchronize()
+    events = []
+    torch.cuda._sleep(SPIN_CYCLES)
+    for k in range(reps):
+        for x in inputs:
+            flush.fill_(k)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(x)
+            end.record()
+            events.append((start, end))
+    torch.cuda.synchronize()
+    times = [start.elapsed_time(end) for start, end in events]
+    return float(np.median(times)), times
 
 
 GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}  # CUgraphNodeType
@@ -1494,11 +1532,153 @@ def write_cve_sbom(path: Path, seed: int) -> int:
     return len(comps)
 
 
+@contextmanager
+def captured_dispatches():
+    """Every constraint dispatch made in the block
+    (``verscmp.check_ops_gather_bucketed``), in order: copies of the first
+    one's arrays (inst, the resident bound matrix, a_idx, b_idx, ops), and
+    None for each later one, whose ``cve.dispatch.seconds`` then counts no
+    copy; the dispatches themselves run as before."""
+    captured = []
+    original = verscmp.check_ops_gather_bucketed
+
+    def capture(inst, bounds_dev, a_idx, b_idx, ops, stage=None):
+        captured.append(None if captured else (
+            inst.copy(), bounds_dev, a_idx.copy(), b_idx.copy(), ops.copy()))
+        return original(inst, bounds_dev, a_idx, b_idx, ops, stage=stage)
+
+    verscmp.check_ops_gather_bucketed = capture
+    try:
+        yield captured
+    finally:
+        verscmp.check_ops_gather_bucketed = original
+
+
+DISTINCT_ADVISORIES = 106_000  # bench.py::bench_cve's advisories, each with its own range
+
+
+def distinct_bounds(seed: int, L: int) -> np.ndarray:
+    """``[2 * DISTINCT_ADVISORIES, L]`` int32 bound rows of a trivy-db in
+    which every advisory has its own range ``>=lo, <hi``: seeded semver
+    strings (every fifth lower bound a prerelease) encoded by the port's
+    ``version/encode.py``, so rows share prefixes as real versions do."""
+    from trivy_tpu_torch.version.encode import encode, pad_value
+
+    rng = np.random.default_rng(seed)
+    n = DISTINCT_ADVISORIES
+    major, pre = rng.integers(0, 10, n), rng.integers(0, 10, n)
+    minor, patch = rng.integers(0, 99, n), rng.integers(0, 100, n)
+    out = np.full((2 * n, L), pad_value("semver"), dtype=np.int32)
+    for k in range(n):
+        lo = f"{major[k]}.{minor[k]}.{patch[k]}" + (f"-rc{pre[k]}" if k % 5 == 0 else "")
+        for j, v in enumerate((lo, f"{major[k]}.{minor[k] + 1}.0")):
+            enc = encode("semver", v)
+            out[2 * k + j, : len(enc)] = enc
+    return out
+
+
+def distinct_index(R: int, seed: int) -> np.ndarray:
+    """``b_idx`` of R rows against :func:`distinct_bounds`: in the join's
+    runs of two (an advisory's lower, then its upper bound), advisories in
+    a seeded order, every bound row reached once R >= 2 * DISTINCT_ADVISORIES."""
+    adv = np.random.default_rng(seed).permutation(DISTINCT_ADVISORIES)
+    adv = adv[np.arange((R + 1) // 2) % DISTINCT_ADVISORIES]
+    return (2 * adv[:, None] + np.arange(2)).ravel()[:R].astype(np.int32)
+
+
+def verscmp_bound_ms(R: int, L: int, a_idx: np.ndarray, b_idx: np.ndarray) -> float:
+    """The least time of one dispatch: each index, op and verdict once, each
+    distinct inst and bound row gathered once, at 3.35 TB/s."""
+    nbytes = R * (3 * 4 + 1) + 4 * L * (len(np.unique(a_idx)) + len(np.unique(b_idx)))
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def dispatch_split(inst_np, bounds_dev, a_np, b_np, ops_np, want: np.ndarray,
+                   rounds: int = 10) -> dict:
+    """The constraint dispatch on the card, in its parts, on one dispatch's
+    arrays. Each route first builds the arrays as its detector did, by
+    gathers through an index of the rows (here every row in order): the
+    path's route (``library._resident_verdicts``) into a ``DispatchStage``'s
+    pinned views, then one host-to-card copy, the kernel, one copy back and
+    a synchronise; the route it replaced into new arrays, then four
+    pageable uploads, the kernel and ``.cpu()``. In turns (old, new, new,
+    old) for ``rounds`` rounds after one to warm up: the median ms of each
+    part (host clock for the staging and the totals, CUDA events for the
+    rest), ``dispatch_ms`` (all but the staging: what ``cve.dispatch.seconds``
+    spans), and the work one new dispatch puts on the stream (a CUDA graph's
+    nodes); ``equal`` when every run gave the verdicts ``want``. The old
+    route is a yardstick only."""
+    dev = bounds_dev.device
+    R = len(ops_np)
+    rows = np.arange(R, dtype=np.int64)
+    stage = verscmp.DispatchStage(dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+
+    def new() -> tuple[dict, np.ndarray]:
+        t0 = time.perf_counter()
+        inst_v, *views = stage.views(R, *inst_np.shape)
+        inst_v[:] = inst_np
+        for src, dst in zip((a_np, b_np, ops_np), views):
+            np.take(src, rows, out=dst, mode="clip")
+        t1 = time.perf_counter()
+        ev[0].record()
+        inst_d, a_d, b_d, ops_d = stage.upload()
+        ev[1].record()
+        out = check_ops_gather(inst_d, bounds_dev, a_d, b_d, ops_d)
+        ev[2].record()
+        host = stage.copy_back(out)
+        ev[3].record()
+        torch.cuda.current_stream(dev).synchronize()
+        verdicts = host.numpy().copy()
+        t2 = time.perf_counter()
+        return {"staging_ms": (t1 - t0) * 1e3, "h2d_ms": ev[0].elapsed_time(ev[1]),
+                "kernel_ms": ev[1].elapsed_time(ev[2]), "d2h_ms": ev[2].elapsed_time(ev[3]),
+                "dispatch_ms": (t2 - t1) * 1e3, "total_ms": (t2 - t0) * 1e3}, verdicts
+
+    def old() -> tuple[dict, np.ndarray]:
+        t0 = time.perf_counter()
+        arrays = (inst_np.copy(), *(x[rows] for x in (a_np, b_np, ops_np)))
+        t1 = time.perf_counter()
+        ev[0].record()
+        inst_d, a_d, b_d, ops_d = (torch.from_numpy(x).to(dev) for x in arrays)
+        ev[1].record()
+        out = check_ops_gather(inst_d, bounds_dev, a_d, b_d, ops_d)
+        ev[2].record()
+        verdicts = out.cpu().numpy()
+        ev[3].record()
+        torch.cuda.current_stream(dev).synchronize()
+        t2 = time.perf_counter()
+        return {"staging_ms": (t1 - t0) * 1e3, "h2d_ms": ev[0].elapsed_time(ev[1]),
+                "kernel_ms": ev[1].elapsed_time(ev[2]), "d2h_ms": ev[2].elapsed_time(ev[3]),
+                "dispatch_ms": (t2 - t1) * 1e3, "total_ms": (t2 - t0) * 1e3}, verdicts
+
+    runs = {"new": [], "old": []}
+    same = True
+    for k in range(rounds + 1):  # round 0 warms both routes up
+        for name, fn in (("old", old), ("new", new), ("new", new), ("old", old)):
+            parts, verdicts = fn()
+            if k:
+                runs[name].append(parts)
+            same &= bool(np.array_equal(verdicts, want))
+    out = {name: {key: float(np.median([r[key] for r in rs])) for key in rs[0]}
+           for name, rs in runs.items()}
+
+    def enqueue(_):
+        inst_d, a_d, b_d, ops_d = stage.upload()
+        stage.copy_back(check_ops_gather(inst_d, bounds_dev, a_d, b_d, ops_d))
+
+    out["new"]["work_per_call"] = work_per_call(enqueue, [None])
+    out["equal"] = same
+    return out
+
+
 def phase_cve(root: Path, seed: int, card: str) -> dict:
     """``cli.scan_sbom`` over the cve SBOM: twice on the card with one loaded
     DB (launch counters to 0 just before each scan, read just after), once
     with ``device="cpu"``; then the kernel against its plain version on the
-    first scan's captured dispatch, and its time at that shape."""
+    first scan's captured dispatch and, with the same inst rows, indices and
+    ops, against a DB of distinct bounds; its times on both, warm and with a
+    cold L2; and the dispatch split beside the route it replaced."""
     t0 = time.perf_counter()
     n_adv = write_cve_db(root / "db")
     bom = root / "bom.json"
@@ -1510,23 +1690,13 @@ def phase_cve(root: Path, seed: int, card: str) -> dict:
     t0 = time.perf_counter()
     rj = library._resident_join(db)
     join_build_s = time.perf_counter() - t0
-    captured = []
-    original = verscmp.check_ops_gather_bucketed
-
-    def capture(inst, bounds_dev, a_idx, b_idx, ops):
-        captured.append((inst.copy(), bounds_dev, a_idx.copy(), b_idx.copy(), ops.copy()))
-        return original(inst, bounds_dev, a_idx, b_idx, ops)
-
-    verscmp.check_ops_gather_bucketed = capture
     scans = []
-    try:
+    with captured_dispatches() as captured:
         for device in ("cuda", "cuda", "cpu"):
             LAUNCHES.clear()
             report, stats = cli.scan_sbom(str(bom), db=db, device=device)
             launches = dict(LAUNCHES)
             scans.append((device, report.to_dict(), stats, launches))
-    finally:
-        verscmp.check_ops_gather_bucketed = original
     results = [r["Results"] for _d, r, _s, _l in scans]
     found = {(v["PkgName"], v["VulnerabilityID"], v["InstalledVersion"])
              for r in results[0] for v in r.get("Vulnerabilities", [])}
@@ -1559,28 +1729,58 @@ def phase_cve(root: Path, seed: int, card: str) -> dict:
           f"cve: verscmp launches per scan {[lc for *_, lc in scans]}")
     check(per_scan[1]["bounds_bytes_uploaded"] == 0, "cve: the second scan uploaded bounds")
     check(len(captured) == 3, f"cve: {len(captured)} dispatches captured, want 3")
-    # the kernel against its plain version on the first scan's dispatch, and its time there
+    # the kernel against its plain version on the first scan's dispatch and
+    # on the same rows against a DB of distinct bounds; its times there
     inst_np, bounds_dev, a_np, b_np, ops_np = captured[0]
     inst = torch.from_numpy(inst_np).cuda()
     a_idx, b_idx, ops = (torch.from_numpy(x).cuda() for x in (a_np, b_np, ops_np))
+    R, L = len(ops_np), inst_np.shape[1]
     got = check_ops_gather(inst, bounds_dev, a_idx, b_idx, ops)
     want = check_ops_gather_plain(inst, bounds_dev, a_idx, b_idx, ops)
+    t0 = time.perf_counter()
+    bd_np = distinct_bounds(seed, L)
+    bd_idx_np = distinct_index(R, seed)
+    distinct_setup_s = time.perf_counter() - t0
+    bounds_d, bd_idx = torch.from_numpy(bd_np).cuda(), torch.from_numpy(bd_idx_np).cuda()
+    got_d = check_ops_gather(inst, bounds_d, a_idx, bd_idx, ops)
+    want_d = check_ops_gather_plain(inst, bounds_d, a_idx, bd_idx, ops)
     torch.cuda.synchronize()
-    equal = torch.equal(got, want)
+    equal, equal_d = torch.equal(got, want), torch.equal(got_d, want_d)
+    log({"phase": "check", "use": "verscmp-distinct", "equal": equal_d, "shape": [R, L],
+         "bound_rows": int(bd_np.shape[0]), "distinct_bound_rows": int(len(np.unique(bd_idx_np))),
+         "vulnerable_rows": int(want_d.sum()), "setup_s": distinct_setup_s})
     check(equal, "verscmp kernel disagrees with its plain version on the cve dispatch")
-    R, L = len(ops_np), inst_np.shape[1]
-    args = (inst, bounds_dev, a_idx, b_idx, ops)
+    check(equal_d, "verscmp kernel disagrees with its plain version on distinct bounds")
+    args, args_d = (inst, bounds_dev, a_idx, b_idx, ops), (inst, bounds_d, a_idx, bd_idx, ops)
     ms, rounds, host_us = time_cuda(lambda x: check_ops_gather(*x), [args], reps=20)
+    ms_d, rounds_d, _ = time_cuda(lambda x: check_ops_gather(*x), [args_d], reps=20)
+    ms_cold, cold = time_cold(lambda x: check_ops_gather(*x), [args])
+    ms_d_cold, cold_d = time_cold(lambda x: check_ops_gather(*x), [args_d])
     plain_ms = time_cuda(lambda x: check_ops_gather_plain(*x), [args], reps=2)[0]
-    # each index, op and verdict once; each distinct inst and bound row gathered once
-    nbytes = R * (3 * 4 + 1) + 4 * L * (len(np.unique(a_np)) + len(np.unique(b_np)))
+    plain_ms_d = time_cuda(lambda x: check_ops_gather_plain(*x), [args_d], reps=2)[0]
     timing = {"shape": [R, L], "inst_rows": int(inst_np.shape[0]),
               "bound_rows": int(bounds_dev.shape[0]), "distinct_bound_rows":
-              int(len(np.unique(b_np))), "ms": ms, "ms_rounds": rounds, "host_us_per_call":
-              host_us, "plain_ms": plain_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+              int(len(np.unique(b_np))), "plan": verscmp_cuda.plan(inst, bounds_dev, R),
+              "ms": ms, "ms_rounds": rounds, "host_us_per_call": host_us,
+              "ms_cold": ms_cold, "ms_cold_spread": [min(cold), max(cold)], "cold_launches":
+              len(cold), "plain_ms": plain_ms, "bound_ms": verscmp_bound_ms(R, L, a_np, b_np),
               "bound_by": "bytes", "equal": equal, "vulnerable_rows": int(want.sum()),
+              "distinct": {"bound_rows": int(bd_np.shape[0]), "ms": ms_d, "ms_rounds": rounds_d,
+                           "ms_cold": ms_d_cold, "ms_cold_spread": [min(cold_d), max(cold_d)],
+                           "plain_ms": plain_ms_d,
+                           "bound_ms": verscmp_bound_ms(R, L, a_np, bd_idx_np),
+                           "equal": equal_d, "vulnerable_rows": int(want_d.sum())},
               "card": card}
     log({"phase": "timing", "use": "verscmp", **timing})
+    split = dispatch_split(inst_np, bounds_dev, a_np, b_np, ops_np, want.cpu().numpy())
+    log({"phase": "timing", "use": "verscmp-dispatch", "shape": [R, L], **split,
+         "scan_dispatch_s": [sc["dispatch_s"] for sc in per_scan[:2]],
+         "scan_dispatch_note": "the first scan's span holds the capture's copies", "card": card})
+    check(split["equal"], "a dispatch route disagrees with the plain version")
+    check(split["new"]["work_per_call"]["by_type"] == {"memcpy": 2, "kernel": 1},
+          f"the dispatch is not one copy each way and one kernel: {split['new']['work_per_call']}")
+    timing["equal"] = equal and equal_d and split["equal"]
+    timing["dispatch"] = split
     result["timing"] = timing
     return result
 
@@ -1679,16 +1879,8 @@ def phase_fs_vuln(root: Path, db_dir: Path, seed: int, base: bytes, card: str) -
     t0 = time.perf_counter()
     library._resident_join(db)
     join_build_s = time.perf_counter() - t0
-    captured = []
-    original = verscmp.check_ops_gather_bucketed
-
-    def capture(inst, bounds_dev, a_idx, b_idx, ops):
-        captured.append((inst.copy(), bounds_dev, a_idx.copy(), b_idx.copy(), ops.copy()))
-        return original(inst, bounds_dev, a_idx, b_idx, ops)
-
-    verscmp.check_ops_gather_bucketed = capture
     scans = []
-    try:
+    with captured_dispatches() as captured:
         for scanners, device in ((("vuln",), "cuda"), (("vuln",), "cuda"), (("vuln",), "cpu"),
                                  (("vuln", "secret", "license"), "cuda"),
                                  (("vuln", "secret", "license"), "cpu")):
@@ -1697,8 +1889,6 @@ def phase_fs_vuln(root: Path, db_dir: Path, seed: int, base: bytes, card: str) -
                                         device=device)
             launches = dict(LAUNCHES)
             scans.append((",".join(scanners), device, report.to_dict(), stats, launches))
-    finally:
-        verscmp.check_ops_gather_bucketed = original
     vuln_reports = [r for _s, _d, r, _st, _l in scans[:3]]
     full_reports = [r for _s, _d, r, _st, _l in scans[3:]]
     found_v = {(v["PkgName"], v["VulnerabilityID"], v["InstalledVersion"])
@@ -1879,7 +2069,11 @@ def main() -> int:
         "equal": verdict["verscmp"]["equal"] and t["equal"] and fs_vuln["kernel_equal"],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": None, "shape": t["shape"],
+        "library_ms": None, "shape": t["shape"], "ms_cold": t["ms_cold"],
+        "ms_distinct": t["distinct"]["ms"], "ms_distinct_cold": t["distinct"]["ms_cold"],
+        "bound_ms_distinct": t["distinct"]["bound_ms"], "plan": t["plan"],
+        "dispatch_ms": t["dispatch"]["new"]["dispatch_ms"],
+        "dispatch_ms_old_route": t["dispatch"]["old"]["dispatch_ms"],
     })
     log({"kernels": kernels})
     print(card, flush=True)

@@ -24,14 +24,16 @@ from trivy_tpu_torch.db import VulnDB
 from trivy_tpu_torch.licensing.classify import LicenseClassifier
 from trivy_tpu_torch.licensing.corpus_texts import FULL_TEXTS
 from trivy_tpu_torch.licensing.fused import FusedLicenseGate, get_gate_fn
-from trivy_tpu_torch.ops import match_cuda
+from trivy_tpu_torch.ops import match_cuda, verscmp_cuda
 from trivy_tpu_torch.ops.bytes_score import effective_cap
 from trivy_tpu_torch.ops.decompress import build_decompress_fn, decompress_plain
 from trivy_tpu_torch.ops.gram_gate import LANE_ANCHOR, LANE_GRAM, LANE_NONASCII
 from trivy_tpu_torch.ops.match import MatchTables, match_plain, match_tables
 from trivy_tpu_torch.ops.match_cuda import CudaMatcher
 from trivy_tpu_torch.ops.prefilter import _keyword_only
-from trivy_tpu_torch.ops.verscmp import check_ops_gather_plain, check_ops_plain, lexcmp_plain
+from trivy_tpu_torch.ops.verscmp import (
+    DispatchStage, check_ops_gather_bucketed, check_ops_gather_plain, check_ops_plain, lexcmp_plain,
+)
 from trivy_tpu_torch.ops.verscmp_cuda import check_ops, check_ops_gather, lexcmp
 from trivy_tpu_torch.secret.compress import MODE_PACK7, MODE_RAW, MODE_TOKEN, SlabCodec
 from trivy_tpu_torch.secret.device_compile import compile_rules
@@ -466,6 +468,113 @@ def test_verscmp_kernel_equals_plain_on_card(card, L):
     assert torch.equal(lexcmp(a, b), lexcmp_plain(a, b))
     assert torch.equal(check_ops(a, b, ops[:999]), check_ops_plain(a, b, ops[:999]))
     assert set(lexcmp(a, b).tolist()) == {-1, 0, 1}
+
+
+def dispatch_inputs(n_bounds: int, seed: int, R: int = 536_800, L: int = 16) -> tuple:
+    """A seeded dispatch at the ``cve`` phase's shape: 1,867 installed rows,
+    ``n_bounds`` bound rows (500 as the cve DB shares them, 212,000 when
+    every advisory has its own two), index rows in runs of two, ``>=``
+    then ``<``, on the card."""
+    rng = np.random.default_rng(seed)
+    inst = rng.integers(0, 6, (1867, L), dtype=np.int32)
+    bounds = rng.integers(0, 6, (n_bounds, L), dtype=np.int32)
+    bounds[: n_bounds // 2, : L // 2] = inst[rng.integers(0, 1867, n_bounds // 2), : L // 2]
+    a_idx = np.repeat(rng.integers(0, 1867, R // 2, dtype=np.int32), 2)
+    b_idx = (2 * rng.integers(0, n_bounds // 2, R // 2)[:, None] + np.arange(2)).ravel()
+    ops = np.tile(np.array([3, 0], np.int32), R // 2)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).cuda()
+                 for x in (inst, bounds, a_idx, b_idx, ops))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bounds", [500, 212_000])
+def test_verscmp_kernel_equals_plain_at_dispatch_shape_on_card(card, n_bounds):
+    inst, bounds, a_idx, b_idx, ops = dispatch_inputs(n_bounds, n_bounds)
+    got = check_ops_gather(inst, bounds, a_idx, b_idx, ops)
+    want = check_ops_gather_plain(inst, bounds, a_idx, b_idx, ops)
+    assert torch.equal(got, want) and 0 < int(want.sum()) < len(want)
+    a, b = inst[a_idx.long()].contiguous(), bounds[b_idx.long()].contiguous()
+    assert torch.equal(lexcmp(a, b), lexcmp_plain(a, b))
+    plan = verscmp_cuda.plan(inst, bounds, len(ops))
+    assert plan["group"] == 4 and plan["vector"] and plan["grid"] >= 132
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 16, 72, 200])
+def test_verscmp_every_row_count_on_card(card, L):
+    """R = 1..33: one warp's step at L = 16 is 32 rows, so every ragged
+    tail of the verdict words and of the signs."""
+    a, b = version_pairs(L, 40, L)
+    rng = np.random.default_rng(L)
+    for R in range(1, 34):
+        a_idx = torch.from_numpy(rng.integers(0, 40, R, dtype=np.int32)).cuda()
+        b_idx = torch.from_numpy(rng.integers(0, 40, R, dtype=np.int32)).cuda()
+        ops = torch.arange(R, dtype=torch.int32, device=card) % 6
+        assert torch.equal(check_ops_gather(a, b, a_idx, b_idx, ops),
+                           check_ops_gather_plain(a, b, a_idx, b_idx, ops)), R
+        assert torch.equal(lexcmp(a[:R], b[:R]), lexcmp_plain(a[:R], b[:R])), R
+        assert torch.equal(check_ops(a[:R], b[:R], ops), check_ops_plain(a[:R], b[:R], ops)), R
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [8, 16, 24])
+def test_verscmp_unaligned_view_takes_the_scalar_path_on_card(card, L):
+    """A contiguous view one int32 past a 16-byte boundary: the scalar path,
+    the plain version's verdicts; the same rows aligned take the vector
+    path."""
+    a, b = version_pairs(L, 999, L + 7)
+    buf = torch.empty(999 * L + 1, dtype=torch.int32, device=card)
+    shifted = buf[1:].view(999, L)
+    shifted.copy_(a)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    assert not verscmp_cuda.plan(shifted, b, 999)["vector"]
+    assert verscmp_cuda.plan(a, b, 999)["vector"]
+    rng = np.random.default_rng(L)
+    a_idx = torch.from_numpy(rng.integers(0, 999, 5000, dtype=np.int32)).cuda()
+    b_idx = torch.from_numpy(rng.integers(0, 999, 5000, dtype=np.int32)).cuda()
+    ops = torch.arange(5000, dtype=torch.int32, device=card) % 6
+    want = check_ops_gather_plain(a, b, a_idx, b_idx, ops)
+    assert torch.equal(check_ops_gather(shifted, b, a_idx, b_idx, ops), want)
+    assert torch.equal(check_ops_gather(b, shifted, b_idx, a_idx, ops),
+                       check_ops_gather_plain(b, a, b_idx, a_idx, ops))
+    assert torch.equal(lexcmp(shifted, b), lexcmp_plain(a, b))
+
+
+@pytest.mark.cuda
+def test_verscmp_two_calls_in_a_row_equal_on_card(card):
+    inst, bounds, a_idx, b_idx, ops = dispatch_inputs(500, 1)
+    first = check_ops_gather(inst, bounds, a_idx, b_idx, ops)
+    second = check_ops_gather(inst, bounds, a_idx, b_idx, ops)
+    assert torch.equal(first, second)
+    assert torch.equal(first, check_ops_gather_plain(inst, bounds, a_idx, b_idx, ops))
+
+
+@pytest.mark.cuda
+def test_verscmp_dispatch_one_copy_each_way_on_card(card):
+    """The detector's dispatch through a :class:`DispatchStage`: one
+    host-to-card copy of the pinned buffer, the kernel and one copy back
+    (the nodes of a CUDA graph captured around it; a pageable upload could
+    not be captured), and the verdicts of the plain version."""
+    work_per_call = runpy.run_path(str(HERE.parent / "chip_smoke.py"))["work_per_call"]
+    inst, bounds, a_idx, b_idx, ops = dispatch_inputs(500, 2, R=100_000)
+    stage = DispatchStage(card)
+    host = [x.cpu().numpy() for x in (inst, a_idx, b_idx, ops)]
+    views = stage.views(len(ops), *inst.shape)
+    assert stage.host.is_pinned()
+    for src, dst in zip(host, views):
+        dst[:] = src
+
+    def enqueue(_):
+        inst_d, a_d, b_d, ops_d = stage.upload()
+        stage.copy_back(check_ops_gather(inst_d, bounds, a_d, b_d, ops_d))
+
+    work = work_per_call(enqueue, [None])
+    assert work["by_type"] == {"memcpy": 2, "kernel": 1}, work
+    assert stage.verdict.is_pinned()
+    want = check_ops_gather_plain(inst, bounds, a_idx, b_idx, ops).cpu().numpy()
+    got = check_ops_gather_bucketed(*views[:1], bounds, *views[1:], stage=stage)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(check_ops_gather_bucketed(*host[:1], bounds, *host[1:]), want)
 
 
 @pytest.mark.cuda

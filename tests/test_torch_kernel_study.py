@@ -77,6 +77,7 @@ def test_gate_launcher_signature_drops_screen_and_dir():
 @pytest.mark.parametrize("kernel, marks", [
     ("bytes_gate", ks.BYTES_GATE_MARKS["new"]),
     ("decompress", ks.DECOMPRESS_MARKS["new"]),
+    ("verscmp", ks.VERSCMP_MARKS["new"]),
 ])
 def test_marked_marks_every_step_of_the_redesigns(kernel, marks):
     src = (_build.CSRC / f"{kernel}.cu").read_text()
@@ -129,7 +130,7 @@ def test_marked_refuses_a_source_without_a_step():
 
 
 def test_version_tells_a_parent_source_apart():
-    for kernel in ("bytes_gate", "decompress"):
+    for kernel in ("bytes_gate", "decompress", "verscmp"):
         src = (_build.CSRC / f"{kernel}.cu").read_text()
         assert ks.version(src, kernel) == "new"
         assert ks.version(src.replace(ks.VERSION_MARKERS[kernel], "gone"), kernel) == "old"
@@ -158,3 +159,94 @@ def test_narrow_blocks_halves_the_block():
     assert marked.count("+= trivy_t - trivy_last") == len(ks.BYTES_GATE_MARKS["new"])
     with pytest.raises(ValueError, match="kThreads"):
         ks.narrow_blocks(out)
+
+
+def verscmp_source() -> str:
+    return (_build.CSRC / "verscmp.cu").read_text()
+
+
+def test_verscmp_marks_hold_each_step_before_its_barrier():
+    """Each mark of the redesign lands after its step's call, inside the
+    persistent loop, with a use of the step's registers (declared in the
+    kernel's body) ahead of its barrier."""
+    src = verscmp_source()
+    start, end = ks.kernel_body(src, "verscmp_kernel")
+    body = src[start:end]
+    for decl in ("int ai[U], bi[U], op[U];", "int4 ra[U], rb[U];", "int s[U];",
+                 "constexpr int U = kRowsPerGroup;"):
+        assert decl in body
+    out = ks.marked(src, "verscmp_kernel", ks.VERSCMP_MARKS["new"])
+    body = out[ks.kernel_body(out, "verscmp_kernel")[0] :]
+    loop = body.index("for (long long step = blockIdx.x;")
+    for k, (_, step, hold) in enumerate(ks.VERSCMP_MARKS["new"]):
+        at = body.index(f"trivy_acc[{k}] +=")
+        assert at > loop
+        call = {"index": "fetch_index<", "rows": "fetch_rows<", "compare": "compare_rows<",
+                "store": "store_rows<"}[step]
+        assert body.index(call) < at
+        if hold:
+            assert body.index(hold) < at and "R < 0 &&" in hold
+
+
+def test_verscmp_old_marks_fit_the_one_warp_per_row_kernel():
+    """The earlier kernel's marks: after its index clamps and ahead of its
+    lane-0 tail (no barrier runs after lanes have left)."""
+    old = """#include <cuda_runtime.h>
+__global__ void __launch_bounds__(kWarps * 32)
+verscmp_kernel(const int32_t* __restrict__ inst, int n_inst, int R) {
+  if (r >= R) return;
+  ai = min(max(ai, 0), n_inst - 1);
+  bi = min(max(bi, 0), n_bounds - 1);
+  int s = 0;
+  for (int c = 0; c < L; c += 32) {
+    if (diff) { s = 1; break; }
+  }
+  if (lane != 0) return;
+  verdict[r] = 1;
+}
+"""
+    out = ks.marked(old, "verscmp_kernel", ks.VERSCMP_MARKS["old"])
+    assert out.count("+= trivy_t - trivy_last") == 2
+    assert out.index("trivy_acc[0] +=") > out.index("bi = min(max(bi, 0), n_bounds - 1);")
+    assert out.index("(ai ^ bi) == 1") < out.index("trivy_acc[0] +=")
+    assert out.index("trivy_acc[1] +=") < out.index("if (lane != 0)")
+    assert out.rindex("__syncthreads()") < out.index("if (lane != 0)")
+    assert ks.version(old, "verscmp") == "old"
+    # a bare "if (...) return;" keeps its condition: the sums flush inside it
+    assert "if (r >= R) { { if (threadIdx.x == 0" in out
+    assert "if (lane != 0) { { if (threadIdx.x == 0" in out
+
+
+def test_bounds_in_shared_reads_its_copy():
+    src = verscmp_source()
+    out = ks.bounds_in_shared(src)
+    assert "load_cols<kVec>(bounds +" not in out
+    assert out.count("load_cols_generic<kVec>(bounds +") == 2
+    assert out.count("load_cols<kVec>(inst +") == 2  # the inst rows stay on __ldg
+    assert out.count("load_cols_generic<kVec>(") == 2
+    assert "trivy_sb[k] = __ldg(reinterpret_cast<const int4*>(bounds) + k);" in out
+    assert "bounds = reinterpret_cast<const int32_t*>(trivy_sb);" in out
+    assert f"trivy_bytes <= {ks.SHARED_BOUND_BYTES} ? trivy_bytes : 0" in out
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in out
+    # the staging runs before the loop, its marked copy still marks every step
+    body = out[ks.kernel_body(out, "verscmp_kernel")[0] :]
+    assert body.index("__syncthreads();") < body.index("for (long long step")
+    marked = ks.marked(out, "verscmp_kernel", ks.VERSCMP_MARKS["new"])
+    assert marked.count("+= trivy_t - trivy_last") == len(ks.VERSCMP_MARKS["new"])
+    with pytest.raises(ValueError, match="no longer has"):
+        ks.bounds_in_shared(out)
+
+
+@pytest.mark.parametrize("U", [1, 2, 8])
+def test_rows_per_group_sets_u(U):
+    out = ks.rows_per_group(verscmp_source(), U)
+    assert f"constexpr int kRowsPerGroup = {U};" in out and "kRowsPerGroup = 4;" not in out
+    assert ks.marked(out, "verscmp_kernel", ks.VERSCMP_MARKS["new"]).count("clock64()") == 5
+
+
+def test_max_group_sets_the_cap():
+    out = ks.max_group(verscmp_source(), 32)
+    assert "constexpr int kMaxGroup = 32;" in out and "kMaxGroup = 8;" not in out
+    assert ks.marked(out, "verscmp_kernel", ks.VERSCMP_MARKS["new"]).count("clock64()") == 5
+    with pytest.raises(ValueError, match="no longer has one"):
+        ks.max_group(out, 16)

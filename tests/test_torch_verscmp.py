@@ -1,12 +1,14 @@
 """The port's version schemes and version-constraint check against the JAX
 package: the plain versions of ``csrc/verscmp.cu`` against ``_lexcmp``,
 ``_check_ops`` and ``_check_ops_gather``, a numpy model of the kernel's
-warp-ballot formulation against the plain version, and the encoders,
+lane-group walk against the plain version, and the encoders,
 comparers and constraint parser of every scheme. Tolerance zero
 everywhere."""
 
 import importlib
 import random
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -88,35 +90,108 @@ def test_check_ops_gather_plain_equals_jax(L):
         jax_verscmp.check_ops_gather_bucketed(inst, bounds, a_idx, b_idx, ops), want)
 
 
-def kernel_model(inst, bounds, a_idx, b_idx, ops):
-    """numpy model of ``csrc/verscmp.cu``: one warp per row, lanes reading
-    32-column chunks, ``__ballot_sync(a != b)`` and ``__ffs`` for the first
-    differing lane, the chunks walked in order until one differs; indices
-    and ops clamped. Returns (verdicts uint8, signs int32); a null index
-    (None) means row r itself."""
+# the kernel's constants, read from its source so that the model follows it
+KERNEL_SOURCE = (Path(verscmp_cuda.__file__).parent / "csrc" / "verscmp.cu").read_text()
+MAX_GROUP = int(re.search(r"constexpr int kMaxGroup = (\d+);", KERNEL_SOURCE).group(1))
+ROWS_PER_GROUP = int(re.search(r"constexpr int kRowsPerGroup = (\d+);", KERNEL_SOURCE).group(1))
+
+
+def group_lanes(L: int, max_group: int = MAX_GROUP) -> int:
+    """The kernel's lanes per row: the smallest power of two >= ceil(L / 4),
+    at most ``max_group``."""
+    g = 1
+    while g < max_group and 4 * g < L:
+        g *= 2
+    return g
+
+
+def kernel_model(inst, bounds, a_idx, b_idx, ops, U=ROWS_PER_GROUP, aligned=True, out_offset=0,
+                 max_group=MAX_GROUP):
+    """numpy model of ``csrc/verscmp.cu``'s walk: lane groups of G lanes
+    (``group_lanes``), a warp's step of 32 / G * U contiguous rows with group
+    g taking rows g U .. g U + U - 1, each lane loading 4 columns of each
+    side (one int4 on the vector path, which needs L % 4 == 0 and
+    ``aligned`` matrices; else 4 scalars, columns past L read as 0), the
+    first differing lane from the group's segment of the ballot, rows wider
+    than a chunk (4 G columns, G = ``max_group``) walking chunks in order
+    while they are equal; verdicts and signs read out of per-u ballots, four
+    verdicts to a word store where the output (``out_offset`` bytes past a
+    4-byte boundary) is aligned and the rows are there, bytes otherwise.
+    Indices and ops clamped; a null index (None) means row r itself.
+    Returns (verdicts uint8, signs int32, {"word": n, "byte": n} verdict
+    stores)."""
     R = len(ops)
     L = inst.shape[1]
+    G = group_lanes(L, max_group)
+    vec = L % 4 == 0 and aligned
+    warp_rows = 32 // G * U
     lanes = np.arange(32)
+    base = lanes & ~(G - 1)  # the lane's group's first lane
     verdict = np.zeros(R, np.uint8)
     sign = np.zeros(R, np.int32)
-    for r in range(R):
-        ai = r if a_idx is None else int(np.clip(a_idx[r], 0, len(inst) - 1))
-        bi = r if b_idx is None else int(np.clip(b_idx[r], 0, len(bounds) - 1))
-        s = 0
-        for c in range(0, L, 32):
-            j = c + lanes
-            live = j < L
-            av = np.where(live, inst[ai, np.minimum(j, L - 1)], 0)
-            bv = np.where(live, bounds[bi, np.minimum(j, L - 1)], 0)
-            ballot = int(((av != bv).astype(np.int64) << lanes).sum())
-            if ballot:
-                first = (ballot & -ballot).bit_length() - 1  # __ffs(ballot) - 1
-                s = -1 if av[first] < bv[first] else 1
-                break
-        sign[r] = s
-        op = min(max(int(ops[r]), 0), 5)
-        verdict[r] = (s < 0, s <= 0, s > 0, s >= 0, s == 0, s != 0)[op]
-    return verdict, sign
+    stores = {"word": 0, "byte": 0}
+
+    def cols(m, row, c):  # [32, 4]: the columns each lane loads from chunk c of its row
+        j = c + 4 * (lanes % G)[:, None] + np.arange(4)
+        live = (j[:, :1] < L) if vec else (j < L)
+        live = live & (row >= 0)[:, None]
+        return np.where(live, m[np.maximum(row, 0)[:, None], np.minimum(j, L - 1)], 0)
+
+    def lane_sign(a, b):  # the sign at each lane's first differing column of its 4
+        ne = a != b
+        first = ne.argmax(axis=1)
+        lt = a[lanes, first] < b[lanes, first]
+        return np.where(ne.any(axis=1), np.where(lt, -1, 1), 0)
+
+    def ballot(pred):
+        return int((pred.astype(np.int64) << lanes).sum())
+
+    def group_sign(ls):
+        seg = (ballot(ls != 0) >> base) & ((1 << G) - 1)
+        first = np.array([(int(x) & -int(x)).bit_length() - 1 if x else 0 for x in seg])
+        return np.where(seg != 0, ls[base + first], 0)  # __shfl_sync(width G)
+
+    def row_bit(m, k):  # row k of the step: group k // U's row k % U
+        return (m[k % U] >> (G * (k // U))) & 1
+
+    for w0 in range(0, R, warp_rows):  # each warp step (the grid only orders them)
+        s = np.zeros((U, 32), np.int64)
+        op = np.zeros((U, 32), np.int64)
+        for u in range(U):
+            r = w0 + lanes // G * U + u  # each lane's row
+            live = r < R
+            rc = np.minimum(r, R - 1)
+            ai = r if a_idx is None else np.clip(a_idx[rc], 0, len(inst) - 1)
+            bi = r if b_idx is None else np.clip(b_idx[rc], 0, len(bounds) - 1)
+            ai, bi = np.where(live, ai, -1), np.where(live, bi, -1)
+            op[u] = np.clip(ops[rc], 0, 5)
+            s[u] = group_sign(lane_sign(cols(inst, ai, 0), cols(bounds, bi, 0)))
+            for c in range(4 * G, L, 4 * G):  # G == max_group: the rows still equal
+                open_ = (s[u] == 0) & (ai >= 0)
+                if not open_.any():
+                    break
+                t = group_sign(lane_sign(cols(inst, np.where(open_, ai, -1), c),
+                                         cols(bounds, np.where(open_, bi, -1), c)))
+                s[u] = np.where(s[u] != 0, s[u], t)
+        table = np.stack([s < 0, s <= 0, s > 0, s >= 0, s == 0, s != 0])
+        v = [ballot(table[op[u], u, lanes]) for u in range(U)]
+        neg = [ballot(s[u] < 0) for u in range(U)]
+        pos = [ballot(s[u] > 0) for u in range(U)]
+        for lane in range(32):
+            k0, r = 4 * lane, w0 + 4 * lane
+            if k0 < warp_rows and r < R:
+                if warp_rows % 4 == 0 and r + 4 <= R and (out_offset + r) % 4 == 0:
+                    stores["word"] += 1
+                    verdict[r : r + 4] = [row_bit(v, k0 + j) for j in range(4)]
+                else:
+                    for j in range(4):
+                        if k0 + j < warp_rows and r + j < R:
+                            stores["byte"] += 1
+                            verdict[r + j] = row_bit(v, k0 + j)
+            for k in range(lane, warp_rows, 32):
+                if w0 + k < R:
+                    sign[w0 + k] = 1 if row_bit(pos, k) else (-1 if row_bit(neg, k) else 0)
+    return verdict, sign, stores
 
 
 @pytest.mark.parametrize("L", WIDTHS)
@@ -127,19 +202,55 @@ def test_kernel_model_equals_plain(L):
     b_idx = rng.integers(0, len(bounds), 240, dtype=np.int32)
     ops = all_ops(240)
     t = torch.from_numpy
-    v, _ = kernel_model(inst, bounds, a_idx, b_idx, ops)
+    v, _, _ = kernel_model(inst, bounds, a_idx, b_idx, ops)
     want = verscmp.check_ops_gather_plain(t(inst), t(bounds), t(a_idx), t(b_idx), t(ops))
     np.testing.assert_array_equal(v.astype(bool), want.numpy())
     # the null-index entry: lexcmp and check_ops
-    v, s = kernel_model(inst, bounds, None, None, all_ops(len(inst)))
+    v, s, _ = kernel_model(inst, bounds, None, None, all_ops(len(inst)))
     np.testing.assert_array_equal(s, verscmp.lexcmp_plain(t(inst), t(bounds)).numpy())
     np.testing.assert_array_equal(
         v.astype(bool), verscmp.check_ops_plain(t(inst), t(bounds), t(all_ops(len(inst)))).numpy())
 
 
+EDGE_WIDTHS = (1, 3, 4, 5, 15, 16, 17, 128, 129, 200)
+
+
+@pytest.mark.parametrize("L", EDGE_WIDTHS)
+def test_kernel_model_edges_equal_plain(L):
+    """Every lane-group width, chunked rows past 128 columns, row counts
+    around one warp's step at L = 16 (8 U), one row, and the scalar path
+    (a matrix off 16 bytes) beside the vector one; the verdict stores are
+    words except in the ragged tail."""
+    U = ROWS_PER_GROUP
+    inst, bounds = rows_pair(L, 40, 400 + L)
+    rng = np.random.default_rng(L)
+    t = torch.from_numpy
+    assert group_lanes(L) == min(MAX_GROUP, 1 << max(0, (-(-L // 4) - 1).bit_length()))
+    for R in (1, 7, 8 * U - 1, 8 * U, 8 * U + 1):
+        a_idx = rng.integers(0, len(inst), R, dtype=np.int32)
+        b_idx = np.where(rng.random(R) < 0.3, a_idx, rng.integers(0, len(bounds), R))
+        b_idx = b_idx.astype(np.int32)
+        ops = all_ops(R)
+        want = verscmp.check_ops_gather_plain(t(inst), t(bounds), t(a_idx), t(b_idx), t(ops))
+        want_s = verscmp.lexcmp_plain(t(inst[a_idx]), t(bounds[b_idx])).numpy()
+        for aligned in (True, False):
+            v, s, stores = kernel_model(inst, bounds, a_idx, b_idx, ops, U, aligned)
+            np.testing.assert_array_equal(v.astype(bool), want.numpy(), err_msg=f"R={R}")
+            np.testing.assert_array_equal(s, want_s, err_msg=f"R={R}")
+            warp_rows = 32 // group_lanes(L) * U
+            full = (R // warp_rows) * warp_rows if warp_rows % 4 == 0 else 0
+            tail = R - full
+            assert stores == {"word": full // 4 + tail // 4, "byte": tail % 4}, (R, stores)
+    # an output pointer off 4 bytes stores bytes only
+    _, _, stores = kernel_model(inst, bounds, a_idx, b_idx, ops, U, True, out_offset=1)
+    assert stores["byte"] == len(ops)
+
+
 @settings(max_examples=60, deadline=None, derandomize=True)
-@given(L=st.integers(1, 100), n=st.integers(1, 12), data=st.data())
-def test_kernel_model_property(L, n, data):
+@given(L=st.integers(1, 100), n=st.integers(1, 12), U=st.sampled_from([1, 2, 4]),
+       aligned=st.booleans(), out_offset=st.integers(0, 3),
+       max_group=st.sampled_from([8, 16, 32]), data=st.data())
+def test_kernel_model_property(L, n, U, aligned, out_offset, max_group, data):
     vals = st.integers(0, 3)
     inst = np.array(data.draw(st.lists(st.lists(vals, min_size=L, max_size=L), min_size=n,
                                        max_size=n)), np.int32)
@@ -147,14 +258,47 @@ def test_kernel_model_property(L, n, data):
     for i in range(n):  # change a few cells, anywhere in the row
         for _ in range(data.draw(st.integers(0, 2))):
             bounds[i, data.draw(st.integers(0, L - 1))] = data.draw(vals)
-    R = data.draw(st.integers(1, 24))
+    R = data.draw(st.integers(1, 40))
     a_idx = np.array(data.draw(st.lists(st.integers(0, n - 1), min_size=R, max_size=R)), np.int32)
     b_idx = np.array(data.draw(st.lists(st.integers(0, n - 1), min_size=R, max_size=R)), np.int32)
     ops = np.array(data.draw(st.lists(st.integers(0, 5), min_size=R, max_size=R)), np.int32)
     t = torch.from_numpy
-    v, _ = kernel_model(inst, bounds, a_idx, b_idx, ops)
+    v, s, _ = kernel_model(inst, bounds, a_idx, b_idx, ops, U, aligned, out_offset, max_group)
     want = verscmp.check_ops_gather_plain(t(inst), t(bounds), t(a_idx), t(b_idx), t(ops))
     np.testing.assert_array_equal(v.astype(bool), want.numpy())
+    np.testing.assert_array_equal(s, verscmp.lexcmp_plain(t(inst[a_idx]), t(bounds[b_idx])).numpy())
+
+
+def test_dispatch_stage_views_fill_one_buffer_reused_across_dispatches():
+    """The dispatch's arrays are views of one buffer (each part on 128
+    bytes), built into in place and dispatched without a copy; a smaller
+    dispatch reuses the buffer, a larger one grows it; arrays from
+    elsewhere go through the same views. On the CPU nothing is pinned."""
+    inst, bounds = rows_pair(16, 50, 11)
+    rng = np.random.default_rng(11)
+    t = torch.from_numpy
+    stage = verscmp.DispatchStage(torch.device("cpu"))
+    assert not stage.host.is_pinned()
+    for R, n_inst, grows in ((300, 50, True), (70, 20, False), (1000, 50, True)):
+        before = stage.host.data_ptr()
+        views = stage.views(R, n_inst, 16)
+        inst_v, a_v, b_v, ops_v = views
+        assert [v.shape for v in views] == [(n_inst, 16), (R,), (R,), (R,)]
+        host = stage.host.numpy()
+        assert all(v.dtype == np.int32 and np.shares_memory(v, host) for v in views)
+        assert all((v.ctypes.data - host.ctypes.data) % 128 == 0 for v in views)
+        assert (stage.host.data_ptr() != before) == grows  # grows only when needed
+        inst_v[:] = inst[:n_inst]
+        a_v[:] = rng.integers(0, n_inst, R)
+        b_v[:] = rng.integers(0, len(bounds), R)
+        ops_v[:] = all_ops(R)
+        want = jax_verscmp._check_ops_gather(inst[:n_inst], bounds, a_v, b_v, ops_v)
+        got = verscmp.check_ops_gather_bucketed(inst_v, t(bounds), a_v, b_v, ops_v, stage=stage)
+        np.testing.assert_array_equal(got, np.asarray(want))
+        # the same arrays from outside the stage, in another integer type
+        copies = [x.astype(np.int64) for x in (inst_v, a_v, b_v, ops_v)]
+        np.testing.assert_array_equal(
+            verscmp.check_ops_gather_bucketed(copies[0], t(bounds), *copies[1:]), got)
 
 
 def test_wrappers_run_the_plain_version_on_the_cpu_and_check_their_inputs():

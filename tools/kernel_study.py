@@ -1,9 +1,10 @@
-"""Where the license kernels spend their time, step by step, on the card.
+"""Where the port's kernels spend their time, step by step, on the card.
 
     python -m tools.kernel_study gate [--source PATH] [--batches 4] [--seed 0]
     python -m tools.kernel_study score [--seed 0]
     python -m tools.kernel_study bytes-gate [--source PATH ...] [--seed 0]
     python -m tools.kernel_study decompress [--source PATH ...] [--seed 0]
+    python -m tools.kernel_study verscmp [--source PATH ...] [--seed 0]
 
 (from the repository root). A development tool: nothing in the package
 imports it.
@@ -67,6 +68,30 @@ steps are split by mode: ``zero``, ``pack7``, ``raw`` and the TOKEN steps
 ``stage`` (the earlier kernel's byte staging) or ``tables``, ``issue`` and
 ``wait`` (the redesign's).
 
+``verscmp``: ``csrc/verscmp.cu``, or each ``--source`` given (an earlier
+commit's kernel, one warp per row, is recognised by its missing
+``trivy_verscmp_plan``), all in one process on three inputs of
+``chip_smoke.py``'s: ``cve`` (the dispatch of a ``scan_sbom`` of the cve
+SBOM against its DB, [536800, 16] with 500 bound rows, captured on the
+CPU), ``distinct`` (the same inst rows, indices and ops against 212,000
+distinct bound rows, ``distinct_bounds``) and ``wide`` (the same inst
+indices and ops over seeded rows of 72 columns, each row against one of
+four bound rows made from its inst row, which first differ from it at a
+seeded column, uniform over the row, or not at all). Each is timed warm
+(``time_ms``) and with a cold L2 (``chip_smoke.py``'s ``time_cold``).
+Steps of the redesign, once per step of its persistent loop: ``index``
+(indices and ops loaded), ``rows`` (the row loads landed), ``compare``,
+``store``; of the earlier kernel: ``index`` and ``rows`` (its chunk loop,
+loads and ballots interleaved; its one-byte store runs on lane 0 alone and
+is no step). The marked copies hold each step's registers in a use before
+the mark's barrier, so that the barrier waits for their loads. Variants of
+the redesign: ``as_is`` (U = 4 rows a group, groups of up to 8 lanes),
+``u2`` (``rows_per_group``), ``g32`` (groups of up to 32 lanes: a row of
+up to 128 columns in one chunk, ``max_group``) and ``shared``: the bound
+matrix staged in shared memory when it fits in 200 KB (``bounds_in_shared``;
+on the distinct input it does not, and the launch takes no shared
+memory).
+
 Needs a CUDA card and nvcc.
 """
 
@@ -86,6 +111,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from trivy_tpu_torch import cli
+from trivy_tpu_torch.db import VulnDB
 from trivy_tpu_torch.licensing.classify import LicenseClassifier
 from trivy_tpu_torch.licensing.fused import get_gate_fn
 from trivy_tpu_torch.ops import _build
@@ -96,6 +123,7 @@ from trivy_tpu_torch.ops.bytes_score_cuda import cluster_size
 from trivy_tpu_torch.ops.decompress import decompress_plain
 from trivy_tpu_torch.ops.gram_gate import gram_gate_plain
 from trivy_tpu_torch.ops.ngram_score import BYTES_WIDTHS, DeviceBytesScorer
+from trivy_tpu_torch.ops.verscmp import check_ops_gather_plain
 from trivy_tpu_torch.secret.compress import SlabCodec
 
 REPO = Path(__file__).resolve().parents[1]
@@ -147,8 +175,25 @@ DECOMPRESS_MARKS = {
             (r"__syncthreads\(\);", "token_expand", ""),
             (r"(?=\}\n    __syncthreads\(\);  // this row)", "token_write", "")],
 }
+# the version-constraint kernel: the redesign's marks after each step's call,
+# each holding the step's registers first; the earlier kernel's after its
+# index clamps and after its chunk loop
+HOLD = ("{ int trivy_z = 0; for (int trivy_u = 0; trivy_u < U; ++trivy_u) trivy_z |= %s; "
+        "if (R < 0 && trivy_z == 1) trivy_clk[0] = 0; }")
+VERSCMP_MARKS = {
+    "old": [(r"bi = min\(max\(bi, 0\), n_bounds - 1\);", "index",
+             "if (R < 0 && (ai ^ bi) == 1) trivy_clk[0] = 0;"),
+            (r"(?=if \(lane != 0\) return;)", "rows", "if (R < 0 && s == 1) trivy_clk[0] = 0;")],
+    "new": [(r"fetch_index<[^;]*;", "index", HOLD % "ai[trivy_u] ^ bi[trivy_u] ^ op[trivy_u]"),
+            (r"fetch_rows<[^;]*;", "rows", HOLD % " ^ ".join(
+                f"{side}[trivy_u].{c}" for side in ("ra", "rb") for c in "xyzw")),
+            (r"compare_rows<[^;]*;", "compare", HOLD % "s[trivy_u]"),
+            (r"store_rows<[^;]*;", "store", "")],
+}
+SHARED_BOUND_BYTES = 200 * 1024  # the bound matrix staged in shared memory up to this size
 # a function only the redesigned source of each kernel exports
-VERSION_MARKERS = {"bytes_gate": "trivy_bytes_gate_smem", "decompress": "trivy_decompress_grid"}
+VERSION_MARKERS = {"bytes_gate": "trivy_bytes_gate_smem", "decompress": "trivy_decompress_grid",
+                   "verscmp": "trivy_verscmp_plan"}
 # the launch signatures of the kernels before their redesign
 _P, _I = ctypes.c_void_p, ctypes.c_int
 OLD_SIGNATURES = {
@@ -156,6 +201,8 @@ OLD_SIGNATURES = {
     "trivy_bytes_gate_launch": (_I, [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P]),
     # buf, W, offs, clen, mode, B, C, tab_bytes, tab_len, out, stream
     "trivy_decompress_launch": (_I, [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _P, _P, _P, _P]),
+    # unchanged by the redesign
+    "trivy_verscmp_launch": _build.SIGNATURES["verscmp"]["trivy_verscmp_launch"],
 }
 
 
@@ -195,7 +242,7 @@ def marked(src: str, kernel: str, marks: list) -> str:
             raise ValueError(f"{kernel} has no {pattern!r} for step {step!r} where expected")
         body = body[: m.end()] + stamp + body[m.end() :]
         pos = m.end() + len(stamp)
-    body = re.sub(r"\breturn;", FLUSH + " return;", body)
+    body = re.sub(r"\breturn;", "{ " + FLUSH + " return; }", body)
     tail += f"  {FLUSH}\n"
     inc = src.index("#include <cuda_runtime.h>\n") + len("#include <cuda_runtime.h>\n")
     prelude = f"__device__ long long trivy_clk[{MAX_BLOCKS * MAX_STAMPS}];\n"
@@ -247,7 +294,7 @@ def edited(src: str, edits: list) -> str:
     occurs exactly once."""
     for old, new in edits:
         if src.count(old) != 1:
-            raise ValueError(f"the shingle gate's source no longer has one {old!r}")
+            raise ValueError(f"the kernel's source no longer has one {old!r}")
         src = src.replace(old, new)
     return src
 
@@ -284,6 +331,67 @@ def screen_in_shared(src: str) -> str:
             raise ValueError(f"the gate's source no longer has one {old!r}")
         src = src.replace(old, new)
     return src
+
+
+def rows_per_group(src: str, U: int) -> str:
+    """The version-constraint kernel's source with lane groups taking ``U``
+    rows a step."""
+    return edited(src, [("constexpr int kRowsPerGroup = 4;", f"constexpr int kRowsPerGroup = {U};")])
+
+
+def max_group(src: str, G: int) -> str:
+    """The version-constraint kernel's source with lane groups of up to
+    ``G`` lanes (chunks of 4 G columns)."""
+    return edited(src, [("constexpr int kMaxGroup = 8;", f"constexpr int kMaxGroup = {G};")])
+
+
+def bounds_in_shared(src: str) -> str:
+    """The version-constraint kernel's source staging the bound matrix in
+    shared memory when the vector path runs and it fits in
+    ``SHARED_BOUND_BYTES`` (each block copies it once, then reads bound rows
+    there with generic loads); otherwise it launches as before, with none."""
+    generic = (
+        "// Columns col..col+3 of a row in shared or global memory (generic loads).\n"
+        "template <bool kVec>\n"
+        "__device__ __forceinline__ int4 load_cols_generic(const int32_t* row, int col, int L) {\n"
+        "  if (kVec) {\n"
+        "    return col < L ? *reinterpret_cast<const int4*>(row + col) : make_int4(0, 0, 0, 0);\n"
+        "  }\n"
+        "  int4 v;\n"
+        "  v.x = col < L ? row[col] : 0;\n  v.y = col + 1 < L ? row[col + 1] : 0;\n"
+        "  v.z = col + 2 < L ? row[col + 2] : 0;\n  v.w = col + 3 < L ? row[col + 3] : 0;\n"
+        "  return v;\n}\n\n")
+    stage = (
+        "  extern __shared__ int4 trivy_sb[];  // the bound matrix, when the launch gave it room\n"
+        "  uint32_t trivy_dyn;\n"
+        '  asm volatile("mov.u32 %0, %%dynamic_smem_size;" : "=r"(trivy_dyn));\n'
+        "  if (trivy_dyn) {\n"
+        "    for (int k = threadIdx.x; k < n_bounds * L / 4; k += kThreads) {\n"
+        "      trivy_sb[k] = __ldg(reinterpret_cast<const int4*>(bounds) + k);\n"
+        "    }\n"
+        "    __syncthreads();\n"
+        "    bounds = reinterpret_cast<const int32_t*>(trivy_sb);\n"
+        "  }\n")
+    launch = (
+        "const size_t trivy_bytes = static_cast<size_t>(n_bounds) * L * 4;\n"
+        f"    const size_t smem = kVec && trivy_bytes <= {SHARED_BOUND_BYTES} ? trivy_bytes : 0;\n"
+        "    if (smem > 48 * 1024 && cudaFuncSetAttribute(\n"
+        "            verscmp_kernel<G, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,\n"
+        "            static_cast<int>(smem)) != cudaSuccess) {\n"
+        "      return static_cast<int>(cudaGetLastError());\n"
+        "    }")
+    loads = "rb[u] = load_cols<kVec>(bounds +"  # the first chunk's and the later chunks'
+    if src.count(loads) != 2:
+        raise ValueError(f"the kernel's source no longer has two {loads!r}")
+    src = src.replace(loads, "rb[u] = load_cols_generic<kVec>(bounds +")
+    return edited(src, [
+        ("// The sign of the first of a lane's four columns", generic
+         + "// The sign of the first of a lane's four columns"),
+        ("  const int col = 4 * (lane % G);  // the lane's first column in each chunk\n",
+         "  const int col = 4 * (lane % G);  // the lane's first column in each chunk\n" + stage),
+        ("const size_t smem = 0;  // dynamic shared memory: none, the rows come through L1 and L2",
+         launch),
+    ])
 
 
 def build(src: str, source: Path, out: Path) -> ctypes.CDLL:
@@ -629,12 +737,92 @@ def study_decompress(smoke: dict, sources: list, seed: int) -> None:
                         "equal_plain": equal}, steps, mean)
 
 
+def verscmp_cases(smoke: dict, seed: int) -> list:
+    """(name, (inst, bounds, a_idx, b_idx, ops) on the card) of the three
+    inputs: the cve dispatch (captured from a CPU scan of the cve SBOM),
+    the same against distinct bounds, and the same indices over 72-column
+    rows."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        smoke["write_cve_db"](root / "db")
+        smoke["write_cve_sbom"](root / "bom.json", seed)
+        with smoke["captured_dispatches"]() as captured:
+            cli.scan_sbom(str(root / "bom.json"), db=VulnDB.load(str(root / "db")), device="cpu")
+    inst, bounds, a_idx, b_idx, ops = captured[0]
+    R, L = len(ops), inst.shape[1]
+    if R % 8:  # the earlier kernel's marked copy: no warp may leave its block early
+        raise ValueError(f"the cve dispatch has {R} rows, not a multiple of 8")
+    # wide: four bound rows per inst row, each equal to it up to a seeded
+    # column (uniform over 0..79: past the row's end, equal), row r against
+    # one of its inst row's four
+    rng = np.random.default_rng(seed)
+    wide_inst = rng.integers(0, 3, (len(inst), 72), dtype=np.int32)
+    wide_bounds = np.repeat(wide_inst, 4, axis=0)
+    first = rng.integers(0, 80, len(wide_bounds))
+    k = np.nonzero(first < 72)[0]
+    wide_bounds[k, first[k]] = (wide_bounds[k, first[k]] + rng.integers(1, 3, len(k))) % 3
+    wide_idx = (4 * a_idx + np.arange(R) % 4).astype(np.int32)
+    cases = [("cve", (inst, bounds.numpy(), a_idx, b_idx, ops)),
+             ("distinct", (inst, smoke["distinct_bounds"](seed, L), a_idx,
+                           smoke["distinct_index"](R, seed), ops)),
+             ("wide", (wide_inst, wide_bounds, a_idx, wide_idx, ops))]
+    return [(name, tuple(torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in arrays))
+            for name, arrays in cases]
+
+
+def verscmp_runner(lib: ctypes.CDLL):
+    """``run((inst, bounds, a_idx, b_idx, ops)) -> verdicts``: one launch of
+    the library's kernel."""
+    def run(args):
+        inst, bounds, a_idx, b_idx, ops = args
+        out = torch.empty(len(ops), dtype=torch.bool, device=inst.device)
+        if lib.trivy_verscmp_launch(inst.data_ptr(), inst.shape[0], bounds.data_ptr(),
+                                    bounds.shape[0], inst.shape[1], a_idx.data_ptr(),
+                                    b_idx.data_ptr(), ops.data_ptr(), len(ops), out.data_ptr(),
+                                    None, torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("verscmp launch failed")
+        return out
+    return run
+
+
+def study_verscmp(smoke: dict, sources: list, seed: int) -> None:
+    cases = verscmp_cases(smoke, seed)
+    want = {name: check_ops_gather_plain(*args) for name, args in cases}
+    jobs = []
+    for source in sources:
+        src = source.read_text()
+        ver = version(src, "verscmp")
+        texts = ({"as_is": src, "u2": rows_per_group(src, 2), "g32": max_group(src, 32),
+                  "shared": bounds_in_shared(src)} if ver == "new" else {"as_is": src})
+        jobs += [(source, ver, name, text) for name, text in texts.items()]
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(8) as pool:
+        libs = [(pool.submit(load, text, source, Path(tmp) / f"v{i}.so", "verscmp"),
+                 pool.submit(load, marked(text, "verscmp_kernel", VERSCMP_MARKS[ver]), source,
+                             Path(tmp) / f"v{i}m.so", "verscmp"))
+                for i, (source, ver, _, text) in enumerate(jobs)]
+        for (source, ver, name, _), (plain_f, marked_f) in zip(jobs, libs):
+            run, mrun = verscmp_runner(plain_f.result()), verscmp_runner(marked_f.result())
+            steps = tuple(step for _, step, _ in VERSCMP_MARKS[ver])
+            for case, args in cases:
+                equal = torch.equal(run(args), want[case])
+                ms = time_ms(run, [args])
+                ms_cold = smoke["time_cold"](run, [args])[0]
+                mean, blocks = run_marked(marked_f.result(), mrun, [args], steps)
+                inst, bounds, a_idx, b_idx, ops = args
+                report({"kernel": "verscmp", "source": str(source), "version": ver,
+                        "variant": name, "case": case, "shape": [len(ops), inst.shape[1]],
+                        "bound_rows": bounds.shape[0], "ms": ms, "ms_cold": ms_cold,
+                        "bound_ms": smoke["verscmp_bound_ms"](
+                            len(ops), inst.shape[1], a_idx.cpu().numpy(), b_idx.cpu().numpy()),
+                        "blocks": blocks, "equal_plain": equal}, steps, mean)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("kernel", choices=("gate", "score", "bytes-gate", "decompress"))
+    ap.add_argument("kernel", choices=("gate", "score", "bytes-gate", "decompress", "verscmp"))
     ap.add_argument("--source", type=Path, action="append",
-                    help="the kernel's source (gate, bytes-gate, decompress; the last two "
-                         "take several); default: the package's")
+                    help="the kernel's source (gate, bytes-gate, decompress, verscmp; all but "
+                         "gate take several); default: the package's")
     ap.add_argument("--batches", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -649,6 +837,8 @@ def main() -> int:
         study_score(smoke, args.seed)
     elif args.kernel == "bytes-gate":
         study_bytes_gate(smoke, sources, args.seed)
+    elif args.kernel == "verscmp":
+        study_verscmp(smoke, sources, args.seed)
     else:
         study_decompress(smoke, sources, args.seed)
     return 0

@@ -84,6 +84,18 @@ def _span(stats: Counter, name: str):
         stats[f"{name}.seconds"] += time.perf_counter() - t0
 
 
+def _dispatch_stage(owner, device):
+    """``owner``'s :class:`DispatchStage` on ``device`` (its pinned and
+    device buffers kept beside the resident bound matrix and reused across
+    scans; a dispatch on another device replaces it)."""
+    from trivy_tpu_torch.ops.verscmp import DispatchStage
+
+    dev = resolve(device)
+    if owner._stage is None or owner._stage.device != dev:
+        owner._stage = DispatchStage(dev)
+    return owner._stage
+
+
 def _upload(mat, device, stats: Counter):
     """``mat`` on ``device``; its bytes count as bound-table bytes that
     crossed the link (a warm second scan must count 0)."""
@@ -111,6 +123,7 @@ class _CompiledPrefix:
         # id(adv) -> (row_start, row_end, n_groups, empty_true, host_only)
         self.adv_span: dict[int, tuple] = {}
         self._bounds_dev: tuple | None = None  # (width, device tensor)
+        self._stage = None  # the constraint dispatch's buffers (_dispatch_stage)
         self.upload_bytes = 0  # bound-table bytes that crossed the link
 
     def bounds_device(self, width: int, device, stats: Counter) -> tuple:
@@ -379,26 +392,29 @@ def _batch_verdicts_compiled(cp: _CompiledPrefix, candidates: list[tuple], devic
             from trivy_tpu_torch.ops.verscmp import check_ops_gather_bucketed
 
             rows = ragged_arange(starts[nz], lens[nz])
-            ops = cp.ops_flat[rows]
-            b_idx = cp.b_flat[rows]
-            a_idx = np.repeat(
-                np.asarray(c_arow, dtype=np.int32)[nz], lens[nz]
-            ).astype(np.int32)
+            # each row's candidate among those with rows
+            cand = np.repeat(np.arange(int(nz.sum())), lens[nz])
             # global group id = local group + this candidate's group base
             group_base = np.concatenate(([0], np.cumsum(groups_np)[:-1]))
-            row_group = cp.glocal_flat[rows] + np.repeat(group_base[nz], lens[nz])
+            row_group = cp.glocal_flat[rows] + group_base[nz][cand]
             La = max(len(r) for r in inst_rows)
-            pv = pad_value(cp.scheme)
             Lb = cp.bounds.shape[1] if cp.bounds is not None else 1
             L = max(La, Lb)
             # width buckets of 8 keep inst widths from fragmenting compiles
             L = -(-L // 8) * 8
             bounds_dev, L = cp.bounds_device(L, device, stats)
-            inst_mat = np.full((len(inst_rows), L), pv, dtype=np.int32)
+            # the dispatch's arrays built straight into its buffer (the indices
+            # are in range: "clip" takes them without a buffered copy)
+            stage = _dispatch_stage(cp, device)
+            inst_mat, a_idx, b_idx, ops = stage.views(len(rows), len(inst_rows), L)
+            np.take(cp.ops_flat, rows, out=ops, mode="clip")
+            np.take(cp.b_flat, rows, out=b_idx, mode="clip")
+            np.take(np.asarray(c_arow, dtype=np.int32)[nz], cand, out=a_idx, mode="clip")
+            inst_mat.fill(pad_value(cp.scheme))
             for i, r in enumerate(inst_rows):
                 inst_mat[i, : len(r)] = r
             ok = check_ops_gather_bucketed(
-                inst_mat, bounds_dev, a_idx, b_idx, ops
+                inst_mat, bounds_dev, a_idx, b_idx, ops, stage=stage
             )
             np.logical_and.at(group_ok, row_group, ok)
         # candidate is vulnerable when any of its groups holds
@@ -588,6 +604,7 @@ class _ResidentJoin:
         self.adv_groups = np.asarray(a_groups, dtype=np.int64)
         self.adv_host = np.asarray(a_host, dtype=bool)
         self._bounds_dev: tuple | None = None  # (width, device array)
+        self._stage = None  # the constraint dispatch's buffers (_dispatch_stage)
         self.upload_bytes = 0
         self.dispatch_count = 0
 
@@ -812,16 +829,19 @@ def _resident_verdicts(
                 from trivy_tpu_torch.ops.verscmp import check_ops_gather_bucketed
 
                 rows = ragged_arange(starts[nz], lens[nz])
-                ops = rj.ops_flat[rows]
-                b_idx = rj.b_flat[rows]
-                a_idx = np.repeat(a_row[dev][nz], lens[nz]).astype(np.int32)
+                # each row's candidate among those with rows
+                cand = np.repeat(np.arange(int(nz.sum())), lens[nz])
                 group_base = np.concatenate(([0], np.cumsum(groups_np)[:-1]))
-                row_group = (
-                    rj.glocal_flat[rows] + np.repeat(group_base[nz], lens[nz])
-                )
+                row_group = rj.glocal_flat[rows] + group_base[nz][cand]
                 La = max(len(r) for r in inst_rows)
                 bounds_dev, L = rj.bounds_device(La, device, stats)
-                inst_mat = np.empty((len(inst_rows), L), dtype=np.int32)
+                # the dispatch's arrays built straight into its buffer (the
+                # indices are in range: "clip" takes them without a buffered copy)
+                stage = _dispatch_stage(rj, device)
+                inst_mat, a_idx, b_idx, ops = stage.views(len(rows), len(inst_rows), L)
+                np.take(rj.ops_flat, rows, out=ops, mode="clip")
+                np.take(rj.b_flat, rows, out=b_idx, mode="clip")
+                np.take(a_row[dev][nz], cand, out=a_idx, mode="clip")
                 inst_mat[:] = np.asarray(inst_pad, dtype=np.int32)[:, None]
                 for i, r in enumerate(inst_rows):
                     inst_mat[i, : len(r)] = r
@@ -830,7 +850,7 @@ def _resident_verdicts(
                 stats["cve.resident_rows"] += int(len(ops))
                 with _span(stats, "cve.dispatch"):
                     ok = check_ops_gather_bucketed(
-                        inst_mat, bounds_dev, a_idx, b_idx, ops
+                        inst_mat, bounds_dev, a_idx, b_idx, ops, stage=stage
                     )
                 np.logical_and.at(group_ok, row_group, np.asarray(ok))
             # a candidate is vulnerable when ANY of its AND-groups holds

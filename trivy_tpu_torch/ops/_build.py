@@ -75,6 +75,8 @@ SIGNATURES = {
         "trivy_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "verscmp": {
+        # L, R, inst, bounds, out [G, U, vector path, grid]
+        "trivy_verscmp_plan": (_I, [_I, _I, _P, _P, ctypes.POINTER(_I)]),
         "trivy_verscmp_launch": (
             # inst, n_inst, bounds, n_bounds, L, a_idx, b_idx, ops, R, verdict, sign, stream
             _I, [_P, _I, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P],

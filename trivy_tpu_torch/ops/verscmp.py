@@ -12,7 +12,9 @@ of the JAX package's ``trivy_tpu/ops/verscmp.py`` (``_lexcmp``,
 
 The JAX package pads rows to powers of two only to reuse XLA compilations;
 the port does not pad: :func:`check_ops_gather_bucketed` keeps its name and
-signature and returns the ``R`` verdicts.
+returns the ``R`` verdicts. On a CUDA device its arrays cross the link as
+one pinned buffer of a :class:`DispatchStage`, which the detector keeps
+beside its resident bound matrix and builds the arrays into.
 """
 
 from __future__ import annotations
@@ -57,21 +59,93 @@ def check_ops_gather_plain(inst: torch.Tensor, bounds: torch.Tensor, a_idx: torc
     return check_ops_plain(a, b, ops)
 
 
+class DispatchStage:
+    """The buffers of one device's constraint dispatches, reused across
+    scans and grown only: on a CUDA device one pinned host buffer holding
+    ``a_idx``, ``b_idx``, ``ops`` and the installed-version matrix, which
+    crosses the link by one copy, its device twin, and a pinned buffer the
+    verdicts come back into. The caller builds its arrays straight into
+    :meth:`views`; on the CPU they are plain numpy arrays and nothing is
+    copied. One dispatch at a time (the detector dispatches from one
+    thread)."""
+
+    ALIGN = 32  # int32 words: each part of the buffer starts on 128 bytes
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self.pin = self.device.type == "cuda"
+        self.host = torch.empty(0, dtype=torch.int32, pin_memory=self.pin)
+        self.dev = torch.empty(0, dtype=torch.int32, device=self.device)
+        self.verdict = torch.empty(0, dtype=torch.bool, pin_memory=self.pin)
+        self._layout = (0, 0, 0)  # rows, inst rows, width of the current views
+
+    def _offsets(self) -> tuple[int, int]:
+        R, n_inst, L = self._layout
+        rows = -(-R // self.ALIGN) * self.ALIGN
+        return rows, 3 * rows + n_inst * L
+
+    def views(self, R: int, n_inst: int, L: int) -> tuple[np.ndarray, ...]:
+        """``(inst [n_inst, L], a_idx [R], b_idx [R], ops [R])``: int32 views
+        of the host buffer for the next dispatch, to be filled."""
+        self._layout = (R, n_inst, L)
+        rows, total = self._offsets()
+        if self.host.numel() < total:
+            self.host = torch.empty(total, dtype=torch.int32, pin_memory=self.pin)
+        h = self.host.numpy()
+        return (h[3 * rows : total].reshape(n_inst, L), h[:R], h[rows : rows + R],
+                h[2 * rows : 2 * rows + R])
+
+    def upload(self) -> tuple[torch.Tensor, ...]:
+        """The views on the device, after one non-blocking copy of the used
+        part of the host buffer."""
+        R, n_inst, L = self._layout
+        rows, total = self._offsets()
+        if self.dev.numel() < total:
+            self.dev = torch.empty(self.host.numel(), dtype=torch.int32, device=self.device)
+        d = self.dev
+        d[:total].copy_(self.host[:total], non_blocking=True)
+        return (d[3 * rows : total].view(n_inst, L), d[:R], d[rows : rows + R],
+                d[2 * rows : 2 * rows + R])
+
+    def copy_back(self, out: torch.Tensor) -> torch.Tensor:
+        """Enqueues the copy of the device verdicts ``out`` into the pinned
+        buffer; returns its view (valid once the stream has synchronised)."""
+        if self.verdict.numel() < out.numel():
+            self.verdict = torch.empty(out.numel(), dtype=torch.bool, pin_memory=self.pin)
+        host = self.verdict[: out.numel()]
+        host.copy_(out, non_blocking=True)
+        return host
+
+    def dispatch(self, inst: np.ndarray, bounds_dev: torch.Tensor, a_idx: np.ndarray,
+                 b_idx: np.ndarray, ops: np.ndarray) -> np.ndarray:
+        """``inst[a_idx] <ops> bounds_dev[b_idx]`` -> bool ``[R]``: the
+        arrays go into the views unless they are the views already."""
+        from trivy_tpu_torch.ops.verscmp_cuda import check_ops_gather
+
+        if self.device.type == "cpu":
+            a, b, o, i = (torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
+                          for x in (a_idx, b_idx, ops, inst))
+            return check_ops_gather(i, bounds_dev, a, b, o).numpy()
+        views = self.views(len(a_idx), *inst.shape)
+        for src, dst in zip((inst, a_idx, b_idx, ops), views):
+            if src.ctypes.data != dst.ctypes.data:
+                np.copyto(dst, src, casting="same_kind")
+        inst_d, a_d, b_d, ops_d = self.upload()
+        host = self.copy_back(check_ops_gather(inst_d, bounds_dev, a_d, b_d, ops_d))
+        torch.cuda.current_stream(self.device).synchronize()
+        return host.numpy().copy()
+
+
 def check_ops_gather_bucketed(inst: np.ndarray, bounds_dev: torch.Tensor, a_idx: np.ndarray,
-                              b_idx: np.ndarray, ops: np.ndarray) -> np.ndarray:
+                              b_idx: np.ndarray, ops: np.ndarray,
+                              stage: DispatchStage | None = None) -> np.ndarray:
     """``inst[a_idx] <ops> bounds_dev[b_idx]`` on the device of the resident
-    bound matrix ``bounds_dev``: the installed-version matrix and the int32
-    index and op rows cross the link, the verdicts (bool ``[R]``) come
-    back."""
-    from trivy_tpu_torch.ops.verscmp_cuda import check_ops_gather
-
-    dev = bounds_dev.device
-
-    def put(x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(dev)
-
-    out = check_ops_gather(put(inst), bounds_dev, put(a_idx), put(b_idx), put(ops))
-    return out.cpu().numpy()
+    bound matrix ``bounds_dev`` -> bool ``[R]``: the installed-version matrix
+    and the int32 index and op rows cross the link in one copy through
+    ``stage`` (a new one when None), the verdicts come back in one."""
+    if stage is None or stage.device != bounds_dev.device:
+        stage = DispatchStage(bounds_dev.device)
+    return stage.dispatch(inst, bounds_dev, a_idx, b_idx, ops)
 
 
 def batch_compare(scheme: str, pairs: list[tuple[str, str]],

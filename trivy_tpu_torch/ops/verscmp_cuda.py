@@ -2,9 +2,12 @@
 
 Replaces the JAX package's device computation
 ``trivy_tpu/ops/verscmp.py::_check_ops_gather`` (and, through its null-index
-entry, ``_lexcmp`` and ``_check_ops``) with ``csrc/verscmp.cu`` (one warp
-per row; see the source for the design). The functions computed are those
-of :mod:`trivy_tpu_torch.ops.verscmp`'s plain versions.
+entry, ``_lexcmp`` and ``_check_ops``) with ``csrc/verscmp.cu`` (lane
+groups with 16-byte loads and many rows in flight; see the source for the
+design). The functions computed are those of
+:mod:`trivy_tpu_torch.ops.verscmp`'s plain versions. The kernel takes its
+vector path when the width is a multiple of 4 and both matrices are
+16-byte aligned, and its scalar path otherwise (:func:`plan` says which).
 
 Each function here called with CUDA tensors launches the kernel (or
 raises); with CPU tensors it runs the plain version; any other device
@@ -12,6 +15,8 @@ raises. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -50,6 +55,23 @@ def lexcmp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return lexcmp_plain(a, b)
     return _launch(a, b, None, None, None, verdict=False)
+
+
+def plan(inst: torch.Tensor, bounds: torch.Tensor, rows: int) -> dict:
+    """How the kernel launches over ``rows`` rows of ``inst`` and ``bounds``
+    (CUDA tensors): lanes per row (``group``), rows a group takes per step
+    (``rows_per_group``), whether it takes the vector path, and the blocks
+    of its grid."""
+    _check_matrices(inst, bounds)
+    if inst.device.type != "cuda":
+        raise ValueError(f"plan needs CUDA tensors, got {inst.device}")
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(inst.device):
+        rc = _build.load(NAME).trivy_verscmp_plan(inst.shape[1], rows, inst.data_ptr(),
+                                                  bounds.data_ptr(), out)
+    if rc != 0:
+        raise RuntimeError(f"verscmp plan failed ({rc})")
+    return {"group": out[0], "rows_per_group": out[1], "vector": bool(out[2]), "grid": out[3]}
 
 
 def _launch(inst, bounds, a_idx, b_idx, ops, verdict: bool) -> torch.Tensor:
