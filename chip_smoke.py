@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's secret, license, SBOM and filesystem
-vulnerability scans on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's secret, license, SBOM, filesystem
+vulnerability and image scans on one NVIDIA card.
 
-    python3 chip_smoke.py [--e2e-mib 256] [--license-mib 128] [--seed 0]
+    python3 chip_smoke.py [--e2e-mib 256] [--license-mib 128] [--image-mib 128]
+        [--seed 0]
 
 Phases, each printing JSON lines:
 
@@ -150,9 +151,32 @@ Phases, each printing JSON lines:
    planted secret and package license reported, one ``verscmp`` launch per
    card scan and no bound bytes uploaded by the second; the kernel must
    equal its plain version on the first scan's captured dispatch.
-10. kernels: every ported kernel with its launches on the main path, its
+10. image: this slice's path. A seeded docker-save archive of about 128
+    MiB of layer bytes (``--image-mib``) in five layers: a debian 12 base
+    (the fs-vuln ``var/lib/dpkg/status`` and one planted secret; the
+    history marks it as the base image, so its secret must not be
+    reported), the fs-vuln lockfiles with their plants, ``node_modules``
+    and secrets, the license tree's license files, headers and source
+    text with planted secrets, a layer of whiteouts (one removes a file
+    with a secret, one a lockfile with a plant, an opaque dir a third
+    secret; none may be reported), and a small top layer; the config
+    carries an ENV secret. ``cli.scan_image`` with ``vuln,secret,license
+    --license-full`` on the card with a fresh layer cache and the loaded
+    cve DB (launch counters to 0 just before, read just after): every
+    surviving plant reported, none of the removed ones, the ENV secret
+    reported, all six kernels launched and ``verscmp`` once. The same scan
+    again on the same cache: no layer analyzed, no matcher, decompressor
+    or license kernel launched, equal ``Results``. Then a 16 MiB image cut
+    from the same layers, on the card and with ``device="cpu"`` (equal
+    ``Results`` and ``Metadata``), and its OCI-layout copy with gzip layers
+    on the card (``Results`` equal to the docker-save copy's, the artifact
+    name in the OS section's target aside). Printed: layer MB/s,
+    components/s and the scan's seconds split into walk and analysis
+    against detection.
+11. kernels: every ported kernel with its launches on the main path, its
     agreement with the plain version (bitwise, or within ``SCORE_RTOL`` for
-    the scorer's ``full_w``) and its times.
+    the scorer's ``full_w``) and its times, with its launches in the
+    ``image`` phase's first scan (``launches_image``).
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; the last line is ``{"ok": true, "device": {...}}``. Without a
@@ -163,11 +187,13 @@ non-zero code and prints no result.
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import random
 import runpy
 import shutil
 import sys
+import tarfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
@@ -214,6 +240,8 @@ REPO = Path(__file__).resolve().parent
 # rule, shared with the tests
 SAMPLES: dict[str, str] = runpy.run_path(str(REPO / "tests" / "secret_samples.py"))["SAMPLES"]
 CUSTOM = runpy.run_path(str(REPO / "tests" / "test_torch_rulesets.py"))
+# docker-save and OCI-layout archive writers, shared with the tests
+IMAGES = runpy.run_path(str(REPO / "tests" / "imagetest.py"))
 # the custom rulesets checked on the card: one widens the tables past the
 # built-ins' shapes, one goes below the screen's width (1- and 2-byte
 # keywords, a 3-byte anchor)
@@ -236,6 +264,9 @@ VERSCMP_SOURCE = "trivy_tpu_torch/ops/csrc/verscmp.cu"
 VERSCMP_REPLACES = "trivy_tpu/ops/verscmp.py:37"
 # csrc/<name>.cu, built at once
 LIBRARIES = ("match", "decompress", *LICENSE_KERNELS, "verscmp")
+# the launch counters of the kernels an image's layer analysis runs (every
+# kernel but verscmp, which detection runs)
+IMAGE_KERNELS = ("prefilter", "anchored", "decompress", *LICENSE_KERNELS)
 SCORE_RTOL = 1e-5  # the scorer's full_w against its plain version (float32 sums)
 GATHER_WIDTHS = (1024, 16384, 49152)  # rungs where the scorer is also timed on gathered rows
 SHORT_BATCH = 8  # live rows of the short check batch
@@ -1955,10 +1986,228 @@ def phase_fs_vuln(root: Path, db_dir: Path, seed: int, base: bytes, card: str) -
     return result
 
 
+# the image's history: the first layer is the base image's (an empty-layer
+# CMD ends it), so its secret scan is skipped
+IMAGE_HISTORY = [
+    {"created_by": "/bin/sh -c #(nop) ADD file:debian-12-rootfs.tar.xz in / "},
+    {"created_by": '/bin/sh -c #(nop)  CMD ["bash"]', "empty_layer": True},
+    {"created_by": "COPY services crates py web src /"},
+    {"created_by": "COPY lic hdr app legacy src /"},
+    {"created_by": "RUN rm -rf /app/drop.env /services/removed /legacy/* # buildkit"},
+    {"created_by": "COPY motd /etc/motd # buildkit"},
+]
+# the paths the whiteout layer removes, each holding a plant
+IMAGE_REMOVED = ("app/drop.env", "services/removed/package-lock.json", "legacy/keys.py")
+
+
+def layer_tar(root: Path | None, keep=lambda rel: True, extra: dict | None = None) -> bytes:
+    """An uncompressed layer tar of the files under ``root`` (if any) that
+    ``keep`` selects, and of ``extra`` ({path: bytes}), in sorted order."""
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w") as tf:
+        for p in sorted(root.rglob("*")) if root is not None else ():
+            rel = p.relative_to(root).as_posix()
+            if p.is_file() and keep(rel):
+                tf.add(p, arcname=rel)
+        for rel, data in (extra or {}).items():
+            info = tarfile.TarInfo(rel)
+            info.size = len(data)
+            tf.addfile(info, io.BytesIO(data))
+    return buf.getvalue()
+
+
+def write_image_layers(root: Path, seed: int, base: bytes, mib: int) -> dict:
+    """The image's layer directories under ``root``, about ``mib`` MiB in
+    all: ``base`` (debian 12 and a secret), ``apps`` (the fs-vuln tree but
+    its OS root, and a lockfile with a plant that a whiteout removes),
+    ``content`` (the license tree filling the rest, planted secrets, and the
+    files the whiteouts remove), ``top``. Returns the plants: secrets as (path, rule, line),
+    licenses as {path: name}, and the secrets that must not be reported."""
+    _n_comp, fs_secrets = write_fs_tree(root / "apps", seed, base)
+    for rel in ("etc/os-release", "var/lib/dpkg/status"):
+        dst = root / "base" / rel
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        (root / "apps" / rel).rename(dst)
+    rng = random.Random(seed + 11)
+    ids = sorted(SAMPLES)
+
+    def planted(layer: str, rel: str) -> tuple:
+        rid = ids[rng.randrange(len(ids))]
+        body = base[:4096]
+        cut = body.rfind(b"\n", 0, rng.randrange(1, len(body))) + 1
+        path = root / layer / rel
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(body[:cut] + SAMPLES[rid].encode() + b"\n" + body[cut:])
+        return (rel, rid, body[:cut].count(b"\n") + 1)
+
+    hidden = [planted("base", "etc/base.env")]
+    ptype, _bucket, name, _vid, vuln, _hi = plants()[0]
+    check(ptype == "npm", f"image: the first plant is {ptype}, not npm")
+    removed = root / "apps" / "services" / "removed" / "package-lock.json"
+    removed.parent.mkdir(parents=True)
+    removed.write_text(json.dumps({"name": "removed", "lockfileVersion": 3, "packages": {
+        "": {"name": "removed", "dependencies": {name: "*"}},
+        f"node_modules/{name}": {"version": vuln}}}))
+    apps_mib = sum(f.stat().st_size for f in (root / "apps").rglob("*") if f.is_file()) >> 20
+    licenses, _written = write_license_tree(root / "content", max(1, mib - apps_mib), seed,
+                                            base)
+    secrets = fs_secrets + [planted("content", f"app/settings_{i}.py") for i in range(4)]
+    hidden += [planted("content", "app/drop.env"), planted("content", "legacy/keys.py")]
+    top = root / "top" / "etc" / "motd"
+    top.parent.mkdir(parents=True)
+    top.write_text("built by chip_smoke.py\n")
+    return {"secrets": secrets, "licenses": licenses, "hidden": hidden}
+
+
+def build_image(root: Path, out: Path, keep=lambda layer, rel: True, oci: bool = False) -> int:
+    """The image archive of the layer directories under ``root`` (the files
+    ``keep(layer, rel)`` selects) at ``out``: docker-save, or an OCI layout
+    directory with gzip layers. Returns its layer bytes (uncompressed)."""
+    layers = [layer_tar(root / d, lambda rel, d=d: keep(d, rel))
+              for d in ("base", "apps", "content")]
+    layers.append(layer_tar(None, extra={
+        "app/.wh.drop.env": b"", "services/removed/.wh.package-lock.json": b"",
+        "legacy/.wh..wh..opq": b""}))
+    layers.append(layer_tar(root / "top"))
+    env = ["PATH=/usr/local/bin:/usr/bin", f"GITHUB_TOKEN={SAMPLES['github-pat']}"]
+    if oci:
+        IMAGES["oci_layout_dir"](str(out), layers, history=IMAGE_HISTORY, env=env,
+                                 compress=True)
+    else:
+        IMAGES["docker_save_tar"](str(out), layers, history=IMAGE_HISTORY, env=env,
+                                  repo_tag="chip-smoke/app:latest")
+    return sum(len(l) for l in layers)
+
+
+def small_image_keep(root: Path, mib: int):
+    """``keep`` for the small image: the base and top layers whole, a few
+    lockfiles, the fs tree's first source file, the license tree's subset,
+    the planted and removed files, and source text up to ``mib`` MiB."""
+    apps = ("services/web00/", "services/go00/", "crates/c00/", "py/", "src/module_0.py",
+            "services/removed/")
+    content = ("sub/", "app/", "legacy/")
+    kept = {("content", f.relative_to(root / "content").as_posix())
+            for f in (root / "content").rglob("*") if f.is_file()
+            and f.relative_to(root / "content").as_posix().startswith(content)}
+    size = sum((root / d / rel).stat().st_size for d, rel in kept)
+    for d, prefixes in (("base", ("",)), ("apps", apps), ("top", ("",))):
+        for f in (root / d).rglob("*"):
+            rel = f.relative_to(root / d).as_posix()
+            if f.is_file() and rel.startswith(prefixes):
+                kept.add((d, rel))
+                size += f.stat().st_size
+    for f in sorted((root / "content").glob("src*/module_*.py")):
+        if size >= mib << 20:
+            break
+        kept.add(("content", f.relative_to(root / "content").as_posix()))
+        size += f.stat().st_size
+    return lambda layer, rel: (layer, rel) in kept
+
+
+def image_stats(st: dict) -> dict:
+    """One image scan's counters: layers, layer MB/s, components/s and
+    the seconds of walk and analysis against detection."""
+    return {
+        "seconds": st["seconds"], "layers": st["layers"],
+        "layers_analyzed": st["layers_analyzed"], "layers_cached": st["layers_cached"],
+        "layer_bytes": st["layer_bytes"], "layer_MBps": st["layer_bytes"] / st["seconds"] / 1e6,
+        "components": st["components"], "components_per_s": st["components"] / st["seconds"],
+        "analyze_s": st["analyze.seconds"], "detect_s": st["detect.seconds"],
+        "files_walked": st["files_walked"], "files_scanned": st["files_scanned"],
+        "dispatches": st["cve.dispatch_count"], "dispatch_s": st["cve.dispatch.seconds"],
+        "rows": st["rows"], "batches": st["batches"],
+    }
+
+
+def phase_image(root: Path, db_dir: Path, seed: int, base: bytes, mib: int, card: str) -> dict:
+    """``cli.scan_image`` with ``vuln,secret,license --license-full`` on the
+    card over the seeded image, twice on one layer cache (launch counters to
+    0 just before each scan, read just after); then the 16 MiB image on the
+    card, on the CPU, and as an OCI layout with gzip layers on the card."""
+    t0 = time.perf_counter()
+    plants_ = write_image_layers(root / "layers", seed, base, mib)
+    layer_bytes = build_image(root / "layers", root / "image.tar")
+    setup_s = time.perf_counter() - t0
+    db = VulnDB.load(str(db_dir))
+    library._resident_join(db)
+    kw = dict(scanners=("vuln", "secret", "license"), license_full=True, db=db)
+    scans = []
+    for _ in range(2):
+        LAUNCHES.clear()
+        report, stats = cli.scan_image(str(root / "image.tar"), device="cuda",
+                                       cache_dir=str(root / "cache"), **kw)
+        scans.append((report.to_dict(), stats, dict(LAUNCHES)))
+    (report, stats, launches), (again, stats2, launches2) = scans
+    found_v = {(v["PkgName"], v["VulnerabilityID"], v["InstalledVersion"])
+               for r in report["Results"] for v in r.get("Vulnerabilities", [])}
+    missed = [p for p in plants() if (p[2], p[3], p[4]) not in found_v]
+    patched = [p for p in plants() if any(k[0] == p[2] and k[2] == p[5] for k in found_v)]
+    secrets = found(report)
+    want = {("/" + rel, rid, line) for rel, rid, line in plants_["secrets"]}
+    missed_secrets = sorted(want - secrets)
+    targets = {r["Target"] for r in report["Results"]}
+    gone = set(IMAGE_REMOVED) | {rel for rel, _r, _l in plants_["hidden"]}
+    leaked = sorted(t for t in targets if t.lstrip("/") in gone)
+    got_lic = licenses_found(report)
+    missed_lic = sorted(rel for rel, key in plants_["licenses"].items()
+                        if key not in got_lic.get(rel, ()))
+    # the 16 MiB image: card, CPU, and its OCI layout with gzip layers
+    keep = small_image_keep(root / "layers", 16)
+    small_bytes = build_image(root / "layers", root / "small.tar", keep)
+    build_image(root / "layers", root / "small-oci", keep, oci=True)
+    small = {}
+    for tag, path, device in (("cuda", "small.tar", "cuda"), ("cpu", "small.tar", "cpu"),
+                              ("oci", "small-oci", "cuda")):
+        rep, st = cli.scan_image(str(root / path), device=device,
+                                 cache_dir=str(root / f"cache-{tag}"), **kw)
+        small[tag] = (rep.to_dict(), st)
+    card_r, cpu_r, oci_r = (small[k][0] for k in ("cuda", "cpu", "oci"))
+    oci_results = json.loads(json.dumps(oci_r["Results"]).replace(
+        json.dumps(oci_r["ArtifactName"])[1:-1], json.dumps(card_r["ArtifactName"])[1:-1]))
+    result = {
+        "phase": "image", "layer_bytes": layer_bytes, "setup_s": setup_s,
+        "scan": image_stats(stats), "cached_scan": image_stats(stats2),
+        "feed": feed_counters(stats), **gate_counters(stats), "launches": launches,
+        "launches_cached": launches2, "results": len(report["Results"]),
+        "findings": len(found_v), "planted": len(plants()), "missed": missed[:5],
+        "patched_reported": patched[:5], "secrets_planted": len(want),
+        "secrets_missed": missed_secrets[:5], "leaked": leaked[:5],
+        "env_secret": "container image config (env)" in targets,
+        "licenses_planted": len(plants_["licenses"]), "licenses_missed": missed_lic[:5],
+        "cached_equal": again["Results"] == report["Results"],
+        "os": report["Metadata"].get("OS"), "diff_ids": len(report["Metadata"]["DiffIDs"]),
+        "small_layer_bytes": small_bytes,
+        "small": {k: image_stats(st) for k, (_r, st) in small.items()},
+        "small_cpu_equal": all(card_r[k] == cpu_r[k] for k in ("Results", "Metadata")),
+        "small_oci_equal": oci_results == card_r["Results"],
+        "card": card,
+    }
+    log(result)
+    check(not missed, f"image: {len(missed)} planted vulnerable components not reported")
+    check(not patched, f"image: {len(patched)} components at their patched version reported")
+    check(not missed_secrets, f"image: planted secrets not reported: {missed_secrets[:5]}")
+    check(not leaked, f"image: removed or base-layer findings reported: {leaked[:5]}")
+    check(result["env_secret"], "image: the ENV secret was not reported")
+    check(not missed_lic, f"image: planted licenses not reported: {missed_lic[:5]}")
+    check((result["os"] or {}).get("Family") == "debian", "image: Metadata.OS missing")
+    check(all(launches.get(k, 0) > 0 for k in (*IMAGE_KERNELS, "verscmp")),
+          f"image: a kernel was not launched on the main path: {launches}")
+    check(launches.get("verscmp") == 1, f"image: verscmp launched {launches.get('verscmp')}")
+    check(stats2["layers_analyzed"] == 0 and stats2["layers_cached"] == stats["layers"],
+          f"image: the cached scan analyzed {stats2['layers_analyzed']} layers")
+    check(not any(launches2.get(k, 0) for k in IMAGE_KERNELS),
+          f"image: the cached scan launched a feed or license kernel: {launches2}")
+    check(result["cached_equal"], "image: Results differ on the cached scan")
+    check(result["small_cpu_equal"], "image: 16 MiB image Results or Metadata differ on the CPU")
+    check(result["small_oci_equal"], "image: the OCI layout's Results differ from docker-save's")
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--e2e-mib", type=int, default=256, help="size of the e2e tree")
     ap.add_argument("--license-mib", type=int, default=128, help="size of the license tree")
+    ap.add_argument("--image-mib", type=int, default=128, help="layer bytes of the image")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2004,6 +2253,9 @@ def main() -> int:
         shutil.rmtree(tmp / "repo", ignore_errors=True)
         cve = phase_cve(tmp / "cve", args.seed, card)
         fs_vuln = phase_fs_vuln(tmp / "fs-vuln", tmp / "cve" / "db", args.seed, base, card)
+        shutil.rmtree(tmp / "fs-vuln", ignore_errors=True)
+        image = phase_image(tmp / "image", tmp / "cve" / "db", args.seed, base, args.image_mib,
+                            card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2075,6 +2327,9 @@ def main() -> int:
         "dispatch_ms": t["dispatch"]["new"]["dispatch_ms"],
         "dispatch_ms_old_route": t["dispatch"]["old"]["dispatch_ms"],
     })
+    # each kernel's launches in the image phase's first scan
+    for entry, key in zip(kernels, (*IMAGE_KERNELS, "verscmp"), strict=True):
+        entry["launches_image"] = image["launches"].get(key, 0)
     log({"kernels": kernels})
     print(card, flush=True)
     name = torch.cuda.get_device_name(0)

@@ -2,7 +2,8 @@
 the decompressor against ``decompress_plain``, the license gram gate,
 shingle gate and scorer against their plain versions, the version-constraint
 check against its plain versions, a compressed scan, a fused secret+license
-scan, the classifier, an SBOM scan and an fs vuln scan on the card.
+scan, the classifier, an SBOM scan, an fs vuln scan and an image scan on the
+card, and a kernel failing in one layer of an image scan.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither ``jax`` nor ``trivy_tpu``, so on a machine with a card and
@@ -633,3 +634,73 @@ def test_fs_vuln_scan_on_card_equals_cpu(card, tmp_path):
     assert on_card.to_dict()["Results"] == on_cpu.to_dict()["Results"]
     assert {r.cls for r in on_card.results} == {"lang-pkgs", "secret"}
     assert sum(len(r.vulnerabilities) for r in on_card.results) > 100
+
+
+IMAGES = runpy.run_path(str(HERE / "imagetest.py"))
+
+
+def card_image(tmp_path: Path) -> str:
+    """A docker-save image of four layers: 1,000 npm packages and a secret;
+    the 22 full license texts, source files with license headers and 1 MiB
+    of text; a whiteout of a second secret; a small top layer."""
+    rng = np.random.default_rng(5)
+    pkgs = {f"node_modules/p{i}/node_modules/{['lodash', 'minimist', 'other'][i % 3]}": {
+        "version": f"{rng.integers(0, 5)}.{rng.integers(0, 21)}.{rng.integers(0, 26)}"}
+        for i in range(1000)}
+    tar = IMAGES["tar_bytes"]
+    apps = {"web/package-lock.json": json.dumps({"lockfileVersion": 3, "packages": pkgs}).encode(),
+            "app/key.py": f"k = '{SAMPLES['github-pat']}'\n".encode(),
+            "app/old.env": f"AWS={SAMPLES['aws-access-key-id']}\n".encode()}
+    words = " ".join(f"word{i % 97} value{i % 13}" for i in range(60_000)).encode()
+    content = {f"lic/{k}/LICENSE": FULL_TEXTS[k].encode() for k in sorted(FULL_TEXTS)}
+    content.update({f"src/m{i}.py": b"# SPDX-License-Identifier: MIT\n# Copyright 2024\n"
+                    + words[i * 4096:(i + 1) * 4096] for i in range(16)})
+    content["doc/notes.txt"] = words[: 1 << 20]
+    layers = [tar(apps), tar(content), tar({"app/.wh.old.env": b""}),
+              tar({"etc/motd": b"card image\n"})]
+    return IMAGES["docker_save_tar"](str(tmp_path / "img.tar"), layers,
+                                     env=["PATH=/usr/bin", f"TOKEN={SAMPLES['github-pat']}"])
+
+
+@pytest.mark.cuda
+def test_image_scan_on_card_equals_cpu(card, tmp_path):
+    """``scan_image`` with ``vuln,secret,license --license-full``: the
+    report the CPU gives, with every kernel launched on the card."""
+    path = card_image(tmp_path)
+    db = VulnDB.load(BUILD_DB(tmp_path))
+    kw = dict(scanners=("vuln", "secret", "license"), license_full=True, db=db)
+    before = dict(match_cuda.LAUNCHES)
+    on_card, stats = cli.scan_image(path, device=card, cache_dir=str(tmp_path / "c1"), **kw)
+    launched = {k: match_cuda.LAUNCHES[k] - before.get(k, 0) for k in (
+        "prefilter", "anchored", "decompress", "gram_gate", "bytes_gate", "bytes_score",
+        "verscmp")}
+    assert all(launched.values()) and launched["verscmp"] == 1, launched
+    assert stats["layers_analyzed"] == 4
+    on_cpu, _ = cli.scan_image(path, device="cpu", cache_dir=str(tmp_path / "c2"), **kw)
+    mine, ref = on_card.to_dict(), on_cpu.to_dict()
+    assert mine["Results"] == ref["Results"] and mine["Metadata"] == ref["Metadata"]
+    targets = {r.target for r in on_card.results}
+    assert {"/app/key.py", "container image config (env)"} <= targets
+    assert "/app/old.env" not in targets
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parallel", [1, 0], ids=["serial", "parallel"])
+def test_device_error_in_one_layer_fails_image_scan_on_card(card, tmp_path, monkeypatch,
+                                                           parallel):
+    """A kernel failing in one layer fails the image scan: no layer is
+    reported without its secret scan, none moves to the host."""
+    path = card_image(tmp_path)
+    calls = {"n": 0}
+    real = CudaMatcher.__call__
+
+    def failing(self, chunks):
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise RuntimeError("CUDA error: an illegal memory access was encountered")
+        return real(self, chunks)
+
+    monkeypatch.setattr(CudaMatcher, "__call__", failing)
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        cli.scan_image(path, device=card, scanners=("secret",), parallel=parallel,
+                       cache_dir=str(tmp_path / "c"))

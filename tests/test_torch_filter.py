@@ -4,8 +4,8 @@ both run in-process from one fresh working directory: a plain
 ``paths``, ``--severity``, ``trivy-tpu.yaml`` (``scan.skip-dirs``,
 ``severity``), ``TRIVY_TPU_SEVERITY``, a Python ``--ignore-policy`` with
 ``--show-suppressed``, ``--exit-code``, over ``fs --scanners secret``, ``fs
---scanners vuln`` and ``sbom``. A rego policy and ``--vex`` are refused by
-the port (exit code 2, an error), never ignored."""
+--scanners vuln`` and ``sbom``. Rego policies and ``--vex`` are held
+against the JAX package in ``test_torch_policy.py``."""
 
 import json
 from pathlib import Path
@@ -41,17 +41,6 @@ def ignore_vulnerability(v):
 def ignore(finding, kind):
     return kind == "secret" and finding["RuleID"] == "aws-access-key-id"
 """
-
-REGO = """\
-package trivy
-
-default ignore = false
-
-ignore {
-    input.VulnerabilityID == "CVE-2023-0001"
-}
-"""
-
 
 def make_tree(root: Path) -> None:
     files = {
@@ -230,17 +219,6 @@ def test_exit_code(env, wd, command):
     mine, ref, rc1, rc2 = run_both(env, wd, command, "--exit-code", "3")
     assert_equal(mine, ref)
     assert rc1 == rc2 == 0 and mine["Results"] == []
-
-
-@pytest.mark.parametrize("flag,text", [("--ignore-policy", REGO), ("--vex", "{}")])
-def test_rego_and_vex_refused(env, wd, flag, text, capsys):
-    path = wd / ("policy.rego" if flag == "--ignore-policy" else "doc.openvex.json")
-    path.write_text(text)
-    out = wd / "port.json"
-    rc = cli.main(["fs", "--scanners", "vuln", "--db-repository", env["db"], "--device", "cpu",
-                   "--format", "json", "-o", str(out), flag, str(path), str(env["tree"])])
-    assert rc == 2 and not out.exists()
-    assert "not supported by trivy_tpu_torch" in capsys.readouterr().err
 
 
 def test_bad_flag_values_refused(env, wd):

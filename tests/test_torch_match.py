@@ -11,6 +11,8 @@ follows ``csrc/match.cu`` step by step, reading only the packed table image
 true hit.
 """
 
+import logging
+
 import numpy as np
 import pytest
 import torch
@@ -40,11 +42,23 @@ LOWER = bytes.maketrans(bytes(range(65, 91)), bytes(range(97, 123)))
 @pytest.fixture(autouse=True, scope="module")
 def few_torch_threads():
     """The plain matcher on two threads: the suite runs in parallel workers,
-    and the JAX package's streaming tests are sensitive to a starved CPU."""
+    and the JAX package's streaming tests are sensitive to a starved CPU.
+    A module that runs the JAX CLI leaves its logger configured (a handler
+    of its own, no propagation, the ``-q`` level); that state is put back
+    afterwards, as later modules in the worker read log records through
+    pytest's ``caplog``."""
     n = torch.get_num_threads()
     torch.set_num_threads(min(n, 2))
+    jax_root = logging.getLogger("trivy_tpu")
+    saved = (list(jax_root.handlers), jax_root.propagate, jax_root.level)
     yield
     torch.set_num_threads(n)
+    for h in list(jax_root.handlers):
+        jax_root.removeHandler(h)
+    for h in saved[0]:
+        jax_root.addHandler(h)
+    jax_root.propagate = saved[1]
+    jax_root.setLevel(saved[2])
 
 
 def make_rows(seed: int, samples: list[str], rows: int = B, width: int = C) -> np.ndarray:

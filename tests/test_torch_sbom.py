@@ -13,6 +13,7 @@ import pytest
 from tests.dbtest import build_db
 from tests.test_sbom import CDX
 from tests.test_torch_detector import ECOS, synthetic_db, version
+from tests.test_torch_match import few_torch_threads  # noqa: F401
 from trivy_tpu import cli as jax_cli
 from trivy_tpu.sbom.decode import decode as jax_decode
 from trivy_tpu_torch import cli

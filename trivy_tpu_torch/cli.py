@@ -1,16 +1,20 @@
-"""Command line of the port: the ``fs`` vulnerability, secret and license
-scans and the ``sbom`` vulnerability scan.
+"""Command line of the port: the ``fs`` and ``rootfs`` vulnerability, secret
+and license scans, the ``image`` scan of an image archive, and the ``sbom``
+vulnerability scan.
 
     python -m trivy_tpu_torch fs [--scanners vuln,secret,license]
         [--db-repository DIR] [--cache-dir D] [--java-db DIR] [--list-all-pkgs]
         [--license-full] [--no-shared-arena] [--secret-config F]
-        [--severity S,..] [--ignorefile F] [--ignore-policy F.py]
-        [--show-suppressed] [--exit-code N] [-c CONFIG]
+        [--severity S,..] [--ignorefile F] [--ignore-policy F.py|F.rego]
+        [--vex DOC|repo ..] [--show-suppressed] [--exit-code N] [-c CONFIG]
         [--format json|table] [-o OUT] [--device cuda|cpu]
         [--no-secret-dedup] [--secret-dedup-mb N]
         [--secret-hit-cache [--cache-backend fs|memory]]
         [--secret-compress auto|on|off | --no-secret-compress]
         [--secret-compress-min-ratio R] [--stats-out F] <dir>
+    python -m trivy_tpu_torch rootfs [the fs flags] <dir>
+    python -m trivy_tpu_torch image [the fs flags] [--parallel N]
+        [--cache-backend fs|memory] (<archive> | --input <archive>)
     python -m trivy_tpu_torch sbom [--db-repository DIR] [--cache-dir D]
         [--list-all-pkgs] [report flags as above]
         [--format json|table] [-o OUT] [--stats-out F] [--device cuda|cpu] <bom>
@@ -21,19 +25,24 @@ the command line, then ``TRIVY_TPU_<NAME>`` in the environment, then the
 config file (``-c``, else ``trivy-tpu.yaml`` or ``trivy_tpu.yaml`` in the
 working directory), then the default; ``--device`` and ``--stats-out`` are
 the port's own and come from the command line only. The report then passes
-the JAX package's filter: ``--severity``, the ignore file (``.trivyignore``
-in the working directory by default, plain or YAML), a Python
-``--ignore-policy``, and the dedup. Rego policies and ``--vex`` are refused.
+the JAX package's filter: ``--severity``, VEX documents, the ignore file
+(``.trivyignore`` in the working directory by default, plain or YAML), a
+Python or Rego ``--ignore-policy``, and the dedup.
 
-``fs`` walks the tree once: the OS identity analyzers always run, the
+``fs`` (and ``rootfs``, the same scan) walks the tree once through the
+analyzers of ``fanal/scan.py``: the OS identity analyzers always, the
 lockfile, installed-package, binary and OS package DB analyzers when the
 report can show packages (``vuln``, ``license`` or ``--list-all-pkgs``),
-the secret and license analyzers as their scanners ask. Every application's
-packages then meet the advisory DB of ``--db-repository`` (or
-``<cache-dir>/db``) in one resident CVE join. Its JSON ``Results`` and
-``Metadata`` equal those of ``python -m trivy_tpu.cli fs --scanners <same>
---backend cpu --format json`` on the same tree, DB and working directory;
-``sbom``'s equal those of ``python -m trivy_tpu.cli sbom --format json``.
+the secret and license analyzers as their scanners ask. ``image`` walks each
+layer of a docker-save or OCI-layout archive that its layer cache lacks the
+same way (``artifact/image.py``), every package analyzer included. Every
+application's packages then meet the advisory DB of ``--db-repository``
+(or ``<cache-dir>/db``) in one resident CVE join. The JSON ``Results`` and
+``Metadata`` equal those of ``python -m trivy_tpu.cli <command> --scanners
+<same> --backend cpu --format json`` on the same target, DB and working
+directory; ``sbom``'s equal those of ``python -m trivy_tpu.cli sbom
+--format json``. An image target that is not a path on disk exits with
+code 2: registry and daemon sources are not ported.
 """
 
 from __future__ import annotations
@@ -49,31 +58,24 @@ from trivy_tpu_torch import log
 from trivy_tpu_torch.cache import BACKENDS, new_cache
 from trivy_tpu_torch.db import load_default_db
 from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve
-from trivy_tpu_torch.fanal.analyzer import (
-    OS_IDENTITY,
-    AnalysisResult,
-    AnalyzerGroup,
-    AnalyzerOptions,
-)
 from trivy_tpu_torch.fanal.handler import HandlerManager
-from trivy_tpu_torch.fanal.license import LicenseAnalyzer
-from trivy_tpu_torch.fanal.secret import SecretAnalyzer
+from trivy_tpu_torch.fanal.scan import SCANNERS, ScanAnalyzers, analyze_files, check_scanners
 from trivy_tpu_torch.fanal.walker import FSWalker, WalkOption
 from trivy_tpu_torch.flag import Flag, FlagGroup, load_config_file, resolve_all
-from trivy_tpu_torch.licensing.fused import FusedLicenseGate
 from trivy_tpu_torch.report import WRITERS
 from trivy_tpu_torch.result import FilterOptions, IgnorePolicy, PolicyError, filter_report
 from trivy_tpu_torch.sbom import detect_format
 from trivy_tpu_torch.sbom.decode import decode
 from trivy_tpu_torch.scanner import ScanOptions, build_report
 from trivy_tpu_torch.scanner.local_driver import LocalDriver
-from trivy_tpu_torch.types import Report
+from trivy_tpu_torch.types import BlobInfo, Report
 
 logger = log.logger("cli")
 
-SCANNERS = ("vuln", "secret", "license")
 SEVERITIES = ["UNKNOWN", "LOW", "MEDIUM", "HIGH", "CRITICAL"]
 # the CVE join's counters in a scan's counters (the JAX package's names)
+# the walk's counters in a scan's counters (fanal/scan.py analyze_files)
+FILE_COUNTERS = ("files_walked", "files_scanned", "files_skipped")
 CVE_COUNTERS = ("cve.bounds_bytes_uploaded", "cve.resident_rows", "cve.dispatch_count",
                 "cve.candidate_pairs", "cve.join.seconds", "cve.dispatch.seconds")
 
@@ -88,20 +90,39 @@ def load_db(db_repository: str | None = None, cache_dir: str | None = None):
     return db
 
 
-def _components(blob) -> int:
-    return (sum(len(pi.packages) for pi in blob.package_infos)
-            + sum(len(a.packages) for a in blob.applications))
+def _components(blobs) -> int:
+    return sum(sum(len(pi.packages) for pi in b.package_infos)
+               + sum(len(a.packages) for a in b.applications) for b in blobs)
 
 
-def _detect(blob, target: str, artifact_type: str, scanners, db, dev, list_all_pkgs: bool,
-            stats: Counter) -> Report:
-    """The report of one analyzed blob: detection, the result sections in
-    the reference's order and the metadata."""
+def _detect(blobs, target: str, artifact_type: str, scanners, db, dev, list_all_pkgs: bool,
+            stats: Counter, image_metadata: dict | None = None,
+            skipped_files: int = 0) -> Report:
+    """The report of the analyzed blobs, in layer order: detection, the
+    result sections in the reference's order and the metadata."""
     t0 = time.perf_counter()
     results, os_info = LocalDriver(db, dev, stats).scan(
-        target, [blob], ScanOptions(scanners=list(scanners), list_all_pkgs=list_all_pkgs))
+        target, blobs, ScanOptions(scanners=list(scanners), list_all_pkgs=list_all_pkgs))
     stats["detect.seconds"] += time.perf_counter() - t0
-    return build_report(target, artifact_type, results, os_info)
+    return build_report(target, artifact_type, results, os_info, image_metadata, skipped_files)
+
+
+def _load_db_for(scanners, db, db_repository, cache_dir, stats: Counter):
+    """``db``, else with ``vuln`` the DB :func:`load_db` finds (its seconds
+    in ``db_load_seconds``)."""
+    if "vuln" in scanners and db is None:
+        t0 = time.perf_counter()
+        db = load_db(db_repository, cache_dir)
+        stats["db_load_seconds"] = time.perf_counter() - t0
+    return db
+
+
+def _finish_stats(stats: Counter, analyzers: ScanAnalyzers, scanners, t0: float) -> dict:
+    stats["seconds"] = time.perf_counter() - t0
+    stats.update(analyzers.stats())
+    if "vuln" in scanners:
+        stats = Counter({**dict.fromkeys(CVE_COUNTERS, 0), **stats})
+    return dict(stats)
 
 
 def scan_fs(root: str, config_path: str | None = None, device=DEFAULT_DEVICE,
@@ -113,86 +134,91 @@ def scan_fs(root: str, config_path: str | None = None, device=DEFAULT_DEVICE,
     ``secret``, ``license``). With ``vuln``, packages meet ``db`` when given
     (a loaded DB keeps its resident join across scans), else the DB that
     :func:`load_db` finds. Returns the unfiltered report (the CLI filters
-    it) and the scan's counters: files walked and scanned, components, the
-    seconds of the walk with its analyzers (``analyze.seconds``), of the
-    detection and of the whole scan, the CVE join's (``cve.*``), the secret
-    feed's, the fused gate's file counts, and ``db_load_seconds`` when this
-    call loaded the DB (not part of ``seconds``). ``scanner_opts`` reach the
+    it) and the scan's counters: files walked, scanned and skipped,
+    components, the seconds of the walk with its analyzers
+    (``analyze.seconds``), of the detection and of the whole scan, the CVE
+    join's (``cve.*``), the secret feed's, the fused gate's file counts, and
+    ``db_load_seconds`` when this call loaded the DB (not part of
+    ``seconds``). ``scanner_opts`` reach the
     :class:`~trivy_tpu_torch.secret.scanner.TorchSecretScanner`."""
-    unknown = set(scanners) - set(SCANNERS)
-    if unknown or not scanners:
-        raise ValueError(f"unsupported scanners {sorted(unknown) or scanners!r}: "
-                         f"use {', '.join(SCANNERS)}")
+    check_scanners(scanners)
     dev = resolve(device)
-    stats: Counter = Counter()
-    if "vuln" in scanners and db is None:
-        t0 = time.perf_counter()
-        db = load_db(db_repository, cache_dir)
-        stats["db_load_seconds"] = time.perf_counter() - t0
+    stats = Counter(dict.fromkeys(FILE_COUNTERS, 0))
+    db = _load_db_for(scanners, db, db_repository, cache_dir, stats)
     t0 = time.perf_counter()
-    gate = None
-    if "secret" in scanners and "license" in scanners and shared_arena:
-        gate = FusedLicenseGate(license_full=license_full)
-    batch: list = []
-    secret = None
-    if "secret" in scanners:
-        secret = SecretAnalyzer(root, config_path=config_path, device=dev,
-                                license_gate=gate, **scanner_opts)
-        batch.append(secret)
-    if "license" in scanners:
-        kinds = ("license-file", "header") if license_full else ("license-file",)
-        batch += [LicenseAnalyzer(k, dev, gate=gate) for k in kinds]
-    # the package analyzers run only when the report can show packages; the
-    # OS identity ones always (Metadata.OS)
-    packages = "vuln" in scanners or "license" in scanners or list_all_pkgs
-    group = AnalyzerGroup(AnalyzerOptions(enabled=None if packages else OS_IDENTITY,
-                                          extra={"java_db_path": java_db}))
-    result = AnalysisResult()
+    analyzers = ScanAnalyzers(scanners, dev, license_full=license_full,
+                              shared_arena=shared_arena, config_path=config_path,
+                              java_db=java_db, list_all_pkgs=list_all_pkgs, **scanner_opts)
+    secret, licenses = analyzers.batch(root)
     walker = FSWalker(WalkOption(skip_files=list(skip_files), skip_dirs=list(skip_dirs)))
-    walked = scanned = 0
-    try:
-        for rel, info, opener in walker.walk(root):
-            walked += 1
-            takers = group.required(rel, info)
-            batch_takers = [a for a in batch if a.required(rel, info.size)]
-            if not takers and not batch_takers:
-                continue
-            try:
-                content = opener()
-            except OSError as e:
-                # the file vanished or turned unreadable after the walk
-                logger.debug("skipping unreadable %s: %s", rel, e)
-                continue
-            scanned += 1
-            group.analyze_file(result, takers, root, rel, info, content)
-            for a in batch_takers:
-                if a is secret:
-                    a.collect(rel, content, dir_=root)
-                else:
-                    a.collect(rel, content)
-        # the secret finalize first: the fused gate is complete only then
-        if secret is not None:
-            result.secrets = secret.finalize()
-        result.licenses = [lf for a in batch if a is not secret for lf in a.finalize()]
-    except BaseException:
-        if secret is not None:
-            secret.abort()
-        raise
+    result = analyze_files(walker.walk(root), root, analyzers.group, secret, licenses, stats)
     blob = result.to_blob_info()
     HandlerManager().post_handle(result, blob)
     stats["analyze.seconds"] = time.perf_counter() - t0
+    # walk and stat failures count as the JAX package's walker counts them
+    stats["files_skipped"] += walker.skipped
     name = root if root == os.path.sep else root.rstrip(os.path.sep)
-    report = _detect(blob, name, "filesystem", scanners, db, dev, list_all_pkgs, stats)
-    stats.update({"files_walked": walked, "files_scanned": scanned,
-                  "components": _components(blob), "seconds": time.perf_counter() - t0})
-    if secret is not None:
-        stats.update(secret.scanner.stats.snapshot())
-    if gate is not None:
-        stats.update(files_covered=gate.files_covered, files_flagged=gate.files_flagged,
-                     files_patched=gate.files_patched)
-    if "vuln" in scanners:
-        stats = Counter({**dict.fromkeys(CVE_COUNTERS, 0), **stats})
-    return report, dict(stats)
+    report = _detect([blob], name, "filesystem", scanners, db, dev, list_all_pkgs, stats,
+                     skipped_files=stats["files_skipped"])
+    stats["components"] = _components([blob])
+    return report, _finish_stats(stats, analyzers, scanners, t0)
+
+
+class ImageSourceError(ValueError):
+    """The image target is not an archive on disk: registry and daemon
+    sources are not ported."""
+
+
+def scan_image(path: str, config_path: str | None = None, device=DEFAULT_DEVICE,
+               skip_dirs=(), skip_files=(), scanners=("secret",), license_full: bool = False,
+               shared_arena: bool = True, db=None, db_repository: str | None = None,
+               cache_dir: str | None = None, cache=None, cache_backend: str | None = None,
+               java_db: str | None = None, list_all_pkgs: bool = False, parallel: int = 0,
+               **scanner_opts) -> tuple[Report, dict]:
+    """Scan the image archive at ``path`` (a docker-save tar, or an OCI
+    layout as a directory or a tar) layer by layer with ``scanners``, as
+    :func:`scan_fs` scans a tree. Layer blobs are kept in ``cache``, else in
+    the ``cache_backend`` cache (``fs`` by default, under ``cache_dir``), so
+    a second scan walks no layer it has seen; ``parallel`` layers (0: 5)
+    are analyzed at once over one secret scanner. Returns the unfiltered
+    report and the counters of :func:`scan_fs` (files and components over
+    the layers analyzed and the image's blobs) with ``layers``,
+    ``layers_analyzed``, ``layers_cached`` and ``layer_bytes``, the stored
+    bytes of the layers analyzed. Raises :class:`ImageSourceError` when
+    ``path`` does not exist."""
+    from trivy_tpu_torch.artifact.image import ImageArchiveArtifact
+
+    check_scanners(scanners)
+    if not os.path.exists(path):
+        raise ImageSourceError(
+            f"image archive not found: {path} (trivy_tpu_torch scans docker-save and OCI "
+            "layout archives; registry and daemon sources are not ported)")
+    dev = resolve(device)
+    stats = Counter(dict.fromkeys(FILE_COUNTERS, 0))
+    db = _load_db_for(scanners, db, db_repository, cache_dir, stats)
+    t0 = time.perf_counter()
+    # every layer runs the package analyzers, whatever the scanners, as in
+    # the JAX package: a layer's blob then serves any later scan of it
+    analyzers = ScanAnalyzers(scanners, dev, license_full=license_full,
+                              shared_arena=shared_arena, config_path=config_path,
+                              java_db=java_db, packages=True, **scanner_opts)
+    if cache is None:
+        cache = new_cache(cache_backend or "fs", cache_dir)
+    artifact = ImageArchiveArtifact(path, cache, analyzers, skip_files=skip_files,
+                                    skip_dirs=skip_dirs, parallel=parallel)
+    ref = artifact.inspect()
+    blobs = []
+    for bid in ref.blob_ids:
+        d = cache.get_blob(bid)
+        if d is None:
+            raise KeyError(f"blob missing from cache: {bid}")
+        blobs.append(BlobInfo.from_dict(d))
+    stats.update(artifact.stats)
+    stats["analyze.seconds"] = time.perf_counter() - t0
+    report = _detect(blobs, ref.name, ref.type, scanners, db, dev, list_all_pkgs, stats,
+                     image_metadata=ref.image_metadata, skipped_files=stats["files_skipped"])
+    stats["components"] = _components(blobs)
+    return report, _finish_stats(stats, analyzers, scanners, t0)
 
 
 def scan_sbom(path: str, db=None, device=DEFAULT_DEVICE, db_repository: str | None = None,
@@ -216,9 +242,9 @@ def scan_sbom(path: str, db=None, device=DEFAULT_DEVICE, db_repository: str | No
     fmt = detect_format(data)
     blob = decode(data)
     stats["decode.seconds"] = time.perf_counter() - t0
-    report = _detect(blob, path, "spdx" if fmt.startswith("spdx") else "cyclonedx", ("vuln",),
-                     db, dev, list_all_pkgs, stats)
-    stats.update({"components": _components(blob), "seconds": time.perf_counter() - t0})
+    report = _detect([blob], path, "spdx" if fmt.startswith("spdx") else "cyclonedx",
+                     ("vuln",), db, dev, list_all_pkgs, stats)
+    stats.update({"components": _components([blob]), "seconds": time.perf_counter() - t0})
     return report, {**dict.fromkeys(CVE_COUNTERS, 0), **stats}
 
 
@@ -261,10 +287,11 @@ def report_flags() -> FlagGroup:
              help="ignore file path"),
         Flag("ignore-policy", default=None, config_name="ignore-policy",
              help="suppress findings with a Python predicate file "
-                  "(ignore_vulnerability/ignore_secret/... or ignore()); "
-                  "rego policies are refused"),
+                  "(ignore_vulnerability/ignore_secret/... or ignore()) or a "
+                  "rego policy (package trivy; ignore)"),
         Flag("vex", default=[], is_list=True, config_name="vex",
-             help="VEX document paths (refused: not supported by this port yet)"),
+             help="VEX document paths (OpenVEX / CycloneDX VEX / CSAF), or "
+                  "'repo' for the VEX repositories under <cache-dir>/vex"),
         Flag("show-suppressed", default=False, value_type=bool,
              config_name="show-suppressed", help="list policy-suppressed findings"),
         Flag("list-all-pkgs", default=False, value_type=bool,
@@ -322,14 +349,28 @@ def db_flags() -> FlagGroup:
     ])
 
 
+def image_flags() -> FlagGroup:
+    return FlagGroup("image", [
+        Flag("parallel", default=0, value_type=int, config_name="scan.parallel",
+             help="layers analyzed at once (0 = 5)"),
+    ])
+
+
+_FS_GROUPS = [global_flags, scan_flags, report_flags, secret_flags, license_flags, db_flags]
 _TARGET_GROUPS = {
-    "fs": [global_flags, scan_flags, report_flags, secret_flags, license_flags, db_flags],
+    "fs": _FS_GROUPS,
+    "rootfs": _FS_GROUPS,
+    "image": [*_FS_GROUPS, image_flags],
     "sbom": [global_flags, report_flags, db_flags],
 }
 _HELP = {
     "fs": "scan a local filesystem for vulnerabilities, secrets and licenses",
+    "rootfs": "scan an exported root filesystem (the fs scan under another name)",
+    "image": "scan a container image archive (docker save tar, OCI layout dir or tar)",
     "sbom": "scan an SBOM (CycloneDX/SPDX) for vulnerabilities",
 }
+_TARGET_HELP = {"fs": "directory to scan", "rootfs": "root filesystem directory",
+                "sbom": "SBOM file"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -347,8 +388,15 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--stats-out", default="",
                         help="write the scan's counters (files, components, seconds, the "
                              "CVE join's rows, dispatches and bound bytes uploaded, the "
-                             "secret feed's rows, dedup and wire bytes) as JSON")
-        sp.add_argument("target", help="directory to scan" if cmd == "fs" else "SBOM file")
+                             "secret feed's rows, dedup and wire bytes; for an image its "
+                             "layers analyzed and cached) as JSON")
+        if cmd == "image":
+            # ref: trivy image --input for archives; positional for names
+            sp.add_argument("--input", default=None,
+                            help="image archive (docker save tar / OCI layout)")
+            sp.add_argument("target", nargs="?", default=None, help="image archive path")
+        else:
+            sp.add_argument("target", help=_TARGET_HELP[cmd])
     p.set_defaults(_groups_by_cmd=groups_by_cmd)
     return p
 
@@ -363,25 +411,32 @@ def main(argv: list[str] | None = None) -> int:
         parser.error(str(e))
     log.init(quiet=opts["quiet"])
     try:
-        # refuse what the filter cannot apply before paying for a scan
-        if opts["vex"]:
-            raise PolicyError("--vex is not supported by trivy_tpu_torch yet")
+        # validate the ignore policy up front: a broken policy file must not
+        # cost the user a full scan before failing
         if opts["ignore_policy"]:
             IgnorePolicy(opts["ignore_policy"])
-    except PolicyError as e:
+        if args.command == "sbom":
+            report, counters = scan_sbom(args.target, device=args.device,
+                                         db_repository=opts["db_repository"],
+                                         cache_dir=opts["cache_dir"],
+                                         list_all_pkgs=opts["list_all_pkgs"])
+        elif args.command == "image":
+            target = args.input or args.target
+            if not target:
+                logger.error("specify an image archive path (positional or --input)")
+                return 1
+            report, counters = _run_scan(scan_image, target, args, opts,
+                                         cache_backend=opts["cache_backend"],
+                                         parallel=max(0, opts["parallel"]))
+        else:
+            report, counters = _run_scan(scan_fs, args.target, args, opts)
+        if args.stats_out:
+            with open(args.stats_out, "w", encoding="utf-8") as f:
+                json.dump(counters, f, indent=2)
+        return _emit(report, opts)
+    except (PolicyError, ImageSourceError) as e:
         logger.error("%s", e)
         return 2
-    if args.command == "sbom":
-        report, counters = scan_sbom(args.target, device=args.device,
-                                     db_repository=opts["db_repository"],
-                                     cache_dir=opts["cache_dir"],
-                                     list_all_pkgs=opts["list_all_pkgs"])
-    else:
-        report, counters = _run_fs(args, opts)
-    if args.stats_out:
-        with open(args.stats_out, "w", encoding="utf-8") as f:
-            json.dump(counters, f, indent=2)
-    return _emit(report, opts)
 
 
 def _emit(report: Report, opts: dict) -> int:
@@ -390,7 +445,7 @@ def _emit(report: Report, opts: dict) -> int:
     filter_report(report, FilterOptions(
         severities=opts["severity"], ignore_file=opts["ignorefile"],
         vex_sources=opts["vex"], policy_file=opts["ignore_policy"],
-        show_suppressed=opts["show_suppressed"]))
+        show_suppressed=opts["show_suppressed"], cache_dir=opts["cache_dir"] or ""))
     write = WRITERS[opts["format"]]
     if opts["output"]:
         with open(opts["output"], "w", encoding="utf-8") as f:
@@ -402,10 +457,12 @@ def _emit(report: Report, opts: dict) -> int:
     return 0
 
 
-def _run_fs(args, opts: dict) -> tuple[Report, dict]:
+def _run_scan(scan, target: str, args, opts: dict, **extra) -> tuple[Report, dict]:
+    """``scan`` (:func:`scan_fs` or :func:`scan_image`) of ``target`` with
+    the resolved flags."""
     config = opts["secret_config"] if os.path.exists(opts["secret_config"]) else None
-    return scan_fs(
-        args.target, config_path=config, device=args.device,
+    return scan(
+        target, config_path=config, device=args.device,
         skip_dirs=opts["skip_dirs"], skip_files=opts["skip_files"], scanners=opts["scanners"],
         license_full=opts["license_full"], shared_arena=not opts["no_shared_arena"],
         db_repository=opts["db_repository"], cache_dir=opts["cache_dir"],
@@ -417,6 +474,7 @@ def _run_fs(args, opts: dict) -> tuple[Report, dict]:
         # --no-secret-compress is the loud opt-out shorthand
         compress="off" if opts["no_secret_compress"] else (opts["secret_compress"] or ""),
         compress_min_ratio=opts["secret_compress_min_ratio"] or 0.0,
+        **extra,
     )
 
 

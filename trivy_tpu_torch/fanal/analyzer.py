@@ -217,6 +217,11 @@ class AnalyzerGroup:
             if opts.enabled is None or t in opts.enabled
         ]
 
+    def versions(self) -> dict[str, int]:
+        """type -> version map, part of every layer's cache key (ref:
+        pkg/fanal/artifact/local/fs.go:183)."""
+        return dict(sorted((a.type.value, a.version) for a in self.analyzers))
+
     def required(self, file_path: str, info: FileInfo) -> list[Analyzer]:
         return [a for a in self.analyzers if a.required(file_path, info)]
 

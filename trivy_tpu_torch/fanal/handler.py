@@ -53,6 +53,9 @@ class HandlerManager:
     def __init__(self):
         self.handlers = sorted((h() for h in _handlers), key=lambda h: -h.priority)
 
+    def versions(self) -> dict[str, int]:
+        return {h.name: h.version for h in self.handlers}
+
     def post_handle(self, result: AnalysisResult, blob: BlobInfo) -> None:
         for h in self.handlers:
             h.handle(result, blob)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import os.path
 
 from trivy_tpu_torch.device import resolve
+from trivy_tpu_torch.fanal.analyzer import AnalyzerType
 from trivy_tpu_torch.types import LicenseFile
 
 # canonical license file stems (ref: licensing/license.go acceptable names)
@@ -55,10 +56,14 @@ class LicenseAnalyzer:
     ``header``): ``required`` -> ``collect`` per walked file, then
     ``finalize`` classifies on ``device``."""
 
+    version = 1  # the JAX package's, part of an image layer's cache key
+
     def __init__(self, kind: str, device, gate=None):
         if kind not in ("license-file", "header"):
             raise ValueError(f"unknown license analyzer {kind!r}")
         self.kind = kind
+        self.type = AnalyzerType.LICENSE_FILE if kind == "license-file" else \
+            AnalyzerType.LICENSE_HEADER
         self.device = resolve(device)
         self.gate = gate  # FusedLicenseGate of a fused scan, or None
         self._files: list[tuple[str, str]] = []  # (path, text)

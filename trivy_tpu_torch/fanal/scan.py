@@ -1,0 +1,160 @@
+"""The analyzers of one scan and the one walk loop that feeds them, for a
+directory tree (``fs``, ``rootfs``) and for every layer of an image.
+
+:class:`ScanAnalyzers` holds what one scan shares: the per-file analyzer
+group, the one :class:`~trivy_tpu_torch.secret.scanner.TorchSecretScanner`
+(its kernels and tables are built once per scan, however many layers it
+reads) and the fused license gate. :meth:`ScanAnalyzers.batch` gives a tree
+or a layer its own batched analyzers over them; each streams through its
+own ``scan_files`` call, so layers may run at once.
+:func:`analyze_files` walks one tree or layer through them (ref:
+pkg/fanal/artifact/local/fs.go and image/image.go, which share
+``AnalyzerGroup.AnalyzeFile``).
+"""
+
+from __future__ import annotations
+
+import os.path
+from collections import Counter
+from collections.abc import Callable, Iterable
+
+from trivy_tpu_torch import log
+from trivy_tpu_torch.device import resolve
+from trivy_tpu_torch.fanal.analyzer import (
+    OS_IDENTITY,
+    AnalysisResult,
+    AnalyzerGroup,
+    AnalyzerOptions,
+)
+from trivy_tpu_torch.fanal.license import LicenseAnalyzer
+from trivy_tpu_torch.fanal.secret import SecretAnalyzer
+from trivy_tpu_torch.fanal.walker import FileInfo
+
+logger = log.logger("analyze")
+
+SCANNERS = ("vuln", "secret", "license")
+
+
+def check_scanners(scanners) -> None:
+    unknown = set(scanners) - set(SCANNERS)
+    if unknown or not scanners:
+        raise ValueError(f"unsupported scanners {sorted(unknown) or scanners!r}: "
+                         f"use {', '.join(SCANNERS)}")
+
+
+class ScanAnalyzers:
+    """The analyzers of one scan with ``scanners``: the OS identity
+    analyzers always, the package analyzers when ``packages`` is true or,
+    left None, when the report can show packages (``vuln``, ``license`` or
+    ``list_all_pkgs``), the secret and license analyzers as their scanners
+    ask (source headers only with ``license_full``). With both scanners and
+    ``shared_arena`` the license analyzers ride the secret feed's rows
+    through one :class:`~trivy_tpu_torch.licensing.fused.FusedLicenseGate`.
+    ``scanner_opts`` reach the secret scanner."""
+
+    def __init__(self, scanners, device, license_full: bool = False,
+                 shared_arena: bool = True, config_path: str | None = None,
+                 java_db: str | None = None, list_all_pkgs: bool = False,
+                 packages: bool | None = None, **scanner_opts):
+        from trivy_tpu_torch.licensing.fused import FusedLicenseGate
+        from trivy_tpu_torch.secret.engine import ScannerConfig
+        from trivy_tpu_torch.secret.scanner import TorchSecretScanner
+
+        check_scanners(scanners)
+        self.device = resolve(device)
+        self.config_path = config_path
+        self.license_kinds = ()
+        if "license" in scanners:
+            self.license_kinds = ("license-file", "header") if license_full else ("license-file",)
+        self.gate = None
+        if "secret" in scanners and "license" in scanners and shared_arena:
+            self.gate = FusedLicenseGate(license_full=license_full)
+        self.scanner = None
+        if "secret" in scanners:
+            cfg = None
+            if config_path and os.path.exists(config_path):
+                cfg = ScannerConfig.from_yaml_file(config_path)
+            self.scanner = TorchSecretScanner(cfg, device=self.device, **scanner_opts)
+        if packages is None:
+            packages = "vuln" in scanners or "license" in scanners or list_all_pkgs
+        self.group = AnalyzerGroup(AnalyzerOptions(enabled=None if packages else OS_IDENTITY,
+                                                   extra={"java_db_path": java_db}))
+
+    def batch(self, root: str, skip_secret: bool = False
+              ) -> tuple[SecretAnalyzer | None, list[LicenseAnalyzer]]:
+        """Fresh batched analyzers for the tree or layer at ``root`` (``""``
+        for a layer). ``skip_secret`` leaves the secret analyzer out (an
+        image's base layers); the license analyzers then classify every
+        file, as no feed covers any."""
+        secret = None
+        if self.scanner is not None and not skip_secret:
+            secret = SecretAnalyzer(root, config_path=self.config_path, scanner=self.scanner,
+                                    license_gate=self.gate)
+        gate = self.gate if secret is not None else None
+        return secret, [LicenseAnalyzer(k, self.device, gate=gate) for k in self.license_kinds]
+
+    def versions(self) -> dict[str, int]:
+        """type -> version of every analyzer this scan runs on a layer that
+        is not a base layer, the batched ones included (the JAX package's
+        ``AnalyzerGroup.versions``)."""
+        out = self.group.versions()
+        if self.scanner is not None:
+            out[SecretAnalyzer.type.value] = SecretAnalyzer.version
+        for a in self.batch("", skip_secret=True)[1]:
+            out[a.type.value] = a.version
+        return dict(sorted(out.items()))
+
+    def stats(self) -> dict:
+        """The secret feed's counters and the fused gate's file counts, over
+        every tree or layer this scan fed."""
+        out = {}
+        if self.scanner is not None:
+            out.update(self.scanner.stats.snapshot())
+        if self.gate is not None:
+            out.update(files_covered=self.gate.files_covered,
+                       files_flagged=self.gate.files_flagged,
+                       files_patched=self.gate.files_patched)
+        return out
+
+
+def analyze_files(entries: Iterable[tuple[str, FileInfo, Callable[[], bytes]]], root: str,
+                  group: AnalyzerGroup, secret: SecretAnalyzer | None,
+                  licenses: list[LicenseAnalyzer], counts: Counter) -> AnalysisResult:
+    """Walk ``entries`` (``(rel, info, opener)`` of a tree under ``root`` or
+    of a layer, ``root`` ``""``) through ``group`` and the batched analyzers,
+    then finalize them: the secret analyzer first, as the fused gate is
+    complete only then. ``counts`` gains ``files_walked``,
+    ``files_scanned`` and ``files_skipped``, the files an analyzer wanted
+    that could not be read (ref: the JAX package's ``note_file_skipped``,
+    the report's ``SkippedFiles``)."""
+    result = AnalysisResult()
+    batch = ([secret] if secret is not None else []) + licenses
+    try:
+        for rel, info, opener in entries:
+            counts["files_walked"] += 1
+            takers = group.required(rel, info)
+            batch_takers = [a for a in batch if a.required(rel, info.size)]
+            if not takers and not batch_takers:
+                continue
+            try:
+                content = opener()
+            except OSError as e:
+                # the file vanished or turned unreadable after the walk
+                logger.warning("skipping %s: unreadable (%s)", rel, e)
+                counts["files_skipped"] += 1
+                continue
+            counts["files_scanned"] += 1
+            group.analyze_file(result, takers, root, rel, info, content)
+            for a in batch_takers:
+                if a is secret:
+                    a.collect(rel, content, dir_=root)
+                else:
+                    a.collect(rel, content)
+        if secret is not None:
+            result.secrets = secret.finalize()
+        result.licenses = [lf for a in licenses for lf in a.finalize()]
+    except BaseException:
+        if secret is not None:
+            secret.abort()
+        raise
+    return result

@@ -27,6 +27,7 @@ import os.path
 import threading
 
 from trivy_tpu_torch import log
+from trivy_tpu_torch.fanal.analyzer import AnalyzerType
 from trivy_tpu_torch.fanal.utils import extract_printable_bytes, is_binary
 from trivy_tpu_torch.secret.engine import ScannerConfig
 from trivy_tpu_torch.secret.feed import FileStream
@@ -66,9 +67,14 @@ class SecretAnalyzer:
     files with findings. ``abort`` ends the background scan early.
     ``scanner_opts`` (``dedup``, ``hit_cache``, ``hit_cache_bytes``,
     ``compress``, ``compress_min_ratio``) reach the
-    :class:`TorchSecretScanner` it builds. ``license_gate`` is the fused
-    scan's :class:`~trivy_tpu_torch.licensing.fused.FusedLicenseGate`.
+    :class:`TorchSecretScanner` it builds; ``scanner`` is one built
+    already, which several analyzers may share (an image's layers, each
+    streaming through its own ``scan_files`` call). ``license_gate`` is the
+    fused scan's :class:`~trivy_tpu_torch.licensing.fused.FusedLicenseGate`.
     """
+
+    type = AnalyzerType.SECRET
+    version = 1  # the JAX package's, part of an image layer's cache key
 
     def __init__(self, root: str, config_path: str | None = None,
                  device="cuda", scanner: TorchSecretScanner | None = None,
@@ -83,7 +89,7 @@ class SecretAnalyzer:
             rel = os.path.relpath(os.path.abspath(config_path), os.path.abspath(root))
             if not rel.startswith(".."):
                 self._config_rel_path = os.path.normpath(rel)
-            if os.path.exists(config_path):
+            if scanner is None and os.path.exists(config_path):
                 cfg = ScannerConfig.from_yaml_file(config_path)
         self.scanner = scanner or TorchSecretScanner(cfg, device=device, **scanner_opts)
         self._stream: FileStream | None = None

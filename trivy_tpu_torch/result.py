@@ -1,11 +1,10 @@
 """Result filtering (ref: pkg/result/filter.go), the port of
 ``trivy_tpu/result.py``.
 
-Severity filter, ``.trivyignore`` / YAML ignore files with expiry, Python
-ignore-policy files, and deterministic dedup+sort — applied after scanning,
-before reporting (ref: filter.go:37-120). Rego ignore policies and VEX
-documents are not ported yet: both are refused with a :class:`PolicyError`,
-never ignored.
+Severity filter, VEX documents (``vex.py``), ``.trivyignore`` / YAML
+ignore files with expiry, Python or Rego ignore-policy files (``rego.py``),
+and deterministic dedup+sort — applied after scanning, before reporting
+(ref: filter.go:37-120).
 """
 
 from __future__ import annotations
@@ -108,6 +107,7 @@ class FilterOptions:
     vex_sources: list[str] = field(default_factory=list)
     policy_file: str | None = None  # --ignore-policy
     show_suppressed: bool = False  # keep suppressed-only results in output
+    cache_dir: str = ""  # VEX repositories live under <cache>/vex/
 
 
 class PolicyError(ValueError):
@@ -115,9 +115,10 @@ class PolicyError(ValueError):
 
 
 class IgnorePolicy:
-    """``--ignore-policy`` predicate file (ref: pkg/result/filter.go:37-120
-    applyPolicy; the reference evaluates ``package trivy; ignore`` OPA rules
-    over each finding, which this port refuses for now).
+    """``--ignore-policy`` predicate file — the rego ignore-policy stand-in
+    (ref: pkg/result/filter.go:37-120 applyPolicy; the reference evaluates
+    ``package trivy; ignore`` OPA rules over each finding). A ``.rego`` file
+    runs through the rego-subset interpreter of ``rego.py``.
 
     The policy is a Python file defining any of::
 
@@ -137,10 +138,28 @@ class IgnorePolicy:
     def __init__(self, path: str):
         self.path = path
         if path.endswith(".rego"):
-            raise PolicyError(
-                f"ignore policy {path}: rego policies are not supported by "
-                "trivy_tpu_torch yet; use a Python predicate file (.py)"
-            )
+            # the reference's native policy format runs unmodified through
+            # the rego-subset interpreter: query data.trivy.ignore over each
+            # finding, exactly pkg/result/filter.go applyPolicy
+            from trivy_tpu_torch import rego
+
+            try:
+                with open(path, encoding="utf-8") as f:
+                    self._rego_mod = rego.parse_module(f.read())
+            except (OSError, rego.RegoError) as e:
+                raise PolicyError(
+                    f"ignore policy {path} failed to load: {e}"
+                ) from e
+            names = self._rego_mod.rule_names()
+            if "ignore" not in names:
+                raise PolicyError(
+                    f"ignore policy {path} defines no 'ignore' rule "
+                    f"(rules found: {', '.join(names) or 'none'})"
+                )
+            self._fns = dict.fromkeys(self._KINDS)
+            self._generic = None
+            return
+        self._rego_mod = None
         ns: dict = {"__file__": path, "__name__": "trivy_ignore_policy"}
         try:
             with open(path, encoding="utf-8") as f:
@@ -156,9 +175,20 @@ class IgnorePolicy:
             )
 
     def has_predicate(self, kind: str) -> bool:
+        if self._rego_mod is not None:
+            return True  # rego policies see every finding kind
         return self._fns.get(kind) is not None or self._generic is not None
 
     def ignores(self, kind: str, finding_dict: dict) -> bool:
+        if self._rego_mod is not None:
+            from trivy_tpu_torch import rego
+
+            try:
+                return bool(self._rego_mod.eval_rule("ignore", finding_dict))
+            except rego.RegoError as e:
+                raise PolicyError(
+                    f"ignore policy {self.path}: {e}"
+                ) from e
         fn = self._fns.get(kind)
         try:
             if fn is not None:
@@ -173,7 +203,9 @@ class IgnorePolicy:
 def filter_report(report: Report, options: FilterOptions) -> Report:
     """In-place severity/ignore filtering + dedup (ref: filter.go:37)."""
     if options.vex_sources:
-        raise PolicyError("--vex is not supported by trivy_tpu_torch yet")
+        from trivy_tpu_torch import vex
+
+        vex.filter_report(report, options.vex_sources, options.cache_dir)
     ignores = IgnoreConfig.load(options.ignore_file)
     policy = IgnorePolicy(options.policy_file) if options.policy_file else None
     sevs = set(options.severities)

@@ -18,13 +18,22 @@ class ScanOptions:
 
 
 def build_report(name: str, artifact_type: str, results: list[Result],
-                 os_info: OS | None) -> Report:
+                 os_info: OS | None, image_metadata: dict | None = None,
+                 skipped_files: int = 0) -> Report:
     """The report of one artifact: its non-empty results and the metadata
-    of ``Scanner.scan_artifact`` for an artifact with no image, with the OS
-    when the analyzers found one (ref: scan.go:164-204)."""
-    metadata = {"ImageID": "", "DiffIDs": []}
+    of ``Scanner.scan_artifact`` (ref: scan.go:164-204): the image's ID,
+    diff IDs and config when ``image_metadata`` holds them (an image's
+    ``ArtifactReference.image_metadata``), the OS when the analyzers found
+    one, and ``SkippedFiles`` when files an analyzer wanted could not be
+    read."""
+    image = image_metadata or {}
+    metadata = {"ImageID": image.get("id", ""), "DiffIDs": image.get("diff_ids", [])}
     if os_info is not None:
         metadata["OS"] = os_info.to_dict()
+    if image.get("config"):
+        metadata["ImageConfig"] = image["config"]
+    if skipped_files > 0:
+        metadata["SkippedFiles"] = skipped_files
     return Report(
         created_at=datetime.datetime.now(datetime.timezone.utc).isoformat(),
         artifact_name=name,

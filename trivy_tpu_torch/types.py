@@ -67,6 +67,10 @@ class Line:
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)
 
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "Line":
+        return cls(**d)
+
 
 @dataclass
 class Code:
@@ -74,6 +78,10 @@ class Code:
 
     def to_dict(self) -> dict[str, Any]:
         return {"lines": [l.to_dict() for l in self.lines]}
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "Code":
+        return cls(lines=[Line.from_dict(x) for x in d.get("lines", [])])
 
 
 @dataclass
@@ -104,6 +112,20 @@ class SecretFinding:
             "Layer": self.layer,
         }
 
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "SecretFinding":
+        return cls(
+            rule_id=d["RuleID"],
+            category=d.get("Category", ""),
+            severity=d.get("Severity", "UNKNOWN"),
+            title=d.get("Title", ""),
+            start_line=d.get("StartLine", 0),
+            end_line=d.get("EndLine", 0),
+            match=d.get("Match", ""),
+            code=Code.from_dict(d.get("Code", {})),
+            layer=d.get("Layer", ""),
+        )
+
 
 @dataclass
 class Secret:
@@ -117,6 +139,13 @@ class Secret:
             "FilePath": self.file_path,
             "Findings": [f.to_dict() for f in self.findings],
         }
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "Secret":
+        return cls(
+            file_path=d["FilePath"],
+            findings=[SecretFinding.from_dict(x) for x in d.get("Findings", [])],
+        )
 
 
 @dataclass
@@ -138,6 +167,16 @@ class LicenseFinding:
             "Severity": self.severity,
         }
 
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "LicenseFinding":
+        return cls(
+            name=d.get("Name", ""),
+            confidence=d.get("Confidence", 1.0),
+            link=d.get("Link", ""),
+            category=d.get("Category", ""),
+            severity=d.get("Severity", "UNKNOWN"),
+        )
+
 
 @dataclass
 class LicenseFile:
@@ -157,6 +196,16 @@ class LicenseFile:
             "Findings": [f.to_dict() for f in self.findings],
             "Layer": self.layer,
         }
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "LicenseFile":
+        return cls(
+            type=d.get("Type", ""),
+            file_path=d.get("FilePath", ""),
+            pkg_name=d.get("PkgName", ""),
+            findings=[LicenseFinding.from_dict(x) for x in d.get("Findings", [])],
+            layer=d.get("Layer", ""),
+        )
 
 
 @dataclass
@@ -192,6 +241,10 @@ class PkgIdentifier:
 
     def to_dict(self) -> dict[str, Any]:
         return {"PURL": self.purl, "UID": self.uid}
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "PkgIdentifier":
+        return cls(purl=d.get("PURL", ""), uid=d.get("UID", ""))
 
 
 @dataclass
@@ -253,6 +306,33 @@ class Package:
             "Digest": self.digest,
         }
 
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "Package":
+        return cls(
+            id=d.get("ID", ""),
+            name=d.get("Name", ""),
+            version=d.get("Version", ""),
+            release=d.get("Release", ""),
+            epoch=d.get("Epoch", 0),
+            arch=d.get("Arch", ""),
+            src_name=d.get("SrcName", ""),
+            src_version=d.get("SrcVersion", ""),
+            src_release=d.get("SrcRelease", ""),
+            src_epoch=d.get("SrcEpoch", 0),
+            licenses=list(d.get("Licenses", []) or []),
+            file_path=d.get("FilePath", ""),
+            dev=d.get("Dev", False),
+            indirect=d.get("Indirect", False),
+            relationship=d.get("Relationship", ""),
+            depends_on=list(d.get("DependsOn", []) or []),
+            identifier=PkgIdentifier.from_dict(d.get("Identifier", {}) or {}),
+            layer=d.get("Layer", ""),
+            locations=list(d.get("Locations", []) or []),
+            maintainer=d.get("Maintainer", ""),
+            modularitylabel=d.get("Modularitylabel", ""),
+            digest=d.get("Digest", ""),
+        )
+
 
 @dataclass
 class PackageInfo:
@@ -263,6 +343,13 @@ class PackageInfo:
 
     def to_dict(self) -> dict[str, Any]:
         return {"FilePath": self.file_path, "Packages": [p.to_dict() for p in self.packages]}
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "PackageInfo":
+        return cls(
+            file_path=d.get("FilePath", ""),
+            packages=[Package.from_dict(x) for x in d.get("Packages", [])],
+        )
 
 
 @dataclass
@@ -280,6 +367,14 @@ class Application:
             "Packages": [p.to_dict() for p in self.packages],
         }
 
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "Application":
+        return cls(
+            type=d.get("Type", ""),
+            file_path=d.get("FilePath", ""),
+            packages=[Package.from_dict(x) for x in d.get("Packages", [])],
+        )
+
 
 @dataclass
 class OS:
@@ -290,6 +385,15 @@ class OS:
 
     def to_dict(self) -> dict[str, Any]:
         return {"Family": self.family, "Name": self.name, "Eosl": self.eosl, "Extended": self.extended}
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "OS":
+        return cls(
+            family=d.get("Family", ""),
+            name=d.get("Name", ""),
+            eosl=d.get("Eosl", False),
+            extended=d.get("Extended", False),
+        )
 
     def merge(self, other: "OS") -> "OS":
         """Later layers win, but never blank out earlier values (applier semantics)."""
@@ -304,9 +408,11 @@ class OS:
 @dataclass
 class BlobInfo:
     """The analysis result of one blob (ref: pkg/fanal/types BlobInfo): the
-    fields a filesystem scan or an SBOM fills. ``diff_id`` is the layer its
-    findings carry; whiteouts and opaque dirs delete what lower layers put
-    at those paths."""
+    fields a filesystem scan, an image layer or an SBOM fills. ``diff_id``
+    is the layer its findings carry; whiteouts and opaque dirs delete what
+    lower layers put at those paths. An image layer's blob is cached in its
+    ``to_dict`` form, the JAX package's without the misconfiguration and
+    custom-resource lists."""
 
     os: OS | None = None
     repository: dict[str, str] | None = None  # {"Family":..., "Release":...}
@@ -318,8 +424,45 @@ class BlobInfo:
     secrets: list[Secret] = field(default_factory=list)
     licenses: list[LicenseFile] = field(default_factory=list)
     diff_id: str = ""
+    created_by: str = ""
     opaque_dirs: list[str] = field(default_factory=list)
     whiteout_files: list[str] = field(default_factory=list)
+    schema_version: int = SCHEMA_VERSION
+
+    def to_dict(self) -> dict[str, Any]:
+        return {
+            "SchemaVersion": self.schema_version,
+            "OS": self.os.to_dict() if self.os else None,
+            "Repository": self.repository,
+            "BuildInfo": self.build_info,
+            "Digests": dict(self.digests) or None,
+            "PackageInfos": [p.to_dict() for p in self.package_infos],
+            "Applications": [a.to_dict() for a in self.applications],
+            "Secrets": [s.to_dict() for s in self.secrets],
+            "Licenses": [l.to_dict() for l in self.licenses],
+            "DiffID": self.diff_id,
+            "CreatedBy": self.created_by,
+            "OpaqueDirs": list(self.opaque_dirs),
+            "WhiteoutFiles": list(self.whiteout_files),
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "BlobInfo":
+        return cls(
+            schema_version=d.get("SchemaVersion", SCHEMA_VERSION),
+            os=OS.from_dict(d["OS"]) if d.get("OS") else None,
+            repository=d.get("Repository"),
+            build_info=d.get("BuildInfo"),
+            digests=dict(d.get("Digests") or {}),
+            package_infos=[PackageInfo.from_dict(x) for x in d.get("PackageInfos", []) or []],
+            applications=[Application.from_dict(x) for x in d.get("Applications", []) or []],
+            secrets=[Secret.from_dict(x) for x in d.get("Secrets", []) or []],
+            licenses=[LicenseFile.from_dict(x) for x in d.get("Licenses", []) or []],
+            diff_id=d.get("DiffID", ""),
+            created_by=d.get("CreatedBy", ""),
+            opaque_dirs=list(d.get("OpaqueDirs", []) or []),
+            whiteout_files=list(d.get("WhiteoutFiles", []) or []),
+        )
 
 
 @dataclass
