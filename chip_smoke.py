@@ -151,7 +151,25 @@ Phases, each printing JSON lines:
    planted secret and package license reported, one ``verscmp`` launch per
    card scan and no bound bytes uploaded by the second; the kernel must
    equal its plain version on the first scan's captured dispatch.
-10. image: this slice's path. A seeded docker-save archive of about 128
+10. trace: the span layer (``trivy_tpu_torch/obs/``) on the fs-vuln tree
+    before it is deleted, with sixteen license files added (its own
+    licenses are package metadata, which the classifier does not read).
+    ``fs --scanners vuln,secret,license`` through the command line
+    (``cli.main``) on the card three times: plain under
+    ``torch.profiler`` (CUDA activity only), then with ``--trace-out``,
+    ``--metrics-out``, ``--profile-out`` and ``--timeseries-out``, then
+    plain without the profiler (the traced scan's cost is its seconds over
+    this one's). ``Results`` must be equal, each file must parse, the Chrome
+    trace must hold spans of the feeder, the device worker and the confirm
+    pool, the stall verdict must name the secret, license and cve
+    pipelines, and every span ``tests/test_torch_trace_cli.py`` expects (and
+    the CVE join's) must be present. Printed: the seconds of the three
+    scans and of the phase, the stall verdict, the host time by stage, and the card's busy
+    share measured by the profiler (the kernels' summed durations over the
+    plain scan's wall time; a profiler that records no kernel fails the
+    phase) beside the share derived from the scan's launches times each
+    kernel's ``timing`` ms.
+11. image: this slice's path. A seeded docker-save archive of about 128
     MiB of layer bytes (``--image-mib``) in five layers: a debian 12 base
     (the fs-vuln ``var/lib/dpkg/status`` and one planted secret; the
     history marks it as the base image, so its secret must not be
@@ -173,7 +191,7 @@ Phases, each printing JSON lines:
     name in the OS section's target aside). Printed: layer MB/s,
     components/s and the scan's seconds split into walk and analysis
     against detection.
-11. kernels: every ported kernel with its launches on the main path, its
+12. kernels: every ported kernel with its launches on the main path, its
     agreement with the plain version (bitwise, or within ``SCORE_RTOL`` for
     the scorer's ``full_w``) and its times, with its launches in the
     ``image`` phase's first scan (``launches_image``).
@@ -209,6 +227,7 @@ from trivy_tpu_torch.device import card_info
 from trivy_tpu_torch.licensing.classify import LicenseClassifier
 from trivy_tpu_torch.licensing.corpus_texts import FULL_TEXTS
 from trivy_tpu_torch.licensing.fused import get_gate_fn
+from trivy_tpu_torch.obs.stall import ORDER as STALL_ORDER
 from trivy_tpu_torch.ops import _build
 from trivy_tpu_torch.ops.bytes_gate import (
     SHINGLE_BITS, SHINGLE_MIX, SHINGLE_P2, bytes_gate_plain, pack_windows,
@@ -1986,6 +2005,109 @@ def phase_fs_vuln(root: Path, db_dir: Path, seed: int, base: bytes, card: str) -
     return result
 
 
+# the spans tests/test_torch_trace_cli.py expects on its CPU scan, and the
+# CVE join's (its small tree stays below the join's batch threshold)
+TRACE_SPANS = (
+    "secret.feed_wait", "secret.dispatch", "secret.prefilter", "secret.confirm",
+    "secret.assemble", "license.dispatch", "license.device_wait", "license.finalize",
+    "driver.apply_layers", "driver.detect_vulns", "fs.read_wait", "fs.batch_analyze",
+    "walk.next", "cve.join", "cve.dispatch",
+)
+# a span of each thread of the secret feed: feeder, device worker, confirm pool
+TRACE_TRACKS = {"feeder": "secret.assemble", "worker": "secret.feed_wait",
+                "confirm": "secret.confirm"}
+TRACE_EXPORTS = ("trace", "metrics", "profile", "timeseries")
+TRACE_LICENSE_FILES = 16  # license files added to the fs-vuln tree for the trace phase
+
+
+def profiled_kernel_ms(run) -> tuple[object, float, int]:
+    """``run()`` under ``torch.profiler`` with CUDA activity only; returns
+    its result, the summed duration (ms) of the kernels the card ran and
+    their count, read from the profiler's Chrome trace (events of category
+    ``kernel``; copies and fills are not kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    path = REPO / ".chip_tmp" / "profile.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    path.unlink()
+    kernels = [e for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    return out, sum(float(e["dur"]) for e in kernels) / 1e3, len(kernels)
+
+
+def phase_trace(tree: Path, db_dir: Path, kernel_ms: dict, card: str) -> dict:
+    """``fs --scanners vuln,secret,license`` over the fs-vuln tree through
+    the command line, after sixteen license files are added to the tree:
+    plain under ``torch.profiler`` (the card's measured busy share: kernel
+    time over the scan's wall time, beside the share derived from its
+    launches times each kernel's ``timing`` ms), then with ``--trace-out``,
+    ``--metrics-out``, ``--profile-out`` and ``--timeseries-out``, then
+    plain without the profiler (what tracing costs: the traced scan's
+    seconds over this one's). Equal ``Results``, every file parsed, the feed's three threads on the trace's
+    tracks, the stall verdict over the secret, license and CVE pipelines and
+    every expected span are required."""
+    t_phase = time.perf_counter()
+    out = tree.parent / "trace-out"
+    out.mkdir(exist_ok=True)
+    # the tree's licenses are package metadata: license files put the
+    # classifier's device path (eight texts and up) on the traced scan too
+    for name in sorted(FULL_TEXTS)[:TRACE_LICENSE_FILES]:
+        (tree / "licenses" / name).mkdir(parents=True, exist_ok=True)
+        (tree / "licenses" / name / "LICENSE").write_text(FULL_TEXTS[name])
+    head = ["fs", "--scanners", "vuln,secret,license", "--db-repository", str(db_dir),
+            "--format", "json", "--device", "cuda", "-q"]
+
+    def scan(tag: str, *extra: str) -> tuple[int, float, dict]:
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        rc = cli.main([*head, "-o", str(out / f"{tag}.json"), *extra, str(tree)])
+        return rc, time.perf_counter() - t0, dict(LAUNCHES)
+
+    (rc_p, plain_s, launches), busy_ms, n_kernels = profiled_kernel_ms(lambda: scan("plain"))
+    exports = [a for name in TRACE_EXPORTS for a in (f"--{name}-out", str(out / f"{name}.json"))]
+    rc_t, traced_s, _ = scan("traced", *exports)
+    rc_u, untraced_s, _ = scan("untraced")
+    check(rc_p == rc_t == rc_u == 0, f"trace: exit codes {rc_p} {rc_t} {rc_u}")
+    results = [json.loads((out / f"{t}.json").read_text())["Results"]
+               for t in ("plain", "traced", "untraced")]
+    docs = {name: json.loads((out / f"{name}.json").read_text()) for name in TRACE_EXPORTS}
+    metrics = docs["metrics"]
+    spans = {e["name"] for e in docs["trace"]["traceEvents"] if e.get("ph") == "X"}
+    stall = metrics["stall"]
+    derived_ms = sum(n * kernel_ms.get(k, 0.0) for k, n in launches.items())
+    result = {
+        "phase": "trace", "plain_s": plain_s, "traced_s": traced_s,
+        "untraced_s": untraced_s, "tracing_cost": traced_s / untraced_s - 1,
+        "results_equal": results[0] == results[1] == results[2],
+        "stall": [f"{p}: " + " / ".join(f"{b} {pcts[b]}%" for b in STALL_ORDER if b in pcts)
+                  for p, pcts in stall.items()],
+        "host_split_s": {k: round(v["total"], 4) for k, v in sorted(
+            metrics["spans"].items(), key=lambda kv: -kv[1]["total"])},
+        "span_threads": {k: len({e["tid"] for e in docs["trace"]["traceEvents"]
+                                 if e.get("name") == k and e.get("ph") == "X"})
+                         for k in TRACE_TRACKS.values()},
+        "counters": metrics["counters"], "launches": launches,
+        "kernels_profiled": n_kernels, "busy_ms": busy_ms,
+        "busy_share_measured": busy_ms / (plain_s * 1e3),
+        "derived_ms": derived_ms, "busy_share_derived": derived_ms / (plain_s * 1e3),
+        "series": sorted(docs["timeseries"]["series"]), "device": metrics.get("device"),
+        "seconds": time.perf_counter() - t_phase, "card": card,
+    }
+    log(result)
+    check(result["results_equal"], "trace: Results differ between the plain and traced scans")
+    missing = [t for t, name in TRACE_TRACKS.items() if name not in spans]
+    check(not missing, f"trace: no traceEvents on the {missing} tracks")
+    check({"secret", "license", "cve"} <= set(stall), f"trace: stall verdict {stall}")
+    absent = sorted(set(TRACE_SPANS) - set(metrics["spans"]))
+    check(not absent, f"trace: spans missing: {absent}")
+    check(sum(launches.values()) > 0, "trace: the plain scan launched no kernel")
+    check(n_kernels > 0, "trace: torch.profiler recorded no kernel on the card")
+    return result
+
+
 # the image's history: the first layer is the base image's (an empty-layer
 # CMD ends it), so its secret scan is skipped
 IMAGE_HISTORY = [
@@ -2214,7 +2336,7 @@ def main() -> int:
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     torch.cuda.set_device(0)
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     card = card_info()
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:  # one nvcc per source, together
         libs = dict(zip(LIBRARIES, pool.map(_build.build, LIBRARIES)))
@@ -2253,6 +2375,12 @@ def main() -> int:
         shutil.rmtree(tmp / "repo", ignore_errors=True)
         cve = phase_cve(tmp / "cve", args.seed, card)
         fs_vuln = phase_fs_vuln(tmp / "fs-vuln", tmp / "cve" / "db", args.seed, base, card)
+        kernel_ms = {use: timing[use]["ms"] for use in ("prefilter", "anchored")}
+        kernel_ms.update(decompress=dec_timing["text"]["ms"], verscmp=cve["timing"]["ms"],
+                         gram_gate=lic_timing["gram_gate"]["ms"],
+                         bytes_gate=lic_timing["bytes_gate_4096"]["ms"],
+                         bytes_score=lic_timing["bytes_score_4096"]["ms"])
+        phase_trace(tmp / "fs-vuln" / "tree", tmp / "cve" / "db", kernel_ms, card)
         shutil.rmtree(tmp / "fs-vuln", ignore_errors=True)
         image = phase_image(tmp / "image", tmp / "cve" / "db", args.seed, base, args.image_mib,
                             card)
@@ -2330,6 +2458,7 @@ def main() -> int:
     # each kernel's launches in the image phase's first scan
     for entry, key in zip(kernels, (*IMAGE_KERNELS, "verscmp"), strict=True):
         entry["launches_image"] = image["launches"].get(key, 0)
+    log({"phase": "done", "seconds": time.perf_counter() - t_start})
     log({"kernels": kernels})
     print(card, flush=True)
     name = torch.cuda.get_device_name(0)

@@ -173,6 +173,72 @@ def test_config_file_skip_dirs(env, wd):
     assert "sub/creds.txt" not in targets and "lib/b.env" in targets
 
 
+@pytest.mark.parametrize("source", ["env", "config"])
+def test_unported_jax_setting_refused(env, wd, monkeypatch, capsys, source):
+    """``dependency-tree`` is a JAX flag the port lacks: from the
+    environment or ``trivy-tpu.yaml`` the JAX CLI honours it (its report
+    lists every package), and the port exits 2 naming the setting and the
+    flag instead of reporting less."""
+    if source == "env":
+        monkeypatch.setenv("TRIVY_TPU_DEPENDENCY_TREE", "true")
+        setting = "TRIVY_TPU_DEPENDENCY_TREE"
+    else:
+        (wd / "trivy-tpu.yaml").write_text("dependency-tree: true\n")
+        setting = "'dependency-tree'"
+    with pytest.raises(SystemExit) as exc:
+        run_both(env, wd, "fs-vuln")
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert setting in err and "--dependency-tree" in err
+    out = wd / "jax.json"
+    rc = jax_cli.main([*COMMANDS["fs-vuln"](env), "--backend", "cpu", "--format", "json",
+                       "-o", str(out), "-q", "--cache-dir", str(wd / "c2"), str(env["tree"])])
+    assert rc == 0
+    assert any(r.get("Packages") for r in json.loads(out.read_text())["Results"])
+
+
+@pytest.mark.parametrize("command", ["fs-secret", "sbom"])
+def test_unported_jax_settings_refused_per_command(env, wd, monkeypatch, capsys, command):
+    """``scan.parallel`` is ported on ``image`` only, ``TRIVY_TPU_BACKEND``
+    nowhere: both refuse on ``fs`` and ``sbom``."""
+    (wd / "trivy-tpu.yaml").write_text("scan:\n  parallel: 3\n")
+    with pytest.raises(SystemExit) as exc:
+        run_both(env, wd, command)
+    assert exc.value.code == 2 and "'scan.parallel'" in capsys.readouterr().err
+    (wd / "trivy-tpu.yaml").unlink()
+    monkeypatch.setenv("TRIVY_TPU_BACKEND", "cpu")
+    with pytest.raises(SystemExit) as exc:
+        run_both(env, wd, command)
+    assert exc.value.code == 2 and "TRIVY_TPU_BACKEND sets --backend" in capsys.readouterr().err
+
+
+def test_ported_and_unknown_settings_still_resolve(env, wd, monkeypatch):
+    """A variable of a ported flag applies, and keys and variables of no
+    flag of either package stay ignored, as the JAX package ignores them."""
+    (wd / "trivy-tpu.yaml").write_text(
+        "severity: [CRITICAL]\nno-such-key: 1\nscan:\n  no-such-key: x\n")
+    monkeypatch.setenv("TRIVY_TPU_SEVERITY", "HIGH")
+    monkeypatch.setenv("TRIVY_TPU_NO_SUCH_FLAG", "1")
+    mine, ref, rc1, rc2 = run_both(env, wd, "fs-vuln")
+    assert rc1 == rc2 == 0
+    assert_equal(mine, ref)
+    sevs = {f["Severity"] for r in mine["Results"] for f in r.get("Vulnerabilities", [])}
+    assert sevs == {"HIGH"}
+
+
+def test_jax_flag_table_matches_the_jax_cli():
+    """``flag.JAX_FLAGS`` is the JAX CLI's flag list for each ported
+    command: every flag's name and config key, in order."""
+    from trivy_tpu_torch.flag import ENV_PREFIX, JAX_FLAGS
+
+    for command, flags in JAX_FLAGS.items():
+        want = [(f.name, f.config_name) for g in jax_cli._TARGET_GROUPS[command]
+                for f in g().flags]
+        assert list(flags) == want, command
+        envs = {g().flags[0].env_name for g in jax_cli._TARGET_GROUPS[command]}
+        assert envs <= {ENV_PREFIX + n.upper().replace("-", "_") for n, _ in flags}
+
+
 @pytest.mark.parametrize("command", sorted(COMMANDS))
 def test_config_file_severity_and_explicit_config(env, wd, command):
     (wd / "trivy-tpu.yaml").write_text("severity: [CRITICAL]\n")

@@ -27,7 +27,7 @@ from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
-from trivy_tpu_torch import log
+from trivy_tpu_torch import log, obs
 from trivy_tpu_torch.cache.key import calc_key
 from trivy_tpu_torch.fanal.analyzers.imgconf import analyze_image_config
 from trivy_tpu_torch.fanal.handler import HandlerManager
@@ -277,8 +277,15 @@ class ImageArchiveArtifact:
                               layer_bytes=sum(archive.layer_size(t[0]) for t in todo))
             workers = min(len(todo), self.parallel or DEFAULT_PARALLEL)
             if workers > 1:
+                ctx = obs.current()
+
+                def analyze_in_scan(*args):
+                    # the layer's spans land in the scan's one trace context
+                    with obs.activate(ctx):
+                        return self._analyze_layer(*args)
+
                 with ThreadPoolExecutor(max_workers=workers) as pool:
-                    futs = [(lkey, pool.submit(self._analyze_layer, i, diff_id, created_by, skip))
+                    futs = [(lkey, pool.submit(analyze_in_scan, i, diff_id, created_by, skip))
                             for i, diff_id, lkey, created_by, skip in todo]
                     try:
                         for lkey, fut in futs:

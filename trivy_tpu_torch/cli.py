@@ -19,12 +19,24 @@ vulnerability scan.
         [--list-all-pkgs] [report flags as above]
         [--format json|table] [-o OUT] [--stats-out F] [--device cuda|cpu] <bom>
 
+Every command can trace itself as the JAX CLI does: ``--trace`` prints the
+span table, the stall verdict and the hottest rules after the scan;
+``--trace-out F`` (Chrome trace JSON, Perfetto-loadable), ``--metrics-out
+F``, ``--profile-out F`` and ``--timeseries-out F`` write the documents of
+``obs/export.py`` (a ``.gz`` path gzips); ``--live`` prints a progress line
+on stderr; ``--telemetry-interval S`` sets the sampler's cadence (0: off).
+``--trace``, any of the exports or ``--live`` starts the sampler thread,
+unless the interval is 0; without them no sampler starts and no file is
+written.
+
 Runs on the card unless ``--device cpu`` is given, and fails when CUDA is
 asked for and missing. Flags resolve as the JAX package's do (``flag.py``):
 the command line, then ``TRIVY_TPU_<NAME>`` in the environment, then the
 config file (``-c``, else ``trivy-tpu.yaml`` or ``trivy_tpu.yaml`` in the
 working directory), then the default; ``--device`` and ``--stats-out`` are
-the port's own and come from the command line only. The report then passes
+the port's own and come from the command line only. A JAX flag the port
+lacks exits with code 2 from the command line, the environment or the
+config file alike. The report then passes
 the JAX package's filter: ``--severity``, VEX documents, the ignore file
 (``.trivyignore`` in the working directory by default, plain or YAML), a
 Python or Rego ``--ignore-policy``, and the dedup.
@@ -54,7 +66,7 @@ import sys
 import time
 from collections import Counter
 
-from trivy_tpu_torch import log
+from trivy_tpu_torch import log, obs
 from trivy_tpu_torch.cache import BACKENDS, new_cache
 from trivy_tpu_torch.db import load_default_db
 from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve
@@ -62,6 +74,8 @@ from trivy_tpu_torch.fanal.handler import HandlerManager
 from trivy_tpu_torch.fanal.scan import SCANNERS, ScanAnalyzers, analyze_files, check_scanners
 from trivy_tpu_torch.fanal.walker import FSWalker, WalkOption
 from trivy_tpu_torch.flag import Flag, FlagGroup, load_config_file, resolve_all
+from trivy_tpu_torch.obs import export
+from trivy_tpu_torch.obs import timeseries
 from trivy_tpu_torch.report import WRITERS
 from trivy_tpu_torch.result import FilterOptions, IgnorePolicy, PolicyError, filter_report
 from trivy_tpu_torch.sbom import detect_format
@@ -259,6 +273,31 @@ def global_flags() -> FlagGroup:
         Flag("cache-backend", default=None, choices=list(BACKENDS),
              config_name="cache.backend", help="scan cache backend: fs, memory"),
         Flag("config", default=None, help="config file path", short="c"),
+        Flag("trace", default=False, value_type=bool, config_name="trace",
+             help="print per-stage timing spans, histograms, and the "
+                  "stall-attribution verdict after the scan"),
+        Flag("trace-out", default=None, config_name="trace.out",
+             help="write spans as Chrome trace-event JSON (Perfetto-loadable; "
+                  "implies span recording; .gz path gzips)"),
+        Flag("metrics-out", default=None, config_name="trace.metrics-out",
+             help="write aggregate span/counter metrics as JSON "
+                  "(implies span recording; .gz path gzips)"),
+        Flag("profile-out", default=None, config_name="trace.profile-out",
+             help="write the per-rule / per-bucket cost profile (gate hits, confirm "
+                  "time, false-positive rate, dispatch-bucket timing) as JSON "
+                  "(implies span recording; .gz path gzips)"),
+        Flag("telemetry-interval", default=None, value_type=float,
+             config_name="telemetry.interval",
+             validator=lambda v: timeseries.validate_interval(v, "interval"),
+             help="live-telemetry sampling interval in seconds "
+                  "(default 0.25; 0 disables the sampler entirely)"),
+        Flag("timeseries-out", default=None, config_name="telemetry.timeseries-out",
+             help="write the scan's live-telemetry time series (link MB/s, arena "
+                  "occupancy, queue depths, device busy, progress) as JSON "
+                  "(implies the sampler; .gz gzips)"),
+        Flag("live", default=False, value_type=bool, config_name="telemetry.live",
+             help="print a live progress line (progress %, MB/s, ETA, device "
+                  "busy, arena occupancy) to stderr during the scan"),
     ])
 
 
@@ -406,10 +445,60 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
     try:
         config = load_config_file(args.config)
-        opts = resolve_all(args._groups_by_cmd[args.command], args, config)
+        opts = resolve_all(args._groups_by_cmd[args.command], args, config,
+                           command=args.command)
+        interval = opts["telemetry_interval"]
+        if interval is None:
+            interval = timeseries.default_interval()
     except (ValueError, FileNotFoundError) as e:
         parser.error(str(e))
     log.init(quiet=opts["quiet"])
+    # span recording for --trace and whenever an export is asked for; the
+    # sampler only when something reads it (the JAX package's rule)
+    trace_on = bool(opts["trace"] or opts["trace_out"] or opts["metrics_out"]
+                    or opts["profile_out"])
+    telemetry_on = (trace_on or bool(opts["timeseries_out"]) or opts["live"]) and interval > 0
+    with obs.scan_context(name=args.command, enabled=trace_on or None) as ctx:
+        sampler = timeseries.start_sampler(ctx, interval) if telemetry_on else None
+        live = timeseries.LiveProgress(ctx).start() if opts["live"] and telemetry_on else None
+        completed = False
+        try:
+            rc = _run(args, opts)
+            completed = True
+            return rc
+        finally:
+            # on every exit path: the sampler and the live line stop (a final
+            # tick), then the files are written; progress reads 100% only
+            # for a scan that completed
+            if completed and ctx.progress_peek() is not None:
+                ctx.progress().finish()
+            if live is not None:
+                live.stop()
+            if sampler is not None:
+                sampler.stop()
+            _write_exports(ctx, opts)
+
+
+def _write_exports(ctx, opts: dict) -> None:
+    """``--timeseries-out``, then (tracing on) ``--trace``'s table and the
+    trace, metrics and profile documents."""
+    if opts["timeseries_out"]:
+        export.write_timeseries_json(ctx, opts["timeseries_out"])
+        logger.info("telemetry time series written to %s", opts["timeseries_out"])
+    if not ctx.enabled:
+        return
+    if opts["trace"]:
+        ctx.report()
+    for key, write, what in (("trace_out", export.write_chrome_trace, "chrome trace"),
+                             ("metrics_out", export.write_metrics_json, "metrics"),
+                             ("profile_out", export.write_profile_json, "scan profile")):
+        if opts[key]:
+            write(ctx, opts[key])
+            logger.info("%s written to %s", what, opts[key])
+
+
+def _run(args, opts: dict) -> int:
+    """The command's scan, its ``--stats-out`` counters and its report."""
     try:
         # validate the ignore policy up front: a broken policy file must not
         # cost the user a full scan before failing

@@ -23,9 +23,10 @@ import time
 from collections import Counter
 from contextlib import contextmanager
 
-from trivy_tpu_torch import log
+from trivy_tpu_torch import log, obs
 from trivy_tpu_torch.db import Advisory
 from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve
+from trivy_tpu_torch.obs import recorder as flight
 from trivy_tpu_torch.types import Application, DetectedVulnerability
 from trivy_tpu_torch.version import compare, parse_constraints, satisfies
 from trivy_tpu_torch.version.compare import Constraint
@@ -76,10 +77,12 @@ BATCH_THRESHOLD = 512
 
 @contextmanager
 def _span(stats: Counter, name: str):
-    """Adds the seconds of the block to ``stats[name + ".seconds"]``."""
+    """The span ``name`` of the scan's trace context, its seconds also
+    added to ``stats[name + ".seconds"]`` (the ``--stats-out`` key)."""
     t0 = time.perf_counter()
     try:
-        yield
+        with obs.span(name):
+            yield
     finally:
         stats[f"{name}.seconds"] += time.perf_counter() - t0
 
@@ -96,13 +99,19 @@ def _dispatch_stage(owner, device):
     return owner._stage
 
 
-def _upload(mat, device, stats: Counter):
+def _upload(mat, device, stats: Counter, replaced=None):
     """``mat`` on ``device``; its bytes count as bound-table bytes that
-    crossed the link (a warm second scan must count 0)."""
+    crossed the link (a warm second scan must count 0) and as resident
+    ``cve`` bytes of the HBM ledger, where they take the place of the
+    ``replaced`` tensor's."""
     import torch
 
     dev = torch.from_numpy(mat).to(resolve(device))
     stats["cve.bounds_bytes_uploaded"] += int(mat.nbytes)
+    obs.count("cve.bounds_bytes_uploaded", int(mat.nbytes))
+    if replaced is not None:
+        flight.release_resident("cve", replaced.nbytes)
+    flight.note_resident("cve", mat.nbytes)
     return dev
 
 
@@ -149,7 +158,7 @@ class _CompiledPrefix:
             out[:, : mat.shape[1]] = mat
             mat = out
         self._bounds_dev = None  # the old buffer frees before the new one lands
-        dev = _upload(mat, device, stats)
+        dev = _upload(mat, device, stats, replaced=cached[1] if cached else None)
         self.upload_bytes += mat.nbytes
         self._bounds_dev = (w, dev)
         return dev, w
@@ -660,7 +669,7 @@ class _ResidentJoin:
             out[:, : mat.shape[1]] = mat
             mat = out
         self._bounds_dev = None  # the old buffer frees before the new one lands
-        dev = _upload(mat, device, stats)
+        dev = _upload(mat, device, stats, replaced=cached[1] if cached else None)
         self.upload_bytes += mat.nbytes
         self._bounds_dev = (w, dev)
         return dev, w
@@ -848,6 +857,7 @@ def _resident_verdicts(
                 rj.dispatch_count += 1
                 stats["cve.dispatch_count"] += 1
                 stats["cve.resident_rows"] += int(len(ops))
+                obs.count("cve.resident_rows", int(len(ops)))
                 with _span(stats, "cve.dispatch"):
                     ok = check_ops_gather_bucketed(
                         inst_mat, bounds_dev, a_idx, b_idx, ops, stage=stage

@@ -18,7 +18,7 @@ import os.path
 from collections import Counter
 from collections.abc import Callable, Iterable
 
-from trivy_tpu_torch import log
+from trivy_tpu_torch import log, obs
 from trivy_tpu_torch.device import resolve
 from trivy_tpu_torch.fanal.analyzer import (
     OS_IDENTITY,
@@ -126,33 +126,59 @@ def analyze_files(entries: Iterable[tuple[str, FileInfo, Callable[[], bytes]]], 
     complete only then. ``counts`` gains ``files_walked``,
     ``files_scanned`` and ``files_skipped``, the files an analyzer wanted
     that could not be read (ref: the JAX package's ``note_file_skipped``,
-    the report's ``SkippedFiles``)."""
+    the report's ``SkippedFiles``).
+
+    The scan's trace context gets the JAX walk's spans: ``fs.read_wait``
+    (each read) and ``fs.batch_analyze`` (the batched analyzers' finalize,
+    where the secret and license scans drain), ``walk.skipped``, and the
+    always-on progress (bytes walked against scanned); a heartbeat logs
+    the progress every 30 s of a long walk."""
+    ctx = obs.current()
+    progress = ctx.progress()
+    read_span = ctx.enabled
     result = AnalysisResult()
     batch = ([secret] if secret is not None else []) + licenses
+    n_analyzed = [0]  # read by the heartbeat thread
     try:
-        for rel, info, opener in entries:
-            counts["files_walked"] += 1
-            takers = group.required(rel, info)
-            batch_takers = [a for a in batch if a.required(rel, info.size)]
-            if not takers and not batch_takers:
-                continue
-            try:
-                content = opener()
-            except OSError as e:
-                # the file vanished or turned unreadable after the walk
-                logger.warning("skipping %s: unreadable (%s)", rel, e)
-                counts["files_skipped"] += 1
-                continue
-            counts["files_scanned"] += 1
-            group.analyze_file(result, takers, root, rel, info, content)
-            for a in batch_takers:
-                if a is secret:
-                    a.collect(rel, content, dir_=root)
-                else:
-                    a.collect(rel, content)
-        if secret is not None:
-            result.secrets = secret.finalize()
-        result.licenses = [lf for a in licenses for lf in a.finalize()]
+        with obs.heartbeat(logger, f"fs scan of {root}" if root else "layer scan",
+                           progress=lambda: f"{n_analyzed[0]} files analyzed"):
+            for rel, info, opener in entries:
+                counts["files_walked"] += 1
+                progress.note_walked(info.size)
+                takers = group.required(rel, info)
+                batch_takers = [a for a in batch if a.required(rel, info.size)]
+                if not takers and not batch_takers:
+                    progress.note_scanned(info.size)
+                    continue
+                try:
+                    if read_span:
+                        with ctx.span("fs.read_wait"):
+                            content = opener()
+                    else:
+                        content = opener()
+                except OSError as e:
+                    # the file vanished or turned unreadable after the walk
+                    logger.warning("skipping %s: unreadable (%s)", rel, e)
+                    counts["files_skipped"] += 1
+                    ctx.count("walk.skipped")
+                    ctx.health_count("walk.skipped")
+                    progress.note_scanned(info.size)
+                    continue
+                counts["files_scanned"] += 1
+                group.analyze_file(result, takers, root, rel, info, content)
+                for a in batch_takers:
+                    if a is secret:
+                        a.collect(rel, content, dir_=root)
+                    else:
+                        a.collect(rel, content)
+                n_analyzed[0] += 1
+                progress.note_scanned(info.size)
+            progress.finish_walk()
+            # the batched analyzers join their streaming device scans here
+            with ctx.span("fs.batch_analyze"):
+                if secret is not None:
+                    result.secrets = secret.finalize()
+                result.licenses = [lf for a in licenses for lf in a.finalize()]
     except BaseException:
         if secret is not None:
             secret.abort()

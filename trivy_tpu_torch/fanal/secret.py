@@ -26,7 +26,7 @@ from __future__ import annotations
 import os.path
 import threading
 
-from trivy_tpu_torch import log
+from trivy_tpu_torch import log, obs
 from trivy_tpu_torch.fanal.analyzer import AnalyzerType
 from trivy_tpu_torch.fanal.utils import extract_printable_bytes, is_binary
 from trivy_tpu_torch.secret.engine import ScannerConfig
@@ -156,7 +156,8 @@ class SecretAnalyzer:
         if self._stream is None:
             self._stream = FileStream(STREAM_BUFFER_BYTES)
             self._thread = threading.Thread(
-                target=self._run, daemon=True, name="secret-stream-scan"
+                target=self._run, args=(obs.current(),), daemon=True,
+                name="secret-stream-scan",
             )
             self._thread.start()
         # blocks only once STREAM_BUFFER_BYTES of content waits on the
@@ -164,11 +165,14 @@ class SecretAnalyzer:
         # buffering into a dead pipeline
         self._stream.put(*prepared)
 
-    def _run(self) -> None:
+    def _run(self, ctx) -> None:
+        """The scan, on its own thread inside the walk's trace context."""
         try:
-            for s in self.scanner.scan_files(self._stream, license_gate=self.license_gate):
-                if s.findings:
-                    self._found.append(s)
+            with obs.activate(ctx):
+                for s in self.scanner.scan_files(self._stream,
+                                                 license_gate=self.license_gate):
+                    if s.findings:
+                        self._found.append(s)
         except BaseException as e:
             self._error = e
             # unblock (and poison) a producer waiting on the byte budget

@@ -13,10 +13,11 @@ from __future__ import annotations
 import functools
 import os
 import re
+import time
 from collections.abc import Callable, Iterator
 from dataclasses import dataclass, field
 
-from trivy_tpu_torch import log
+from trivy_tpu_torch import log, obs
 
 logger = log.logger("walker")
 
@@ -84,6 +85,26 @@ class FSWalker:
         self.skipped = 0  # unreadable/vanished entries in the last walk
 
     def walk(self, root: str) -> Iterator[tuple[str, FileInfo, Callable[[], bytes]]]:
+        """Walk with per-file timing: when the active trace context is
+        enabled, the time spent producing each entry (scandir, stat, skip
+        filtering) records as a ``walk.next`` span and a ``walk.files``
+        count, the walk's own track in the trace."""
+        ctx = obs.current()
+        if not ctx.enabled:
+            yield from self._walk(root)
+            return
+        it = self._walk(root)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            ctx.add("walk.next", time.perf_counter() - t0)
+            ctx.count("walk.files")
+            yield item
+
+    def _walk(self, root: str) -> Iterator[tuple[str, FileInfo, Callable[[], bytes]]]:
         root = os.path.abspath(root)
         self.skipped = 0
         skip_dirs = list(self.opt.skip_dirs) + DEFAULT_SKIP_DIRS
@@ -125,6 +146,9 @@ class FSWalker:
     def _note_skip(self, what: str, err: OSError) -> None:
         """One tolerated walk/stat failure: never fatal, never silent."""
         self.skipped += 1
+        ctx = obs.current()
+        ctx.count("walk.skipped")
+        ctx.health_count("walk.skipped")
         logger.debug("skipping unreadable %s: %s", what, err)
 
     def _on_error(self, err: OSError) -> None:

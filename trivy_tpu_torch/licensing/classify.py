@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import functools
 import threading
+import time
 from collections import Counter, deque
 
 import numpy as np
@@ -258,9 +259,18 @@ class LicenseClassifier:
         """Raw-bytes device scoring: zero-padded uint8 text rows are all that
         crosses to the device. The shingle gate runs on each uploaded batch;
         flagged rows are gathered on the device and scored there. The host
-        settles wide texts, cap overflows and threshold-grazing scores."""
+        settles wide texts, cap overflows and threshold-grazing scores.
+
+        Spans, under the JAX package's names: ``license.dispatch`` (the copy
+        and the launches, which only enqueue), ``license.device_wait`` (the
+        blocking fetches, where the card's time lands) and
+        ``license.finalize``; with tracing on, each dispatch's rung in the
+        profile (one card: the shard count is 1)."""
+        from trivy_tpu_torch import obs
         from trivy_tpu_torch.ops import ngram_score as ng
 
+        ctx = obs.current()
+        prof = ctx.profile() if ctx.enabled else None
         if not hasattr(self, "_gate_keys"):
             self._build_scoring()
         scorer = self._device_scorer()
@@ -276,10 +286,16 @@ class LicenseClassifier:
         host_tis = set(wide)  # host-oracle rung: wide and overflow rows
 
         def fetch_score() -> None:
-            (fw_d, pp_d, nu_d), tis, keep, width = spending.popleft()
-            fw = fw_d.cpu().numpy().astype(np.float64)
-            pp = pp_d.cpu().numpy().astype(np.float64)
-            nu = nu_d.cpu().numpy()
+            (fw_d, pp_d, nu_d), tis, keep, n_rows, width = spending.popleft()
+            t0 = time.perf_counter()
+            with ctx.span("license.device_wait"):
+                fw = fw_d.cpu().numpy().astype(np.float64)
+                pp = pp_d.cpu().numpy().astype(np.float64)
+                nu = nu_d.cpu().numpy()
+            if prof is not None:
+                prof.bucket_dispatch(f"license.score:{n_rows}x{width}x1", len(keep),
+                                     time.perf_counter() - t0)
+            ctx.count("license.score_rows", len(keep))
             cap = scorer.gram_cap(width)
             for i in keep.tolist():
                 ti = int(tis[i])
@@ -300,14 +316,22 @@ class LicenseClassifier:
                     b *= 2
                 sel = scorer.take_rows(rows, flag_idx, b)
                 sel_tis, keep = tis[flag_idx], np.arange(n)
-            spending.append((scorer.score_from_bytes(sel), sel_tis, keep, rows.shape[1]))
+            with ctx.span("license.dispatch"):
+                spending.append((scorer.score_from_bytes(sel), sel_tis, keep,
+                                 int(sel.shape[0]), rows.shape[1]))
+            ctx.sample("license.queue_depth", len(pending) + len(spending))
             if len(spending) >= DEVICE_PIPELINE_DEPTH:
                 fetch_score()
 
         def fetch_gate() -> None:
             (blk_d, ah_d, _nb), rows, tis = pending.popleft()
-            blk = blk_d.cpu().numpy()[: len(tis)]
-            ah = ah_d.cpu().numpy()[: len(tis)]
+            t0 = time.perf_counter()
+            with ctx.span("license.device_wait"):
+                blk = blk_d.cpu().numpy()[: len(tis)]
+                ah = ah_d.cpu().numpy()[: len(tis)]
+            if prof is not None:
+                prof.bucket_dispatch(f"license.gate:{blk.shape[0]}x{rows.shape[1]}x1", len(tis),
+                                     time.perf_counter() - t0)
             anchor_tis.update(int(tis[i]) for i in np.nonzero(ah >= anchor_min)[0])
             flag_idx = np.nonzero(blk.max(axis=1) >= GATE_BLOCK_MIN)[0]
             if len(flag_idx):
@@ -323,8 +347,11 @@ class LicenseClassifier:
                 part_t = tis[off : off + rung]
                 if len(part) < rung:
                     part = np.concatenate([part, np.zeros((rung - len(part), width), np.uint8)])
-                rows = scorer.put_rows(part)
-                pending.append((scorer.gate_bytes(rows), rows, part_t))
+                ctx.count("license.bytes_uploaded", part.nbytes)
+                with ctx.span("license.dispatch"):
+                    rows = scorer.put_rows(part)
+                    pending.append((scorer.gate_bytes(rows), rows, part_t))
+                ctx.sample("license.queue_depth", len(pending) + len(spending))
                 if len(pending) >= DEVICE_PIPELINE_DEPTH:
                     fetch_gate()
         while pending:
@@ -376,32 +403,33 @@ class LicenseClassifier:
                     overflow_set.add(ti)
                     out[ti] = self.classify(texts[ti])
 
-        for ti, cands in by_text.items():
-            if ti in overflow_set:
-                continue  # resolved by the host oracle
-            norm = get_norm(ti)
-            fw_row, pp_row = acc.get(ti, (zero_row, zero_row))
-            grams = None  # host int64 grams, computed only if needed
-            scored: list[tuple[float, float, str]] = []
-            for li in cands:
-                lic = self.licenses[li]
-                shorts = self._phrase_short[lic]
-                got_short = sum(1 for p in shorts if p in norm) if shorts else 0
-                nu = int(n_units[li])
-                conf_p = (pp_row[li] + got_short) / nu if nu else 0.0
-                cf = fw_row[li] / wtot[li] if wtot[li] > 0 else 0.0
-                conf = max(cf, conf_p)
-                if abs(conf - self.confidence) <= EPS:
-                    # float32 sums can land a hair on either side of the
-                    # threshold: the exact host scorer settles the call
-                    if grams is None:
-                        grams = self._text_grams(norm)
-                    conf, matched_w = self._score(li, norm, grams)
-                    if conf >= self.confidence:
-                        scored.append((conf, matched_w, lic))
-                elif conf >= self.confidence:
-                    scored.append((float(conf), float(fw_row[li]), lic))
-            out[ti] = self._rank_findings(scored)
+        with ctx.span("license.finalize"):
+            for ti, cands in by_text.items():
+                if ti in overflow_set:
+                    continue  # resolved by the host oracle
+                norm = get_norm(ti)
+                fw_row, pp_row = acc.get(ti, (zero_row, zero_row))
+                grams = None  # host int64 grams, computed only if needed
+                scored: list[tuple[float, float, str]] = []
+                for li in cands:
+                    lic = self.licenses[li]
+                    shorts = self._phrase_short[lic]
+                    got_short = sum(1 for p in shorts if p in norm) if shorts else 0
+                    nu = int(n_units[li])
+                    conf_p = (pp_row[li] + got_short) / nu if nu else 0.0
+                    cf = fw_row[li] / wtot[li] if wtot[li] > 0 else 0.0
+                    conf = max(cf, conf_p)
+                    if abs(conf - self.confidence) <= EPS:
+                        # float32 sums can land a hair on either side of the
+                        # threshold: the exact host scorer settles the call
+                        if grams is None:
+                            grams = self._text_grams(norm)
+                        conf, matched_w = self._score(li, norm, grams)
+                        if conf >= self.confidence:
+                            scored.append((conf, matched_w, lic))
+                    elif conf >= self.confidence:
+                        scored.append((float(conf), float(fw_row[li]), lic))
+                out[ti] = self._rank_findings(scored)
         return out
 
     def corpus_table(self):

@@ -8,6 +8,11 @@ an edited source or header rebuilds and an unchanged one loads at once.
 Beside it lies ptxas's report of each kernel's registers, shared memory and
 spills (``-Xptxas -v``). Nothing is built when a module is imported: the
 first call that needs the kernel builds it.
+
+The flight recorder (``obs/recorder.py``) counts each library :func:`load`
+makes ready in a process as one compile of its kernel, in the bucket
+``nvcc`` when :func:`build` ran the compiler for it and ``cached`` when the
+library was already built, with the seconds of the build and the load.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -174,9 +180,15 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
+            from trivy_tpu_torch.obs import recorder
+
+            t0 = time.perf_counter()
+            cached = library_path(name).exists()
             lib = ctypes.CDLL(str(build(name)))
             for fn, (restype, argtypes) in SIGNATURES[name].items():
                 getattr(lib, fn).restype = restype
                 getattr(lib, fn).argtypes = argtypes
             _loaded[name] = lib
+            recorder.note_compile(name, "cached" if cached else "nvcc",
+                                  time.perf_counter() - t0)
         return lib

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from trivy_tpu_torch.device import resolve
+from trivy_tpu_torch.obs import recorder as flight
 from trivy_tpu_torch.ops.bytes_gate import SHINGLE_BITS, SHINGLE_MIX, SHINGLE_P2
 from trivy_tpu_torch.ops.bytes_gate_cuda import CudaBytesGate
 from trivy_tpu_torch.ops.bytes_score_cuda import CudaBytesScorer
@@ -290,6 +291,10 @@ class DeviceBytesScorer:
         self._gate = CudaBytesGate(table.lut, table.gate.bloom8, table.gate.bloom4, self.device)
         self._score = CudaBytesScorer(table.lut, table.keys, table.credit, table.p1, table.p2,
                                       table.hash_p, table.ngram, self.device)
+        # HBM ledger: the corpus table and the blooms stay resident for the
+        # process
+        flight.note_resident("corpus", sum(int(a.nbytes) for a in (
+            table.keys, table.credit, table.gate.bloom8, table.gate.bloom4)))
         self.dispatch_count = 0
 
     @staticmethod

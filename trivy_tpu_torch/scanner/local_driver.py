@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from collections import Counter
 
+from trivy_tpu_torch import obs
 from trivy_tpu_torch.device import DEFAULT_DEVICE
 from trivy_tpu_torch.fanal.applier import apply_layers
 from trivy_tpu_torch.scanner import ScanOptions
@@ -27,13 +28,24 @@ class LocalDriver:
 
     def scan(self, target: str, blobs: list[BlobInfo],
              options: ScanOptions) -> tuple[list[Result], OS | None]:
-        detail = apply_layers(blobs)
+        ctx = obs.current()
+        # with no walk before it (an SBOM), the blobs are the scan's
+        # work-list for its progress, as in the JAX driver
+        prog = ctx.progress()
+        track_blobs = prog.files_walked == 0
+        if track_blobs:
+            prog.note_walked(0, files=len(blobs))
+        with ctx.span("driver.apply_layers"):
+            if track_blobs:
+                prog.note_scanned(0, files=len(blobs))
+            detail = apply_layers(blobs)
         results: list[Result] = []
         if "vuln" in options.scanners and self.vuln_client is not None:
             from trivy_tpu_torch.detector import detect_all
 
-            results += detect_all(self.vuln_client, target, detail, self.device, self.stats,
-                                  list_all_pkgs=options.list_all_pkgs)
+            with ctx.span("driver.detect_vulns"):
+                results += detect_all(self.vuln_client, target, detail, self.device,
+                                      self.stats, list_all_pkgs=options.list_all_pkgs)
         elif options.list_all_pkgs:
             # package inventory without detection
             results += self._package_results(target, detail)

@@ -18,8 +18,10 @@ ARE byte offsets and censoring is byte-exact regardless of encoding.
 from __future__ import annotations
 
 import re
+import time
 from dataclasses import dataclass, field
 
+from trivy_tpu_torch import obs
 from trivy_tpu_torch.secret.rules import (
     SECRET_GROUP,
     AllowRule,
@@ -389,13 +391,20 @@ class SecretScanner:
         return self.scan_content(file_path, content)
 
     def scan_content(self, file_path: str, content: str) -> Secret:
+        # per-rule cost profile on the active trace context; one enabled
+        # check per file when tracing is off
+        ctx = obs.current()
+        prof = ctx.profile() if ctx.enabled else None
         # ASCII-only fold, matching Rule.lower_keywords and the device
         # prefilter (bytes A-Z, no locale) — see rules.ascii_lower
         lower = ascii_lower(content)
         global_blocks = self.global_block_spans(content)
         hits: list[tuple[Rule, Location]] = []
         for rule in self.rules_for_path(file_path):
+            t0 = time.perf_counter() if prof is not None else 0.0
             locs = self.find_rule_locations(rule, content, lower, global_blocks)
+            if prof is not None:
+                prof.confirm(rule.id, time.perf_counter() - t0, len(locs))
             for loc in locs:
                 hits.append((rule, loc))
         return self.build_findings(file_path, content, hits)

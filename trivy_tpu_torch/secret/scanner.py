@@ -40,6 +40,15 @@ input, chunks, hashes and packs rows into arena slabs and compresses them;
 one device worker that copies each slab to the device, runs the kernels
 and resolves the hits; and a confirm pool. A device or codec error fails
 the scan: there is no host fallback.
+
+Each thread re-enters the scan's trace context (``obs.activate``) and
+records the JAX package's spans: the feeder ``secret.assemble``,
+``secret.arena_wait``, ``secret.warm_hit`` and ``secret.compress``; the
+worker ``secret.feed_wait``, ``secret.dispatch`` (the copy and the kernel
+launches, which only enqueue), ``secret.decompress``, and the blocking
+fetches ``secret.prefilter`` and ``secret.device_wait``, where the card's
+time lands; the confirm pool ``secret.confirm``. With tracing on, the
+per-rule and per-bucket profile fills too.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from __future__ import annotations
 import hashlib
 import queue
 import threading
+import time
 from collections.abc import Iterable, Iterator
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -54,8 +64,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from trivy_tpu_torch import log
+from trivy_tpu_torch import log, obs
 from trivy_tpu_torch.device import resolve
+from trivy_tpu_torch.obs import recorder as flight
+from trivy_tpu_torch.obs.timeseries import DeviceBusyTracker
 from trivy_tpu_torch.ops.decompress import build_decompress_fn
 from trivy_tpu_torch.ops.gram_gate import LANE_ANCHOR, LANE_GRAM, LANE_NONASCII
 from trivy_tpu_torch.ops.match_cuda import build_match_fn_cuda
@@ -168,14 +180,18 @@ class ScanStats:
     # each lane of the license gate flagged
     PORT_FIELDS = tuple(f"license_rows_{name}" for name, _ in LIC_LANES)
 
-    def __init__(self):
+    def __init__(self, parent: "ScanStats | None" = None):
         self._lock = threading.Lock()
         self._v = dict.fromkeys(self.FIELDS + self.PORT_FIELDS, 0)
+        # a scan run's own tallies also add to its scanner's totals
+        self._parent = parent
 
     def add(self, **kw: int) -> None:
         with self._lock:
             for k, n in kw.items():
                 self._v[k] += n
+        if self._parent is not None:
+            self._parent.add(**kw)
 
     def snapshot(self) -> dict[str, int]:
         with self._lock:
@@ -271,6 +287,12 @@ class TorchSecretScanner:
             buckets.append(buckets[-1] // 2)
         self._buckets = sorted(buckets)
         self.stats = ScanStats()
+        # the card is busy from a batch's copy until its results are
+        # fetched, whichever run (image layer) the batch belongs to
+        self._busy = DeviceBusyTracker()
+        # trace context -> scan runs in flight under it, for the probe
+        self._runs_lock = threading.Lock()
+        self._runs: dict = {}
 
         # -- dedup hit store ------------------------------------------------
         # ruleset fingerprint: the hit vector is a pure function of (row
@@ -377,7 +399,7 @@ class TorchSecretScanner:
         on the same rows and collects its verdicts."""
         if license_gate is not None:
             self._ensure_license_stage()
-        run = _ScanRun(self, files, license_gate)
+        run = _ScanRun(self, files, obs.current(), license_gate)
         run.start()
         try:
             next_emit = 0
@@ -403,14 +425,31 @@ class TorchSecretScanner:
 
     # -- device pass --------------------------------------------------------
 
+    def _telemetry_probe(self) -> dict[str, float]:
+        """The scanner's part of the telemetry (called only from the
+        sampler's thread): its cumulative link bytes and the card's busy
+        seconds, shared by every run in flight."""
+        vals = {"secret.bytes_uploaded_total": float(self.stats.snapshot()["bytes_uploaded"])}
+        vals.update(self._busy.probe())
+        return vals
+
     def run_batch(self, rows: torch.Tensor, n_live: int):
         """Both kernel uses on one batch. Returns ``(hits, pre, nfa_ran)``:
         the anchored matcher's ``[B, R]`` hits (None when the prefilter
         gate skipped it), the prefilter's candidate mask (None without a
-        prefilter), and whether the matcher ran."""
+        prefilter), and whether the matcher ran. The launches only enqueue
+        (``secret.dispatch``); each fetch blocks until its kernel is done
+        (``secret.prefilter``, ``secret.device_wait``)."""
+        ctx = obs.current()
         if self._prefilter is None:
-            return self._match(rows).cpu().numpy(), None, True
-        pre = self._prefilter(rows).cpu().numpy()
+            with ctx.span("secret.dispatch"):
+                hits = self._match(rows)
+            with ctx.span("secret.device_wait"):
+                return hits.cpu().numpy(), None, True
+        with ctx.span("secret.dispatch"):
+            pre = self._prefilter(rows)
+        with ctx.span("secret.prefilter"):
+            pre = pre.cpu().numpy()
         live = pre[:n_live]
         need = self._has_unguarded_anchored or bool(
             len(self._guarded_anchored_cols)
@@ -418,11 +457,16 @@ class TorchSecretScanner:
         )
         if not need:
             return None, pre, False
-        return self._match(rows).cpu().numpy(), pre, True
+        with ctx.span("secret.dispatch"):
+            hits = self._match(rows)
+        with ctx.span("secret.device_wait"):
+            return hits.cpu().numpy(), pre, True
 
     # -- host confirmation --------------------------------------------------
 
-    def _confirm_inner(self, st: _FileState) -> Secret:
+    def _confirm_inner(self, st: _FileState, prof=None) -> Secret:
+        """The exact confirm of one file's flagged rules; ``prof`` (the
+        scan's profile, tracing on) gains each rule's confirm time."""
         windows_by_id = {
             self.compiled.rule_ids[i]: w for i, w in st.rules.items()
         }
@@ -453,6 +497,7 @@ class TorchSecretScanner:
                 # no keyword of this rule occurs anywhere in the file: the
                 # exact engine's match_keywords would reject it
                 continue
+            t0 = time.perf_counter() if prof is not None else 0.0
             if rule.id in windows_by_id:
                 if rule.id in unchecked_ids:
                     # some row of this file never ran the rule's anchored
@@ -480,17 +525,26 @@ class TorchSecretScanner:
                 )
             else:
                 continue
+            if prof is not None:
+                prof.confirm(rule.id, time.perf_counter() - t0, len(locs))
             hits.extend((rule, loc) for loc in locs)
         return self.exact.build_findings(st.path, content, hits)
 
 
 class _ScanRun:
     """One ``scan_files`` call: feeder thread, device worker, confirm pool
-    and the reorder buffer the generator emits from."""
+    and the reorder buffer the generator emits from, all recording into the
+    scan's trace context ``ctx``."""
 
-    def __init__(self, sc: TorchSecretScanner, files, license_gate=None):
+    def __init__(self, sc: TorchSecretScanner, files, ctx, license_gate=None):
         self.sc = sc
         self.files = files
+        self.ctx = ctx
+        self.enabled = ctx.enabled
+        self.prof = ctx.profile() if ctx.enabled else None
+        # this run's tallies (they add to the scanner's as they come): the
+        # trace's counters and wire block sum every run's at its close
+        self.stats = ScanStats(parent=sc.stats)
         # fused license pass: the scan's gate, and input index -> path of
         # the files it wants verdicts for
         self.lic_gate = license_gate
@@ -512,6 +566,9 @@ class _ScanRun:
             FEED_QUEUE_DEPTH + ARENA_MARGIN, sc.batch_size, sc.chunk_len,
             alloc=sc._alloc_slab,
         )
+        # HBM ledger: every slab's rows may be on the card at once
+        flight.note_resident("arena", self._arena_bytes())
+        self._confirm_inflight = 0
         self.pool = ThreadPoolExecutor(max_workers=CONFIRM_WORKERS)
         # bounds queued + running confirms, so retained file bytes stay
         # flat on a large scan
@@ -523,11 +580,64 @@ class _ScanRun:
             target=self._feed_guarded, daemon=True, name="secret-feeder"
         )
 
+    def _arena_bytes(self) -> int:
+        return self.arena.n_slabs * self.arena.rows * self.arena.row_len
+
     def start(self) -> None:
+        sc, ctx = self.sc, self.ctx
+        with sc._runs_lock:
+            sc._runs[ctx] = sc._runs.get(ctx, 0) + 1
+            ctx.add_probe(sc._telemetry_probe)
+        ctx.add_probe(self._telemetry_probe)
         self.worker.start()
         self.feeder.start()
 
+    def _telemetry_probe(self) -> dict[str, float]:
+        """This run's in-flight state for the telemetry sampler (called only
+        from its thread): arena occupancy, queue depths, files pending and
+        confirms in flight. Runs in flight at once sum."""
+        return {
+            "secret.arena_free_slabs": float(self.arena.free_slabs),
+            "secret.arena_slabs": float(self.arena.n_slabs),
+            "secret.feed_queue_depth": float(self.in_q.qsize()),
+            "secret.files_pending": float(len(self.states)),
+            "secret.results_buffered": float(len(self.results)),
+            "secret.confirm_inflight": float(self._confirm_inflight),
+        }
+
+    def _publish(self) -> None:
+        """This run's byte tallies into the trace: the ``secret.*``
+        counters, and with the codec on the ``wire`` block, each a sum over
+        the scan's runs."""
+        d = self.stats.snapshot()
+        for name, n in (
+            ("secret.bytes_uploaded", d["bytes_uploaded"]),
+            ("secret.bytes_compressed", d["bytes_compressed"]),
+            ("secret.bytes_gated_binary", d["bytes_gated_binary"]),
+            ("secret.bytes_raw_fallback", d["bytes_raw_fallback"]),
+            # warm-store hits are dedup hits too, as in the JAX feed
+            ("secret.bytes_dedup_hit", d["bytes_dedup_hit"]),
+            ("secret.bytes_warm_hit", d["bytes_warm_hit"]),
+            ("secret.bytes_gated", d["bytes_gated"]),
+            ("secret.bytes_packed", d["bytes_packed"]),
+            ("secret.rows_nfa_skipped", d["rows_nfa_skipped"]),
+        ):
+            if n:
+                self.ctx.count(name, n)
+        if self.sc._codec is not None and self.enabled:
+            self.ctx.merge_wire({k: d[k] for k in (
+                "bytes_compressed", "bytes_raw_equiv", "bytes_raw_fallback", "bytes_gated",
+                "bytes_gated_binary", "chunks_gated_zero", "batches_compressed",
+                "batches_raw_fallback")})
+
     def close(self) -> None:
+        sc, ctx = self.sc, self.ctx
+        ctx.remove_probe(self._telemetry_probe)
+        with sc._runs_lock:
+            sc._runs[ctx] -= 1
+            if not sc._runs[ctx]:
+                del sc._runs[ctx]
+                ctx.remove_probe(sc._telemetry_probe)
         self.stop.set()
         self.feeder.join(timeout=10.0)
         self.worker.join(timeout=10.0)
@@ -535,6 +645,8 @@ class _ScanRun:
         # push the dedup store's write-behind tail so the next scan, possibly
         # in another process, starts warm
         self.sc._hit_store.flush_writes(force=True)
+        flight.release_resident("arena", self._arena_bytes())
+        self._publish()
 
     def _aborted(self) -> bool:
         return self.stop.is_set() or self.error is not None
@@ -555,13 +667,18 @@ class _ScanRun:
 
     def _confirm_task(self, st: _FileState) -> Secret:
         try:
-            return self.sc._confirm_inner(st)
+            with obs.activate(self.ctx), self.ctx.span("secret.confirm"):
+                return self.sc._confirm_inner(st, self.prof)
         finally:
+            with self.lock:
+                self._confirm_inflight -= 1
             self.confirm_slots.release()
 
     def _submit_confirm(self, fidx: int, st: _FileState) -> None:
         while not self._aborted():
             if self.confirm_slots.acquire(timeout=0.2):
+                with self.lock:
+                    self._confirm_inflight += 1
                 self._set_result(fidx, self.pool.submit(self._confirm_task, st))
                 return
 
@@ -572,6 +689,16 @@ class _ScanRun:
         of the row — cross-segment false candidates are discarded by the
         exact confirm. Files whose last pending row resolved here go to the
         confirm pool."""
+        prof = self.prof
+        if prof is not None:
+            # one logical device hit per (row, rule): rows served by the
+            # store or coalesced count too, they cost a confirm all the same
+            rule_ids = self.sc.compiled.rule_ids
+            for _, hit_rules, cand_rules, _, _ in batch:
+                for r in hit_rules:
+                    prof.gate_hit(rule_ids[r])
+                for r in cand_rules:
+                    prof.prefilter_hit(rule_ids[r])
         guarded_anchored = self.sc._guarded_anchored
         ready: list[tuple[int, _FileState]] = []
         with self.lock:
@@ -650,7 +777,10 @@ class _ScanRun:
             )
             if len(sc._kw_lane_cols):
                 full[:, sc._kw_lane_cols] |= pre[:, sc._kw_lane_cols]
-            sc.stats.add(rows_prefilter_hit=int(pre.any(axis=1).sum()))
+            hit_rows = int(pre.any(axis=1).sum())
+            self.stats.add(rows_prefilter_hit=hit_rows)
+            if self.prof is not None:
+                self.prof.prefilter_rows(n, 0 if nfa_ran else n, hit_rows)
         else:
             full = hits[:n]
         by_row: dict[int, list[int]] = {}
@@ -661,7 +791,7 @@ class _ScanRun:
             lic = lic[:n]
             for row, b in zip(*(a.tolist() for a in np.nonzero(lic))):
                 lic_by_row.setdefault(row, []).append(b)
-            sc.stats.add(license_rows_gated=n, license_rows_flagged=int(lic.any(axis=1).sum()),
+            self.stats.add(license_rows_gated=n, license_rows_flagged=int(lic.any(axis=1).sum()),
                          **{f"license_rows_{name}": int((lic & bit).any(axis=1).sum())
                             for name, bit in LIC_LANES})
         store = sc._hit_store
@@ -691,36 +821,57 @@ class _ScanRun:
         returns to the arena only after the results are fetched: by then
         every kernel reading the copy has finished."""
         sc = self.sc
+        ctx = self.ctx
+        prof = self.prof
         try:
             if sc.device.type == "cuda":
                 # the kernels launch through ctypes on this thread's device
                 torch.cuda.set_device(sc.device)
-            while True:
-                item = self._get_work()
-                if item is None:
-                    return
-                slab_id, batch, meta = item
-                if isinstance(batch, CompressedSlab):
-                    # the frame crosses (its wire from the pinned arena
-                    # slab) and the decompress kernel expands it
-                    parts = [torch.from_numpy(a) for a in batch.arrays()]
-                    if sc.device.type == "cuda":
-                        parts = [t.to(sc.device, non_blocking=True) for t in parts]
-                    rows = sc._decompress(*parts)
-                else:
-                    rows = torch.from_numpy(self.arena.slab(slab_id)[:batch])
-                    if sc.device.type == "cuda":
-                        rows = rows.to(sc.device, non_blocking=True)
-                # the gate is queued ahead of the matcher on the same stream
-                lic = sc._lic_gate_fn(rows) if self._want_lic(meta) else None
-                hits, pre, nfa_ran = sc.run_batch(rows, len(meta))
-                if lic is not None:
-                    lic = lic.cpu().numpy()
-                self.arena.release(slab_id)
-                sc.stats.add(rows=len(meta), batches=1)
-                if not nfa_ran:
-                    sc.stats.add(rows_nfa_skipped=len(meta), batches_nfa_skipped=1)
-                self._resolve(hits, meta, pre, nfa_ran, lic)
+            with obs.activate(ctx):
+                while True:
+                    with ctx.span("secret.feed_wait"):
+                        item = self._get_work()
+                    if item is None:
+                        return
+                    slab_id, batch, meta = item
+                    sc._busy.begin()
+                    try:
+                        if isinstance(batch, CompressedSlab):
+                            # the frame crosses (its wire from the pinned
+                            # arena slab) and the decompress kernel expands it
+                            with ctx.span("secret.dispatch"):
+                                parts = [torch.from_numpy(a) for a in batch.arrays()]
+                                if sc.device.type == "cuda":
+                                    parts = [t.to(sc.device, non_blocking=True)
+                                             for t in parts]
+                            with ctx.span("secret.decompress"):
+                                rows = sc._decompress(*parts)
+                            n_rows = batch.rows_pad
+                        else:
+                            with ctx.span("secret.dispatch"):
+                                rows = torch.from_numpy(self.arena.slab(slab_id)[:batch])
+                                if sc.device.type == "cuda":
+                                    rows = rows.to(sc.device, non_blocking=True)
+                            n_rows = batch
+                        # the gate is queued ahead of the matcher on one stream
+                        lic = None
+                        if self._want_lic(meta):
+                            with ctx.span("secret.dispatch"):
+                                lic = sc._lic_gate_fn(rows)
+                        t0 = time.perf_counter() if prof is not None else 0.0
+                        hits, pre, nfa_ran = sc.run_batch(rows, len(meta))
+                        if lic is not None:
+                            lic = lic.cpu().numpy()
+                    finally:
+                        sc._busy.end()
+                    if prof is not None:
+                        # the batch's rung, its live rows and the blocking fetches
+                        prof.bucket_dispatch(n_rows, len(meta), time.perf_counter() - t0)
+                    self.arena.release(slab_id)
+                    self.stats.add(rows=len(meta), batches=1)
+                    if not nfa_ran:
+                        self.stats.add(rows_nfa_skipped=len(meta), batches_nfa_skipped=1)
+                    self._resolve(hits, meta, pre, nfa_ran, lic)
         except BaseException as e:
             self._fail(e)
 
@@ -742,14 +893,16 @@ class _ScanRun:
     # -- feeder -------------------------------------------------------------
 
     def _feed_guarded(self) -> None:
-        try:
-            self._feed()
-        except BaseException as e:
-            self._fail(e)
+        with obs.activate(self.ctx):
+            try:
+                self._feed()
+            except BaseException as e:
+                self._fail(e)
 
     def _feed(self) -> None:
         sc = self.sc
-        stats = sc.stats
+        ctx = self.ctx
+        stats = self.stats
         chunk_len = sc.chunk_len
         B = sc.batch_size
         use_pf = sc._prefilter is not None
@@ -822,7 +975,8 @@ class _ScanRun:
         def ensure_slab() -> None:
             nonlocal slab_id, slab, used
             if slab is None:
-                slab_id, slab = acquire()
+                with ctx.span("secret.arena_wait"):
+                    slab_id, slab = acquire()
                 used = 0
 
         def route_row(key, segs, nbytes) -> bool:
@@ -854,7 +1008,8 @@ class _ScanRun:
             keys = [k for k, _, _ in meta if k is not None]
             if not keys:
                 return
-            found = store.lookup_batch(keys)
+            with ctx.span("secret.warm_hit"):
+                found = store.lookup_batch(keys)
             if not found:
                 return
             live: list[int] = []
@@ -892,17 +1047,18 @@ class _ScanRun:
             ``(wire_slab_id, CompressedSlab, meta)``, or None when the batch
             can't beat the min-ratio wire budget and ships raw. An encoder
             error fails the scan."""
-            plan = sc._codec.plan(slab[: len(meta)])
-            total = plan.total()
-            rung = next((r for r in sc._wire_rungs[n] if r >= total), None)
-            if rung is None:
-                return None
-            dst_id, dst = acquire()
-            try:
-                cs = sc._codec.emit(plan, n, rung, dst.reshape(-1))
-            except BaseException:
-                self.arena.release(dst_id)
-                raise
+            with ctx.span("secret.compress"):
+                plan = sc._codec.plan(slab[: len(meta)])
+                total = plan.total()
+                rung = next((r for r in sc._wire_rungs[n] if r >= total), None)
+                if rung is None:
+                    return None
+                dst_id, dst = acquire()
+                try:
+                    cs = sc._codec.emit(plan, n, rung, dst.reshape(-1))
+                except BaseException:
+                    self.arena.release(dst_id)
+                    raise
             wire = rung + cs.frame_bytes()
             stats.add(
                 bytes_uploaded=wire,
@@ -943,6 +1099,7 @@ class _ScanRun:
                 # moment the encoder copied out of it
                 self.arena.release(slab_id)
             slab_id, slab, used, meta = None, None, 0, []
+            ctx.sample("secret.queue_depth", self.in_q.qsize())
             while True:
                 if self._aborted():
                     self.arena.release(item[0])
@@ -1069,26 +1226,27 @@ class _ScanRun:
                 if self._aborted():
                     break
                 total = fidx + 1
-                if sc.exact.allow_path(path):
-                    # path-level global allowlist: skip the whole file
-                    # (ref: scanner.go:388-392) — no device work
-                    lic_skip(path)
-                    self._set_result(fidx, Secret(file_path=path))
-                elif not data:
-                    # empty file: nothing for the device to match; host-lane
-                    # rules still run in the confirm, and the license gate
-                    # misses nothing in zero bytes
-                    if lic_gate is not None and lic_gate.wants(path):
-                        lic_gate.cover(path)
-                    self._submit_confirm(fidx, new_state(path, data, 0))
-                elif len(data) <= pack_max:
-                    stats.add(bytes_in=len(data))
-                    with self.lock:
-                        self.states[fidx] = new_state(path, data, 1)
-                    lic_register(fidx, path, data)
-                    add_small(fidx, data)
-                else:
-                    feed_big(fidx, path, data)
+                with ctx.span("secret.assemble"):
+                    if sc.exact.allow_path(path):
+                        # path-level global allowlist: skip the whole file
+                        # (ref: scanner.go:388-392) — no device work
+                        lic_skip(path)
+                        self._set_result(fidx, Secret(file_path=path))
+                    elif not data:
+                        # empty file: nothing for the device to match;
+                        # host-lane rules still run in the confirm, and the
+                        # license gate misses nothing in zero bytes
+                        if lic_gate is not None and lic_gate.wants(path):
+                            lic_gate.cover(path)
+                        self._submit_confirm(fidx, new_state(path, data, 0))
+                    elif len(data) <= pack_max:
+                        stats.add(bytes_in=len(data))
+                        with self.lock:
+                            self.states[fidx] = new_state(path, data, 1)
+                        lic_register(fidx, path, data)
+                        add_small(fidx, data)
+                    else:
+                        feed_big(fidx, path, data)
             if not self._aborted():
                 emit_pack()  # the partial pack row
                 flush()  # the final partial slab
