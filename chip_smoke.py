@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's secret, license, SBOM, filesystem
-vulnerability and image scans on one NVIDIA card.
+vulnerability, image (archive, registry, daemon), repository and VM scans on
+one NVIDIA card.
 
-    python3 chip_smoke.py [--e2e-mib 256] [--license-mib 128] [--image-mib 128]
+    python3 chip_smoke.py [--e2e-mib 128] [--license-mib 64] [--image-mib 128]
         [--seed 0]
 
 Phases, each printing JSON lines:
@@ -105,7 +106,7 @@ Phases, each printing JSON lines:
    --no-secret-dedup --secret-compress off``, and with
    ``--secret-hit-cache --cache-dir`` a second run must dispatch no batch
    and give the same Results.
-6. license: a seeded tree of about 128 MiB (``--license-mib``): the e2e
+6. license: a seeded tree of about 64 MiB (``--license-mib``): the e2e
    tree's source text, 2,048 license files (each of the 22 full texts raw,
    re-wrapped and with CRLF line ends, padded with source text to every
    width rung and past the widest), source files with license headers, and
@@ -184,17 +185,43 @@ Phases, each printing JSON lines:
     surviving plant reported, none of the removed ones, the ENV secret
     reported, all six kernels launched and ``verscmp`` once. The same scan
     again on the same cache: no layer analyzed, no matcher, decompressor
-    or license kernel launched, equal ``Results``. Then a 16 MiB image cut
+    or license kernel launched, equal ``Results``. Then an 8 MiB image cut
     from the same layers, on the card and with ``device="cpu"`` (equal
     ``Results`` and ``Metadata``), and its OCI-layout copy with gzip layers
     on the card (``Results`` equal to the docker-save copy's, the artifact
     name in the OS section's target aside). Printed: layer MB/s,
     components/s and the scan's seconds split into walk and analysis
     against detection.
-12. kernels: every ported kernel with its launches on the main path, its
+12. sources: the targets that are not archives, on the image phase's
+    inputs and the loaded cve DB, each scan with the launch counters set to
+    0 just before and read just after. The image's five layers and config
+    (gzip level 1) pushed to the in-process registry of
+    ``tests/registrytest.py`` with bearer-token auth, under an index of two
+    platforms, and ``image <ref> --image-src remote --platform linux/amd64
+    --scanners vuln,secret,license --license-full`` through ``cli.main`` on
+    a fresh cache: the first archive scan's ``Results`` (the artifact name
+    aside), all six kernels launched, ``verscmp`` once; then on the archive
+    scan's layer cache: no layer analyzed. Printed: the push and a separate
+    pull's seconds, the scan's analysis and detection seconds, layer MB/s
+    over the gzip and the tar bytes. The 8 MiB cut from the fake Docker
+    daemon of ``tests/daemontest.py`` on a unix socket (``docker://``,
+    ``--image-src docker --docker-host unix://...``): the cut's ``Results``,
+    no temp archive left. The cut plus a top layer with a planted secret and
+    a vulnerable lockfile, scanned with ``--diff-base`` the cut: only the new
+    layer walked, every other seeded from the base, a plain scan's
+    ``Results``, both plants reported. A git repository of the checkout's
+    code: ``repo file://... --branch`` equals ``fs`` of the tree (names
+    aside). ``mkfs.ext4 -d`` of the fs-vuln tree with the trace phase's
+    license files: ``vm`` on the card equals the CPU, every plant, secret
+    and license reported, all six kernels launched; the rescan walks no
+    file and launches no feed or license kernel. The fakes are loaded by
+    path (``load_fake``); ``DOCKER_HOST`` is unset, so no daemon of the
+    machine is reached.
+13. kernels: every ported kernel with its launches on the main path, its
     agreement with the plain version (bitwise, or within ``SCORE_RTOL`` for
     the scorer's ``full_w``) and its times, with its launches in the
-    ``image`` phase's first scan (``launches_image``).
+    ``image`` phase's first scan (``launches_image``) and in the
+    ``sources`` phase's registry scan (``launches_registry``).
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; the last line is ``{"ok": true, "device": {...}}``. Without a
@@ -205,13 +232,18 @@ non-zero code and prints no result.
 from __future__ import annotations
 
 import argparse
+import gzip
+import importlib.util
 import io
 import json
+import os
 import random
 import runpy
 import shutil
+import subprocess
 import sys
 import tarfile
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
@@ -221,9 +253,11 @@ import numpy as np
 import torch
 
 from trivy_tpu_torch import cli
+from trivy_tpu_torch.artifact.image import ImageSourceOption, _ImageArchive
 from trivy_tpu_torch.db import VulnDB
 from trivy_tpu_torch.detector import library
 from trivy_tpu_torch.device import card_info
+from trivy_tpu_torch.fanal.image_registry import RegistryImage
 from trivy_tpu_torch.licensing.classify import LicenseClassifier
 from trivy_tpu_torch.licensing.corpus_texts import FULL_TEXTS
 from trivy_tpu_torch.licensing.fused import get_gate_fn
@@ -289,6 +323,10 @@ IMAGE_KERNELS = ("prefilter", "anchored", "decompress", *LICENSE_KERNELS)
 SCORE_RTOL = 1e-5  # the scorer's full_w against its plain version (float32 sums)
 GATHER_WIDTHS = (1024, 16384, 49152)  # rungs where the scorer is also timed on gathered rows
 SHORT_BATCH = 8  # live rows of the short check batch
+# MiB of the image cut that the image phase scans on the card, on the CPU and
+# as an OCI layout, and the sources phase serves from the daemon and derives
+# from: small, as the CPU scan of it sets much of the phase's time
+IMAGE_CUT_MIB = 8
 
 # words of the generated source text; some are rule keywords, as in real code
 CODE_WORDS = (
@@ -1971,7 +2009,7 @@ def phase_fs_vuln(root: Path, db_dir: Path, seed: int, base: bytes, card: str) -
         "findings": len(found_v), "vuln_equal": same(vuln_reports),
         "full_equal": same(full_reports), "os": vuln_reports[0]["Metadata"].get("OS"),
         "planted": len(plants()), "missed": missed[:5], "patched_reported": patched[:5],
-        "secrets_planted": len(planted), "secrets_missed": missed_secrets,
+        "secrets_planted": planted, "secrets_missed": missed_secrets,
         "package_licenses": len(pkg_licenses), "card": card,
     }
     log(result)
@@ -2241,11 +2279,14 @@ def image_stats(st: dict) -> dict:
     }
 
 
-def phase_image(root: Path, db_dir: Path, seed: int, base: bytes, mib: int, card: str) -> dict:
+def phase_image(root: Path, db_dir: Path, seed: int, base: bytes, mib: int,
+                card: str) -> tuple[dict, dict, dict]:
     """``cli.scan_image`` with ``vuln,secret,license --license-full`` on the
     card over the seeded image, twice on one layer cache (launch counters to
-    0 just before each scan, read just after); then the 16 MiB image on the
-    card, on the CPU, and as an OCI layout with gzip layers on the card."""
+    0 just before each scan, read just after); then the 8 MiB cut on the
+    card, on the CPU, and as an OCI layout with gzip layers on the card.
+    Returns the phase's result and the reports of the first scan and of the
+    cut on the card."""
     t0 = time.perf_counter()
     plants_ = write_image_layers(root / "layers", seed, base, mib)
     layer_bytes = build_image(root / "layers", root / "image.tar")
@@ -2273,8 +2314,8 @@ def phase_image(root: Path, db_dir: Path, seed: int, base: bytes, mib: int, card
     got_lic = licenses_found(report)
     missed_lic = sorted(rel for rel, key in plants_["licenses"].items()
                         if key not in got_lic.get(rel, ()))
-    # the 16 MiB image: card, CPU, and its OCI layout with gzip layers
-    keep = small_image_keep(root / "layers", 16)
+    # the cut: card, CPU, and its OCI layout with gzip layers
+    keep = small_image_keep(root / "layers", IMAGE_CUT_MIB)
     small_bytes = build_image(root / "layers", root / "small.tar", keep)
     build_image(root / "layers", root / "small-oci", keep, oci=True)
     small = {}
@@ -2320,15 +2361,313 @@ def phase_image(root: Path, db_dir: Path, seed: int, base: bytes, mib: int, card
     check(not any(launches2.get(k, 0) for k in IMAGE_KERNELS),
           f"image: the cached scan launched a feed or license kernel: {launches2}")
     check(result["cached_equal"], "image: Results differ on the cached scan")
-    check(result["small_cpu_equal"], "image: 16 MiB image Results or Metadata differ on the CPU")
+    check(result["small_cpu_equal"], "image: the cut's Results or Metadata differ on the CPU")
     check(result["small_oci_equal"], "image: the OCI layout's Results differ from docker-save's")
+    return result, report, card_r
+
+
+def load_fake(name: str):
+    """``tests/<name>.py`` loaded by path as the module ``tests.<name>``: the
+    registry fake imports ``tests.imagetest``, and a package named ``tests``
+    installed on the machine would shadow the checkout's directory."""
+    spec = importlib.util.spec_from_file_location(f"tests.{name}", REPO / "tests" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+OCI_MANIFEST = "application/vnd.oci.image.manifest.v1+json"
+
+
+def archive_layers(path: Path) -> tuple[list, bytes]:
+    """The uncompressed layer tars and the config of an image archive."""
+    archive = _ImageArchive(str(path))
+    try:
+        layers = []
+        for i in range(len(archive.diff_ids)):
+            with archive.layer_stream(i) as f:
+                layers.append(f.read())
+        return layers, archive.config_bytes
+    finally:
+        archive.close()
+
+
+def push_image(reg, repo: str, ref: str, layers: list, config: bytes) -> str:
+    """An OCI manifest of gzip (level 1) ``layers`` and ``config`` pushed
+    under ``ref``; returns its digest."""
+    descs = []
+    for layer in layers:
+        blob = gzip.compress(layer, compresslevel=1)
+        descs.append({"mediaType": "application/vnd.oci.image.layer.v1.tar+gzip",
+                      "digest": reg.put_blob(repo, blob), "size": len(blob)})
+    return reg.put_manifest(repo, ref, {
+        "schemaVersion": 2, "mediaType": OCI_MANIFEST,
+        "config": {"mediaType": "application/vnd.oci.image.config.v1+json",
+                   "digest": reg.put_blob(repo, config), "size": len(config)},
+        "layers": descs}, OCI_MANIFEST)
+
+
+def renamed(report: dict, name: str) -> list:
+    """``report``'s Results with its artifact name (in the OS target) as
+    ``name``."""
+    old = json.dumps(report["ArtifactName"])[1:-1]
+    return json.loads(json.dumps(report["Results"]).replace(old, json.dumps(name)[1:-1]))
+
+
+def git(cwd: Path, *args: str) -> None:
+    env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"), "GIT_AUTHOR_NAME": "smoke",
+           "GIT_AUTHOR_EMAIL": "smoke@example.com", "GIT_COMMITTER_NAME": "smoke",
+           "GIT_COMMITTER_EMAIL": "smoke@example.com", "GIT_CONFIG_NOSYSTEM": "1",
+           "GIT_CONFIG_GLOBAL": os.devnull}
+    subprocess.run(["git", *args], cwd=cwd, env=env, check=True, capture_output=True)
+
+
+def phase_sources(root: Path, image_root: Path, fs_tree: Path, db_dir: Path, fs_secrets: list,
+                  first: dict, cut: dict, card: str) -> dict:
+    """The image targets that are not archives, then ``repo`` and ``vm``, on
+    the card. (a) The ``image`` phase's five layers and config, gzip level 1,
+    in the in-process registry with bearer-token auth under an index of two
+    platforms: ``image <ref> --image-src remote --platform linux/amd64``
+    through ``cli.main`` on a fresh cache (launch counters to 0 just before,
+    read just after) must give the first archive scan's Results (names
+    aside), then on that scan's layer cache analyze no layer. (b) The 8 MiB
+    cut served by the fake Docker daemon on a unix socket: ``docker://``
+    must give the cut's Results and leave no temp archive. (c) The cut with
+    a new top layer (a planted secret and a vulnerable lockfile) scanned
+    with ``--diff-base`` the cut: only the new layer walked, the Results of
+    a plain scan, both plants reported. (d) A git repository of the
+    checkout's code: ``repo file://... --branch`` equals ``fs`` of its tree.
+    (e) ``mkfs.ext4 -d`` of the fs-vuln tree with the trace phase's license
+    files: ``vm`` on the card equals the CPU, every plant reported, all six
+    kernels launched; the rescan a cache hit."""
+    t_phase = time.perf_counter()
+    os.environ.pop("DOCKER_HOST", None)  # never the machine's own daemon
+    load_fake("imagetest")
+    registrytest, daemontest = load_fake("registrytest"), load_fake("daemontest")
+    db = VulnDB.load(str(db_dir))
+    library._resident_join(db)
+    kw = dict(scanners=("vuln", "secret", "license"), license_full=True, db=db)
+    result: dict = {"phase": "sources", "card": card}
+
+    # (a) registry, at the full size
+    t0 = time.perf_counter()
+    layers, config = archive_layers(image_root / "image.tar")
+    cut_layers, cut_config = archive_layers(image_root / "small.tar")
+    reg = registrytest.MemoryRegistry(token="chip-smoke-token")
+    amd64 = push_image(reg, "app", "amd64", layers, config)
+    arm64 = push_image(reg, "app", "arm64", cut_layers, cut_config)
+    reg.put_manifest("app", "1", {"schemaVersion": 2, "manifests": [
+        {"mediaType": OCI_MANIFEST, "digest": d, "platform": {"os": "linux", "architecture": a}}
+        for a, d in (("amd64", amd64), ("arm64", arm64))]},
+        "application/vnd.oci.image.index.v1+json")
+    server, host = registrytest.start_registry(reg)
+    try:
+        push_s = time.perf_counter() - t0
+        ref = f"{host}/app:1"
+        t0 = time.perf_counter()
+        img = RegistryImage(ref, insecure=True, platform="linux/amd64")
+        for desc in img.manifest["layers"]:
+            img.client.blob_file(img.repository, desc["digest"]).close()
+        pull_s = time.perf_counter() - t0
+
+        def registry_scan(tag: str, cache: Path) -> tuple[dict, dict, dict]:
+            out, st = root / f"{tag}.json", root / f"{tag}.stats.json"
+            LAUNCHES.clear()
+            rc = cli.main(["image", "--image-src", "remote", "--insecure", "--platform",
+                           "linux/amd64", "--scanners", "vuln,secret,license",
+                           "--license-full", "--db-repository", str(db_dir),
+                           "--cache-dir", str(cache), "--format", "json", "-o", str(out),
+                           "--stats-out", str(st), "--device", "cuda", "-q", ref])
+            launches = dict(LAUNCHES)
+            check(rc == 0, f"sources: registry scan ({tag}) exited {rc}")
+            return json.loads(out.read_text()), json.loads(st.read_text()), launches
+
+        reg_report, reg_stats, launches = registry_scan("registry", root / "cache-registry")
+        _again, cached_stats, launches_cached = registry_scan("registry-cached",
+                                                              image_root / "cache")
+    finally:
+        server.shutdown()
+    raw_bytes = sum(len(l) for l in layers)
+    reg_results_equal = renamed(reg_report, first["ArtifactName"]) == first["Results"]
+    result["registry"] = {
+        "ref": ref, "push_s": push_s, "pull_s": pull_s, "seconds": reg_stats["seconds"],
+        "analyze_s": reg_stats["analyze.seconds"], "detect_s": reg_stats["detect.seconds"],
+        "db_load_s": reg_stats.get("db_load_seconds"), "layers": reg_stats["layers"],
+        "layer_bytes_gzip": reg_stats["layer_bytes"], "layer_bytes_raw": raw_bytes,
+        "layer_MBps_gzip": reg_stats["layer_bytes"] / reg_stats["seconds"] / 1e6,
+        "layer_MBps_raw": raw_bytes / reg_stats["seconds"] / 1e6,
+        "pull_MBps_gzip": reg_stats["layer_bytes"] / pull_s / 1e6,
+        "components": reg_stats["components"], "launches": launches,
+        "results_equal_to_archive": reg_results_equal,
+        "cached": {"seconds": cached_stats["seconds"],
+                   "layers_analyzed": cached_stats["layers_analyzed"],
+                   "launches": launches_cached},
+    }
+    result["launches_registry"] = launches
+
+    # (b) the cut from the fake docker daemon
+    t0 = time.perf_counter()
+    daemon = daemontest.FakeDockerDaemon(str(root / "docker.sock")).start()
+    tmp_dir = Path(tempfile.gettempdir())
+    exports_before = set(tmp_dir.glob("trivy-tpu-daemon-*"))
+    try:
+        daemon.add_image("app:cut", (image_root / "small.tar").read_bytes())
+        src = ImageSourceOption(image_src=["docker"], docker_host=f"unix://{daemon.socket_path}")
+        LAUNCHES.clear()
+        d_report, d_stats = cli.scan_image("docker://app:cut", device="cuda",
+                                           cache_dir=str(root / "cache-daemon"),
+                                           image_source=src, **kw)
+        d_launches = dict(LAUNCHES)
+    finally:
+        daemon.stop()
+    d_report = d_report.to_dict()
+    result["daemon"] = {
+        "seconds": d_stats["seconds"], "phase_s": time.perf_counter() - t0,
+        "layers_analyzed": d_stats["layers_analyzed"], "launches": d_launches,
+        "results_equal_to_cut": d_report["Results"] == cut["Results"],
+        "temp_archives_left": len(set(tmp_dir.glob("trivy-tpu-daemon-*")) - exports_before),
+    }
+
+    # (c) --diff-base: the cut with one new layer
+    t0 = time.perf_counter()
+    ptype, _bucket, name, vid, vuln, _hi = plants()[0]
+    secret = SAMPLES["github-pat"]
+    new_layer = layer_tar(None, extra={
+        "app/derived/settings.env": f"DEPLOY_TOKEN={secret}\n".encode(),
+        "app/derived/package-lock.json": json.dumps({
+            "name": "derived", "lockfileVersion": 3, "packages": {
+                "": {"name": "derived", "dependencies": {name: "*"}},
+                f"node_modules/{name}": {"version": vuln}}}).encode()})
+    derived = root / "derived.tar"
+    IMAGES["docker_save_tar"](str(derived), cut_layers + [new_layer],
+                              history=IMAGE_HISTORY + [{"created_by": "COPY derived /app"}],
+                              env=json.loads(cut_config)["config"]["Env"],
+                              repo_tag="chip-smoke/derived:1")
+    LAUNCHES.clear()
+    diff_report, diff_stats = cli.scan_image(str(derived), device="cuda",
+                                             diff_base=str(image_root / "small.tar"),
+                                             cache_dir=str(root / "cache-diff"), **kw)
+    diff_launches = dict(LAUNCHES)
+    plain_report, plain_stats = cli.scan_image(str(derived), device="cuda",
+                                               cache_dir=str(root / "cache-plain"), **kw)
+    diff_report, plain_report = diff_report.to_dict(), plain_report.to_dict()
+    got_secrets = {(t, rule) for t, rule, _line in found(diff_report)}
+    got_vulns = {(r["Target"], v["VulnerabilityID"]) for r in diff_report["Results"]
+                 for v in r.get("Vulnerabilities", [])}
+    result["diff_base"] = {
+        "seconds": diff_stats["seconds"], "plain_seconds": plain_stats["seconds"],
+        "phase_s": time.perf_counter() - t0, "layers_seeded": diff_stats["layers_seeded"],
+        "layers_analyzed": diff_stats["layers_analyzed"],
+        "files_walked": diff_stats["files_walked"], "launches": diff_launches,
+        "results_equal_to_plain": diff_report["Results"] == plain_report["Results"],
+        "secret_reported": ("/app/derived/settings.env", "github-pat") in got_secrets,
+        "vuln_reported": ("app/derived/package-lock.json", vid) in got_vulns,
+    }
+    check(ptype == "npm", f"sources: the first plant is {ptype}, not npm")
+
+    # (d) repo: a git repository of the checkout's code
+    t0 = time.perf_counter()
+    repo_src = root / "repo-src"
+    for src_dir, dst in REPO_TREES.items():
+        shutil.copytree(REPO / src_dir, repo_src / dst, ignore=shutil.ignore_patterns("__pycache__"))
+    git(repo_src, "init", "-q", "-b", "smoke")
+    git(repo_src, "add", "-A")
+    git(repo_src, "commit", "-q", "-m", "smoke")
+    repo_reports = {}
+    for cmd, target in (("repo", f"file://{repo_src}"), ("fs", str(repo_src))):
+        out = root / f"{cmd}.json"
+        LAUNCHES.clear()
+        extra = ["--branch", "smoke"] if cmd == "repo" else []
+        rc = cli.main([cmd, *extra, "--scanners", "secret,license", "--license-full",
+                       "--format", "json", "-o", str(out), "--device", "cuda", "-q", target])
+        check(rc == 0, f"sources: {cmd} exited {rc}")
+        repo_reports[cmd] = (json.loads(out.read_text()), dict(LAUNCHES))
+    (repo_r, repo_launches), (fs_r, _) = repo_reports["repo"], repo_reports["fs"]
+    result["repo"] = {
+        "phase_s": time.perf_counter() - t0, "launches": repo_launches,
+        "results": len(repo_r["Results"]),
+        "results_equal_to_fs": renamed(repo_r, fs_r["ArtifactName"]) == fs_r["Results"],
+    }
+
+    # (e) vm: an ext4 disk of the fs-vuln tree and the trace phase's licenses
+    t0 = time.perf_counter()
+    tree_bytes = sum(f.stat().st_size for f in fs_tree.rglob("*") if f.is_file())
+    disk = root / "disk.img"
+    with open(disk, "wb") as f:
+        f.truncate(((2 * tree_bytes) >> 20) + 64 << 20)
+    subprocess.run(["mkfs.ext4", "-q", "-d", str(fs_tree), str(disk)], check=True)
+    mkfs_s = time.perf_counter() - t0
+    vm = []
+    for device, cache in (("cuda", "cache-vm"), ("cpu", "cache-vm-cpu"), ("cuda", "cache-vm")):
+        LAUNCHES.clear()
+        rep, st = cli.scan_vm(str(disk), device=device, cache_dir=str(root / cache), **kw)
+        vm.append((rep.to_dict(), st, dict(LAUNCHES)))
+    (vm_r, vm_st, vm_launches), (cpu_r, cpu_st, _), (re_r, re_st, re_launches) = vm
+    found_v = {(v["PkgName"], v["VulnerabilityID"], v["InstalledVersion"])
+               for r in vm_r["Results"] for v in r.get("Vulnerabilities", [])}
+    vm_missed = [p for p in plants() if (p[2], p[3], p[4]) not in found_v]
+    vm_secrets = found(vm_r)
+    vm_missed_secrets = [p for p in fs_secrets if ("/" + p[0], p[1], p[2]) not in vm_secrets]
+    got_lic = licenses_found(vm_r)
+    vm_missed_lic = [k for k in sorted(FULL_TEXTS)[:TRACE_LICENSE_FILES]
+                     if k not in got_lic.get(f"licenses/{k}/LICENSE", ())]
+    result["vm"] = {
+        "disk_bytes": disk.stat().st_size, "tree_bytes": tree_bytes, "mkfs_s": mkfs_s,
+        "seconds": vm_st["seconds"], "cpu_seconds": cpu_st["seconds"],
+        "rescan_seconds": re_st["seconds"], "files_walked": vm_st["files_walked"],
+        "components": vm_st["components"], "analyze_s": vm_st["analyze.seconds"],
+        "detect_s": vm_st["detect.seconds"], "launches": vm_launches,
+        "rescan_launches": re_launches, "rescan_files_walked": re_st["files_walked"],
+        "cpu_equal": all(vm_r[k] == cpu_r[k] for k in ("Results", "Metadata")),
+        "rescan_equal": re_r["Results"] == vm_r["Results"], "missed": vm_missed[:5],
+        "secrets_missed": vm_missed_secrets, "licenses_missed": vm_missed_lic,
+    }
+    result["seconds"] = time.perf_counter() - t_phase
+    log(result)
+    r = result["registry"]
+    check(r["results_equal_to_archive"],
+          "sources: the registry scan's Results differ from the archive's")
+    check(all(launches.get(k, 0) > 0 for k in IMAGE_KERNELS) and launches.get("verscmp") == 1,
+          f"sources: a kernel was not launched by the registry scan: {launches}")
+    check(r["cached"]["layers_analyzed"] == 0,
+          f"sources: the registry scan on the archive's cache analyzed "
+          f"{r['cached']['layers_analyzed']} layers")
+    check(not any(launches_cached.get(k, 0) for k in IMAGE_KERNELS),
+          f"sources: the cached registry scan launched a feed or license kernel: "
+          f"{launches_cached}")
+    d = result["daemon"]
+    check(d["results_equal_to_cut"], "sources: the daemon scan's Results differ from the cut's")
+    check(d["temp_archives_left"] == 0, "sources: the daemon export was not removed")
+    check(all(d_launches.get(k, 0) > 0 for k in ("prefilter", "decompress")),
+          f"sources: the daemon scan launched no feed kernel: {d_launches}")
+    b = result["diff_base"]
+    check((b["layers_seeded"], b["layers_analyzed"]) == (len(cut_layers), 1),
+          f"sources: diff-base seeded {b['layers_seeded']}, analyzed {b['layers_analyzed']}")
+    check(b["results_equal_to_plain"], "sources: diff-base Results differ from a plain scan")
+    check(b["secret_reported"] and b["vuln_reported"], "sources: a diff-base plant was missed")
+    check(all(diff_launches.get(k, 0) > 0 for k in ("prefilter", "decompress", "verscmp")),
+          f"sources: the diff-base scan launched no feed kernel: {diff_launches}")
+    check(result["repo"]["results_equal_to_fs"], "sources: repo Results differ from fs")
+    check(all(repo_launches.get(k, 0) > 0 for k in ("prefilter", "decompress", "gram_gate")),
+          f"sources: the repo scan launched no feed kernel: {repo_launches}")
+    v = result["vm"]
+    check(v["cpu_equal"], "sources: vm Results or Metadata differ between card and CPU")
+    check(not v["missed"], f"sources: vm missed {len(vm_missed)} planted components")
+    check(not v["secrets_missed"], f"sources: vm secrets missed: {vm_missed_secrets}")
+    check(not v["licenses_missed"], f"sources: vm licenses missed: {vm_missed_lic}")
+    check(all(vm_launches.get(k, 0) > 0 for k in (*IMAGE_KERNELS, "verscmp")),
+          f"sources: a kernel was not launched by the vm scan: {vm_launches}")
+    check(v["rescan_files_walked"] == 0 and v["rescan_equal"]
+          and not any(re_launches.get(k, 0) for k in IMAGE_KERNELS),
+          f"sources: the vm rescan was no cache hit: {re_launches}")
     return result
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--e2e-mib", type=int, default=256, help="size of the e2e tree")
-    ap.add_argument("--license-mib", type=int, default=128, help="size of the license tree")
+    ap.add_argument("--e2e-mib", type=int, default=128, help="size of the e2e tree")
+    ap.add_argument("--license-mib", type=int, default=64, help="size of the license tree")
     ap.add_argument("--image-mib", type=int, default=128, help="layer bytes of the image")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -2375,15 +2714,18 @@ def main() -> int:
         shutil.rmtree(tmp / "repo", ignore_errors=True)
         cve = phase_cve(tmp / "cve", args.seed, card)
         fs_vuln = phase_fs_vuln(tmp / "fs-vuln", tmp / "cve" / "db", args.seed, base, card)
+        fs_secrets = fs_vuln.pop("secrets_planted")
         kernel_ms = {use: timing[use]["ms"] for use in ("prefilter", "anchored")}
         kernel_ms.update(decompress=dec_timing["text"]["ms"], verscmp=cve["timing"]["ms"],
                          gram_gate=lic_timing["gram_gate"]["ms"],
                          bytes_gate=lic_timing["bytes_gate_4096"]["ms"],
                          bytes_score=lic_timing["bytes_score_4096"]["ms"])
         phase_trace(tmp / "fs-vuln" / "tree", tmp / "cve" / "db", kernel_ms, card)
-        shutil.rmtree(tmp / "fs-vuln", ignore_errors=True)
-        image = phase_image(tmp / "image", tmp / "cve" / "db", args.seed, base, args.image_mib,
-                            card)
+        image, first_image, cut_image = phase_image(tmp / "image", tmp / "cve" / "db", args.seed,
+                                                    base, args.image_mib, card)
+        (tmp / "sources").mkdir()
+        sources = phase_sources(tmp / "sources", tmp / "image", tmp / "fs-vuln" / "tree",
+                                tmp / "cve" / "db", fs_secrets, first_image, cut_image, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2455,9 +2797,11 @@ def main() -> int:
         "dispatch_ms": t["dispatch"]["new"]["dispatch_ms"],
         "dispatch_ms_old_route": t["dispatch"]["old"]["dispatch_ms"],
     })
-    # each kernel's launches in the image phase's first scan
+    # each kernel's launches in the image phase's first scan and in the
+    # sources phase's registry scan
     for entry, key in zip(kernels, (*IMAGE_KERNELS, "verscmp"), strict=True):
         entry["launches_image"] = image["launches"].get(key, 0)
+        entry["launches_registry"] = sources["launches_registry"].get(key, 0)
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     log({"kernels": kernels})
     print(card, flush=True)

@@ -2,8 +2,9 @@
 the decompressor against ``decompress_plain``, the license gram gate,
 shingle gate and scorer against their plain versions, the version-constraint
 check against its plain versions, a compressed scan, a fused secret+license
-scan, the classifier, an SBOM scan, an fs vuln scan and an image scan on the
-card, and a kernel failing in one layer of an image scan.
+scan, the classifier, an SBOM scan, an fs vuln scan and an image scan, a
+registry image scan and a ``vm`` scan on the card, and a kernel failing in
+one layer of an image scan.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither ``jax`` nor ``trivy_tpu``, so on a machine with a card and
@@ -12,8 +13,13 @@ no JAX it runs without the suite's conftest:
     python -m pytest --noconftest -q tests/test_torch_card.py
 """
 
+import gzip
+import importlib.util
 import json
 import runpy
+import shutil
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -639,10 +645,9 @@ def test_fs_vuln_scan_on_card_equals_cpu(card, tmp_path):
 IMAGES = runpy.run_path(str(HERE / "imagetest.py"))
 
 
-def card_image(tmp_path: Path) -> str:
-    """A docker-save image of four layers: 1,000 npm packages and a secret;
-    the 22 full license texts, source files with license headers and 1 MiB
-    of text; a whiteout of a second secret; a small top layer."""
+def card_files() -> tuple[dict, dict]:
+    """1,000 npm packages and two secrets; the 22 full license texts, source
+    files with license headers and 1 MiB of text."""
     rng = np.random.default_rng(5)
     pkgs = {f"node_modules/p{i}/node_modules/{['lodash', 'minimist', 'other'][i % 3]}": {
         "version": f"{rng.integers(0, 5)}.{rng.integers(0, 21)}.{rng.integers(0, 26)}"}
@@ -656,6 +661,14 @@ def card_image(tmp_path: Path) -> str:
     content.update({f"src/m{i}.py": b"# SPDX-License-Identifier: MIT\n# Copyright 2024\n"
                     + words[i * 4096:(i + 1) * 4096] for i in range(16)})
     content["doc/notes.txt"] = words[: 1 << 20]
+    return apps, content
+
+
+def card_image(tmp_path: Path) -> str:
+    """A docker-save image of four layers: :func:`card_files`' two, a
+    whiteout of the second secret, a small top layer."""
+    tar = IMAGES["tar_bytes"]
+    apps, content = card_files()
     layers = [tar(apps), tar(content), tar({"app/.wh.old.env": b""}),
               tar({"etc/motd": b"card image\n"})]
     return IMAGES["docker_save_tar"](str(tmp_path / "img.tar"), layers,
@@ -682,6 +695,100 @@ def test_image_scan_on_card_equals_cpu(card, tmp_path):
     targets = {r.target for r in on_card.results}
     assert {"/app/key.py", "container image config (env)"} <= targets
     assert "/app/old.env" not in targets
+
+
+def load_fake(name: str):
+    """``tests/<name>.py`` as the module ``tests.<name>``, loaded by path
+    (the registry fake imports ``tests.imagetest``)."""
+    spec = importlib.util.spec_from_file_location(f"tests.{name}", HERE / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kernel_launches(before: dict) -> dict:
+    return {k: match_cuda.LAUNCHES[k] - before.get(k, 0) for k in (
+        "prefilter", "anchored", "decompress", "gram_gate", "bytes_gate", "bytes_score",
+        "verscmp")}
+
+
+@pytest.mark.cuda
+def test_registry_scan_on_card_equals_cpu(card, tmp_path, monkeypatch):
+    """The card image pushed to the in-process registry and scanned with
+    ``--image-src remote``: the CPU's report, every kernel launched."""
+    from trivy_tpu_torch.artifact.image import ImageSourceOption, _ImageArchive
+
+    load_fake("imagetest")
+    registrytest = load_fake("registrytest")
+    archive = _ImageArchive(card_image(tmp_path))
+    reg = registrytest.MemoryRegistry(token="card-token")
+    descs = []
+    for i in range(len(archive.diff_ids)):
+        with archive.layer_stream(i) as f:
+            blob = gzip.compress(f.read(), compresslevel=1)
+        descs.append({"mediaType": "application/vnd.oci.image.layer.v1.tar+gzip",
+                      "digest": reg.put_blob("app", blob), "size": len(blob)})
+    reg.put_manifest("app", "1", {
+        "schemaVersion": 2, "mediaType": "application/vnd.oci.image.manifest.v1+json",
+        "config": {"mediaType": "application/vnd.oci.image.config.v1+json",
+                   "digest": reg.put_blob("app", archive.config_bytes),
+                   "size": len(archive.config_bytes)},
+        "layers": descs}, "application/vnd.oci.image.manifest.v1+json")
+    archive.close()
+    server, host = registrytest.start_registry(reg)
+    try:
+        db = VulnDB.load(BUILD_DB(tmp_path))
+        kw = dict(scanners=("vuln", "secret", "license"), license_full=True, db=db,
+                  image_source=ImageSourceOption(image_src=["remote"], insecure_registry=True))
+        before = dict(match_cuda.LAUNCHES)
+        on_card, stats = cli.scan_image(f"{host}/app:1", device=card,
+                                        cache_dir=str(tmp_path / "c1"), **kw)
+        launched = kernel_launches(before)
+        on_cpu, _ = cli.scan_image(f"{host}/app:1", device="cpu",
+                                   cache_dir=str(tmp_path / "c2"), **kw)
+    finally:
+        server.shutdown()
+    assert all(launched.values()) and launched["verscmp"] == 1, launched
+    assert stats["layers_analyzed"] == 4
+    mine, ref = on_card.to_dict(), on_cpu.to_dict()
+    assert mine["Results"] == ref["Results"] and mine["Metadata"] == ref["Metadata"]
+    assert "/app/key.py" in {r.target for r in on_card.results}
+
+
+@pytest.mark.cuda
+def test_vm_scan_on_card_equals_cpu(card, tmp_path):
+    """:func:`card_files` on an ext4 disk made by ``mkfs.ext4 -d``: the CPU's
+    report, every kernel launched; a rescan is a cache hit with no launch."""
+    mkfs = shutil.which("mkfs.ext4")
+    if mkfs is None:
+        pytest.skip("mkfs.ext4 not available")
+    root = tmp_path / "root"
+    for files in card_files():
+        for rel, data in files.items():
+            (root / rel).parent.mkdir(parents=True, exist_ok=True)
+            (root / rel).write_bytes(data)
+    disk = tmp_path / "disk.img"
+    with open(disk, "wb") as f:
+        f.truncate(32 << 20)
+    subprocess.run([mkfs, "-q", "-d", str(root), str(disk)], check=True)
+    db = VulnDB.load(BUILD_DB(tmp_path))
+    kw = dict(scanners=("vuln", "secret", "license"), license_full=True, db=db,
+              cache_dir=str(tmp_path / "c1"))
+    before = dict(match_cuda.LAUNCHES)
+    on_card, stats = cli.scan_vm(str(disk), device=card, **kw)
+    launched = kernel_launches(before)
+    before = dict(match_cuda.LAUNCHES)
+    again, stats2 = cli.scan_vm(str(disk), device=card, **kw)
+    relaunched = kernel_launches(before)
+    on_cpu, _ = cli.scan_vm(str(disk), device="cpu", **{**kw, "cache_dir": str(tmp_path / "c2")})
+    assert all(launched.values()) and launched["verscmp"] == 1, launched
+    assert stats2["files_walked"] == 0 and relaunched["verscmp"] == 1
+    assert not any(v for k, v in relaunched.items() if k != "verscmp"), relaunched
+    mine, ref = on_card.to_dict(), on_cpu.to_dict()
+    assert mine["Results"] == ref["Results"] == again.to_dict()["Results"]
+    assert mine["Metadata"] == ref["Metadata"]
+    assert {"/app/key.py", "/app/old.env"} <= {r.target for r in on_card.results}
 
 
 @pytest.mark.cuda

@@ -231,6 +231,8 @@ def test_jax_flag_table_matches_the_jax_cli():
     command: every flag's name and config key, in order."""
     from trivy_tpu_torch.flag import ENV_PREFIX, JAX_FLAGS
 
+    assert set(JAX_FLAGS) == set(cli._TARGET_GROUPS) == {
+        "fs", "rootfs", "repo", "image", "vm", "sbom"}
     for command, flags in JAX_FLAGS.items():
         want = [(f.name, f.config_name) for g in jax_cli._TARGET_GROUPS[command]
                 for f in g().flags]
@@ -291,3 +293,50 @@ def test_bad_flag_values_refused(env, wd):
     for args in (["--severity", "SEVERE"], ["--exit-code", "x"], ["-c", "missing.yaml"]):
         with pytest.raises(SystemExit):
             cli.main(["fs", "--device", "cpu", "-q", *args, str(env["tree"])])
+
+
+@pytest.mark.parametrize("source", ["env", "config"])
+def test_image_flags_from_environment_and_config(wd, tmp_path, monkeypatch, source):
+    """``image.source``, ``image.docker.host`` and ``incremental.diff-base``
+    (or ``TRIVY_TPU_IMAGE_SRC``, ``TRIVY_TPU_DOCKER_HOST``,
+    ``TRIVY_TPU_DIFF_BASE``) reach the image scan in both CLIs: a bare
+    reference resolves through the fake daemon they name, and the base the
+    daemon also holds seeds the shared layers. No socket of the machine is
+    probed."""
+    from tests.daemontest import FakeDockerDaemon
+    from tests.test_torch_diff_base import build_images
+    from trivy_tpu.fanal import image_daemon as jax_daemon
+    from trivy_tpu_torch.fanal import image_daemon as port_daemon
+
+    monkeypatch.delenv("DOCKER_HOST", raising=False)
+    for mod in (jax_daemon, port_daemon):
+        for name in ("DOCKER_SOCKETS", "PODMAN_SOCKETS", "CONTAINERD_SOCKETS"):
+            monkeypatch.setattr(mod, name, [])
+    images = build_images(tmp_path)
+    daemon = FakeDockerDaemon(str(tmp_path / "d.sock")).start()
+    try:
+        for ref in ("base", "derived"):
+            daemon.add_image(f"{ref}:1", Path(images[ref]).read_bytes())
+        settings = {"IMAGE_SRC": "docker", "DOCKER_HOST": daemon.socket_path,
+                    "DIFF_BASE": "base:1"}
+        if source == "env":
+            for k, v in settings.items():
+                monkeypatch.setenv(f"TRIVY_TPU_{k}", v)
+        else:
+            (wd / "trivy-tpu.yaml").write_text(
+                f"image:\n  source: [docker]\n  docker:\n    host: {daemon.socket_path}\n"
+                "incremental:\n  diff-base: base:1\n")
+        out1, out2 = wd / "port.json", wd / "jax.json"
+        assert cli.main(["image", "--device", "cpu", "--format", "json", "-o", str(out1), "-q",
+                         "--cache-dir", str(wd / "c1"), "--stats-out", str(wd / "s.json"),
+                         "--scanners", "secret", "derived:1"]) == 0
+        assert jax_cli.main(["image", "--backend", "cpu", "--format", "json", "-o", str(out2),
+                             "-q", "--cache-dir", str(wd / "c2"), "--scanners", "secret",
+                             "derived:1"]) == 0
+    finally:
+        daemon.stop()
+    mine, ref = json.loads(out1.read_text()), json.loads(out2.read_text())
+    assert_equal(mine, ref)
+    assert mine["ArtifactName"] == ref["ArtifactName"] == "derived:1"
+    stats = json.loads((wd / "s.json").read_text())
+    assert (stats["layers_seeded"], stats["layers_analyzed"]) == (2, 1)

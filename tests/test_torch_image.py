@@ -11,6 +11,7 @@ be equal, exactly, as in ``test_torch_fs_vuln.py``."""
 import io
 import json
 import os
+import socket
 import tarfile
 from pathlib import Path
 
@@ -356,11 +357,32 @@ def test_rootfs_equals_jax(env, wd, scanners):
     assert mine["ArtifactType"] == "filesystem" and mine["Results"]
 
 
-def test_registry_target_refused(wd, capsys):
-    out = wd / "port.json"
-    rc = cli.main(["image", "--device", "cpu", "-o", str(out), "localhost:5000/app:latest"])
-    assert rc == 2 and not out.exists()
-    assert "registry and daemon sources are not ported" in capsys.readouterr().err
+def test_registry_target_refused(wd, monkeypatch, capsys):
+    """A target that is no path, that no daemon holds and that no registry
+    serves (a closed localhost port), under the default ``--image-src``:
+    the JAX CLI raises (exit code 1 from the shell) and writes no report;
+    the port logs the error, exits 1 and writes none."""
+    from trivy_tpu.fanal import image_daemon as jax_daemon
+    from trivy_tpu.fanal.image_registry import RegistryError
+    from trivy_tpu_torch.fanal import image_daemon as port_daemon
+
+    monkeypatch.delenv("DOCKER_HOST", raising=False)
+    for mod in (jax_daemon, port_daemon):
+        for name in ("DOCKER_SOCKETS", "PODMAN_SOCKETS", "CONTAINERD_SOCKETS"):
+            monkeypatch.setattr(mod, name, [])
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        ref = f"localhost:{s.getsockname()[1]}/app:latest"
+    out, ref_out = wd / "port.json", wd / "jax.json"
+    rc = cli.main(["image", "--device", "cpu", "-o", str(out), "--cache-dir", str(wd / "c1"),
+                   ref])
+    assert rc == 1 and not out.exists()
+    err = capsys.readouterr().err
+    assert "cannot reach registry" in err and "not ported" not in err
+    with pytest.raises(RegistryError, match="cannot reach registry"):
+        jax_cli.main(["image", "--backend", "cpu", "-o", str(ref_out), "--cache-dir",
+                      str(wd / "c2"), ref])
+    assert not ref_out.exists()
     assert cli.main(["image", "--device", "cpu"]) == 1
 
 

@@ -1,6 +1,7 @@
-"""Container-image artifact over docker-save and OCI-layout archives (ref:
-pkg/fanal/artifact/image/image.go:56-231, pkg/fanal/image/archive.go), the
-port of the archive half of ``trivy_tpu/artifact/image.py``.
+"""Container-image artifact over docker-save and OCI-layout archives,
+registries and runtime daemons (ref: pkg/fanal/artifact/image/image.go:56-231,
+pkg/fanal/image/archive.go, pkg/fanal/image/image.go:27-58), the port of
+``trivy_tpu/artifact/image.py``.
 
 Per layer: diff-ID → cache key (the analyzer and handler versions
 included, and ``/secret-skipped`` for a base layer), a ``missing_blobs``
@@ -13,8 +14,11 @@ handle and batched analyzers over the scan's one secret scanner; every blob
 is stored under its own key and the blobs are applied in layer order, so
 the result does not depend on which layer finishes first.
 
-Registry and daemon sources, and ``--diff-base``, are not ported: the
-target must be an archive on disk.
+Every source is a byte source under one pipeline: an archive on disk, a
+registry image (``fanal/image_registry.py``, one shared puller for every
+layer) or a daemon's ``docker save`` export to a temp archive
+(``fanal/image_daemon.py``). :func:`new_image_artifact` resolves a target in
+that order; :func:`preseed_from_base` is ``--diff-base``.
 """
 
 from __future__ import annotations
@@ -31,6 +35,12 @@ from trivy_tpu_torch import log, obs
 from trivy_tpu_torch.cache.key import calc_key
 from trivy_tpu_torch.fanal.analyzers.imgconf import analyze_image_config
 from trivy_tpu_torch.fanal.handler import HandlerManager
+from trivy_tpu_torch.fanal.image_daemon import (
+    DaemonError,
+    export_to_tempfile,
+    resolve_daemon_source,
+)
+from trivy_tpu_torch.fanal.image_registry import RegistryImage
 from trivy_tpu_torch.fanal.scan import ScanAnalyzers, analyze_files
 from trivy_tpu_torch.fanal.walker_tar import LayerResult, LayerTarWalker
 from trivy_tpu_torch.types import BlobInfo
@@ -38,6 +48,24 @@ from trivy_tpu_torch.types import BlobInfo
 logger = log.logger("artifact:image")
 
 DEFAULT_PARALLEL = 5  # layers analyzed at once (the JAX package's default)
+# --image-src when unset (trivy_tpu/artifact/local_fs.py ArtifactOption)
+DEFAULT_IMAGE_SRC = ("docker", "containerd", "podman", "remote")
+
+
+@dataclass
+class ImageSourceOption:
+    """Where a target that is not a path is looked for, and how: the image
+    fields of the JAX package's ``ArtifactOption`` under its names
+    (``--image-src`` order, daemon hosts, registry credentials, platform)."""
+
+    image_src: list[str] = field(default_factory=lambda: list(DEFAULT_IMAGE_SRC))
+    docker_host: str = ""
+    podman_host: str = ""
+    containerd_host: str = ""
+    insecure_registry: bool = False
+    registry_username: str = ""
+    registry_password: str = ""
+    platform: str = ""
 
 
 @dataclass
@@ -174,34 +202,43 @@ class _ImageArchive:
 
 class ImageArchiveArtifact:
     """One image archive scanned with ``analyzers``; blobs go to ``cache``.
-    ``stats`` gathers the layers (all, analyzed, cached), the stored bytes
-    of the analyzed layers and the files walked, scanned and skipped."""
+    ``stats`` gathers the layers (all, analyzed, cached, and seeded from a
+    ``--diff-base``), the stored bytes of the analyzed layers and the files
+    walked, scanned and skipped. ``option`` is where :func:`preseed_from_base`
+    looks for the base image. Subclasses change only the byte source
+    (:meth:`_open_source`)."""
 
     type = "container_image"
 
     def __init__(self, path: str, cache, analyzers: ScanAnalyzers, skip_files=(),
-                 skip_dirs=(), parallel: int = 0):
-        if not os.path.exists(path):
-            raise FileNotFoundError(f"image archive not found: {path}")
+                 skip_dirs=(), parallel: int = 0, option: ImageSourceOption | None = None):
         self.path = path
         self.cache = cache
         self.analyzers = analyzers
         self.skip_files = list(skip_files)
         self.skip_dirs = list(skip_dirs)
         self.parallel = parallel
+        self.option = option or ImageSourceOption()
         self.handlers = HandlerManager()
         self.walker = LayerTarWalker(skip_files=self.skip_files, skip_dirs=self.skip_dirs)
         self.stats: Counter = Counter()
 
+    def _open_source(self):
+        """A handle on the image's bytes, with the archive reader's surface;
+        the caller closes it."""
+        return _ImageArchive(self.path)
+
+    def close(self) -> None:
+        """Free what the source holds beyond a handle (a daemon's export)."""
+
     def _analyze_layer(self, index: int, diff_id: str, created_by: str,
-                       skip_secret: bool = False, archive: _ImageArchive | None = None
-                       ) -> tuple[BlobInfo, Counter]:
+                       skip_secret: bool = False, archive=None) -> tuple[BlobInfo, Counter]:
         """Analyze one layer; returns its blob and its file counts. Without
         ``archive`` it opens its own handle (tarfile handles are not
         thread-safe), so layers may run at once."""
         own_archive = archive is None
         if own_archive:
-            archive = _ImageArchive(self.path)
+            archive = self._open_source()
         try:
             counts: Counter = Counter()
             layer_res = LayerResult()
@@ -220,14 +257,14 @@ class ImageArchiveArtifact:
             if own_archive:
                 archive.close()
 
-    def _analyze_config(self, archive: _ImageArchive) -> BlobInfo:
+    def _analyze_config(self, archive) -> BlobInfo:
         """Image-config analysis as a synthetic top blob."""
         an = self.analyzers
         blob = analyze_image_config(archive.config, an.scanner is not None, an.config_path)
         blob.diff_id = archive.image_id
         return blob
 
-    def layer_plan(self, archive: _ImageArchive) -> dict:
+    def layer_plan(self, archive) -> dict:
         """Cache-key plan for one image: per-layer blob keys, the config
         key, and the artifact key."""
         versions = self.analyzers.versions()
@@ -256,7 +293,7 @@ class ImageArchiveArtifact:
     def inspect(self) -> ArtifactReference:
         """Analyze the layers and the config the cache lacks, store their
         blobs, and return the reference with the image metadata."""
-        archive = _ImageArchive(self.path)
+        archive = self._open_source()
         try:
             plan = self.layer_plan(archive)
             diff_ids, history = plan["diff_ids"], plan["history"]
@@ -353,3 +390,126 @@ def _base_layer_indices(histories: list[dict]) -> set[int]:
                 out.add(layer)
             layer += 1
     return out
+
+
+class ImageRegistryArtifact(ImageArchiveArtifact):
+    """An image pulled from an OCI registry (ref: pkg/fanal/image/image.go
+    remote source): the archive's per-layer pipeline and cache keys over a
+    :class:`~trivy_tpu_torch.fanal.image_registry.RegistryImage`."""
+
+    _image: RegistryImage | None = None
+
+    def _open_source(self) -> RegistryImage:
+        # one shared puller: HTTP pulls are thread-safe (unlike tarfile
+        # handles), and a puller per layer would refetch the manifest, the
+        # config and the token; its close() is a no-op
+        if self._image is None:
+            opt = self.option
+            self._image = RegistryImage(
+                self.path, insecure=opt.insecure_registry, username=opt.registry_username,
+                password=opt.registry_password, platform=opt.platform)
+        return self._image
+
+
+class DaemonImageArtifact(ImageArchiveArtifact):
+    """An image exported from a runtime daemon (docker, podman) into a temp
+    archive, then scanned as an archive; the report keeps the user's
+    reference, and :meth:`close` removes the temp archive."""
+
+    def __init__(self, ref: str, source, cache, analyzers: ScanAnalyzers, **kw):
+        super().__init__(ref, cache, analyzers, **kw)
+        self._tmp = export_to_tempfile(source)  # removed by it on a failed export
+
+    def _open_source(self) -> _ImageArchive:
+        return _ImageArchive(self._tmp)
+
+    def close(self) -> None:
+        if self._tmp and os.path.exists(self._tmp):
+            os.unlink(self._tmp)
+        self._tmp = ""
+
+
+def new_image_artifact(target: str, cache, analyzers: ScanAnalyzers, skip_files=(),
+                       skip_dirs=(), parallel: int = 0,
+                       option: ImageSourceOption | None = None) -> ImageArchiveArtifact:
+    """The artifact of ``target``: an archive when the path exists, else the
+    first daemon of ``option.image_src`` that holds it (``docker://``,
+    ``podman://`` and ``containerd://`` force that daemon), else, with
+    ``remote`` in the list, a registry reference (ref:
+    pkg/fanal/image/image.go:27-58). Raises
+    :class:`~trivy_tpu_torch.fanal.image_daemon.DaemonError` when no daemon
+    holds it and ``remote`` is not enabled."""
+    option = option or ImageSourceOption()
+    kw = dict(skip_files=skip_files, skip_dirs=skip_dirs, parallel=parallel, option=option)
+    if os.path.exists(target):
+        return ImageArchiveArtifact(target, cache, analyzers, **kw)
+    image_src = list(option.image_src or DEFAULT_IMAGE_SRC)
+    ref = target
+    # an explicit skopeo-style source prefix; the bare ``docker:tag`` form
+    # stays a registry reference (the image named "docker" is a real target)
+    for src in ("docker", "podman", "containerd"):
+        if target.startswith(src + "://"):
+            image_src = [src]
+            ref = target[len(src) + 3:]
+            break
+    source = resolve_daemon_source(ref, image_src, option)
+    if source is not None:
+        return DaemonImageArtifact(ref, source, cache, analyzers, **kw)
+    if "remote" not in image_src:
+        # an explicit daemon prefix or a restricted --image-src must not
+        # fall through to the registry
+        raise DaemonError(f"image {ref!r} not found via {image_src} (daemon socket "
+                          "missing or image absent) and 'remote' is not enabled")
+    return ImageRegistryArtifact(ref, cache, analyzers, **kw)
+
+
+def preseed_from_base(artifact: ImageArchiveArtifact, base_target: str) -> dict:
+    """``--diff-base`` for images: every layer of ``artifact``'s plan that
+    its cache lacks and whose diff-ID the base image ``base_target`` (any
+    target :func:`new_image_artifact` resolves, under ``artifact``'s
+    options) also has is analyzed from the base, under the derived plan's
+    key and with its secret-skip decision for base layers, which a scan of
+    the base alone would key differently. ``artifact.inspect()`` then walks
+    only the layers the base lacks. The seeded layers' file counts join
+    ``artifact.stats``, with ``layers_seeded``. Returns the ``shared``,
+    ``seeded`` and ``new`` layer counts (the JAX package's)."""
+    archive = artifact._open_source()
+    try:
+        plan = artifact.layer_plan(archive)
+        _, missing = artifact.cache.missing_blobs(
+            plan["artifact_key"], plan["layer_keys"] + [plan["config_key"]])
+        missing_set = set(missing)
+        todo = [(i, d, k) for i, (d, k) in enumerate(zip(plan["diff_ids"], plan["layer_keys"]))
+                if k in missing_set]
+        if not todo:
+            return {"shared": 0, "seeded": 0, "new": 0}
+        base = new_image_artifact(base_target, artifact.cache, artifact.analyzers,
+                                  skip_files=artifact.skip_files, skip_dirs=artifact.skip_dirs,
+                                  option=artifact.option)
+        try:
+            base_archive = base._open_source()
+            try:
+                base_index = {d: i for i, d in enumerate(base_archive.diff_ids)}
+                history = plan["history"]
+                seeded = 0
+                for i, diff_id, lkey in todo:
+                    bi = base_index.get(diff_id)
+                    if bi is None:
+                        continue
+                    created_by = history[i].get("created_by", "") if i < len(history) else ""
+                    blob, counts = base._analyze_layer(
+                        bi, diff_id, created_by, skip_secret=i in plan["base_layers"],
+                        archive=base_archive)  # serial: one open source
+                    artifact.stats.update(counts)
+                    artifact.cache.put_blob(lkey, blob.to_dict())
+                    seeded += 1
+            finally:
+                base_archive.close()
+        finally:
+            base.close()
+        artifact.stats["layers_seeded"] += seeded
+        logger.info("diff-base %s: %d shared layer(s) seeded from the base (%d layer(s) "
+                    "remain to analyze from the target)", base_target, seeded, len(todo) - seeded)
+        return {"shared": seeded, "seeded": seeded, "new": len(todo) - seeded}
+    finally:
+        archive.close()

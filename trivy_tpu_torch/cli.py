@@ -1,6 +1,7 @@
-"""Command line of the port: the ``fs`` and ``rootfs`` vulnerability, secret
-and license scans, the ``image`` scan of an image archive, and the ``sbom``
-vulnerability scan.
+"""Command line of the port: the ``fs``, ``rootfs`` and ``repo``
+vulnerability, secret and license scans, the ``image`` scan of an image
+archive, registry or daemon image, the ``vm`` scan of a disk image, and the
+``sbom`` vulnerability scan.
 
     python -m trivy_tpu_torch fs [--scanners vuln,secret,license]
         [--db-repository DIR] [--cache-dir D] [--java-db DIR] [--list-all-pkgs]
@@ -13,8 +14,15 @@ vulnerability scan.
         [--secret-compress auto|on|off | --no-secret-compress]
         [--secret-compress-min-ratio R] [--stats-out F] <dir>
     python -m trivy_tpu_torch rootfs [the fs flags] <dir>
+    python -m trivy_tpu_torch repo [the fs flags]
+        [--branch B | --tag T | --commit C] (<url> | <dir>)
     python -m trivy_tpu_torch image [the fs flags] [--parallel N]
-        [--cache-backend fs|memory] (<archive> | --input <archive>)
+        [--cache-backend fs|memory] [--diff-base <image>]
+        [--image-src docker,containerd,podman,remote] [--docker-host H]
+        [--podman-host H] [--containerd-host H] [--platform OS/ARCH]
+        [--insecure] [--username U] [--password P]
+        (<archive> | <image ref> | docker://<ref> | --input <archive>)
+    python -m trivy_tpu_torch vm [the fs flags] [--cache-backend fs|memory] <disk>
     python -m trivy_tpu_torch sbom [--db-repository DIR] [--cache-dir D]
         [--list-all-pkgs] [report flags as above]
         [--format json|table] [-o OUT] [--stats-out F] [--device cuda|cpu] <bom>
@@ -45,16 +53,23 @@ Python or Rego ``--ignore-policy``, and the dedup.
 analyzers of ``fanal/scan.py``: the OS identity analyzers always, the
 lockfile, installed-package, binary and OS package DB analyzers when the
 report can show packages (``vuln``, ``license`` or ``--list-all-pkgs``),
-the secret and license analyzers as their scanners ask. ``image`` walks each
-layer of a docker-save or OCI-layout archive that its layer cache lacks the
-same way (``artifact/image.py``), every package analyzer included. Every
-application's packages then meet the advisory DB of ``--db-repository``
-(or ``<cache-dir>/db``) in one resident CVE join. The JSON ``Results`` and
-``Metadata`` equal those of ``python -m trivy_tpu.cli <command> --scanners
-<same> --backend cpu --format json`` on the same target, DB and working
-directory; ``sbom``'s equal those of ``python -m trivy_tpu.cli sbom
---format json``. An image target that is not a path on disk exits with
-code 2: registry and daemon sources are not ported.
+the secret and license analyzers as their scanners ask. ``repo`` clones a
+URL (``artifact/repo.py``) and scans the checkout as ``fs``; a path is
+scanned in place. ``image`` walks each layer that its layer cache lacks the
+same way (``artifact/image.py``), every package analyzer included: of a
+docker-save or OCI-layout archive when the target is a path, else of the
+first daemon in ``--image-src`` order that holds the image, else of a
+registry pull (``remote``). ``--diff-base`` analyzes the layers the derived
+image shares with the base from the base. ``vm`` walks the ext4 partitions
+of a raw disk image (``artifact/vm.py``) with the analyzers of an image
+layer, its blob cached per image. Every application's packages then meet
+the advisory DB of ``--db-repository`` (or ``<cache-dir>/db``) in one
+resident CVE join. The JSON ``Results`` and ``Metadata`` equal those of
+``python -m trivy_tpu.cli <command> --scanners <same> --backend cpu --format
+json`` on the same target, DB and working directory; ``sbom``'s equal those
+of ``python -m trivy_tpu.cli sbom --format json``. An image source that
+cannot be resolved or read, a clone that fails and an unreadable
+``--diff-base`` exit with code 1 and write no report.
 """
 
 from __future__ import annotations
@@ -67,10 +82,19 @@ import time
 from collections import Counter
 
 from trivy_tpu_torch import log, obs
+from trivy_tpu_torch.artifact.image import (
+    ImageSourceOption,
+    new_image_artifact,
+    preseed_from_base,
+)
+from trivy_tpu_torch.artifact.vm import VMImageArtifact
+from trivy_tpu_torch.artifact.repo import RepoError, checkout_repo, is_remote
 from trivy_tpu_torch.cache import BACKENDS, new_cache
 from trivy_tpu_torch.db import load_default_db
 from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve
 from trivy_tpu_torch.fanal.handler import HandlerManager
+from trivy_tpu_torch.fanal.image_daemon import DaemonError
+from trivy_tpu_torch.fanal.image_registry import RegistryError
 from trivy_tpu_torch.fanal.scan import SCANNERS, ScanAnalyzers, analyze_files, check_scanners
 from trivy_tpu_torch.fanal.walker import FSWalker, WalkOption
 from trivy_tpu_torch.flag import Flag, FlagGroup, load_config_file, resolve_all
@@ -178,35 +202,46 @@ def scan_fs(root: str, config_path: str | None = None, device=DEFAULT_DEVICE,
     return report, _finish_stats(stats, analyzers, scanners, t0)
 
 
-class ImageSourceError(ValueError):
-    """The image target is not an archive on disk: registry and daemon
-    sources are not ported."""
+class DiffBaseError(RuntimeError):
+    """The ``--diff-base`` image could not be resolved or read."""
 
 
-def scan_image(path: str, config_path: str | None = None, device=DEFAULT_DEVICE,
+def _cached_blobs(cache, blob_ids: list[str]) -> list[BlobInfo]:
+    blobs = []
+    for bid in blob_ids:
+        d = cache.get_blob(bid)
+        if d is None:
+            raise KeyError(f"blob missing from cache: {bid}")
+        blobs.append(BlobInfo.from_dict(d))
+    return blobs
+
+
+def scan_image(target: str, config_path: str | None = None, device=DEFAULT_DEVICE,
                skip_dirs=(), skip_files=(), scanners=("secret",), license_full: bool = False,
                shared_arena: bool = True, db=None, db_repository: str | None = None,
                cache_dir: str | None = None, cache=None, cache_backend: str | None = None,
                java_db: str | None = None, list_all_pkgs: bool = False, parallel: int = 0,
+               image_source: ImageSourceOption | None = None, diff_base: str | None = None,
                **scanner_opts) -> tuple[Report, dict]:
-    """Scan the image archive at ``path`` (a docker-save tar, or an OCI
-    layout as a directory or a tar) layer by layer with ``scanners``, as
-    :func:`scan_fs` scans a tree. Layer blobs are kept in ``cache``, else in
-    the ``cache_backend`` cache (``fs`` by default, under ``cache_dir``), so
-    a second scan walks no layer it has seen; ``parallel`` layers (0: 5)
-    are analyzed at once over one secret scanner. Returns the unfiltered
-    report and the counters of :func:`scan_fs` (files and components over
-    the layers analyzed and the image's blobs) with ``layers``,
-    ``layers_analyzed``, ``layers_cached`` and ``layer_bytes``, the stored
-    bytes of the layers analyzed. Raises :class:`ImageSourceError` when
-    ``path`` does not exist."""
-    from trivy_tpu_torch.artifact.image import ImageArchiveArtifact
-
+    """Scan the image ``target`` layer by layer with ``scanners``, as
+    :func:`scan_fs` scans a tree: an archive when the path exists (a
+    docker-save tar, or an OCI layout as a directory or a tar), else an
+    image of a daemon or a registry, looked for as ``image_source`` says
+    (``artifact/image.py::new_image_artifact``). Layer blobs are kept in
+    ``cache``, else in the ``cache_backend`` cache (``fs`` by default, under
+    ``cache_dir``), so a second scan walks no layer it has seen; ``parallel``
+    layers (0: 5) are analyzed at once over one secret scanner. With
+    ``diff_base``, the layers the image shares with that base image are
+    analyzed from the base first (``preseed_from_base``). Returns the
+    unfiltered report and the counters of :func:`scan_fs` (files and
+    components over the layers analyzed and the image's blobs) with
+    ``layers``, ``layers_analyzed``, ``layers_cached``, ``layers_seeded``
+    (from the base) and ``layer_bytes``, the stored bytes of the layers
+    analyzed (a registry's compressed bytes). Raises
+    :class:`~trivy_tpu_torch.fanal.image_daemon.DaemonError` or
+    :class:`~trivy_tpu_torch.fanal.image_registry.RegistryError` when the
+    image cannot be found or pulled, :class:`DiffBaseError` for the base."""
     check_scanners(scanners)
-    if not os.path.exists(path):
-        raise ImageSourceError(
-            f"image archive not found: {path} (trivy_tpu_torch scans docker-save and OCI "
-            "layout archives; registry and daemon sources are not ported)")
     dev = resolve(device)
     stats = Counter(dict.fromkeys(FILE_COUNTERS, 0))
     db = _load_db_for(scanners, db, db_repository, cache_dir, stats)
@@ -218,19 +253,58 @@ def scan_image(path: str, config_path: str | None = None, device=DEFAULT_DEVICE,
                               java_db=java_db, packages=True, **scanner_opts)
     if cache is None:
         cache = new_cache(cache_backend or "fs", cache_dir)
-    artifact = ImageArchiveArtifact(path, cache, analyzers, skip_files=skip_files,
-                                    skip_dirs=skip_dirs, parallel=parallel)
-    ref = artifact.inspect()
-    blobs = []
-    for bid in ref.blob_ids:
-        d = cache.get_blob(bid)
-        if d is None:
-            raise KeyError(f"blob missing from cache: {bid}")
-        blobs.append(BlobInfo.from_dict(d))
-    stats.update(artifact.stats)
+    artifact = new_image_artifact(target, cache, analyzers, skip_files=skip_files,
+                                  skip_dirs=skip_dirs, parallel=parallel, option=image_source)
+    try:
+        if diff_base:
+            try:
+                preseed_from_base(artifact, diff_base)
+            except Exception as e:
+                # the user asked for a diff against this base: never a
+                # silent full scan
+                raise DiffBaseError(f"--diff-base {diff_base}: {e}") from e
+        ref = artifact.inspect()
+    finally:
+        artifact.close()
+    blobs = _cached_blobs(cache, ref.blob_ids)
+    stats.update({"layers_seeded": 0, **artifact.stats})
     stats["analyze.seconds"] = time.perf_counter() - t0
     report = _detect(blobs, ref.name, ref.type, scanners, db, dev, list_all_pkgs, stats,
                      image_metadata=ref.image_metadata, skipped_files=stats["files_skipped"])
+    stats["components"] = _components(blobs)
+    return report, _finish_stats(stats, analyzers, scanners, t0)
+
+
+def scan_vm(path: str, config_path: str | None = None, device=DEFAULT_DEVICE,
+            skip_dirs=(), skip_files=(), scanners=("secret",), license_full: bool = False,
+            shared_arena: bool = True, db=None, db_repository: str | None = None,
+            cache_dir: str | None = None, cache=None, cache_backend: str | None = None,
+            java_db: str | None = None, list_all_pkgs: bool = False,
+            **scanner_opts) -> tuple[Report, dict]:
+    """Scan the raw disk image at ``path`` (MBR or GPT, ext4 partitions)
+    with ``scanners``: its files through the analyzers of an image layer, as
+    the JAX package's ``vm`` runs every package analyzer whatever the
+    scanners. The blob is kept in ``cache`` (as :func:`scan_image` keeps
+    layers), so a rescan of an unchanged image reads no file. Returns the
+    unfiltered report and the counters of :func:`scan_fs`."""
+    check_scanners(scanners)
+    dev = resolve(device)
+    stats = Counter(dict.fromkeys(FILE_COUNTERS, 0))
+    db = _load_db_for(scanners, db, db_repository, cache_dir, stats)
+    t0 = time.perf_counter()
+    analyzers = ScanAnalyzers(scanners, dev, license_full=license_full,
+                              shared_arena=shared_arena, config_path=config_path,
+                              java_db=java_db, packages=True, **scanner_opts)
+    if cache is None:
+        cache = new_cache(cache_backend or "fs", cache_dir)
+    artifact = VMImageArtifact(path, cache, analyzers, skip_files=skip_files,
+                               skip_dirs=skip_dirs)
+    ref = artifact.inspect()
+    blobs = _cached_blobs(cache, ref.blob_ids)
+    stats.update(artifact.stats)
+    stats["analyze.seconds"] = time.perf_counter() - t0
+    report = _detect(blobs, ref.name, ref.type, scanners, db, dev, list_all_pkgs, stats,
+                     skipped_files=stats["files_skipped"])
     stats["components"] = _components(blobs)
     return report, _finish_stats(stats, analyzers, scanners, t0)
 
@@ -392,6 +466,32 @@ def image_flags() -> FlagGroup:
     return FlagGroup("image", [
         Flag("parallel", default=0, value_type=int, config_name="scan.parallel",
              help="layers analyzed at once (0 = 5)"),
+        Flag("insecure", default=False, value_type=bool, config_name="image.insecure",
+             help="allow plain-HTTP / self-signed registries"),
+        Flag("username", default=None, config_name="image.username",
+             help="registry basic-auth username"),
+        Flag("password", default=None, config_name="image.password",
+             help="registry basic-auth password"),
+        Flag("platform", default=None, config_name="image.platform",
+             help="platform for multi-arch images (os/arch)"),
+        Flag("image-src", default=None, is_list=True, config_name="image.source",
+             help="image source resolution order (docker,containerd,podman,remote)"),
+        Flag("docker-host", default=None, config_name="image.docker.host",
+             help="docker daemon socket/host (unix path or tcp:// URL)"),
+        Flag("podman-host", default=None, config_name="image.podman.host",
+             help="podman service socket"),
+        Flag("containerd-host", default=None, config_name="image.containerd.host",
+             help="containerd socket path"),
+    ])
+
+
+def diff_base_flags() -> FlagGroup:
+    """The JAX incremental group's ``--diff-base``, for images only: on
+    ``fs``, ``rootfs`` and ``repo`` it is the git diff scan, not ported."""
+    return FlagGroup("incremental", [
+        Flag("diff-base", default=None, config_name="incremental.diff-base",
+             help="base image ref or archive: layers present in the base are seeded "
+                  "from it, only new layers are analyzed"),
     ])
 
 
@@ -399,16 +499,21 @@ _FS_GROUPS = [global_flags, scan_flags, report_flags, secret_flags, license_flag
 _TARGET_GROUPS = {
     "fs": _FS_GROUPS,
     "rootfs": _FS_GROUPS,
-    "image": [*_FS_GROUPS, image_flags],
+    "repo": _FS_GROUPS,
+    "image": [*_FS_GROUPS, image_flags, diff_base_flags],
+    "vm": _FS_GROUPS,
     "sbom": [global_flags, report_flags, db_flags],
 }
 _HELP = {
     "fs": "scan a local filesystem for vulnerabilities, secrets and licenses",
     "rootfs": "scan an exported root filesystem (the fs scan under another name)",
-    "image": "scan a container image archive (docker save tar, OCI layout dir or tar)",
+    "repo": "scan a git repository (local path or remote URL)",
+    "image": "scan a container image (archive, OCI layout, daemon or registry ref)",
+    "vm": "scan a VM disk image (raw; MBR/GPT + ext4)",
     "sbom": "scan an SBOM (CycloneDX/SPDX) for vulnerabilities",
 }
 _TARGET_HELP = {"fs": "directory to scan", "rootfs": "root filesystem directory",
+                "repo": "repository path or URL", "vm": "raw disk image",
                 "sbom": "SBOM file"}
 
 
@@ -433,8 +538,12 @@ def build_parser() -> argparse.ArgumentParser:
             # ref: trivy image --input for archives; positional for names
             sp.add_argument("--input", default=None,
                             help="image archive (docker save tar / OCI layout)")
-            sp.add_argument("target", nargs="?", default=None, help="image archive path")
+            sp.add_argument("target", nargs="?", default=None,
+                            help="image archive path or image reference")
         else:
+            if cmd == "repo":
+                for ref in ("branch", "tag", "commit"):
+                    sp.add_argument(f"--{ref}", default=None, help=f"{ref} to check out")
             sp.add_argument("target", help=_TARGET_HELP[cmd])
     p.set_defaults(_groups_by_cmd=groups_by_cmd)
     return p
@@ -516,16 +625,43 @@ def _run(args, opts: dict) -> int:
                 return 1
             report, counters = _run_scan(scan_image, target, args, opts,
                                          cache_backend=opts["cache_backend"],
-                                         parallel=max(0, opts["parallel"]))
+                                         parallel=max(0, opts["parallel"]),
+                                         image_source=_image_source(opts),
+                                         diff_base=opts["diff_base"])
+        elif args.command == "vm":
+            report, counters = _run_scan(scan_vm, args.target, args, opts,
+                                         cache_backend=opts["cache_backend"])
         else:
-            report, counters = _run_scan(scan_fs, args.target, args, opts)
+            target = args.target
+            if args.command == "repo" and is_remote(target):
+                target = checkout_repo(target, branch=args.branch, tag=args.tag,
+                                       commit=args.commit)
+            report, counters = _run_scan(scan_fs, target, args, opts)
         if args.stats_out:
             with open(args.stats_out, "w", encoding="utf-8") as f:
                 json.dump(counters, f, indent=2)
         return _emit(report, opts)
-    except (PolicyError, ImageSourceError) as e:
+    except PolicyError as e:
         logger.error("%s", e)
         return 2
+    except (DaemonError, RegistryError, RepoError, DiffBaseError) as e:
+        # a target or base that cannot be found, pulled or cloned: no report
+        logger.error("%s", e)
+        return 1
+
+
+def _image_source(opts: dict) -> ImageSourceOption:
+    """The image flags as the JAX package's ``ArtifactOption`` takes them
+    (``trivy_tpu/commands.py:148-160``); unset ``--image-src`` keeps the
+    default order."""
+    src = ImageSourceOption(
+        docker_host=opts["docker_host"] or "", podman_host=opts["podman_host"] or "",
+        containerd_host=opts["containerd_host"] or "", insecure_registry=opts["insecure"],
+        registry_username=opts["username"] or "", registry_password=opts["password"] or "",
+        platform=opts["platform"] or "")
+    if opts["image_src"]:
+        src.image_src = list(opts["image_src"])
+    return src
 
 
 def _emit(report: Report, opts: dict) -> int:
@@ -547,8 +683,8 @@ def _emit(report: Report, opts: dict) -> int:
 
 
 def _run_scan(scan, target: str, args, opts: dict, **extra) -> tuple[Report, dict]:
-    """``scan`` (:func:`scan_fs` or :func:`scan_image`) of ``target`` with
-    the resolved flags."""
+    """``scan`` (:func:`scan_fs`, :func:`scan_image` or :func:`scan_vm`) of
+    ``target`` with the resolved flags."""
     config = opts["secret_config"] if os.path.exists(opts["secret_config"]) else None
     return scan(
         target, config_path=config, device=args.device,

@@ -279,7 +279,9 @@ JAX_FLAGS = {
     for cmd, groups in {
         "fs": _FS_LIKE,
         "rootfs": _FS_LIKE,
+        "repo": _FS_LIKE,
         "image": _FS_LIKE[:7] + ("client/server", "image", "fleet", "tuning", "incremental"),
+        "vm": _FS_LIKE[:8] + ("tuning",),
         "sbom": ("global", "scan", "report", "db", "client/server"),
     }.items()
 }
