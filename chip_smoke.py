@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's secret, license, SBOM, filesystem
-vulnerability, image (archive, registry, daemon), repository and VM scans on
-one NVIDIA card.
+vulnerability, image (archive, registry, daemon), repository and VM scans
+and its report formats on one NVIDIA card.
 
     python3 chip_smoke.py [--e2e-mib 128] [--license-mib 64] [--image-mib 128]
         [--seed 0]
@@ -170,7 +170,27 @@ Phases, each printing JSON lines:
     plain scan's wall time; a profiler that records no kernel fails the
     phase) beside the share derived from the scan's launches times each
     kernel's ``timing`` ms.
-11. image: this slice's path. A seeded docker-save archive of about 128
+11. formats: every report format of the JAX CLI through ``cli.main`` on a
+    cut of the fs-vuln tree (a lockfile of each kind, the debian root, 100
+    ``node_modules`` packages, the trace phase's license files, one planted
+    secret) plus a lockfile whose packages depend on five planted npm
+    packages (no plant in the cut has a dependent), with the cve DB.
+    ``fs --scanners vuln,secret,license --list-all-pkgs`` once on the
+    card with each of ``json``, ``cyclonedx``, ``spdx-json``, ``spdx``,
+    ``sarif``, ``github``, ``cosign-vuln``, ``table --dependency-tree`` and
+    ``template -t @file`` (launch counters to 0 just before each scan, read
+    just after), and each with ``--device cpu`` as ``python -m
+    trivy_tpu_torch`` (five at once, beside the card's scans): equal bytes
+    apart from the fields derived from the clock (CycloneDX's serial number
+    and timestamp, SPDX's namespace and creation time, the snapshot's
+    ``scanned``, the report's and cosign's times), each present once.
+    ``convert`` of the card's JSON into the eight other formats must give
+    the card scans' bytes (the same fields aside); ``sbom`` of the card's
+    CycloneDX on the card must report the fs scan's vulnerabilities with
+    one ``verscmp`` launch; the dependency tree must name the five planted
+    packages and their dependents. Printed: bytes, card, CPU, convert and
+    writer seconds per format, the SBOM's components and the launches.
+12. image: this slice's path. A seeded docker-save archive of about 128
     MiB of layer bytes (``--image-mib``) in five layers: a debian 12 base
     (the fs-vuln ``var/lib/dpkg/status`` and one planted secret; the
     history marks it as the base image, so its secret must not be
@@ -192,7 +212,7 @@ Phases, each printing JSON lines:
     name in the OS section's target aside). Printed: layer MB/s,
     components/s and the scan's seconds split into walk and analysis
     against detection.
-12. sources: the targets that are not archives, on the image phase's
+13. sources: the targets that are not archives, on the image phase's
     inputs and the loaded cve DB, each scan with the launch counters set to
     0 just before and read just after. The image's five layers and config
     (gzip level 1) pushed to the in-process registry of
@@ -217,11 +237,12 @@ Phases, each printing JSON lines:
     file and launches no feed or license kernel. The fakes are loaded by
     path (``load_fake``); ``DOCKER_HOST`` is unset, so no daemon of the
     machine is reached.
-13. kernels: every ported kernel with its launches on the main path, its
+14. kernels: every ported kernel with its launches on the main path, its
     agreement with the plain version (bitwise, or within ``SCORE_RTOL`` for
     the scorer's ``full_w``) and its times, with its launches in the
-    ``image`` phase's first scan (``launches_image``) and in the
-    ``sources`` phase's registry scan (``launches_registry``).
+    ``formats`` phase's card scans (``launches_formats``), in the ``image``
+    phase's first scan (``launches_image``) and in the ``sources`` phase's
+    registry scan (``launches_registry``).
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; the last line is ``{"ok": true, "device": {...}}``. Without a
@@ -238,6 +259,7 @@ import io
 import json
 import os
 import random
+import re
 import runpy
 import shutil
 import subprocess
@@ -253,6 +275,7 @@ import numpy as np
 import torch
 
 from trivy_tpu_torch import cli
+from trivy_tpu_torch import report as report_pkg
 from trivy_tpu_torch.artifact.image import ImageSourceOption, _ImageArchive
 from trivy_tpu_torch.db import VulnDB
 from trivy_tpu_torch.detector import library
@@ -287,6 +310,7 @@ from trivy_tpu_torch.secret.compress import MODE_PACK7, MODE_RAW, MODE_TOKEN, Sl
 from trivy_tpu_torch.secret.device_compile import compile_rules
 from trivy_tpu_torch.secret.engine import ScannerConfig, SecretScanner
 from trivy_tpu_torch.secret.scanner import BATCH, BUCKET_RUNGS, CHUNK_LEN
+from trivy_tpu_torch.types import Report
 
 REPO = Path(__file__).resolve().parent
 # one sample token per built-in rule, and custom rulesets with a sample per
@@ -2146,6 +2170,193 @@ def phase_trace(tree: Path, db_dir: Path, kernel_ms: dict, card: str) -> dict:
     return result
 
 
+# the formats phase: each format once on the card, each against the CPU
+FORMATS = ("json", "cyclonedx", "spdx-json", "spdx", "sarif", "github", "cosign-vuln", "table",
+           "template")
+# the fields each format derives from the scan's clock (the report's
+# CreatedAt, or the clock itself for cosign-vuln): two scans differ in these
+# alone, and each appears once
+FORMAT_TIME_FIELDS = {
+    "json": (r'"CreatedAt": "[^"]*"',),
+    "cyclonedx": (r'"serialNumber": "[^"]*"', r'"timestamp": "[^"]*"'),
+    "spdx-json": (r'"documentNamespace": "[^"]*"', r'"created": "[^"]*"'),
+    "spdx": (r"(?m)^DocumentNamespace: .*$", r"(?m)^Created: .*$"),
+    "github": (r'"scanned": "[^"]*"',),
+    "cosign-vuln": (r'"CreatedAt": "[^"]*"', r'"scanStartedOn": "[^"]*"',
+                    r'"scanFinishedOn": "[^"]*"'),
+}
+FORMATS_TEMPLATE = (
+    "{{ .ArtifactName }} ({{ .ArtifactType }})\n"
+    "{{ range .Results }}{{ .Target }} {{ .Class | toUpper }}: {{ len .Packages }} packages, "
+    "{{ len .Vulnerabilities }} vulnerabilities, {{ len .Secrets }} secrets\n"
+    "{{ range .Vulnerabilities }}  {{ .VulnerabilityID }} {{ .PkgName | escapeXML }}@"
+    "{{ .InstalledVersion }} {{ .Severity | toLower }}\n{{ end }}{{ end }}"
+)
+# what the formats phase copies from the fs-vuln tree: one lockfile of each
+# kind, the debian root, 100 node_modules packages, the trace phase's license
+# files and one planted secret
+FORMATS_CUT = ("services/web00", "services/go00", "crates/c00", "etc/os-release",
+               "var/lib/dpkg/status", "licenses", "src/module_0.py")
+FORMATS_NODE_MODULES = 100
+FORMATS_EDGES = 5  # planted npm packages reached through a dependency edge
+FORMATS_CPU_PROCS = 5  # CPU reference scans run at once beside the card's
+
+
+def mask_time(fmt: str, text: str) -> str:
+    """``text`` with each clock-derived field of ``fmt`` masked; each must
+    appear exactly once."""
+    for pat in FORMAT_TIME_FIELDS.get(fmt, ()):
+        text, n = re.subn(pat, "<time>", text)
+        check(n == 1, f"formats: {fmt} has {n} fields matching {pat}, want 1")
+    return text
+
+
+def write_formats_tree(src: Path, dst: Path) -> list[tuple]:
+    """The cut of the fs-vuln tree (``FORMATS_CUT``) and a lockfile whose
+    packages each depend on a planted vulnerable npm package: no plant in
+    the cut has a dependent (fs-vuln's npm lockfiles name their packages
+    from the root, which is no package). Returns the (dependent, planted
+    name, version) of those edges."""
+    for rel in FORMATS_CUT:
+        if (src / rel).is_dir():
+            shutil.copytree(src / rel, dst / rel)
+        else:
+            (dst / rel).parent.mkdir(parents=True, exist_ok=True)
+            shutil.copy2(src / rel, dst / rel)
+    for k in range(FORMATS_NODE_MODULES):
+        shutil.copytree(src / f"web/node_modules/nm-pkg-{k:04d}",
+                        dst / f"web/node_modules/nm-pkg-{k:04d}")
+    edges = [(f"dep-app-{j:02d}", name, vuln) for j, (_t, _b, name, _v, vuln, _hi) in
+             enumerate(p for p in plants() if p[0] == "npm") if j < FORMATS_EDGES]
+    packages = {"": {"name": "edges", "dependencies": {app: "*" for app, _n, _v in edges}}}
+    for app, name, vuln in edges:
+        packages[f"node_modules/{app}"] = {"version": "1.0.0", "dependencies": {name: "*"}}
+        packages[f"node_modules/{name}"] = {"version": vuln}
+    (dst / "services/edges").mkdir(parents=True)
+    (dst / "services/edges/package-lock.json").write_text(json.dumps(
+        {"name": "edges", "lockfileVersion": 3, "packages": packages}))
+    return edges
+
+
+def phase_formats(root: Path, fs_tree: Path, db_dir: Path, card: str) -> dict:
+    """Every report format of the JAX CLI through ``cli.main`` on a cut of
+    the fs-vuln tree: ``fs --scanners vuln,secret,license --list-all-pkgs``
+    once on the card per format (``table`` with ``--dependency-tree``,
+    ``template`` with an ``@file``), launch counters to 0 just before each
+    scan and read just after; the same command with ``--device cpu`` (as
+    ``python -m trivy_tpu_torch``, ``FORMATS_CPU_PROCS`` at once beside the
+    card's scans) must give the same bytes, the clock-derived fields masked.
+    ``convert`` of the card's JSON into the eight other formats must give
+    the card scans' bytes; ``sbom`` of the card's CycloneDX on the card must
+    report the fs scan's vulnerabilities. Printed: bytes, scan and writer
+    seconds per format, the SBOM's components and the launches."""
+    t_phase = time.perf_counter()
+    tree, out = root / "tree", root / "out"
+    edges = write_formats_tree(fs_tree, tree)
+    out.mkdir(parents=True)
+    tmpl = root / "report.tmpl"
+    tmpl.write_text(FORMATS_TEMPLATE)
+    head = ["fs", "--scanners", "vuln,secret,license", "--db-repository", str(db_dir),
+            "--list-all-pkgs", "-q"]
+
+    def fmt_args(fmt: str) -> list[str]:
+        extra = {"table": ["--dependency-tree"], "template": ["-t", f"@{tmpl}"]}
+        return ["--format", fmt, *extra.get(fmt, [])]
+
+    def cpu_scan(fmt: str) -> tuple[int, float]:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "trivy_tpu_torch", *head, *fmt_args(fmt), "--device", "cpu",
+             "-o", str(out / f"cpu.{fmt}"), str(tree)],
+            env={**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "2"},
+            capture_output=True)
+        if proc.returncode:
+            log({"phase": "formats", "cpu_stderr": proc.stderr.decode()[-2000:]})
+        return proc.returncode, time.perf_counter() - t0
+
+    per_fmt: dict[str, dict] = {}
+    launches: dict[str, int] = {}
+    with ThreadPoolExecutor(FORMATS_CPU_PROCS) as pool:
+        cpu_runs = {fmt: pool.submit(cpu_scan, fmt) for fmt in FORMATS}
+        for fmt in FORMATS:
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            rc = cli.main([*head, *fmt_args(fmt), "--device", "cuda", "-o",
+                           str(out / f"card.{fmt}"), str(tree)])
+            scan_s = time.perf_counter() - t0
+            lc = dict(LAUNCHES)
+            check(rc == 0, f"formats: the card scan to {fmt} exited {rc}")
+            for k, n in lc.items():
+                launches[k] = launches.get(k, 0) + n
+            per_fmt[fmt] = {"card_s": scan_s, "launches": lc,
+                            "bytes": (out / f"card.{fmt}").stat().st_size}
+        for fmt, fut in cpu_runs.items():
+            rc, cpu_s = fut.result()
+            check(rc == 0, f"formats: the CPU scan to {fmt} exited {rc}")
+            per_fmt[fmt]["cpu_s"] = cpu_s
+    card_text = {f: (out / f"card.{f}").read_text(encoding="utf-8") for f in FORMATS}
+    for fmt in FORMATS:
+        cpu = mask_time(fmt, (out / f"cpu.{fmt}").read_text(encoding="utf-8"))
+        per_fmt[fmt]["equal_cpu"] = mask_time(fmt, card_text[fmt]) == cpu
+    for fmt in FORMATS[1:]:
+        t0 = time.perf_counter()
+        rc = cli.main(["convert", *fmt_args(fmt), "-q", "-o", str(out / f"convert.{fmt}"),
+                       str(out / "card.json")])
+        per_fmt[fmt]["convert_s"] = time.perf_counter() - t0
+        check(rc == 0, f"formats: convert to {fmt} exited {rc}")
+        got = (out / f"convert.{fmt}").read_text(encoding="utf-8")
+        per_fmt[fmt]["equal_convert"] = mask_time(fmt, got) == mask_time(fmt, card_text[fmt])
+    # the writers alone, on the card scan's report read back
+    doc = json.loads(card_text["json"])
+    check(Report.from_dict(doc).to_dict() == doc, "formats: the JSON report does not read back")
+    for fmt in FORMATS:
+        kw = {"table": {"dependency_tree": True}, "template": {"template": f"@{tmpl}"}}
+        report = Report.from_dict(doc)
+        t0 = time.perf_counter()
+        report_pkg.write(report, fmt, io.StringIO(), **kw.get(fmt, {}))
+        per_fmt[fmt]["writer_s"] = time.perf_counter() - t0
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    rc = cli.main(["sbom", "--db-repository", str(db_dir), "--format", "json", "--device", "cuda",
+                   "-q", "-o", str(out / "sbom.json"), str(out / "card.cyclonedx")])
+    sbom_s = time.perf_counter() - t0
+    sbom_launches = dict(LAUNCHES)
+    check(rc == 0, f"formats: sbom of the card's CycloneDX exited {rc}")
+    for k, n in sbom_launches.items():
+        launches[k] = launches.get(k, 0) + n
+
+    def vulns(text: str) -> set:
+        return {(v["VulnerabilityID"], v["PkgName"], v["InstalledVersion"])
+                for r in json.loads(text)["Results"] for v in r.get("Vulnerabilities", [])}
+
+    fs_vulns = vulns(card_text["json"])
+    sbom_vulns = vulns((out / "sbom.json").read_text())
+    dep_tree = card_text["table"].partition("Dependency Origin Tree (Reversed)")[2]
+    missing_edges = [e for e in edges if f"{e[1]}@{e[2]}, (" not in dep_tree
+                     or f"{e[0]}@1.0.0 (direct)" not in dep_tree]
+    components = len(json.loads(card_text["cyclonedx"])["components"])
+    result = {
+        "phase": "formats", "per_format": per_fmt, "sbom_components": components,
+        "vulnerabilities": len(fs_vulns), "sbom_equal_fs": sbom_vulns == fs_vulns,
+        "sbom_s": sbom_s, "sbom_launches": sbom_launches, "launches": launches,
+        "edges_missing": missing_edges, "seconds": time.perf_counter() - t_phase, "card": card,
+    }
+    log(result)
+    for fmt, res in per_fmt.items():
+        check(res["equal_cpu"], f"formats: {fmt} differs between the card and the CPU")
+        check(res.get("equal_convert", True), f"formats: convert to {fmt} differs from the scan")
+        check(res["launches"].get("prefilter", 0) > 0 and res["launches"].get("verscmp") == 1,
+              f"formats: the card scan to {fmt} launched {res['launches']}")
+    check(result["sbom_equal_fs"], "formats: sbom of the CycloneDX differs from the fs scan")
+    check(sbom_launches.get("verscmp", 0) == 1, f"formats: sbom launched {sbom_launches}")
+    check(not missing_edges, f"formats: dependency tree lacks {missing_edges}")
+    check(components > 1000 and len(fs_vulns) > 10,
+          f"formats: {components} components, {len(fs_vulns)} vulnerabilities")
+    check(all(launches.get(k, 0) > 0 for k in (*IMAGE_KERNELS, "verscmp")),
+          f"formats: kernels not launched: {launches}")
+    return result
+
+
 # the image's history: the first layer is the base image's (an empty-layer
 # CMD ends it), so its secret scan is skipped
 IMAGE_HISTORY = [
@@ -2721,6 +2932,9 @@ def main() -> int:
                          bytes_gate=lic_timing["bytes_gate_4096"]["ms"],
                          bytes_score=lic_timing["bytes_score_4096"]["ms"])
         phase_trace(tmp / "fs-vuln" / "tree", tmp / "cve" / "db", kernel_ms, card)
+        formats = phase_formats(tmp / "formats", tmp / "fs-vuln" / "tree", tmp / "cve" / "db",
+                                card)
+        shutil.rmtree(tmp / "formats", ignore_errors=True)
         image, first_image, cut_image = phase_image(tmp / "image", tmp / "cve" / "db", args.seed,
                                                     base, args.image_mib, card)
         (tmp / "sources").mkdir()
@@ -2797,9 +3011,10 @@ def main() -> int:
         "dispatch_ms": t["dispatch"]["new"]["dispatch_ms"],
         "dispatch_ms_old_route": t["dispatch"]["old"]["dispatch_ms"],
     })
-    # each kernel's launches in the image phase's first scan and in the
-    # sources phase's registry scan
+    # each kernel's launches in the formats phase's card scans, in the image
+    # phase's first scan and in the sources phase's registry scan
     for entry, key in zip(kernels, (*IMAGE_KERNELS, "verscmp"), strict=True):
+        entry["launches_formats"] = formats["launches"].get(key, 0)
         entry["launches_image"] = image["launches"].get(key, 0)
         entry["launches_registry"] = sources["launches_registry"].get(key, 0)
     log({"phase": "done", "seconds": time.perf_counter() - t_start})

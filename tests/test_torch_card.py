@@ -642,6 +642,48 @@ def test_fs_vuln_scan_on_card_equals_cpu(card, tmp_path):
     assert sum(len(r.vulnerabilities) for r in on_card.results) > 100
 
 
+@pytest.mark.cuda
+def test_cyclonedx_of_a_card_scan_scans_as_sbom_on_card(card, tmp_path):
+    """``fs --format cyclonedx`` on the card over 1,000 npm packages and an
+    alpine root, then ``sbom`` of that file on the card: the fs scan's
+    vulnerabilities, and one ``verscmp`` launch for each scan."""
+    rng = np.random.default_rng(5)
+    pkgs = {f"node_modules/p{i}/node_modules/{['lodash', 'minimist', 'other'][i % 3]}": {
+        "version": f"{rng.integers(0, 5)}.{rng.integers(0, 21)}.{rng.integers(0, 26)}"}
+        for i in range(1000)}
+    tree = tmp_path / "tree"
+    for rel, text in {"web/package-lock.json": json.dumps({"lockfileVersion": 3,
+                                                           "packages": pkgs}),
+                      "etc/alpine-release": "3.18.4\n",
+                      "lib/apk/db/installed": "P:musl\nV:1.2.3-r0\nL:MIT\n"}.items():
+        (tree / rel).parent.mkdir(parents=True, exist_ok=True)
+        (tree / rel).write_text(text)
+    head = ["--db-repository", BUILD_DB(tmp_path), "--device", "cuda", "-q",
+            "--cache-dir", str(tmp_path / "c")]
+
+    def run(*args: str) -> int:
+        before = match_cuda.LAUNCHES["verscmp"]
+        assert cli.main([*args[:1], *head, *args[1:]]) == 0
+        return match_cuda.LAUNCHES["verscmp"] - before
+
+    assert run("fs", "--scanners", "vuln", "--format", "cyclonedx",
+               "-o", str(tmp_path / "bom.json"), str(tree)) == 1
+    assert run("fs", "--scanners", "vuln", "--format", "json",
+               "-o", str(tmp_path / "fs.json"), str(tree)) == 1
+    assert run("sbom", "--format", "json", "-o", str(tmp_path / "sbom.json"),
+               str(tmp_path / "bom.json")) == 1
+    bom = json.loads((tmp_path / "bom.json").read_text())
+    assert len(bom["components"]) > 100 and bom["vulnerabilities"]
+
+    def vulns(name: str) -> set:
+        return {(v["VulnerabilityID"], v["PkgName"], v["InstalledVersion"])
+                for r in json.loads((tmp_path / name).read_text())["Results"]
+                for v in r.get("Vulnerabilities", [])}
+
+    assert vulns("sbom.json") == vulns("fs.json")
+    assert len(vulns("fs.json")) > 10
+
+
 IMAGES = runpy.run_path(str(HERE / "imagetest.py"))
 
 

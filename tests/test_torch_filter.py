@@ -173,28 +173,59 @@ def test_config_file_skip_dirs(env, wd):
     assert "sub/creds.txt" not in targets and "lib/b.env" in targets
 
 
-@pytest.mark.parametrize("source", ["env", "config"])
+@pytest.mark.parametrize("source", ["cli", "env", "config"])
 def test_unported_jax_setting_refused(env, wd, monkeypatch, capsys, source):
-    """``dependency-tree`` is a JAX flag the port lacks: from the
-    environment or ``trivy-tpu.yaml`` the JAX CLI honours it (its report
-    lists every package), and the port exits 2 naming the setting and the
-    flag instead of reporting less."""
-    if source == "env":
-        monkeypatch.setenv("TRIVY_TPU_DEPENDENCY_TREE", "true")
-        setting = "TRIVY_TPU_DEPENDENCY_TREE"
+    """``compliance`` is a JAX flag the port lacks (it needs misconfiguration
+    scanning): from the command line, the environment or ``trivy-tpu.yaml``
+    the JAX CLI honours it (it writes the spec's control report instead of
+    the scan's), and the port exits 2 instead of writing a report the user
+    did not ask for; from the environment and the config file its message
+    names the setting and the flag."""
+    extra = []
+    if source == "cli":
+        extra = ["--compliance", "docker-cis-1.6.0"]
+    elif source == "env":
+        monkeypatch.setenv("TRIVY_TPU_COMPLIANCE", "docker-cis-1.6.0")
     else:
-        (wd / "trivy-tpu.yaml").write_text("dependency-tree: true\n")
-        setting = "'dependency-tree'"
+        (wd / "trivy-tpu.yaml").write_text("compliance: docker-cis-1.6.0\n")
     with pytest.raises(SystemExit) as exc:
-        run_both(env, wd, "fs-vuln")
+        run_both(env, wd, "fs-vuln", *extra)
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert setting in err and "--dependency-tree" in err
+    if source == "cli":
+        assert "--compliance" in err
+    else:
+        setting = "TRIVY_TPU_COMPLIANCE" if source == "env" else "'compliance'"
+        assert setting in err and "--compliance" in err
     out = wd / "jax.json"
     rc = jax_cli.main([*COMMANDS["fs-vuln"](env), "--backend", "cpu", "--format", "json",
-                       "-o", str(out), "-q", "--cache-dir", str(wd / "c2"), str(env["tree"])])
+                       "-o", str(out), "-q", "--cache-dir", str(wd / "c2"), *extra,
+                       str(env["tree"])])
     assert rc == 0
-    assert any(r.get("Packages") for r in json.loads(out.read_text())["Results"])
+    doc = json.loads(out.read_text())
+    assert doc["ID"] == "docker-cis-1.6.0" and "SummaryControls" in doc
+
+
+@pytest.mark.parametrize("source", ["env", "config"])
+def test_dependency_tree_setting_equals_jax(env, wd, monkeypatch, source):
+    """``dependency-tree`` from the environment or ``trivy-tpu.yaml`` is
+    ported: the port lists every package, as the JAX CLI does, and writes
+    the JAX CLI's table bytes."""
+    if source == "env":
+        monkeypatch.setenv("TRIVY_TPU_DEPENDENCY_TREE", "true")
+    else:
+        (wd / "trivy-tpu.yaml").write_text("dependency-tree: true\n")
+    mine, ref, rc1, rc2 = run_both(env, wd, "fs-vuln")
+    assert rc1 == rc2 == 0
+    assert_equal(mine, ref)
+    assert any(r.get("Packages") for r in mine["Results"])
+    tables = []
+    for main, device in ((cli.main, ["--device", "cpu"]), (jax_cli.main, ["--backend", "cpu"])):
+        out = wd / f"table{len(tables)}.txt"
+        assert main([*COMMANDS["fs-vuln"](env), *device, "-q", "-o", str(out),
+                     "--cache-dir", str(wd / f"c{len(tables) + 3}"), str(env["tree"])]) == 0
+        tables.append(out.read_text())
+    assert tables[0] == tables[1] and "│ lodash" in tables[0]
 
 
 @pytest.mark.parametrize("command", ["fs-secret", "sbom"])
@@ -232,7 +263,7 @@ def test_jax_flag_table_matches_the_jax_cli():
     from trivy_tpu_torch.flag import ENV_PREFIX, JAX_FLAGS
 
     assert set(JAX_FLAGS) == set(cli._TARGET_GROUPS) == {
-        "fs", "rootfs", "repo", "image", "vm", "sbom"}
+        "fs", "rootfs", "repo", "image", "vm", "sbom", "convert"}
     for command, flags in JAX_FLAGS.items():
         want = [(f.name, f.config_name) for g in jax_cli._TARGET_GROUPS[command]
                 for f in g().flags]

@@ -1,14 +1,15 @@
 """Command line of the port: the ``fs``, ``rootfs`` and ``repo``
 vulnerability, secret and license scans, the ``image`` scan of an image
-archive, registry or daemon image, the ``vm`` scan of a disk image, and the
-``sbom`` vulnerability scan.
+archive, registry or daemon image, the ``vm`` scan of a disk image, the
+``sbom`` vulnerability scan, and ``convert`` of a saved JSON report.
 
     python -m trivy_tpu_torch fs [--scanners vuln,secret,license]
         [--db-repository DIR] [--cache-dir D] [--java-db DIR] [--list-all-pkgs]
         [--license-full] [--no-shared-arena] [--secret-config F]
         [--severity S,..] [--ignorefile F] [--ignore-policy F.py|F.rego]
         [--vex DOC|repo ..] [--show-suppressed] [--exit-code N] [-c CONFIG]
-        [--format json|table] [-o OUT] [--device cuda|cpu]
+        [--format FORMAT] [-t TEMPLATE|@FILE] [--dependency-tree] [-o OUT]
+        [--device cuda|cpu]
         [--no-secret-dedup] [--secret-dedup-mb N]
         [--secret-hit-cache [--cache-backend fs|memory]]
         [--secret-compress auto|on|off | --no-secret-compress]
@@ -25,7 +26,18 @@ archive, registry or daemon image, the ``vm`` scan of a disk image, and the
     python -m trivy_tpu_torch vm [the fs flags] [--cache-backend fs|memory] <disk>
     python -m trivy_tpu_torch sbom [--db-repository DIR] [--cache-dir D]
         [--list-all-pkgs] [report flags as above]
-        [--format json|table] [-o OUT] [--stats-out F] [--device cuda|cpu] <bom>
+        [--format FORMAT] [-o OUT] [--stats-out F] [--device cuda|cpu] <bom>
+    python -m trivy_tpu_torch convert [report flags as above] <report.json>
+
+``FORMAT`` is any of the JAX CLI's nine: ``table`` (the default; with
+``--dependency-tree`` the reversed dependency tree of each vulnerable
+package), ``json``, ``sarif``, ``cyclonedx``, ``spdx`` (tag-value),
+``spdx-json``, ``github`` (a dependency snapshot), ``template`` (``-t``, a
+Go-template subset or ``@file``) and ``cosign-vuln``. ``--dependency-tree``
+and the SBOM and snapshot formats scan the whole package inventory, as
+``--list-all-pkgs`` does. ``convert`` reads a JSON report, filters it and
+writes it in the format asked for, as the JAX ``convert`` does; it touches
+no device. A report with misconfiguration results exits 2.
 
 Every command can trace itself as the JAX CLI does: ``--trace`` prints the
 span table, the stall verdict and the hottest rules after the scan;
@@ -82,6 +94,7 @@ import time
 from collections import Counter
 
 from trivy_tpu_torch import log, obs
+from trivy_tpu_torch import report as report_pkg
 from trivy_tpu_torch.artifact.image import (
     ImageSourceOption,
     new_image_artifact,
@@ -100,7 +113,6 @@ from trivy_tpu_torch.fanal.walker import FSWalker, WalkOption
 from trivy_tpu_torch.flag import Flag, FlagGroup, load_config_file, resolve_all
 from trivy_tpu_torch.obs import export
 from trivy_tpu_torch.obs import timeseries
-from trivy_tpu_torch.report import WRITERS
 from trivy_tpu_torch.result import FilterOptions, IgnorePolicy, PolicyError, filter_report
 from trivy_tpu_torch.sbom import detect_format
 from trivy_tpu_torch.sbom.decode import decode
@@ -111,9 +123,11 @@ from trivy_tpu_torch.types import BlobInfo, Report
 logger = log.logger("cli")
 
 SEVERITIES = ["UNKNOWN", "LOW", "MEDIUM", "HIGH", "CRITICAL"]
-# the CVE join's counters in a scan's counters (the JAX package's names)
+# formats that force the whole package inventory, as --list-all-pkgs does
+LIST_ALL_FORMATS = ("cyclonedx", "spdx", "spdx-json", "github")
 # the walk's counters in a scan's counters (fanal/scan.py analyze_files)
 FILE_COUNTERS = ("files_walked", "files_scanned", "files_skipped")
+# the CVE join's counters in a scan's counters (the JAX package's names)
 CVE_COUNTERS = ("cve.bounds_bytes_uploaded", "cve.resident_rows", "cve.dispatch_count",
                 "cve.candidate_pairs", "cve.join.seconds", "cve.dispatch.seconds")
 
@@ -388,7 +402,7 @@ def scan_flags() -> FlagGroup:
 
 def report_flags() -> FlagGroup:
     return FlagGroup("report", [
-        Flag("format", default="table", choices=sorted(WRITERS), short="f",
+        Flag("format", default="table", choices=report_pkg.FORMATS, short="f",
              config_name="format", help="output format"),
         Flag("output", default=None, short="o", config_name="output",
              help="output file (default stdout)"),
@@ -407,8 +421,14 @@ def report_flags() -> FlagGroup:
                   "'repo' for the VEX repositories under <cache-dir>/vex"),
         Flag("show-suppressed", default=False, value_type=bool,
              config_name="show-suppressed", help="list policy-suppressed findings"),
+        Flag("template", default=None, short="t", config_name="template",
+             help="go-template style output template, or @file (for --format template)"),
         Flag("list-all-pkgs", default=False, value_type=bool,
              config_name="list-all-pkgs", help="include all packages in report"),
+        Flag("dependency-tree", default=False, value_type=bool,
+             config_name="dependency-tree",
+             help="show the reversed dependency origin tree for vulnerable packages "
+                  "(table format)"),
     ])
 
 
@@ -503,6 +523,7 @@ _TARGET_GROUPS = {
     "image": [*_FS_GROUPS, image_flags, diff_base_flags],
     "vm": _FS_GROUPS,
     "sbom": [global_flags, report_flags, db_flags],
+    "convert": [global_flags, report_flags],
 }
 _HELP = {
     "fs": "scan a local filesystem for vulnerabilities, secrets and licenses",
@@ -511,10 +532,11 @@ _HELP = {
     "image": "scan a container image (archive, OCI layout, daemon or registry ref)",
     "vm": "scan a VM disk image (raw; MBR/GPT + ext4)",
     "sbom": "scan an SBOM (CycloneDX/SPDX) for vulnerabilities",
+    "convert": "convert a saved JSON report into another format",
 }
 _TARGET_HELP = {"fs": "directory to scan", "rootfs": "root filesystem directory",
                 "repo": "repository path or URL", "vm": "raw disk image",
-                "sbom": "SBOM file"}
+                "sbom": "SBOM file", "convert": "JSON report"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -527,13 +549,14 @@ def build_parser() -> argparse.ArgumentParser:
         for g in groups:
             g.add_to_parser(sp)
         groups_by_cmd[cmd] = groups
-        # the port's own flags: the command line only
-        sp.add_argument("--device", choices=["cuda", "cpu"], default=DEFAULT_DEVICE)
-        sp.add_argument("--stats-out", default="",
-                        help="write the scan's counters (files, components, seconds, the "
-                             "CVE join's rows, dispatches and bound bytes uploaded, the "
-                             "secret feed's rows, dedup and wire bytes; for an image its "
-                             "layers analyzed and cached) as JSON")
+        if cmd != "convert":  # convert touches no device and scans nothing
+            # the port's own flags: the command line only
+            sp.add_argument("--device", choices=["cuda", "cpu"], default=DEFAULT_DEVICE)
+            sp.add_argument("--stats-out", default="",
+                            help="write the scan's counters (files, components, seconds, "
+                                 "the CVE join's rows, dispatches and bound bytes uploaded, "
+                                 "the secret feed's rows, dedup and wire bytes; for an image "
+                                 "its layers analyzed and cached) as JSON")
         if cmd == "image":
             # ref: trivy image --input for archives; positional for names
             sp.add_argument("--input", default=None,
@@ -613,6 +636,12 @@ def _run(args, opts: dict) -> int:
         # cost the user a full scan before failing
         if opts["ignore_policy"]:
             IgnorePolicy(opts["ignore_policy"])
+        if args.command == "convert":
+            return _run_convert(args.target, opts)
+        # the SBOM and snapshot formats and the dependency tree need the
+        # whole inventory (trivy_tpu/commands.py::_scan_options)
+        opts["list_all_pkgs"] = (opts["list_all_pkgs"] or opts["dependency_tree"]
+                                 or opts["format"] in LIST_ALL_FORMATS)
         if args.command == "sbom":
             report, counters = scan_sbom(args.target, device=args.device,
                                          db_repository=opts["db_repository"],
@@ -664,6 +693,21 @@ def _image_source(opts: dict) -> ImageSourceOption:
     return src
 
 
+def _run_convert(path: str, opts: dict) -> int:
+    """Re-render the saved JSON report at ``path`` through :func:`_emit`
+    (the JAX package's ``commands._run_convert``). A report with
+    misconfiguration results exits 2 and writes nothing: the port has no
+    misconfiguration types, and writing the report without them would drop
+    findings."""
+    with open(path, encoding="utf-8") as f:
+        doc = json.load(f)
+    if any(r.get("Misconfigurations") for r in doc.get("Results") or []):
+        logger.error("%s: results hold 'Misconfigurations', which this port cannot write "
+                     "(no misconfiguration scanning); convert it with trivy_tpu.cli", path)
+        return 2
+    return _emit(Report.from_dict(doc), opts)
+
+
 def _emit(report: Report, opts: dict) -> int:
     """Filter, write, and the exit code (ref: pkg/commands/artifact/run.go;
     the JAX package's ``commands._emit``)."""
@@ -671,12 +715,14 @@ def _emit(report: Report, opts: dict) -> int:
         severities=opts["severity"], ignore_file=opts["ignorefile"],
         vex_sources=opts["vex"], policy_file=opts["ignore_policy"],
         show_suppressed=opts["show_suppressed"], cache_dir=opts["cache_dir"] or ""))
-    write = WRITERS[opts["format"]]
+    kw = {k: True for k in ("show_suppressed", "dependency_tree") if opts[k]}
+    if opts["template"]:
+        kw["template"] = opts["template"]
     if opts["output"]:
         with open(opts["output"], "w", encoding="utf-8") as f:
-            write(report, f, show_suppressed=opts["show_suppressed"])
+            report_pkg.write(report, opts["format"], f, **kw)
     else:
-        write(report, sys.stdout, show_suppressed=opts["show_suppressed"])
+        report_pkg.write(report, opts["format"], sys.stdout, **kw)
     if opts["exit_code"] and any(not r.is_empty for r in report.results):
         return opts["exit_code"]
     return 0

@@ -283,5 +283,6 @@ JAX_FLAGS = {
         "image": _FS_LIKE[:7] + ("client/server", "image", "fleet", "tuning", "incremental"),
         "vm": _FS_LIKE[:8] + ("tuning",),
         "sbom": ("global", "scan", "report", "db", "client/server"),
+        "convert": ("global", "report"),
     }.items()
 }

@@ -233,6 +233,19 @@ class DetectedLicense:
             "Link": self.link,
         }
 
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "DetectedLicense":
+        return cls(
+            severity=d.get("Severity", "UNKNOWN"),
+            category=d.get("Category", ""),
+            pkg_name=d.get("PkgName", ""),
+            file_path=d.get("FilePath", ""),
+            name=d.get("Name", ""),
+            text=d.get("Text", ""),
+            confidence=d.get("Confidence", 1.0),
+            link=d.get("Link", ""),
+        )
+
 
 @dataclass
 class PkgIdentifier:
@@ -528,6 +541,31 @@ class DetectedVulnerability:
             "LastModifiedDate": self.last_modified_date,
         }
 
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "DetectedVulnerability":
+        return cls(
+            vulnerability_id=d.get("VulnerabilityID", ""),
+            pkg_id=d.get("PkgID", ""),
+            pkg_name=d.get("PkgName", ""),
+            pkg_path=d.get("PkgPath", ""),
+            pkg_identifier=PkgIdentifier.from_dict(d.get("PkgIdentifier", {}) or {}),
+            installed_version=d.get("InstalledVersion", ""),
+            fixed_version=d.get("FixedVersion", ""),
+            status=d.get("Status", ""),
+            severity=d.get("Severity", "UNKNOWN"),
+            severity_source=d.get("SeveritySource", ""),
+            title=d.get("Title", ""),
+            description=d.get("Description", ""),
+            references=list(d.get("References", []) or []),
+            cvss=dict(d.get("CVSS", {}) or {}),
+            cwe_ids=list(d.get("CweIDs", []) or []),
+            primary_url=d.get("PrimaryURL", ""),
+            data_source=dict(d.get("DataSource", {}) or {}),
+            layer=d.get("Layer", ""),
+            published_date=d.get("PublishedDate", ""),
+            last_modified_date=d.get("LastModifiedDate", ""),
+        )
+
 
 @dataclass
 class ModifiedFinding:
@@ -548,6 +586,16 @@ class ModifiedFinding:
             "Source": self.source,
             "Finding": dict(self.finding),
         }
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "ModifiedFinding":
+        return cls(
+            type=d.get("Type", "vulnerability"),
+            status=d.get("Status", ""),
+            statement=d.get("Statement", ""),
+            source=d.get("Source", ""),
+            finding=d.get("Finding", {}) or {},
+        )
 
 
 @dataclass
@@ -579,6 +627,24 @@ class Result:
             d["ExperimentalModifiedFindings"] = [m.to_dict() for m in self.modified_findings]
         return d
 
+    @classmethod
+    def from_dict(cls_, d: dict[str, Any]) -> "Result":
+        return cls_(
+            target=d.get("Target", ""),
+            cls=d.get("Class", ""),
+            type=d.get("Type", ""),
+            packages=[Package.from_dict(x) for x in d.get("Packages", []) or []],
+            vulnerabilities=[
+                DetectedVulnerability.from_dict(x) for x in d.get("Vulnerabilities", []) or []
+            ],
+            secrets=[SecretFinding.from_dict(x) for x in d.get("Secrets", []) or []],
+            licenses=[DetectedLicense.from_dict(x) for x in d.get("Licenses", []) or []],
+            modified_findings=[
+                ModifiedFinding.from_dict(x)
+                for x in d.get("ExperimentalModifiedFindings", []) or []
+            ],
+        )
+
     @property
     def is_empty(self) -> bool:
         return not (self.packages or self.vulnerabilities or self.secrets or self.licenses)
@@ -586,7 +652,9 @@ class Result:
 
 @dataclass
 class Report:
-    """Top-level scan report (ref: pkg/types/report.go Report)."""
+    """Top-level scan report (ref: pkg/types/report.go Report). ``degraded``
+    is never set by the port's scans; it carries the flag of a JAX report
+    that ``convert`` re-renders."""
 
     schema_version: int = SCHEMA_VERSION
     created_at: str = ""
@@ -594,9 +662,10 @@ class Report:
     artifact_type: str = ""
     metadata: dict[str, Any] = field(default_factory=dict)
     results: list[Result] = field(default_factory=list)
+    degraded: bool = False
 
     def to_dict(self) -> dict[str, Any]:
-        return {
+        out = {
             "SchemaVersion": self.schema_version,
             "CreatedAt": self.created_at,
             "ArtifactName": self.artifact_name,
@@ -604,3 +673,18 @@ class Report:
             "Metadata": dict(self.metadata),
             "Results": [r.to_dict() for r in self.results],
         }
+        if self.degraded:
+            out["Degraded"] = True
+        return out
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "Report":
+        return cls(
+            schema_version=d.get("SchemaVersion", SCHEMA_VERSION),
+            created_at=d.get("CreatedAt", ""),
+            artifact_name=d.get("ArtifactName", ""),
+            artifact_type=d.get("ArtifactType", ""),
+            metadata=dict(d.get("Metadata", {}) or {}),
+            results=[Result.from_dict(x) for x in d.get("Results", []) or []],
+            degraded=bool(d.get("Degraded", False)),
+        )
