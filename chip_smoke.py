@@ -152,7 +152,36 @@ Phases, each printing JSON lines:
    planted secret and package license reported, one ``verscmp`` launch per
    card scan and no bound bytes uploaded by the second; the kernel must
    equal its plain version on the first scan's captured dispatch.
-10. trace: the span layer (``trivy_tpu_torch/obs/``) on the fs-vuln tree
+10. ladder: the scan ladder on the card, after ``fs-vuln`` and on its tree
+    and cve DB, each run through ``cli.main`` with a fresh cache and the
+    launch counters set to 0 just before and read just after, 64-row
+    batches so the tree makes several: ``fs --scanners secret`` with
+    ``--fault-inject device.dispatch@d0:at=2`` (one batch retried),
+    ``device.fetch@d0:at=3`` (one retried at the fetch) and
+    ``device.dispatch@d0:at=1:error=oom`` (one split), each with the
+    unfaulted card scan's ``Results`` and no ``Degraded``; every dispatch
+    dead (``device.dispatch:times=-1`` with ``--debug-dir``): with
+    ``--device cpu`` the scan degrades to the host engine (exit 0,
+    ``"Degraded": true``, the card's ``Results``, one bundle that ``debug``
+    renders), while on the card the exhausted ladder raises the fault with
+    or without ``--no-host-fallback`` and leaves a terminal bundle whose
+    verdict names it; ``fs --scanners secret,license --license-full`` of
+    twelve license files with ``device.dispatch@license:at=2:times=-1``
+    (on the CPU ``license.degraded`` and the card's findings, on the card
+    the fault raised); ``sbom`` of the cve SBOM with
+    ``device.dispatch@cve:times=-1`` (on the card the fault raised); an
+    encoder that raises (every batch shipped raw, the same ``Results``);
+    ``--timeout 1`` on the e2e tree (exit 1). Then the allocator's own
+    OOM: a child process scans the e2e tree's 16 MiB subset at full
+    batches, then again with its device memory capped
+    (``torch.cuda.set_per_process_memory_fraction``) ``OOM_CUT`` under the
+    first scan's peak, where a half batch fits and a full one does not:
+    ``batch_splits`` >= 1, no degrade, the first scan's ``Results``.
+    Printed per run: seconds, the ladder's counters and the kernel
+    launches it added. Every other phase's scans go through
+    ``unfaulted``: a scan there that retried, split or degraded anything,
+    or a report marked ``Degraded``, fails the smoke.
+11. trace: the span layer (``trivy_tpu_torch/obs/``) on the fs-vuln tree
     before it is deleted, with sixteen license files added (its own
     licenses are package metadata, which the classifier does not read).
     ``fs --scanners vuln,secret,license`` through the command line
@@ -170,7 +199,7 @@ Phases, each printing JSON lines:
     plain scan's wall time; a profiler that records no kernel fails the
     phase) beside the share derived from the scan's launches times each
     kernel's ``timing`` ms.
-11. formats: every report format of the JAX CLI through ``cli.main`` on a
+12. formats: every report format of the JAX CLI through ``cli.main`` on a
     cut of the fs-vuln tree (a lockfile of each kind, the debian root, 100
     ``node_modules`` packages, the trace phase's license files, one planted
     secret) plus a lockfile whose packages depend on five planted npm
@@ -190,7 +219,7 @@ Phases, each printing JSON lines:
     one ``verscmp`` launch; the dependency tree must name the five planted
     packages and their dependents. Printed: bytes, card, CPU, convert and
     writer seconds per format, the SBOM's components and the launches.
-12. image: this slice's path. A seeded docker-save archive of about 128
+13. image: this slice's path. A seeded docker-save archive of about 128
     MiB of layer bytes (``--image-mib``) in five layers: a debian 12 base
     (the fs-vuln ``var/lib/dpkg/status`` and one planted secret; the
     history marks it as the base image, so its secret must not be
@@ -212,7 +241,7 @@ Phases, each printing JSON lines:
     name in the OS section's target aside). Printed: layer MB/s,
     components/s and the scan's seconds split into walk and analysis
     against detection.
-13. sources: the targets that are not archives, on the image phase's
+14. sources: the targets that are not archives, on the image phase's
     inputs and the loaded cve DB, each scan with the launch counters set to
     0 just before and read just after. The image's five layers and config
     (gzip level 1) pushed to the in-process registry of
@@ -237,12 +266,13 @@ Phases, each printing JSON lines:
     file and launches no feed or license kernel. The fakes are loaded by
     path (``load_fake``); ``DOCKER_HOST`` is unset, so no daemon of the
     machine is reached.
-14. kernels: every ported kernel with its launches on the main path, its
+15. kernels: every ported kernel with its launches on the main path, its
     agreement with the plain version (bitwise, or within ``SCORE_RTOL`` for
     the scorer's ``full_w``) and its times, with its launches in the
     ``formats`` phase's card scans (``launches_formats``), in the ``image``
-    phase's first scan (``launches_image``) and in the ``sources`` phase's
-    registry scan (``launches_registry``).
+    phase's first scan (``launches_image``), in the ``sources`` phase's
+    registry scan (``launches_registry``) and in the ``ladder`` phase's runs
+    (``launches_ladder``).
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; the last line is ``{"ok": true, "device": {...}}``. Without a
@@ -253,6 +283,8 @@ non-zero code and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import gzip
 import importlib.util
 import io
@@ -274,7 +306,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from trivy_tpu_torch import cli
+from trivy_tpu_torch import cli, faults
 from trivy_tpu_torch import report as report_pkg
 from trivy_tpu_torch.artifact.image import ImageSourceOption, _ImageArchive
 from trivy_tpu_torch.db import VulnDB
@@ -284,6 +316,7 @@ from trivy_tpu_torch.fanal.image_registry import RegistryImage
 from trivy_tpu_torch.licensing.classify import LicenseClassifier
 from trivy_tpu_torch.licensing.corpus_texts import FULL_TEXTS
 from trivy_tpu_torch.licensing.fused import get_gate_fn
+from trivy_tpu_torch.obs import recorder
 from trivy_tpu_torch.obs.stall import ORDER as STALL_ORDER
 from trivy_tpu_torch.ops import _build
 from trivy_tpu_torch.ops.bytes_gate import (
@@ -309,6 +342,7 @@ from trivy_tpu_torch.ops.verscmp_cuda import check_ops, check_ops_gather, lexcmp
 from trivy_tpu_torch.secret.compress import MODE_PACK7, MODE_RAW, MODE_TOKEN, SlabCodec
 from trivy_tpu_torch.secret.device_compile import compile_rules
 from trivy_tpu_torch.secret.engine import ScannerConfig, SecretScanner
+from trivy_tpu_torch.secret import scanner as secret_scanner
 from trivy_tpu_torch.secret.scanner import BATCH, BUCKET_RUNGS, CHUNK_LEN
 from trivy_tpu_torch.types import Report
 
@@ -2067,6 +2101,244 @@ def phase_fs_vuln(root: Path, db_dir: Path, seed: int, base: bytes, card: str) -
     return result
 
 
+# the counters of a scan that took a rung of the ladder: a batch retried or
+# split, a run or a license batch or a CVE join that fell back to the host
+LADDER_KEYS = ("batch_retries", "batch_splits", "degraded", "scan.degraded", "license.degraded",
+               "cve.degraded")
+# rows per batch of the ladder phase's in-process runs: the fs-vuln tree's
+# few MiB of secret-scanned bytes then make enough batches for at=2 and at=3
+LADDER_BATCH = 64
+# the real-OOM child caps its device memory this far under the peak of its
+# unfaulted scan (32 MiB reserved on the 16 MiB subset: the 16 MiB rows
+# beside a 14 MiB wire and a 2 MiB segment of small blocks): the full batch
+# no longer fits, a half batch does (16 MiB reserved under the cap). Caps
+# of 22 and 26 MiB both split once and passed on an H100; 8 MiB under the
+# peak puts the cap of 24 MiB midway, 8 MiB from either outcome
+OOM_CUT = 8 << 20
+# scans checked by unfaulted(); the ladder phase sets "off" while it faults
+UNFAULTED = {"scans": 0, "off": False}
+
+
+def unfaulted(scan):
+    """``scan`` (``cli.scan_fs``, ``scan_image``, ``scan_vm`` or
+    ``scan_sbom``) checked to take no rung of the ladder: no batch retried
+    or split, nothing degraded, no ``Degraded`` report. ``main`` installs it
+    over each of them in ``cli`` (``cli.main`` calls them too), so a kernel
+    that only "works" through the host fails whichever phase runs it; the
+    ladder phase turns the check off while it faults on purpose."""
+
+    @functools.wraps(scan)
+    def run(*args, **kwargs):
+        report, stats = scan(*args, **kwargs)
+        if not UNFAULTED["off"]:
+            UNFAULTED["scans"] += 1
+            walked = {k: stats.get(k, 0) for k in LADDER_KEYS}
+            check(not any(walked.values()) and not report.degraded,
+                  f"an unfaulted scan took the ladder: {walked}, Degraded {report.degraded}")
+        return report, stats
+
+    return run
+
+
+# the real-OOM run, in its own process (argv: tree, output, cut): an
+# unfaulted scan, then the same scan with the process's device memory capped
+# at that scan's peak less the cut (the cached blocks released first, so the
+# second scan reserves anew under the cap)
+OOM_CHILD = """
+import json, sys, torch
+from trivy_tpu_torch import cli
+torch.cuda.set_device(0)
+base, base_stats = cli.scan_fs(sys.argv[1], device="cuda")
+peak = torch.cuda.max_memory_reserved()
+torch.cuda.empty_cache()
+torch.cuda.reset_peak_memory_stats()
+limit = peak - int(sys.argv[3])
+torch.cuda.set_per_process_memory_fraction(limit / torch.cuda.get_device_properties(0).total_memory)
+report, stats = cli.scan_fs(sys.argv[1], device="cuda")
+with open(sys.argv[2], "w") as f:
+    json.dump({"base": base.to_dict(), "base_stats": base_stats, "report": report.to_dict(),
+               "stats": stats, "peak_bytes": peak, "limit_bytes": limit,
+               "max_reserved": torch.cuda.max_memory_reserved()}, f)
+"""
+
+
+def write_license_ladder(root: Path) -> None:
+    """Eight license texts and four wide ones (two width rungs, so more than
+    one license dispatch), and a source file with a secret."""
+    texts = [FULL_TEXTS[k] for k in sorted(FULL_TEXTS)[:8]]
+    texts += [FULL_TEXTS["MIT"] + " more filler words here " * 300] * 4
+    for i, t in enumerate(texts):
+        (root / f"lic{i}").mkdir(parents=True)
+        (root / f"lic{i}" / "LICENSE").write_text(t)
+    (root / "src").mkdir()
+    (root / "src" / "cfg.py").write_text(f"token = '{SAMPLES['github-pat']}'\n")
+
+
+def phase_ladder(root: Path, fs_tree: Path, e2e_tree: Path, cve_dir: Path, card: str) -> dict:
+    """The scan ladder on the card, each run through ``cli.main`` with a
+    fresh cache (launch counters to 0 just before, read just after) and
+    held against the same tree's unfaulted card scan: a dispatch retried,
+    a fetch retried, an OOM-shaped dispatch split, the real allocator OOM
+    in a child process, a dead device (degrading to the host on the CPU,
+    failing on the card with a bundle that ``debug`` renders), the license
+    stage and the CVE join dead (the same), an encoder that raises, and
+    ``--timeout 1``."""
+    t_phase = time.perf_counter()
+    root.mkdir(parents=True)
+    runs: list[dict] = []
+    totals: dict[str, int] = {}
+
+    def scan(tag: str, target: Path, device: str, *extra: str, command=("fs", "--scanners",
+                                                                         "secret")):
+        out, st = root / f"{tag}.json", root / f"{tag}.stats.json"
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        rc = cli.main([*command, "--format", "json", "-o", str(out), "--stats-out", str(st),
+                       "--device", device, "--cache-dir", str(root / f"cache-{tag}"), "-q",
+                       *extra, str(target)])
+        seconds = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        for k, n in launches.items():
+            totals[k] = totals.get(k, 0) + n
+        doc = json.loads(out.read_text()) if out.exists() else None
+        stats = json.loads(st.read_text()) if st.exists() else {}
+        runs.append({"run": tag, "rc": rc, "seconds": seconds,
+                     **{k: stats.get(k, 0) for k in LADDER_KEYS},
+                     "batches": stats.get("batches", 0),
+                     "Degraded": bool(doc and doc.get("Degraded")), "launches": launches})
+        return rc, doc, stats
+
+    def loud(tag: str, target: Path, *extra: str, **kw) -> str:
+        """A faulted card scan that must raise: the fault's message."""
+        t0 = time.perf_counter()
+        try:
+            scan(tag, target, "cuda", *extra, **kw)
+        except faults.InjectedFault as e:
+            launches = dict(LAUNCHES)
+            for k, n in launches.items():
+                totals[k] = totals.get(k, 0) + n
+            runs.append({"run": tag, "seconds": time.perf_counter() - t0,
+                         "raised": f"{type(e).__name__}: {e}", "launches": launches})
+            return str(e)
+        return ""
+
+    def bundle(kind: str, bundles: Path, text: str) -> None:
+        """One ``kind`` bundle in ``bundles``, whose verdict holds ``text``
+        and that ``debug`` renders with exit 0."""
+        found_bundles = sorted(bundles.glob(f"bundle-*-{kind}.json.gz"))
+        check(len(found_bundles) == 1, f"ladder (e): {kind} bundles {found_bundles}")
+        rendered = io.StringIO()
+        with contextlib.redirect_stdout(rendered):
+            rc_debug = cli.main(["debug", str(found_bundles[0])])
+        verdict = recorder.read_bundle(str(found_bundles[0]))["verdict"]
+        check(rc_debug == 0 and text in verdict,
+              f"ladder (e): debug exited {rc_debug}; verdict {verdict!r}")
+
+    UNFAULTED["off"] = True
+    default_batch = secret_scanner.BATCH
+    secret_scanner.BATCH = LADDER_BATCH
+    try:
+        _, base, s_base = scan("base", fs_tree, "cuda")
+        check(s_base["batches"] >= 3 and not any(s_base.get(k) for k in LADDER_KEYS),
+              f"ladder: the base scan made {s_base['batches']} batches or took the ladder")
+        # (a) a dispatch retried, (b) a fetch retried, (c) an OOM split
+        for tag, spec, key in (("a-dispatch", "device.dispatch@d0:at=2", "batch_retries"),
+                               ("b-fetch", "device.fetch@d0:at=3", "batch_retries"),
+                               ("c-oom", "device.dispatch@d0:at=1:error=oom", "batch_splits")):
+            rc, doc, st = scan(tag, fs_tree, "cuda", "--fault-inject", spec)
+            check(rc == 0 and doc["Results"] == base["Results"] and "Degraded" not in doc,
+                  f"ladder ({tag}): Results differ from the unfaulted scan or Degraded")
+            check(st[key] == 1 and st["degraded"] == 0,
+                  f"ladder ({tag}): {key} {st[key]}, degraded {st['degraded']}")
+        # (e) a dead device: on the CPU the host path with the card's
+        # findings and a bundle; on the card a failure and a bundle, with
+        # the fallback on or off (the card's work never ends on the host)
+        dead = ("--fault-inject", "device.dispatch:times=-1")
+        bundles = root / "bundles"
+        try:
+            rc, on_cpu, st = scan("e-cpu-dead", fs_tree, "cpu", *dead,
+                                  "--debug-dir", str(bundles / "cpu"))
+            check(rc == 0 and on_cpu.get("Degraded") is True and st["degraded"] == 1
+                  and on_cpu["Results"] == base["Results"],
+                  "ladder (e): the dead-device CPU scan did not complete degraded with the "
+                  "card's Results")
+            bundle("degraded-completion", bundles / "cpu", "fault device.dispatch")
+            for tag, extra in (("e-dead", ()), ("e-no-fallback", ("--no-host-fallback",))):
+                msg = loud(tag, fs_tree, *dead, "--debug-dir", str(bundles / tag), *extra)
+                check(msg == "injected fault at device.dispatch[d0] hit 3",
+                      f"ladder ({tag}): the dead-device card scan did not fail after its "
+                      f"retries: {msg!r}")
+                bundle("terminal-failure", bundles / tag, "fault device.dispatch")
+        finally:
+            recorder._STATE.debug_dir = ""  # the flag's destination is process-wide
+        # (f) the license stage dead in a fused scan: degraded on the CPU,
+        # a failure on the card
+        write_license_ladder(root / "lic")
+        fused = ("fs", "--scanners", "secret,license", "--license-full")
+        lic_dead = ("--fault-inject", "device.dispatch@license:at=2:times=-1")
+        _, lic_base, _ = scan("f-base", root / "lic", "cuda", command=fused)
+        rc, lic, st = scan("f-cpu-license", root / "lic", "cpu", *lic_dead, command=fused)
+        check(rc == 0 and st["license.degraded"] >= 1 and st["degraded"] == 0
+              and lic["Results"] == lic_base["Results"] and lic.get("Degraded") is True,
+              f"ladder (f): license.degraded {st['license.degraded']}, or the CPU's findings "
+              "differ from the card's")
+        msg = loud("f-license", root / "lic", *lic_dead, command=fused)
+        check("device.dispatch[license]" in msg, f"ladder (f): the card scan raised {msg!r}")
+        # (g) the CVE join dead in an sbom scan: a failure on the card
+        sbom = ("sbom", "--db-repository", str(cve_dir / "db"))
+        msg = loud("g-cve", cve_dir / "bom.json", "--fault-inject",
+                   "device.dispatch@cve:times=-1", command=sbom)
+        check("device.dispatch[cve]" in msg, f"ladder (g): the card scan raised {msg!r}")
+        # (h) an encoder that raises: the batches ship raw
+        emit = SlabCodec.emit
+
+        def broken_emit(*args, **kwargs):
+            raise RuntimeError("encoder broke")
+
+        SlabCodec.emit = broken_emit
+        try:
+            rc, raw, st = scan("h-encoder", fs_tree, "cuda", "--secret-compress", "on")
+        finally:
+            SlabCodec.emit = emit
+        check(rc == 0 and raw["Results"] == base["Results"] and st["batches_compressed"] == 0
+              and st["batches_raw_fallback"] == st["batches"] > 0,
+              "ladder (h): a raising encoder did not ship every batch raw")
+        # (i) --timeout 1 on the e2e tree
+        rc, _, _ = scan("i-timeout", e2e_tree, "cuda", "--timeout", "1")
+        check(rc == 1, f"ladder (i): --timeout 1 exited {rc}")
+    finally:
+        secret_scanner.BATCH = default_batch
+        UNFAULTED["off"] = False
+        faults.clear()
+    # (d) the real allocator OOM, in a child process at full batches
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", OOM_CHILD, str(e2e_tree / "sub16"),
+                           str(root / "d-oom.json"), str(OOM_CUT)],
+                          cwd=REPO, capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": str(REPO)})
+    child_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"ladder (d): the OOM child exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    child = json.loads((root / "d-oom.json").read_text())
+    st, st0 = child["stats"], child["base_stats"]
+    runs.append({"run": "d-oom", "rc": proc.returncode, "seconds": child_s,
+                 **{k: st.get(k, 0) for k in LADDER_KEYS}, "batches": st["batches"],
+                 "base_batches": st0["batches"], "Degraded": child["report"].get("Degraded", False),
+                 "peak_bytes": child["peak_bytes"], "limit_bytes": child["limit_bytes"],
+                 "max_reserved": child["max_reserved"]})
+    check(not any(st0.get(k) for k in LADDER_KEYS) and not child["base"].get("Degraded"),
+          "ladder (d): the child's unfaulted scan took the ladder")
+    check(st["batch_splits"] >= 1 and st["degraded"] == 0 and not child["report"].get("Degraded"),
+          f"ladder (d): batch_splits {st['batch_splits']}, degraded {st['degraded']}: "
+          f"{proc.stderr[-2000:]}")
+    check(child["report"]["Results"] == child["base"]["Results"],
+          "ladder (d): the OOM-split scan's Results differ from the unfaulted scan")
+    result = {"phase": "ladder", "seconds": time.perf_counter() - t_phase, "runs": runs,
+              "launches": totals, "card": card}
+    log(result)
+    return result
+
+
 # the spans tests/test_torch_trace_cli.py expects on its CPU scan, and the
 # CVE join's (its small tree stays below the join's batch threshold)
 TRACE_SPANS = (
@@ -2888,6 +3160,8 @@ def main() -> int:
     torch.cuda.set_device(0)
     t0 = t_start = time.perf_counter()
     card = card_info()
+    for name in ("scan_fs", "scan_image", "scan_vm", "scan_sbom"):
+        setattr(cli, name, unfaulted(getattr(cli, name)))
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:  # one nvcc per source, together
         libs = dict(zip(LIBRARIES, pool.map(_build.build, LIBRARIES)))
     ptxas = {name: [ln.strip() for ln in _build.ptxas_report(name).splitlines()
@@ -2918,7 +3192,6 @@ def main() -> int:
     try:
         e2e, planted = phase_e2e(tmp / "tree", args.e2e_mib, args.seed, base)
         phase_dedup(tmp, tmp / "tree", planted, args.seed, base)
-        shutil.rmtree(tmp / "tree", ignore_errors=True)
         lic = phase_license(tmp / "license", args.license_mib, args.seed, base)
         shutil.rmtree(tmp / "license", ignore_errors=True)
         phase_license_repo(tmp / "repo")
@@ -2926,6 +3199,10 @@ def main() -> int:
         cve = phase_cve(tmp / "cve", args.seed, card)
         fs_vuln = phase_fs_vuln(tmp / "fs-vuln", tmp / "cve" / "db", args.seed, base, card)
         fs_secrets = fs_vuln.pop("secrets_planted")
+        ladder = phase_ladder(tmp / "ladder", tmp / "fs-vuln" / "tree", tmp / "tree",
+                              tmp / "cve", card)
+        shutil.rmtree(tmp / "tree", ignore_errors=True)
+        shutil.rmtree(tmp / "ladder", ignore_errors=True)
         kernel_ms = {use: timing[use]["ms"] for use in ("prefilter", "anchored")}
         kernel_ms.update(decompress=dec_timing["text"]["ms"], verscmp=cve["timing"]["ms"],
                          gram_gate=lic_timing["gram_gate"]["ms"],
@@ -3017,7 +3294,9 @@ def main() -> int:
         entry["launches_formats"] = formats["launches"].get(key, 0)
         entry["launches_image"] = image["launches"].get(key, 0)
         entry["launches_registry"] = sources["launches_registry"].get(key, 0)
-    log({"phase": "done", "seconds": time.perf_counter() - t_start})
+        entry["launches_ladder"] = ladder["launches"].get(key, 0)
+    log({"phase": "done", "seconds": time.perf_counter() - t_start,
+         "unfaulted_scans_checked": UNFAULTED["scans"]})
     log({"kernels": kernels})
     print(card, flush=True)
     name = torch.cuda.get_device_name(0)

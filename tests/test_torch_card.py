@@ -3,8 +3,9 @@ the decompressor against ``decompress_plain``, the license gram gate,
 shingle gate and scorer against their plain versions, the version-constraint
 check against its plain versions, a compressed scan, a fused secret+license
 scan, the classifier, an SBOM scan, an fs vuln scan and an image scan, a
-registry image scan and a ``vm`` scan on the card, and a kernel failing in
-one layer of an image scan.
+registry image scan and a ``vm`` scan on the card, a kernel failing in one
+layer of an image scan, and the scan ladder: a retried and a split batch,
+and a dead device degrading to the host.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither ``jax`` nor ``trivy_tpu``, so on a machine with a card and
@@ -834,22 +835,111 @@ def test_vm_scan_on_card_equals_cpu(card, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("parallel", [1, 0], ids=["serial", "parallel"])
+@pytest.mark.parametrize("parallel,host_fallback", [(1, False), (0, False), (1, True), (0, True)],
+                         ids=["serial", "parallel", "serial-fallback", "parallel-fallback"])
 def test_device_error_in_one_layer_fails_image_scan_on_card(card, tmp_path, monkeypatch,
-                                                           parallel):
-    """A kernel failing in one layer fails the image scan: no layer is
-    reported without its secret scan, none moves to the host."""
+                                                           parallel, host_fallback):
+    """A matcher that fails from its second call on with a CUDA error, as an
+    illegal address surfaces: a kernel fault, which no rung absorbs, so the
+    image scan fails with the fallback on or off (no layer is reported
+    without its secret scan)."""
     path = card_image(tmp_path)
     calls = {"n": 0}
     real = CudaMatcher.__call__
 
     def failing(self, chunks):
         calls["n"] += 1
-        if calls["n"] == 2:
+        if calls["n"] >= 2:
             raise RuntimeError("CUDA error: an illegal memory access was encountered")
         return real(self, chunks)
 
     monkeypatch.setattr(CudaMatcher, "__call__", failing)
     with pytest.raises(RuntimeError, match="illegal memory access"):
         cli.scan_image(path, device=card, scanners=("secret",), parallel=parallel,
-                       cache_dir=str(tmp_path / "c"))
+                       cache_dir=str(tmp_path / "c"), host_fallback=host_fallback)
+
+
+def ladder_tree(root: Path) -> Path:
+    """96 files of 64 KiB with secrets planted: with the 64-row batches of
+    :func:`small_batches`, several batches."""
+    rng = np.random.default_rng(14)
+    secrets = sorted(SAMPLES.values())
+    for i in range(96):
+        body = rng.integers(97, 123, 1 << 16, dtype=np.uint8).tobytes()
+        p = root / f"d{i % 7}" / f"f{i}.txt"
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_bytes(body[:4096] + f"\nkey = {secrets[i % len(secrets)]}\n".encode()
+                      + body[4096:])
+    return root
+
+
+def ladder_scan(tree: Path, out_dir: Path, tag: str, device: str, *extra: str) -> tuple:
+    """``fs --scanners secret`` of ``tree`` through ``cli.main``, with a
+    fresh cache: (exit code, report, counters)."""
+    out, st = out_dir / f"{tag}.json", out_dir / f"{tag}.stats.json"
+    rc = cli.main(["fs", "--scanners", "secret", "--device", device, "--format", "json",
+                   "-o", str(out), "--stats-out", str(st), "--cache-dir", str(out_dir / tag),
+                   "-q", *extra, str(tree)])
+    doc = json.loads(out.read_text()) if out.exists() else None
+    stats = json.loads(st.read_text()) if st.exists() else None
+    return rc, doc, stats
+
+
+@pytest.fixture
+def small_batches(monkeypatch):
+    """64-row batches, so the ladder tree makes several."""
+    from trivy_tpu_torch.secret import scanner as secret_scanner
+
+    monkeypatch.setattr(secret_scanner, "BATCH", 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,counter", [("device.dispatch@d0:at=2", "batch_retries"),
+                                          ("device.dispatch@d0:at=1:error=oom", "batch_splits")],
+                         ids=["retry", "oom-split"])
+def test_ladder_recovers_on_card(card, tmp_path, small_batches, spec, counter):
+    """Runs (a) and (c) of the smoke's ``ladder`` phase: a faulted dispatch
+    is retried, an OOM-shaped one splits the batch; the report equals the
+    unfaulted card scan's and is not degraded."""
+    tree = ladder_tree(tmp_path / "tree")
+    rc0, base, s0 = ladder_scan(tree, tmp_path, "base", "cuda")
+    before = dict(match_cuda.LAUNCHES)
+    rc, doc, st = ladder_scan(tree, tmp_path, "faulted", "cuda", "--fault-inject", spec)
+    assert rc0 == rc == 0 and s0["batches"] >= 3
+    assert s0["batch_retries"] == s0["batch_splits"] == s0["degraded"] == 0
+    assert st[counter] >= 1 and st["degraded"] == 0 and "Degraded" not in doc
+    assert doc["Results"] == base["Results"]
+    assert match_cuda.LAUNCHES["anchored"] + match_cuda.LAUNCHES["prefilter"] > sum(
+        before.get(k, 0) for k in ("anchored", "prefilter"))
+
+
+@pytest.mark.cuda
+def test_dead_device_degrades_on_card(card, tmp_path, small_batches):
+    """Run (e): every dispatch fails. On the CPU the scan degrades to the
+    host engine (its unfaulted findings, ``Degraded``); on the card the
+    exhausted ladder fails the scan whatever ``--no-host-fallback`` says,
+    after the retries, and leaves a terminal bundle that ``debug``
+    renders."""
+    from trivy_tpu_torch import faults
+    from trivy_tpu_torch.obs import recorder
+
+    tree = ladder_tree(tmp_path / "tree")
+    rc0, want, _ = ladder_scan(tree, tmp_path, "cpu", "cpu")
+    rc, doc, st = ladder_scan(tree, tmp_path, "cpu-dead", "cpu", "--fault-inject",
+                              "device.dispatch:times=-1")
+    assert rc0 == rc == 0 and doc["Degraded"] is True and st["degraded"] == 1
+    assert doc["Results"] == want["Results"]
+    for tag, extra in (("dead", ()), ("loud", ("--no-host-fallback",))):
+        dbg = tmp_path / f"bundles-{tag}"
+        old_dir = recorder._STATE.debug_dir
+        try:
+            with pytest.raises(faults.InjectedFault):
+                ladder_scan(tree, tmp_path, tag, "cuda", "--fault-inject",
+                            "device.dispatch:times=-1", "--debug-dir", str(dbg), *extra)
+        finally:
+            recorder._STATE.debug_dir = old_dir
+        (bundle,) = dbg.glob("bundle-*-terminal-failure.json.gz")
+        doc = recorder.read_bundle(str(bundle))
+        assert doc["error"] == "injected fault at device.dispatch[d0] hit 3"
+        assert "fault device.dispatch" in doc["verdict"]
+        assert cli.main(["debug", str(bundle)]) == 0

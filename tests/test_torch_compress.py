@@ -527,17 +527,25 @@ def test_scanner_rejects_bad_knobs():
     assert not t.compress_on and t._codec is None
 
 
-def test_encoder_error_fails_the_scan(monkeypatch):
-    """The one deliberate difference from the JAX package, whose feeder logs
-    an encoder exception and ships the batch raw: here it fails the scan."""
-    t = build("on")
+@pytest.mark.parametrize("host_fallback", [False, True], ids=["no-fallback", "fallback"])
+def test_encoder_error_fails_the_scan(cpu, monkeypatch, host_fallback):
+    """An encoder exception no longer fails the scan: as in the JAX
+    package's feeder, it is logged, the wire slab returns to the arena and
+    the batch ships raw through the kernels. A raw batch is the codec's
+    failure contract, not a host fallback, so the scan stays on the device
+    with the fallback on or off: no retry, no degrade."""
+    t = build("on", host_fallback=host_fallback)
 
     def boom(*a, **k):
         raise RuntimeError("encoder broke")
 
     monkeypatch.setattr(t._codec, "emit", boom)
-    with pytest.raises(RuntimeError, match="encoder broke"):
-        list(t.scan_files(mixed_corpus(8)))
+    files = mixed_corpus(8)
+    assert_parity(cpu, t, files)
+    s = t.stats.snapshot()
+    assert s["batches_compressed"] == 0 and s["batches_raw_fallback"] == s["batches"] > 0
+    assert s["batch_retries"] == s["batch_splits"] == s["degraded"] == 0
+    assert t._codec is not None and s["bytes_uploaded"] == s["bytes_raw_fallback"]
 
 
 def test_every_batch_compressed_with_the_minimum_arena(cpu, monkeypatch):

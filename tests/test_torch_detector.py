@@ -26,6 +26,7 @@ from trivy_tpu.types import OS as JaxOS
 from trivy_tpu.types import Application as JaxApplication
 from trivy_tpu.types import Package as JaxPackage
 from trivy_tpu.vulnerability import fill_infos as jax_fill_infos
+from trivy_tpu_torch import obs as tobs
 from trivy_tpu_torch.db import VulnDB, load_default_db
 from trivy_tpu_torch.db.convert import convert_bolt
 from trivy_tpu_torch.detector import library, ospkg
@@ -308,16 +309,36 @@ def test_resident_join_state_and_uploads_equal_jax(dbs):
     assert stats["cve.bounds_bytes_uploaded"] == 0
 
 
+@pytest.mark.parametrize("host_fallback", [False, True], ids=["no-fallback", "fallback"])
 @pytest.mark.parametrize("dbs", ["fixture"], indirect=True)
-def test_device_error_fails_the_scan(dbs, monkeypatch):
-    port_db, _ = dbs
+def test_device_error_fails_the_scan(dbs, monkeypatch, host_fallback):
+    """A device error in the join fails the scan with the fallback off; on,
+    every candidate pair is judged by the host comparator (the JAX
+    package's ``detect_batch``), the findings equal the card-free join's,
+    and the degrade is counted and marks the scan degraded."""
+    port_db, jax_db = dbs
+    spec = fixture_apps(700)
+    want = dicts(library.detect_batch(port_db, build_apps(spec, Application, Package), "cpu"))
+    assert want == dicts(jax_library.detect_batch(jax_db, build_apps(spec, JaxApplication,
+                                                                      JaxPackage)))
 
     def broken(*_a, **_k):
         raise RuntimeError("device lost")
 
     monkeypatch.setattr(verscmp, "check_ops_gather_bucketed", broken)
-    with pytest.raises(RuntimeError, match="device lost"):
-        library.detect_batch(port_db, build_apps(fixture_apps(700), Application, Package), "cpu")
+    stats = Counter()
+    with tobs.scan_context(name="cve") as ctx:
+        if not host_fallback:
+            with pytest.raises(RuntimeError, match="device lost"):
+                library.detect_batch(port_db, build_apps(spec, Application, Package), "cpu",
+                                     stats, host_fallback=False)
+            assert not ctx.health_snapshot()
+            return
+        got = library.detect_batch(port_db, build_apps(spec, Application, Package), "cpu", stats)
+        health = ctx.health_snapshot()
+    assert dicts(got) == want and any(want)
+    assert stats["cve.degraded"] == 1 and stats["cve.dispatch_count"] == 1
+    assert health == {"cve.degraded": 1, "scan.degraded": 1}
 
 
 def same_db(port_db, jax_db, probes) -> None:

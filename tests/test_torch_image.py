@@ -386,23 +386,42 @@ def test_registry_target_refused(wd, monkeypatch, capsys):
     assert cli.main(["image", "--device", "cpu"]) == 1
 
 
-@pytest.mark.parametrize("parallel", [1, 0], ids=["serial", "parallel"])
-def test_device_error_in_one_layer_fails_the_scan(env, monkeypatch, parallel):
-    """A failing device batch in any layer fails the image scan: no layer
-    is reported without its secret scan."""
+@pytest.mark.parametrize("parallel,host_fallback", [(1, False), (0, False), (1, True), (0, True)],
+                         ids=["serial", "parallel", "serial-fallback", "parallel-fallback"])
+def test_device_error_in_one_layer_fails_the_scan(env, monkeypatch, parallel, host_fallback):
+    """A device that dies from its second batch on, in any layer: with the
+    fallback off the image scan fails (no layer is reported without its
+    secret scan); on, each layer's run walks the ladder to the exact host
+    engine and the scan completes with the CPU scan's findings and
+    ``Degraded``."""
+    layers = env["layers"]
+    extra = [layer({f"x{i}/gh.txt": f"t {GH}\n".encode()}) for i in range(3)]
+    path = docker_save_tar(env["tree"].parent / f"err{parallel}{host_fallback}.tar",
+                           [*layers[:2], *extra])
+    want = None
+    if host_fallback:
+        want, _ = cli.scan_image(path, device="cpu", cache=new_cache("memory"),
+                                 parallel=parallel, scanners=("secret",))
+        assert not want.degraded
     calls = {"n": 0}
     real = TorchSecretScanner.run_batch
 
     def flaky(self, rows, n_live):
         calls["n"] += 1
-        if calls["n"] == 2:
+        if calls["n"] >= 2:
             raise RuntimeError("device lost")
         return real(self, rows, n_live)
 
     monkeypatch.setattr(TorchSecretScanner, "run_batch", flaky)
-    layers = env["layers"]
-    extra = [layer({f"x{i}/gh.txt": f"t {GH}\n".encode()}) for i in range(3)]
-    path = docker_save_tar(env["tree"].parent / f"err{parallel}.tar", [*layers[:2], *extra])
-    with pytest.raises(RuntimeError, match="device lost"):
-        cli.scan_image(path, device="cpu", cache=new_cache("memory"), parallel=parallel,
-                       scanners=("secret",))
+    if not host_fallback:
+        with pytest.raises(RuntimeError, match="device lost"):
+            cli.scan_image(path, device="cpu", cache=new_cache("memory"), parallel=parallel,
+                           scanners=("secret",), host_fallback=False)
+        return
+    got, stats = cli.scan_image(path, device="cpu", cache=new_cache("memory"),
+                                parallel=parallel, scanners=("secret",))
+    assert got.degraded and got.to_dict()["Degraded"] is True
+    assert [r.to_dict() for r in got.results] == [r.to_dict() for r in want.results]
+    assert got.to_dict()["Metadata"] == want.to_dict()["Metadata"]
+    assert stats["degraded"] >= 1 and stats["scan.degraded"] == stats["degraded"]
+    assert stats["batch_retries"] == 2 * stats["degraded"]

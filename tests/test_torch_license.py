@@ -641,18 +641,36 @@ def test_classify_every_width_rung_equal_oracle(port_clf, jax_clf):
     assert all(any(f.name == "MIT" for f in w) for w in want[:6])
 
 
-def test_device_path_runs_on_eight_texts_and_fails_loudly(port_clf, monkeypatch):
-    """Eight texts take the device pipeline; an error there fails the call
-    (no fallback to the host)."""
+@pytest.mark.parametrize("host_fallback", [False, True], ids=["no-fallback", "fallback"])
+def test_device_path_runs_on_eight_texts_and_fails_loudly(port_clf, monkeypatch, host_fallback):
+    """Eight texts take the device pipeline. An error there fails the call
+    with the fallback off; on (the default), the batch degrades to the
+    host oracle, as the JAX classifier does: the same findings,
+    ``license.degraded`` counted and the scan marked degraded once."""
+    from trivy_tpu_torch import obs as tobs
+
+    texts = [FULL_TEXTS["MIT"]] * 4 + [FULL_TEXTS["Apache-2.0"], "no license here"] * 2
     scorer = port_clf._device_scorer()
     before = scorer.dispatch_count
-    port_clf.classify_batch([FULL_TEXTS["MIT"]] * 8)
+    want = port_clf.classify_batch(texts)
     assert scorer.dispatch_count >= before + 2  # a gate and a score dispatch
 
     def boom(rows):
         raise RuntimeError("kernel launch failed")
 
     monkeypatch.setattr(scorer, "gate_bytes", boom)
-    with pytest.raises(RuntimeError, match="kernel launch failed"):
-        port_clf.classify_batch([FULL_TEXTS["MIT"]] * 8)
+    monkeypatch.setattr(port_clf, "host_fallback", host_fallback)
+    monkeypatch.setattr(port_clf, "_device_failed_logged", False)
+    with tobs.scan_context(name="lic", enabled=True) as ctx:
+        if not host_fallback:
+            with pytest.raises(RuntimeError, match="kernel launch failed"):
+                port_clf.classify_batch(texts)
+            assert not ctx.health_snapshot()
+        else:
+            for _ in range(2):
+                got = port_clf.classify_batch(texts)
+                assert [[(f.name, f.confidence) for f in fs] for fs in got] == [
+                    [(f.name, f.confidence) for f in fs] for fs in want]
+            assert ctx.counters["license.degraded"] == 2
+            assert ctx.health_snapshot() == {"license.degraded": 2, "scan.degraded": 1}
     assert port_clf.classify_batch([FULL_TEXTS["MIT"]] * 3)[0][0].name == "MIT"  # host path

@@ -28,6 +28,7 @@ archive, registry or daemon image, the ``vm`` scan of a disk image, the
         [--list-all-pkgs] [report flags as above]
         [--format FORMAT] [-o OUT] [--stats-out F] [--device cuda|cpu] <bom>
     python -m trivy_tpu_torch convert [report flags as above] <report.json>
+    python -m trivy_tpu_torch debug <bundle.json.gz>
 
 ``FORMAT`` is any of the JAX CLI's nine: ``table`` (the default; with
 ``--dependency-tree`` the reversed dependency tree of each vulnerable
@@ -48,6 +49,20 @@ on stderr; ``--telemetry-interval S`` sets the sampler's cadence (0: off).
 ``--trace``, any of the exports or ``--live`` starts the sampler thread,
 unless the interval is 0; without them no sampler starts and no file is
 written.
+
+Every command takes the JAX CLI's failure flags. ``--fault-inject SPEC``
+arms the fault-injection harness (``faults.py``; a bad spec exits 2) for the
+command and disarms it after. A device error the scan ladder cannot absorb
+finishes the scan on the exact host path and marks the report
+``"Degraded": true``, logged and counted in ``--stats-out``
+(``degraded``, ``scan.degraded``, ``license.degraded``, ``cve.degraded``,
+beside ``batch_retries`` and ``batch_splits``); with
+``--no-host-fallback`` it fails the command instead. A kernel that cannot
+be built, loaded or launched always fails it. ``--debug-dir D`` writes a
+diagnostic bundle on a terminal failure or a degraded completion, which
+``debug <bundle>`` renders. ``--timeout S`` (default 300; 0: none) ends a
+scan that runs longer with exit code 1 (the alarm is a signal: on a thread
+other than the main one ``main`` sets none).
 
 Runs on the card unless ``--device cpu`` is given, and fails when CUDA is
 asked for and missing. Flags resolve as the JAX package's do (``flag.py``):
@@ -89,11 +104,13 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import signal
 import sys
+import threading
 import time
 from collections import Counter
 
-from trivy_tpu_torch import log, obs
+from trivy_tpu_torch import faults, log, obs
 from trivy_tpu_torch import report as report_pkg
 from trivy_tpu_torch.artifact.image import (
     ImageSourceOption,
@@ -110,8 +127,9 @@ from trivy_tpu_torch.fanal.image_daemon import DaemonError
 from trivy_tpu_torch.fanal.image_registry import RegistryError
 from trivy_tpu_torch.fanal.scan import SCANNERS, ScanAnalyzers, analyze_files, check_scanners
 from trivy_tpu_torch.fanal.walker import FSWalker, WalkOption
-from trivy_tpu_torch.flag import Flag, FlagGroup, load_config_file, resolve_all
+from trivy_tpu_torch.flag import JAX_FLAGS, Flag, FlagGroup, load_config_file, resolve_all
 from trivy_tpu_torch.obs import export
+from trivy_tpu_torch.obs import recorder as flight
 from trivy_tpu_torch.obs import timeseries
 from trivy_tpu_torch.result import FilterOptions, IgnorePolicy, PolicyError, filter_report
 from trivy_tpu_torch.sbom import detect_format
@@ -129,7 +147,18 @@ LIST_ALL_FORMATS = ("cyclonedx", "spdx", "spdx-json", "github")
 FILE_COUNTERS = ("files_walked", "files_scanned", "files_skipped")
 # the CVE join's counters in a scan's counters (the JAX package's names)
 CVE_COUNTERS = ("cve.bounds_bytes_uploaded", "cve.resident_rows", "cve.dispatch_count",
-                "cve.candidate_pairs", "cve.join.seconds", "cve.dispatch.seconds")
+                "cve.candidate_pairs", "cve.join.seconds", "cve.dispatch.seconds",
+                "cve.degraded")
+# the health counts of a scan that its counters carry: the scans and the
+# license batches that fell back to the host
+HEALTH_COUNTERS = ("scan.degraded", "license.degraded")
+
+
+class ScanTimeout(BaseException):
+    """``--timeout``'s alarm went off. Not an ``Exception``: Python's
+    ``TimeoutError`` is an ``OSError``, so an alarm landing in a file read
+    would be taken for an unreadable file and the scan would go on; no
+    handler below ``main`` takes this one."""
 
 
 def load_db(db_repository: str | None = None, cache_dir: str | None = None):
@@ -148,15 +177,22 @@ def _components(blobs) -> int:
 
 
 def _detect(blobs, target: str, artifact_type: str, scanners, db, dev, list_all_pkgs: bool,
-            stats: Counter, image_metadata: dict | None = None,
-            skipped_files: int = 0) -> Report:
+            stats: Counter, health0: dict, host_fallback: bool = True,
+            image_metadata: dict | None = None, skipped_files: int = 0) -> Report:
     """The report of the analyzed blobs, in layer order: detection, the
-    result sections in the reference's order and the metadata."""
+    result sections in the reference's order and the metadata, with
+    ``Degraded`` when the scan's health counts (those since ``health0``)
+    hold a degrade; those counts join ``stats`` (``HEALTH_COUNTERS``)."""
     t0 = time.perf_counter()
-    results, os_info = LocalDriver(db, dev, stats).scan(
+    results, os_info = LocalDriver(db, dev, stats, host_fallback=host_fallback).scan(
         target, blobs, ScanOptions(scanners=list(scanners), list_all_pkgs=list_all_pkgs))
     stats["detect.seconds"] += time.perf_counter() - t0
-    return build_report(target, artifact_type, results, os_info, image_metadata, skipped_files)
+    health = obs.current().health_snapshot()
+    delta = {k: v - health0.get(k, 0) for k, v in health.items()}
+    for k in HEALTH_COUNTERS:
+        stats[k] += delta.get(k, 0)
+    return build_report(target, artifact_type, results, os_info, image_metadata, skipped_files,
+                        health=delta)
 
 
 def _load_db_for(scanners, db, db_repository, cache_dir, stats: Counter):
@@ -181,7 +217,8 @@ def scan_fs(root: str, config_path: str | None = None, device=DEFAULT_DEVICE,
             skip_dirs=(), skip_files=(), scanners=("secret",), license_full: bool = False,
             shared_arena: bool = True, db=None, db_repository: str | None = None,
             cache_dir: str | None = None, java_db: str | None = None,
-            list_all_pkgs: bool = False, **scanner_opts) -> tuple[Report, dict]:
+            list_all_pkgs: bool = False, host_fallback: bool = True,
+            **scanner_opts) -> tuple[Report, dict]:
     """Scan the tree under ``root`` with ``scanners`` (any of ``vuln``,
     ``secret``, ``license``). With ``vuln``, packages meet ``db`` when given
     (a loaded DB keeps its resident join across scans), else the DB that
@@ -191,16 +228,21 @@ def scan_fs(root: str, config_path: str | None = None, device=DEFAULT_DEVICE,
     (``analyze.seconds``), of the detection and of the whole scan, the CVE
     join's (``cve.*``), the secret feed's, the fused gate's file counts, and
     ``db_load_seconds`` when this call loaded the DB (not part of
-    ``seconds``). ``scanner_opts`` reach the
+    ``seconds``), and the health counts ``scan.degraded`` and
+    ``license.degraded``. A device error the ladder cannot absorb finishes
+    the scan on the host and marks the report ``Degraded``, or, with
+    ``host_fallback`` off, fails it. ``scanner_opts`` reach the
     :class:`~trivy_tpu_torch.secret.scanner.TorchSecretScanner`."""
     check_scanners(scanners)
     dev = resolve(device)
+    health0 = obs.current().health_snapshot()
     stats = Counter(dict.fromkeys(FILE_COUNTERS, 0))
     db = _load_db_for(scanners, db, db_repository, cache_dir, stats)
     t0 = time.perf_counter()
     analyzers = ScanAnalyzers(scanners, dev, license_full=license_full,
                               shared_arena=shared_arena, config_path=config_path,
-                              java_db=java_db, list_all_pkgs=list_all_pkgs, **scanner_opts)
+                              java_db=java_db, list_all_pkgs=list_all_pkgs,
+                              host_fallback=host_fallback, **scanner_opts)
     secret, licenses = analyzers.batch(root)
     walker = FSWalker(WalkOption(skip_files=list(skip_files), skip_dirs=list(skip_dirs)))
     result = analyze_files(walker.walk(root), root, analyzers.group, secret, licenses, stats)
@@ -211,7 +253,7 @@ def scan_fs(root: str, config_path: str | None = None, device=DEFAULT_DEVICE,
     stats["files_skipped"] += walker.skipped
     name = root if root == os.path.sep else root.rstrip(os.path.sep)
     report = _detect([blob], name, "filesystem", scanners, db, dev, list_all_pkgs, stats,
-                     skipped_files=stats["files_skipped"])
+                     health0, host_fallback, skipped_files=stats["files_skipped"])
     stats["components"] = _components([blob])
     return report, _finish_stats(stats, analyzers, scanners, t0)
 
@@ -236,7 +278,7 @@ def scan_image(target: str, config_path: str | None = None, device=DEFAULT_DEVIC
                cache_dir: str | None = None, cache=None, cache_backend: str | None = None,
                java_db: str | None = None, list_all_pkgs: bool = False, parallel: int = 0,
                image_source: ImageSourceOption | None = None, diff_base: str | None = None,
-               **scanner_opts) -> tuple[Report, dict]:
+               host_fallback: bool = True, **scanner_opts) -> tuple[Report, dict]:
     """Scan the image ``target`` layer by layer with ``scanners``, as
     :func:`scan_fs` scans a tree: an archive when the path exists (a
     docker-save tar, or an OCI layout as a directory or a tar), else an
@@ -254,9 +296,11 @@ def scan_image(target: str, config_path: str | None = None, device=DEFAULT_DEVIC
     analyzed (a registry's compressed bytes). Raises
     :class:`~trivy_tpu_torch.fanal.image_daemon.DaemonError` or
     :class:`~trivy_tpu_torch.fanal.image_registry.RegistryError` when the
-    image cannot be found or pulled, :class:`DiffBaseError` for the base."""
+    image cannot be found or pulled, :class:`DiffBaseError` for the base.
+    A device error in any layer walks the ladder of :func:`scan_fs`."""
     check_scanners(scanners)
     dev = resolve(device)
+    health0 = obs.current().health_snapshot()
     stats = Counter(dict.fromkeys(FILE_COUNTERS, 0))
     db = _load_db_for(scanners, db, db_repository, cache_dir, stats)
     t0 = time.perf_counter()
@@ -264,7 +308,8 @@ def scan_image(target: str, config_path: str | None = None, device=DEFAULT_DEVIC
     # the JAX package: a layer's blob then serves any later scan of it
     analyzers = ScanAnalyzers(scanners, dev, license_full=license_full,
                               shared_arena=shared_arena, config_path=config_path,
-                              java_db=java_db, packages=True, **scanner_opts)
+                              java_db=java_db, packages=True, host_fallback=host_fallback,
+                              **scanner_opts)
     if cache is None:
         cache = new_cache(cache_backend or "fs", cache_dir)
     artifact = new_image_artifact(target, cache, analyzers, skip_files=skip_files,
@@ -284,7 +329,8 @@ def scan_image(target: str, config_path: str | None = None, device=DEFAULT_DEVIC
     stats.update({"layers_seeded": 0, **artifact.stats})
     stats["analyze.seconds"] = time.perf_counter() - t0
     report = _detect(blobs, ref.name, ref.type, scanners, db, dev, list_all_pkgs, stats,
-                     image_metadata=ref.image_metadata, skipped_files=stats["files_skipped"])
+                     health0, host_fallback, image_metadata=ref.image_metadata,
+                     skipped_files=stats["files_skipped"])
     stats["components"] = _components(blobs)
     return report, _finish_stats(stats, analyzers, scanners, t0)
 
@@ -294,7 +340,7 @@ def scan_vm(path: str, config_path: str | None = None, device=DEFAULT_DEVICE,
             shared_arena: bool = True, db=None, db_repository: str | None = None,
             cache_dir: str | None = None, cache=None, cache_backend: str | None = None,
             java_db: str | None = None, list_all_pkgs: bool = False,
-            **scanner_opts) -> tuple[Report, dict]:
+            host_fallback: bool = True, **scanner_opts) -> tuple[Report, dict]:
     """Scan the raw disk image at ``path`` (MBR or GPT, ext4 partitions)
     with ``scanners``: its files through the analyzers of an image layer, as
     the JAX package's ``vm`` runs every package analyzer whatever the
@@ -303,12 +349,14 @@ def scan_vm(path: str, config_path: str | None = None, device=DEFAULT_DEVICE,
     unfiltered report and the counters of :func:`scan_fs`."""
     check_scanners(scanners)
     dev = resolve(device)
+    health0 = obs.current().health_snapshot()
     stats = Counter(dict.fromkeys(FILE_COUNTERS, 0))
     db = _load_db_for(scanners, db, db_repository, cache_dir, stats)
     t0 = time.perf_counter()
     analyzers = ScanAnalyzers(scanners, dev, license_full=license_full,
                               shared_arena=shared_arena, config_path=config_path,
-                              java_db=java_db, packages=True, **scanner_opts)
+                              java_db=java_db, packages=True, host_fallback=host_fallback,
+                              **scanner_opts)
     if cache is None:
         cache = new_cache(cache_backend or "fs", cache_dir)
     artifact = VMImageArtifact(path, cache, analyzers, skip_files=skip_files,
@@ -318,21 +366,25 @@ def scan_vm(path: str, config_path: str | None = None, device=DEFAULT_DEVICE,
     stats.update(artifact.stats)
     stats["analyze.seconds"] = time.perf_counter() - t0
     report = _detect(blobs, ref.name, ref.type, scanners, db, dev, list_all_pkgs, stats,
-                     skipped_files=stats["files_skipped"])
+                     health0, host_fallback, skipped_files=stats["files_skipped"])
     stats["components"] = _components(blobs)
     return report, _finish_stats(stats, analyzers, scanners, t0)
 
 
 def scan_sbom(path: str, db=None, device=DEFAULT_DEVICE, db_repository: str | None = None,
-              cache_dir: str | None = None, list_all_pkgs: bool = False) -> tuple[Report, dict]:
+              cache_dir: str | None = None, list_all_pkgs: bool = False,
+              host_fallback: bool = True) -> tuple[Report, dict]:
     """Match the SBOM at ``path`` against the advisory DB: ``db`` when
     given (a loaded DB keeps its resident join across scans), else the one
     :func:`load_db` finds. Returns the unfiltered report (the CLI filters
     it) and the scan's counters: the join's (``cve.*``, under the JAX
     package's names), the seconds of the decode, the detection and the
     whole scan, and, when this call loaded the DB, ``db_load_seconds`` (not
-    part of ``seconds``)."""
+    part of ``seconds``). A device error in the join finishes on the host
+    comparator (``Degraded``), or with ``host_fallback`` off fails the
+    scan."""
     dev = resolve(device)
+    health0 = obs.current().health_snapshot()
     stats: Counter = Counter()
     if db is None:
         t0 = time.perf_counter()
@@ -345,7 +397,7 @@ def scan_sbom(path: str, db=None, device=DEFAULT_DEVICE, db_repository: str | No
     blob = decode(data)
     stats["decode.seconds"] = time.perf_counter() - t0
     report = _detect([blob], path, "spdx" if fmt.startswith("spdx") else "cyclonedx",
-                     ("vuln",), db, dev, list_all_pkgs, stats)
+                     ("vuln",), db, dev, list_all_pkgs, stats, health0, host_fallback)
     stats.update({"components": _components([blob]), "seconds": time.perf_counter() - t0})
     return report, {**dict.fromkeys(CVE_COUNTERS, 0), **stats}
 
@@ -386,7 +438,25 @@ def global_flags() -> FlagGroup:
         Flag("live", default=False, value_type=bool, config_name="telemetry.live",
              help="print a live progress line (progress %, MB/s, ETA, device "
                   "busy, arena occupancy) to stderr during the scan"),
+        Flag("timeout", default=300, value_type=int, config_name="timeout",
+             help="scan timeout seconds (ref default 5m); a scan past it exits 1"),
+        Flag("fault-inject", default=None, config_name="fault-inject",
+             help="arm the deterministic fault-injection harness, e.g. "
+                  "'device.dispatch@d0:at=2,device.dispatch@license:times=-1' "
+                  "(see trivy_tpu_torch/faults.py for the grammar)"),
+        Flag("debug-dir", default=None, config_name="debug.dir",
+             help="directory for auto-emitted flight-recorder diagnostic bundles "
+                  "(terminal failure, degraded completion); bounded retention "
+                  "(TRIVY_TPU_DEBUG_KEEP, default 8); env TRIVY_TPU_DEBUG_DIR; "
+                  "render with `python -m trivy_tpu_torch debug <bundle>`"),
     ])
+
+
+def no_host_fallback_flag() -> Flag:
+    return Flag("no-host-fallback", default=False, value_type=bool,
+                config_name="scan.no-host-fallback",
+                help="fail the scan on unrecoverable device errors instead of "
+                     "degrading to the exact host engine")
 
 
 def scan_flags() -> FlagGroup:
@@ -397,7 +467,13 @@ def scan_flags() -> FlagGroup:
              help="directories to skip"),
         Flag("skip-files", default=[], is_list=True, config_name="scan.skip-files",
              help="files to skip"),
+        no_host_fallback_flag(),
     ])
+
+
+def fallback_flags() -> FlagGroup:
+    """The one flag of the JAX scan group that ``sbom`` takes here."""
+    return FlagGroup("scan", [no_host_fallback_flag()])
 
 
 def report_flags() -> FlagGroup:
@@ -522,7 +598,7 @@ _TARGET_GROUPS = {
     "repo": _FS_GROUPS,
     "image": [*_FS_GROUPS, image_flags, diff_base_flags],
     "vm": _FS_GROUPS,
-    "sbom": [global_flags, report_flags, db_flags],
+    "sbom": [global_flags, fallback_flags, report_flags, db_flags],
     "convert": [global_flags, report_flags],
 }
 _HELP = {
@@ -568,6 +644,12 @@ def build_parser() -> argparse.ArgumentParser:
                 for ref in ("branch", "tag", "commit"):
                     sp.add_argument(f"--{ref}", default=None, help=f"{ref} to check out")
             sp.add_argument("target", help=_TARGET_HELP[cmd])
+    # the JAX CLI's bundle renderer, with its global flags
+    sp = sub.add_parser("debug", help="render a flight-recorder diagnostic bundle "
+                                      "(timeline + verdict)")
+    groups_by_cmd["debug"] = [global_flags()]
+    groups_by_cmd["debug"][0].add_to_parser(sp)
+    sp.add_argument("target", help="diagnostic bundle path (.json.gz or .json)")
     p.set_defaults(_groups_by_cmd=groups_by_cmd)
     return p
 
@@ -578,13 +660,36 @@ def main(argv: list[str] | None = None) -> int:
     try:
         config = load_config_file(args.config)
         opts = resolve_all(args._groups_by_cmd[args.command], args, config,
-                           command=args.command)
+                           command=args.command if args.command in JAX_FLAGS else None)
         interval = opts["telemetry_interval"]
         if interval is None:
             interval = timeseries.default_interval()
+        if opts["fault_inject"]:
+            faults.parse(opts["fault_inject"])  # a bad spec exits 2
     except (ValueError, FileNotFoundError) as e:
         parser.error(str(e))
     log.init(quiet=opts["quiet"])
+    if args.command == "debug":
+        return _run_debug(args.target)
+    # flight-recorder forensics destination (--debug-dir wins over
+    # TRIVY_TPU_DEBUG_DIR); without one, no bundle is written
+    if opts["debug_dir"]:
+        flight.set_debug_dir(opts["debug_dir"])
+    # the fault-injection harness is armed for this command only
+    if opts["fault_inject"]:
+        faults.configure(opts["fault_inject"])
+        logger.warning("fault injection armed: %s", opts["fault_inject"])
+    timeout = int(opts["timeout"] or 0)
+
+    def on_timeout(signum, frame):
+        raise ScanTimeout(f"scan exceeded --timeout={timeout}s")
+
+    # the alarm is a signal, which only the main thread can take: a caller
+    # running main() on another thread gets no timeout
+    alarm = timeout > 0 and threading.current_thread() is threading.main_thread()
+    if alarm:
+        prev_handler = signal.signal(signal.SIGALRM, on_timeout)
+        signal.alarm(timeout)
     # span recording for --trace and whenever an export is asked for; the
     # sampler only when something reads it (the JAX package's rule)
     trace_on = bool(opts["trace"] or opts["trace_out"] or opts["metrics_out"]
@@ -598,7 +703,21 @@ def main(argv: list[str] | None = None) -> int:
             rc = _run(args, opts)
             completed = True
             return rc
+        except ScanTimeout as e:
+            logger.error("%s", e)
+            return 1
         finally:
+            if opts["fault_inject"]:
+                faults.clear()
+            if alarm:
+                signal.alarm(0)
+                signal.signal(signal.SIGALRM, prev_handler)
+            # a scan that died emits its black box, and so does a scan that
+            # completed on a degraded path (no-ops without a debug dir)
+            if not completed:
+                flight.auto_emit("terminal-failure", ctx=ctx, error=sys.exc_info()[1])
+            elif ctx.health_snapshot().get("scan.degraded"):
+                flight.auto_emit("degraded-completion", ctx=ctx)
             # on every exit path: the sampler and the live line stop (a final
             # tick), then the files are written; progress reads 100% only
             # for a scan that completed
@@ -646,7 +765,8 @@ def _run(args, opts: dict) -> int:
             report, counters = scan_sbom(args.target, device=args.device,
                                          db_repository=opts["db_repository"],
                                          cache_dir=opts["cache_dir"],
-                                         list_all_pkgs=opts["list_all_pkgs"])
+                                         list_all_pkgs=opts["list_all_pkgs"],
+                                         host_fallback=not opts["no_host_fallback"])
         elif args.command == "image":
             target = args.input or args.target
             if not target:
@@ -677,6 +797,61 @@ def _run(args, opts: dict) -> int:
         # a target or base that cannot be found, pulled or cloned: no report
         logger.error("%s", e)
         return 1
+
+
+def _run_debug(path: str) -> int:
+    """``debug <bundle>``: render a flight-recorder diagnostic bundle as
+    the machine verdict, a relative event timeline and the device-lane and
+    stall summaries (the JAX package's ``commands._run_debug``)."""
+    import datetime
+
+    try:
+        doc = flight.read_bundle(path)
+    except (OSError, ValueError) as e:
+        logger.error("cannot read bundle %s: %s", path, e)
+        return 1
+    w = sys.stdout.write
+    w(f"bundle:  {path}\n")
+    w(f"schema:  {doc.get('schema', '?')}\n")
+    w(f"reason:  {doc.get('reason', '?')}\n")
+    w(f"created: {doc.get('created', '?')}\n")
+    w(f"scan:    {doc.get('name', '?')} (trace {str(doc.get('trace_id', ''))[:8]})\n")
+    if doc.get("error"):
+        w(f"error:   {doc['error']}\n")
+    w("\nverdict\n  " + str(doc.get("verdict", "(none)")) + "\n")
+    events = doc.get("events") or doc.get("process_events") or []
+    if events:
+        w(f"\ntimeline ({len(events)} event(s))\n")
+        t0 = events[0].get("t", 0.0)
+        for ev in events:
+            ts = datetime.datetime.fromtimestamp(
+                ev.get("t", 0.0), datetime.timezone.utc).strftime("%H:%M:%S")
+            line = (f"  +{ev.get('t', 0.0) - t0:8.2f}s {ts} "
+                    f"{ev.get('kind', '?'):8s} {ev.get('what', '')}")
+            detail = ev.get("detail")
+            if detail:
+                line += "  " + " ".join(f"{k}={v}" for k, v in detail.items())
+            w(line + "\n")
+    dev = doc.get("device")
+    if dev:
+        w("\ndevice lane\n")
+        if dev.get("card"):
+            w(f"  card: {dev['card']}\n")
+        w(f"  compiles: {dev.get('compile_total', 0)} ({dev.get('compile_wall_s', 0.0)}s wall) "
+          f"across {len(dev.get('compiles', {}))} kernel(s)\n")
+        for kern, row in sorted((dev.get("compiles") or {}).items()):
+            w(f"    {kern}: {row.get('count', 0)} compile(s), {row.get('wall_s', 0.0)}s\n")
+        storms = dev.get("recompile_storms") or []
+        if storms:
+            w(f"  RECOMPILE STORMS: {', '.join(storms)} "
+              f"(threshold {dev.get('storm_threshold')})\n")
+        hbm = dev.get("hbm") or {}
+        if hbm:
+            w(f"  hbm: {hbm}\n")
+    stall = doc.get("stall")
+    if stall:
+        w(f"\nstall attribution\n  {stall}\n")
+    return 0
 
 
 def _image_source(opts: dict) -> ImageSourceOption:
@@ -745,6 +920,7 @@ def _run_scan(scan, target: str, args, opts: dict, **extra) -> tuple[Report, dic
         # --no-secret-compress is the loud opt-out shorthand
         compress="off" if opts["no_secret_compress"] else (opts["secret_compress"] or ""),
         compress_min_ratio=opts["secret_compress_min_ratio"] or 0.0,
+        host_fallback=not opts["no_host_fallback"],
         **extra,
     )
 

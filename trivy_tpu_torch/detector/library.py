@@ -23,10 +23,11 @@ import time
 from collections import Counter
 from contextlib import contextmanager
 
-from trivy_tpu_torch import log, obs
+from trivy_tpu_torch import faults, log, obs
 from trivy_tpu_torch.db import Advisory
 from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve
 from trivy_tpu_torch.obs import recorder as flight
+from trivy_tpu_torch.ops import _build
 from trivy_tpu_torch.types import Application, DetectedVulnerability
 from trivy_tpu_torch.version import compare, parse_constraints, satisfies
 from trivy_tpu_torch.version.compare import Constraint
@@ -691,7 +692,8 @@ def _resident_join(db) -> "_ResidentJoin | None":
 
 
 def detect_batch(db, apps: list[Application], device=DEFAULT_DEVICE,
-                 stats: Counter | None = None) -> list[list[DetectedVulnerability]]:
+                 stats: Counter | None = None,
+                 host_fallback: bool = True) -> list[list[DetectedVulnerability]]:
     """Whole-SBOM detection in ONE pass: every application's packages
     hash-join the resident (ecosystem, name) index together, and every
     candidate's constraints evaluate in a single kernel launch against
@@ -699,8 +701,15 @@ def detect_batch(db, apps: list[Application], device=DEFAULT_DEVICE,
     per-scan bound re-uploads both collapse. Falls back
     to per-app :func:`detect` when the batch is too small to beat the
     dispatch overhead, an ecosystem never compiled (un-encodable scheme),
-    or the db lacks the merged prefix index. A device error fails the
-    scan. ``stats`` gathers the join's counters and span seconds."""
+    or the db lacks the merged prefix index. A device error in the join
+    degrades, as in the JAX package, to the host comparator for every
+    candidate pair, counted as ``cve.degraded`` (in ``stats``, the trace
+    and the health channel), logged, and marked on the report
+    (``obs.note_scan_degraded``, which the JAX package does not call here);
+    with ``host_fallback`` off, on ``cuda``, or for a kernel fault it is
+    raised (``obs.degrade_or_raise``). On ``cuda`` the ``verscmp`` library
+    loads before the join.
+    ``stats`` gathers the join's counters and span seconds."""
     import numpy as np
 
     from trivy_tpu_torch.ops.ragged import ragged_arange
@@ -757,9 +766,23 @@ def detect_batch(db, apps: list[Application], device=DEFAULT_DEVICE,
             else np.zeros(0, dtype=np.int64)
         )
     stats["cve.candidate_pairs"] += int(len(cand_q))
-    # no degrade to the host comparator: a device error fails the scan
-    verdicts = _resident_verdicts(rj, cand_q, cand_adv, q_pkg, q_scheme, hit,
-                                  device, stats)
+    if resolve(device).type == "cuda":
+        _build.preload("verscmp")  # a kernel that cannot load fails here
+    try:
+        verdicts = _resident_verdicts(rj, cand_q, cand_adv, q_pkg, q_scheme, hit,
+                                      device, stats)
+    except Exception as e:
+        # the device leg failed: the host comparator is the parity oracle
+        obs.degrade_or_raise(e, device=resolve(device), host_fallback=host_fallback,
+                             counter="cve.degraded", logger=logger,
+                             message="resident CVE join failed (%s); degrading to the host "
+                                     "comparator for this batch")
+        stats["cve.degraded"] += 1
+        verdicts = np.fromiter(
+            (_is_vulnerable(q_scheme[q], q_pkg[q].version, rj.adv_objs[a])
+             for q, a in zip(cand_q, cand_adv)),
+            dtype=bool, count=len(cand_q),
+        )
     # fixed-version strings repeat heavily across a large SBOM (same
     # advisory hit at the same installed version by many packages): one
     # computation per unique (advisory, scheme, version) triple
@@ -854,6 +877,7 @@ def _resident_verdicts(
                 inst_mat[:] = np.asarray(inst_pad, dtype=np.int32)[:, None]
                 for i, r in enumerate(inst_rows):
                     inst_mat[i, : len(r)] = r
+                faults.check("device.dispatch", key="cve")
                 rj.dispatch_count += 1
                 stats["cve.dispatch_count"] += 1
                 stats["cve.resident_rows"] += int(len(ops))

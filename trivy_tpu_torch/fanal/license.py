@@ -54,11 +54,12 @@ def is_license_file(file_path: str) -> bool:
 class LicenseAnalyzer:
     """One of the two license analyzers (``kind`` ``license-file`` or
     ``header``): ``required`` -> ``collect`` per walked file, then
-    ``finalize`` classifies on ``device``."""
+    ``finalize`` classifies on ``device``, degrading a failed device batch
+    to the host oracle unless ``host_fallback`` is off."""
 
     version = 1  # the JAX package's, part of an image layer's cache key
 
-    def __init__(self, kind: str, device, gate=None):
+    def __init__(self, kind: str, device, gate=None, host_fallback: bool = True):
         if kind not in ("license-file", "header"):
             raise ValueError(f"unknown license analyzer {kind!r}")
         self.kind = kind
@@ -66,6 +67,7 @@ class LicenseAnalyzer:
             AnalyzerType.LICENSE_HEADER
         self.device = resolve(device)
         self.gate = gate  # FusedLicenseGate of a fused scan, or None
+        self.host_fallback = host_fallback
         self._files: list[tuple[str, str]] = []  # (path, text)
 
     def required(self, file_path: str, size: int) -> bool:
@@ -87,7 +89,8 @@ class LicenseAnalyzer:
             files = [(p, t) for p, t in files if self.gate.should_classify(p)]
         if not files:
             return []
-        per_file = LicenseClassifier(device=self.device).classify_batch([t for _p, t in files])
+        clf = LicenseClassifier(device=self.device, host_fallback=self.host_fallback)
+        per_file = clf.classify_batch([t for _p, t in files])
         return [
             LicenseFile(type=self.kind, file_path=path, findings=findings)
             for (path, _t), findings in zip(files, per_file)

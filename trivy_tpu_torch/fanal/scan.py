@@ -50,12 +50,15 @@ class ScanAnalyzers:
     ask (source headers only with ``license_full``). With both scanners and
     ``shared_arena`` the license analyzers ride the secret feed's rows
     through one :class:`~trivy_tpu_torch.licensing.fused.FusedLicenseGate`.
+    ``host_fallback`` lets the secret feed and the license classifier finish
+    a failed device pass on the host (off: the error fails the scan).
     ``scanner_opts`` reach the secret scanner."""
 
     def __init__(self, scanners, device, license_full: bool = False,
                  shared_arena: bool = True, config_path: str | None = None,
                  java_db: str | None = None, list_all_pkgs: bool = False,
-                 packages: bool | None = None, **scanner_opts):
+                 packages: bool | None = None, host_fallback: bool = True,
+                 **scanner_opts):
         from trivy_tpu_torch.licensing.fused import FusedLicenseGate
         from trivy_tpu_torch.secret.engine import ScannerConfig
         from trivy_tpu_torch.secret.scanner import TorchSecretScanner
@@ -63,6 +66,7 @@ class ScanAnalyzers:
         check_scanners(scanners)
         self.device = resolve(device)
         self.config_path = config_path
+        self.host_fallback = host_fallback
         self.license_kinds = ()
         if "license" in scanners:
             self.license_kinds = ("license-file", "header") if license_full else ("license-file",)
@@ -74,7 +78,11 @@ class ScanAnalyzers:
             cfg = None
             if config_path and os.path.exists(config_path):
                 cfg = ScannerConfig.from_yaml_file(config_path)
-            self.scanner = TorchSecretScanner(cfg, device=self.device, **scanner_opts)
+            self.scanner = TorchSecretScanner(cfg, device=self.device,
+                                              host_fallback=host_fallback, **scanner_opts)
+            if self.gate is not None:
+                # the gram gate's kernel loads with the scan, not mid-feed
+                self.scanner._ensure_license_stage()
         if packages is None:
             packages = "vuln" in scanners or "license" in scanners or list_all_pkgs
         self.group = AnalyzerGroup(AnalyzerOptions(enabled=None if packages else OS_IDENTITY,
@@ -91,7 +99,8 @@ class ScanAnalyzers:
             secret = SecretAnalyzer(root, config_path=self.config_path, scanner=self.scanner,
                                     license_gate=self.gate)
         gate = self.gate if secret is not None else None
-        return secret, [LicenseAnalyzer(k, self.device, gate=gate) for k in self.license_kinds]
+        return secret, [LicenseAnalyzer(k, self.device, gate=gate, host_fallback=self.host_fallback)
+                        for k in self.license_kinds]
 
     def versions(self) -> dict[str, int]:
         """type -> version of every analyzer this scan runs on a layer that

@@ -190,9 +190,12 @@ class SecretAnalyzer:
         return sorted(found, key=lambda s: s.file_path)
 
     def abort(self) -> None:
-        """End the background scan without results."""
+        """End the background scan without results; the fused gate's
+        verdicts are then incomplete, so it degrades."""
         if self._stream is not None:
             self._stream.fail(RuntimeError("scan aborted"))
             self._thread.join(timeout=10.0)
             self._stream = self._thread = None
+        if self.license_gate is not None:
+            self.license_gate.degrade()
         self._found = []

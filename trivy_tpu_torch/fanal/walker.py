@@ -17,7 +17,7 @@ import time
 from collections.abc import Callable, Iterator
 from dataclasses import dataclass, field
 
-from trivy_tpu_torch import log, obs
+from trivy_tpu_torch import faults, log, obs
 
 logger = log.logger("walker")
 
@@ -137,7 +137,9 @@ class FSWalker:
                     logger.debug("file exceeds size threshold, skipping %s", rel)
                     continue
 
-                def opener(path=full) -> bytes:
+                def opener(path=full, rel=rel) -> bytes:
+                    # an injected io fault reads as an unreadable file
+                    faults.check("walker.read", key=rel)
                     with open(path, "rb") as f:
                         return f.read()
 

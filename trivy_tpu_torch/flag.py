@@ -190,7 +190,10 @@ def resolve_all(groups: list[FlagGroup], ns: argparse.Namespace, config: dict,
             if env in os.environ:
                 raise ValueError(f"{env} sets --{name}, a flag of the JAX package that "
                                  f"this port does not have; unset it")
-            if config_name and config_value(config, config_name) is not None:
+            # a section (``debug:`` holding ``dir:``) sets keys below it,
+            # not the flag named like it
+            value = config_value(config, config_name) if config_name else None
+            if value is not None and not isinstance(value, dict):
                 raise ValueError(f"config key {config_name!r} sets --{name}, a flag of the "
                                  f"JAX package that this port does not have; remove it")
     return out

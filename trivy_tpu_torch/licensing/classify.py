@@ -21,8 +21,12 @@ Two engines share one scoring model:
   oracle's. On ``device="cpu"`` the same pipeline runs the kernels' plain
   versions.
 
-A device error fails the classification: there is no fallback to the host
-(the JAX package degrades to it; the port does not).
+A device error on ``device="cpu"`` degrades the batch to the host oracle,
+as in the JAX package (``obs.degrade_or_raise``): ``license.degraded`` is
+counted, the first failure of a classifier is logged and marks the scan
+degraded (``obs.note_scan_degraded``). With ``host_fallback=False``, on
+``cuda``, or for a kernel fault (a kernel that cannot build, load or
+launch, or a CUDA error from the card) the error is raised.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from collections import Counter, deque
 
 import numpy as np
 
+from trivy_tpu_torch import faults, log
 from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve
 from trivy_tpu_torch.licensing.corpus import (
     MIN_CONFIDENCE,
@@ -41,8 +46,11 @@ from trivy_tpu_torch.licensing.corpus import (
     SUBSUMES,
     normalize,
 )
+from trivy_tpu_torch.ops import _build
 from trivy_tpu_torch.ops.ragged import ragged_arange
 from trivy_tpu_torch.types import LicenseFinding
+
+logger = log.logger("license")
 
 _SPDX_URL = "https://spdx.org/licenses/{}.html"
 
@@ -76,11 +84,19 @@ def _static_scoring_tables() -> dict:
 class LicenseClassifier:
     """``classify(text)`` -> findings on the host; ``classify_batch(texts)``
     for many files, on ``device`` (``cuda`` by default, raising without
-    CUDA, or ``cpu``) from ``DEVICE_MIN_TEXTS`` texts up."""
+    CUDA, or ``cpu``) from ``DEVICE_MIN_TEXTS`` texts up. ``host_fallback``
+    (default on) lets a device error on the CPU degrade the batch to the
+    host oracle.
+    On ``cuda`` the two kernel libraries load here."""
 
-    def __init__(self, device=DEFAULT_DEVICE, confidence: float = MIN_CONFIDENCE):
+    def __init__(self, device=DEFAULT_DEVICE, confidence: float = MIN_CONFIDENCE,
+                 host_fallback: bool = True):
         self.device = resolve(device)
+        if self.device.type == "cuda":
+            _build.preload("bytes_gate", "bytes_score")
         self.confidence = confidence
+        self.host_fallback = host_fallback
+        self._device_failed_logged = False
         self._scorer = None  # ops.ngram_score.DeviceBytesScorer, lazy
         self.licenses = sorted(NORMALIZED_FINGERPRINTS)
         self.phrases: list[tuple[int, str]] = [
@@ -130,7 +146,19 @@ class LicenseClassifier:
 
     def classify_batch(self, texts: list[str]) -> list[list[LicenseFinding]]:
         if len(texts) >= DEVICE_MIN_TEXTS:
-            return self._classify_batch_device(texts)
+            try:
+                return self._classify_batch_device(texts)
+            except Exception as e:
+                # the host batch scorer is the parity oracle: degrade to it
+                # (findings identical, slower) where the policy allows
+                from trivy_tpu_torch import obs
+
+                obs.degrade_or_raise(
+                    e, device=self.device, host_fallback=self.host_fallback,
+                    counter="license.degraded", first=not self._device_failed_logged,
+                    logger=logger, message="license device scoring failed (%s); degrading to "
+                                           "the host scorer for this classifier")
+                self._device_failed_logged = True
         if len(texts) < 4:
             return [self.classify(t) for t in texts]
         return self._classify_batch_host(texts)
@@ -316,6 +344,7 @@ class LicenseClassifier:
                     b *= 2
                 sel = scorer.take_rows(rows, flag_idx, b)
                 sel_tis, keep = tis[flag_idx], np.arange(n)
+            faults.check("device.dispatch", key="license")
             with ctx.span("license.dispatch"):
                 spending.append((scorer.score_from_bytes(sel), sel_tis, keep,
                                  int(sel.shape[0]), rows.shape[1]))
@@ -347,6 +376,7 @@ class LicenseClassifier:
                 part_t = tis[off : off + rung]
                 if len(part) < rung:
                     part = np.concatenate([part, np.zeros((rung - len(part), width), np.uint8)])
+                faults.check("device.dispatch", key="license")
                 ctx.count("license.bytes_uploaded", part.nbytes)
                 with ctx.span("license.dispatch"):
                     rows = scorer.put_rows(part)

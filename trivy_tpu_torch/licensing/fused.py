@@ -92,7 +92,8 @@ class FusedLicenseGate:
     Producers: the secret analyzer and scanner, ``skip`` for files the
     device feed will never carry, ``cover`` and ``flag`` for files it does.
     Consumer: the license analyzers' finalize, which runs after the secret
-    finalize, through :meth:`should_classify`.
+    finalize, through :meth:`should_classify`. After :meth:`degrade` (the
+    device pass failed or degraded) every collected file is classified.
     """
 
     def __init__(self, license_full: bool = False):
@@ -101,6 +102,7 @@ class FusedLicenseGate:
         self._covered: set[str] = set()
         self._skipped: set[str] = set()
         self._flagged: set[str] = set()
+        self._degraded = False
         self.files_covered = 0
         self.files_flagged = 0
         self.files_patched = 0  # the host long-gram patch flagged the file
@@ -126,6 +128,15 @@ class FusedLicenseGate:
                 self._flagged.add(p)
                 self.files_flagged += 1
 
+    def degrade(self) -> None:
+        """The device pass died: no verdict can be trusted, so every query
+        falls back to exact classification."""
+        with self._lock:
+            if not self._degraded:
+                self._degraded = True
+                logger.warning("fused license gate degraded; the license analyzer will "
+                               "classify every collected file")
+
     # -- consumer side ------------------------------------------------------
 
     def should_classify(self, path: str) -> bool:
@@ -134,7 +145,7 @@ class FusedLicenseGate:
         safe."""
         p = _canon(path)
         with self._lock:
-            if p in self._flagged:
+            if self._degraded or p in self._flagged:
                 return True
             return p not in self._covered or p in self._skipped
 

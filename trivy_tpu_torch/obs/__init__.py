@@ -43,7 +43,9 @@ __all__ = [
     "activate",
     "count",
     "current",
+    "degrade_or_raise",
     "heartbeat",
+    "note_scan_degraded",
     "percentile",
     "sample",
     "scan_context",
@@ -58,6 +60,10 @@ _span_ids = itertools.count((int.from_bytes(os.urandom(5), "big") << 24) + 1)
 # raw span-event cap per context: aggregates never drop, but the event list
 # behind the Chrome trace is bounded; exports report ``dropped_events``
 MAX_EVENTS = 200_000
+
+# the flight recorder's span hook (``obs/recorder.py`` installs it when it is
+# imported): span boundaries above its latency floor become ring events
+_flight_hook = None
 # per-stage percentile reservoir: count/total/max stay exact, p50/p95 come
 # from a uniform reservoir sample (Algorithm R)
 RESERVOIR = 8192
@@ -208,6 +214,9 @@ class TraceContext:
                 self.events.append(sp)
             else:
                 self.dropped_events += 1
+        hook = _flight_hook
+        if hook is not None:
+            hook(self, sp)
 
     def span(self, name: str):
         """Context manager timing a block under ``name``; no-op when off."""
@@ -497,6 +506,53 @@ def count(name: str, n: int = 1) -> None:
 
 def sample(name: str, value: float) -> None:
     current().sample(name, value)
+
+
+def note_scan_degraded() -> None:
+    """Record one scan-degradation event everywhere it must surface: the
+    always-on health channel (folded into the report's ``Degraded`` flag),
+    the process-global ``trivy_tpu_scan_degraded_total`` counter, and a
+    ``degrade`` event in the flight recorder's ring. Shared by every rung
+    that degrades (the secret feed, the license classifier, the CVE join)
+    so the surfaces cannot drift apart."""
+    from trivy_tpu_torch.obs import metrics as obs_metrics
+    from trivy_tpu_torch.obs import recorder as _recorder
+
+    current().health_count("scan.degraded")
+    obs_metrics.REGISTRY.counter(
+        "trivy_tpu_scan_degraded_total",
+        "Scans that completed on a degraded (host-fallback) path",
+    ).inc()
+    _recorder.record("degrade", "scan.degraded")
+
+
+def degrade_or_raise(err: BaseException, *, device, host_fallback: bool, counter: str,
+                     logger, message: str, first: bool = True, health: bool = True) -> None:
+    """The last rung of every stage's ladder (the secret feed, the license
+    classifier, the CVE join), in one place: return when the stage may
+    finish ``err``'s work on its host oracle, else raise ``err``.
+
+    Raised are a kernel fault (``ops._build.kernel_fault``: a kernel that
+    cannot build, load or launch, or a CUDA error from the card), any error
+    with ``host_fallback`` off, and any error on a ``cuda`` device, where
+    finishing on the host would hide a kernel that does not work: there the
+    scan fails, and the CLI still writes its bundle. On the CPU, where the
+    stages run the kernels' plain versions, the degrade is counted as
+    ``counter`` in the trace (and with ``health`` in the health channel,
+    which ``--stats-out`` reads); when ``first``, ``message % err`` is
+    logged as a warning on ``logger`` and the scan is marked degraded
+    (:func:`note_scan_degraded`)."""
+    from trivy_tpu_torch.ops._build import kernel_fault
+
+    if kernel_fault(err) or not host_fallback or getattr(device, "type", device) == "cuda":
+        raise err
+    ctx = current()
+    ctx.count(counter)
+    if health:
+        ctx.health_count(counter)
+    if first:
+        logger.warning(message, err)
+        note_scan_degraded()
 
 
 class heartbeat:

@@ -14,23 +14,47 @@
   the card's memory, ``total_memory`` of the current CUDA device, or
   :data:`DEFAULT_CAPACITY_BYTES` without one.
 
-Each ledger event also lands in a bounded ring on the active scan context,
-from which :func:`counter_series` draws the Perfetto counter tracks. Both
-ledgers export as ``trivy_tpu_compile_*`` / ``trivy_tpu_hbm_*`` gauges and
-as the ``device`` block of ``--metrics-out`` (:func:`device_doc`). The
-recorder is always on and never starts a thread. Diagnostic bundles,
-``--debug-dir`` and ``auto_emit`` are not ported.
+Each ledger event, and every other significant event (span boundaries
+above ``SPAN_FLOOR_S``, batch retries and OOM splits,
+degrades, injected faults), lands in a bounded ring on the active scan
+context and in one process ring; :func:`counter_series` draws the Perfetto
+counter tracks from the scan's. Both ledgers export as
+``trivy_tpu_compile_*`` / ``trivy_tpu_hbm_*`` gauges and as the ``device``
+block of ``--metrics-out`` (:func:`device_doc`).
+
+- **Diagnostic bundles** (:func:`auto_emit`): on a terminal failure or a
+  degraded completion the CLI writes one self-contained gzipped bundle (the
+  ring, the health counts, the stall verdict, the metrics, the ledgers with
+  the card's name, and a one-paragraph machine verdict naming the first
+  anomalous event) under ``--debug-dir`` / ``TRIVY_TPU_DEBUG_DIR``, keeping
+  the newest ``TRIVY_TPU_DEBUG_KEEP`` (8). ``python -m trivy_tpu_torch
+  debug <bundle>`` renders it. The schema is the JAX package's.
+
+The recorder is always on and never starts a thread.
 """
 
 from __future__ import annotations
 
+import gzip
+import json
+import os
 import threading
 import time
+
+from trivy_tpu_torch import log
+
+logger = log.logger("obs:recorder")
+
+ENV_DEBUG_DIR = "TRIVY_TPU_DEBUG_DIR"
+ENV_DEBUG_KEEP = "TRIVY_TPU_DEBUG_KEEP"
 
 # a ring holds at most RING_MAX_EVENTS events and at most RING_BYTES
 # (approximate accounting; the oldest events evict first)
 RING_MAX_EVENTS = 512
 RING_BYTES = 256 * 1024
+# span boundaries only enter the ring above this duration (the JAX default)
+SPAN_FLOOR_S = 0.050
+DEFAULT_DEBUG_KEEP = 8
 # the JAX package's default recompile-storm threshold, reported as is
 STORM_THRESHOLD = 6
 # the capacity the HBM ledger scores against when no card is visible
@@ -39,7 +63,24 @@ DEFAULT_CAPACITY_BYTES = 1024 << 20
 # the whole ring
 DETAIL_MAX_CHARS = 200
 
+BUNDLE_SCHEMA = "trivy-tpu-debug-bundle/v1"
+
+# event kinds that count as anomalous for the machine verdict, most severe
+# first: the verdict names the earliest, ties broken by this ranking
+ANOMALOUS_KINDS = (
+    "fault", "error", "oom", "dead", "breaker", "degrade", "storm",
+    "retry", "shed",
+)
+
 _EVENT_BASE_BYTES = 96  # approximate fixed per-event overhead
+
+
+def _env_keep() -> int:
+    """``TRIVY_TPU_DEBUG_KEEP``: bundles kept per debug dir (at least 1)."""
+    try:
+        return max(1, int(os.environ.get(ENV_DEBUG_KEEP, "") or DEFAULT_DEBUG_KEEP))
+    except ValueError:
+        return DEFAULT_DEBUG_KEEP
 
 
 class Ring:
@@ -79,10 +120,17 @@ class Ring:
 
 
 class _State:
-    """Per-process ledgers: compiles and HBM residency."""
+    """Per-process recorder state: the process ring, the compile and HBM
+    ledgers, and the bundle-emission bookkeeping."""
 
     def __init__(self):
+        self.ring = Ring()
         self.lock = threading.Lock()
+        self.debug_dir: str = os.environ.get(ENV_DEBUG_DIR, "")
+        self.debug_keep = _env_keep()
+        # (trace8, reason) pairs already emitted: one bundle per scan and
+        # reason
+        self.emitted: set[tuple[str, str]] = set()
         # compile ledger: per-kernel [count, wall_s], per (kernel, bucket) count
         self.compiles: dict[str, list] = {}
         self.compile_buckets: dict[tuple[str, str], int] = {}
@@ -121,9 +169,15 @@ def _ctx_ring(ctx) -> Ring:
     return ring
 
 
+def set_debug_dir(path: str | None) -> None:
+    """Install the bundle destination (``--debug-dir``)."""
+    if path:
+        _STATE.debug_dir = path
+
+
 def record(kind: str, what: str, detail: dict | None = None, ctx=None) -> None:
-    """Append one ledger event to the ring of ``ctx`` (the active scan's by
-    default)."""
+    """Append one significant event to the ring of ``ctx`` (the active
+    scan's by default) and to the process ring."""
     from trivy_tpu_torch import obs
 
     if ctx is None:
@@ -136,6 +190,15 @@ def record(kind: str, what: str, detail: dict | None = None, ctx=None) -> None:
             for k, v in detail.items()
         }
     _ctx_ring(ctx).append(ev)
+    _STATE.ring.append(ev)
+
+
+def _span_hook(ctx, sp) -> None:
+    """Installed as ``obs._flight_hook``: span boundaries above the latency
+    floor become ring events."""
+    if sp.duration < SPAN_FLOOR_S:
+        return
+    record("span", sp.name, {"seconds": round(sp.duration, 4)}, ctx=ctx)
 
 
 def _metric_counter(name: str, help: str, labelnames=()):
@@ -303,3 +366,179 @@ def heartbeat_fragment(carrier) -> str:
     if ratio:
         frag += f" hbm {ratio * 100:.0f}%"
     return frag
+
+
+# -- diagnostic bundles -----------------------------------------------------
+
+
+def _iso(t: float) -> str:
+    import datetime
+
+    return datetime.datetime.fromtimestamp(t, datetime.timezone.utc).isoformat(
+        timespec="milliseconds")
+
+
+def _verdict(reason: str, ctx, events: list[dict], error: str | None = None) -> str:
+    """One machine-built paragraph naming the first anomalous event."""
+    st = _STATE
+    anomalous = [e for e in events if e.get("kind") in ANOMALOUS_KINDS]
+    first = None
+    if anomalous:
+        rank = {k: i for i, k in enumerate(ANOMALOUS_KINDS)}
+        t0 = min(e["t"] for e in anomalous)
+        # earliest wins; among events in the same 10 ms window the most
+        # severe kind names the verdict (a fault and the degrade it caused
+        # land near-simultaneously: the fault is the cause)
+        window = [e for e in anomalous if e["t"] - t0 <= 0.010]
+        first = min(window, key=lambda e: rank.get(e["kind"], 99))
+    parts = [f"Scan {ctx.trace_id[:8]}: {reason}."]
+    if first is not None:
+        rel = first["t"] - ctx.created_wall
+        parts.append(f"First anomalous event: {first['kind']} {first['what']} at "
+                     f"{_iso(first['t'])} (+{rel:.2f}s into the scan).")
+        if len(anomalous) > 1:
+            kinds: dict[str, int] = {}
+            for e in anomalous:
+                kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+            parts.append(f"{len(anomalous)} anomalous events total ("
+                         + ", ".join(f"{k} x{n}" for k, n in sorted(kinds.items())) + ").")
+    else:
+        parts.append("No anomalous events in the ring.")
+    if error:
+        parts.append(f"Last error: {str(error)[:DETAIL_MAX_CHARS]}.")
+    n = compile_count()
+    if n:
+        with st.lock:
+            wall = sum(w for _, w in st.compiles.values())
+            kernels = len(st.compiles)
+        parts.append(f"Device lane: {n} compiles / {wall:.2f}s compile wall across {kernels} "
+                     f"kernels; HBM resident {hbm_ratio() * 100:.0f}% of device memory.")
+    return " ".join(parts)
+
+
+def build_bundle(ctx=None, reason: str = "on-demand", error=None) -> dict:
+    """Assemble a self-contained diagnostic bundle as a dict."""
+    from trivy_tpu_torch import obs
+    from trivy_tpu_torch.obs import export as obs_export
+    from trivy_tpu_torch.obs import stall as obs_stall
+
+    if ctx is None:
+        ctx = obs.current()
+    st = _STATE
+    ring = getattr(ctx, "_flight_ring", None)
+    events = ring.snapshot() if ring is not None else []
+    process_events = st.ring.snapshot()
+    doc: dict = {
+        "schema": BUNDLE_SCHEMA,
+        "reason": reason,
+        "created": _iso(time.time()),
+        "trace_id": ctx.trace_id,
+        "name": ctx.name,
+        "verdict": _verdict(reason, ctx, events or process_events,
+                            error=str(error) if error is not None else None),
+        "events": events,
+        "health": ctx.health_snapshot(),
+    }
+    if error is not None:
+        doc["error"] = str(error)[:1000]
+    if process_events and process_events != events:
+        doc["process_events"] = process_events
+    try:
+        doc["stall"] = obs_stall.attribution(ctx)
+    except Exception:
+        pass
+    dev = device_doc()
+    if dev is not None:
+        # the kernel loads and the resident ledger, with the card as
+        # nvidia-smi names it when one is visible
+        try:
+            import torch
+
+            if torch.cuda.is_available():
+                from trivy_tpu_torch.device import card_info
+
+                dev["card"] = card_info()
+        except Exception as e:  # a missing nvidia-smi must not kill the bundle
+            dev["card_error"] = str(e)[:DETAIL_MAX_CHARS]
+        doc["device"] = dev
+    try:
+        doc["metrics"] = obs_export.metrics_dict(ctx)
+    except Exception as e:  # a dying context must not kill the bundle
+        doc["metrics_error"] = str(e)
+    return doc
+
+
+def write_bundle(doc: dict, dest_dir: str) -> str:
+    """Write one bundle as gzipped JSON under ``dest_dir`` and keep the
+    newest ``TRIVY_TPU_DEBUG_KEEP`` bundles there. Returns the path."""
+    keep = _STATE.debug_keep
+    os.makedirs(dest_dir, exist_ok=True)
+    stamp = time.strftime("%Y%m%dT%H%M%S", time.gmtime())
+    trace8 = str(doc.get("trace_id", ""))[:8] or "proc"
+    reason = str(doc.get("reason", "bundle")).replace("/", "-")
+    path = os.path.join(dest_dir, f"bundle-{stamp}-{trace8}-{reason}.json.gz")
+    # a same-second re-emit for the same scan must not clobber
+    n = 1
+    while os.path.exists(path):
+        n += 1
+        path = os.path.join(dest_dir, f"bundle-{stamp}-{trace8}-{reason}.{n}.json.gz")
+    with gzip.open(path, "wt") as f:
+        json.dump(doc, f)
+    bundles = sorted(
+        (os.path.join(dest_dir, name) for name in os.listdir(dest_dir)
+         if name.startswith("bundle-") and name.endswith(".json.gz")),
+        key=os.path.getmtime,
+    )
+    for old in bundles[:-keep]:
+        try:
+            os.unlink(old)
+        except OSError:
+            pass
+    return path
+
+
+def read_bundle(path: str) -> dict:
+    """Load a bundle written by :func:`write_bundle` (gz or plain JSON)."""
+    if path.endswith(".gz"):
+        with gzip.open(path, "rt") as f:
+            return json.load(f)
+    with open(path) as f:
+        return json.load(f)
+
+
+def auto_emit(reason: str, ctx=None, error=None) -> str | None:
+    """Emit a diagnostic bundle for a failure-shaped moment (a terminal
+    failure, a degraded completion): at most one per (scan, reason), and
+    only with a debug dir configured. Never raises: forensics must not take
+    the scan down with it."""
+    st = _STATE
+    if not st.debug_dir:
+        return None
+    from trivy_tpu_torch import obs
+
+    if ctx is None:
+        ctx = obs.current()
+    key = (ctx.trace_id[:8], reason)
+    with st.lock:
+        if key in st.emitted:
+            return None
+        st.emitted.add(key)
+    try:
+        doc = build_bundle(ctx=ctx, reason=reason, error=error)
+        path = write_bundle(doc, st.debug_dir)
+    except Exception as e:
+        logger.warning("debug bundle emit (%s) failed: %s", reason, e)
+        return None
+    logger.warning("diagnostic bundle written: %s (%s)", path, reason)
+    return path
+
+
+def _install_hook() -> None:
+    from trivy_tpu_torch import obs
+
+    obs._flight_hook = _span_hook
+
+
+# importing this module installs the span hook: the CLI, the secret scanner
+# and every kernel load import it
+_install_hook()

@@ -13,6 +13,14 @@ The flight recorder (``obs/recorder.py``) counts each library :func:`load`
 makes ready in a process as one compile of its kernel, in the bucket
 ``nvcc`` when :func:`build` ran the compiler for it and ``cached`` when the
 library was already built, with the seconds of the build and the load.
+
+Every failure to build, load or launch a kernel raises :class:`KernelError`:
+``nvcc`` missing or failing, ``ctypes`` refusing the library, a setup or
+launch returning an error code, a grid query finding that no block fits.
+A CUDA error that the card raises later, at the copy or fetch that waits
+on a kernel, is of the same kind (:func:`kernel_fault`). The scan ladder
+never retries or degrades either, so a kernel that does not work fails the
+scan instead of ending as a host scan.
 """
 
 from __future__ import annotations
@@ -38,6 +46,25 @@ _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+
+
+class KernelError(RuntimeError):
+    """A kernel failed to build, load or launch (see the module docstring)."""
+
+
+def kernel_fault(err: BaseException) -> bool:
+    """Whether ``err`` says a kernel does not work: a :class:`KernelError`,
+    or a CUDA error that surfaced at a later copy or fetch (PyTorch's
+    ``AcceleratorError``, or a message starting "CUDA error") that is not
+    the card running out of memory."""
+    if isinstance(err, KernelError):
+        return True
+    msg = str(err)
+    if "out of memory" in msg.lower():
+        return False
+    return (any(c.__name__ == "AcceleratorError" for c in type(err).__mro__)
+            or msg.startswith("CUDA error"))
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -111,7 +138,7 @@ def nvcc() -> str:
     for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if home and os.access(os.path.join(home, "bin", "nvcc"), os.X_OK):
             return os.path.join(home, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise KernelError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def sources(name: str) -> list[Path]:
@@ -165,7 +192,7 @@ def build(name: str) -> Path:
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+            raise KernelError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
         out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
@@ -184,7 +211,11 @@ def load(name: str) -> ctypes.CDLL:
 
             t0 = time.perf_counter()
             cached = library_path(name).exists()
-            lib = ctypes.CDLL(str(build(name)))
+            path = build(name)
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise KernelError(f"cannot load the {name} kernel library {path}: {e}") from e
             for fn, (restype, argtypes) in SIGNATURES[name].items():
                 getattr(lib, fn).restype = restype
                 getattr(lib, fn).argtypes = argtypes
@@ -192,3 +223,11 @@ def load(name: str) -> ctypes.CDLL:
             recorder.note_compile(name, "cached" if cached else "nvcc",
                                   time.perf_counter() - t0)
         return lib
+
+
+def preload(*names: str) -> None:
+    """Build and load the libraries of ``names`` now, so that a kernel that
+    cannot be built or loaded fails where its stage is set up on the card,
+    not at its first launch inside a scan."""
+    for name in names:
+        load(name)

@@ -65,6 +65,8 @@ class CudaBytesGate:
 
     def __init__(self, lut: np.ndarray, bloom8: np.ndarray, bloom4: np.ndarray, device):
         self.device = resolve(device)
+        if self.device.type == "cuda":
+            _build.preload("bytes_gate")  # a kernel that cannot load fails here
         lut = lut32(lut)
         self.lut = torch.from_numpy(lut.astype(np.int64)).to(self.device)
         self.bloom8 = torch.from_numpy(np.asarray(bloom8, dtype=np.uint8)).to(self.device)

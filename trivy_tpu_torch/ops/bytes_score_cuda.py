@@ -58,6 +58,8 @@ class CudaBytesScorer:
     def __init__(self, lut: np.ndarray, keys: np.ndarray, credit: np.ndarray, p1: int, p2: int,
                  hash_p: int, ngram: int, device):
         self.device = resolve(device)
+        if self.device.type == "cuda":
+            _build.preload("bytes_score")  # a kernel that cannot load fails here
         self.p1, self.p2, self.hash_p, self.ngram = u32(p1), u32(p2), u32(hash_p), int(ngram)
         lut = lut32(lut)
         keys = np.asarray(keys, dtype=np.uint32).reshape(-1)
@@ -88,7 +90,7 @@ class CudaBytesScorer:
                 raise launch_error(lib, rc, f"bytes score (cluster of {cluster} at {width})")
             plan = dict(zip(("threads", "smem", "clusters", "blocks_per_sm"), out))
             if plan["clusters"] < 1:
-                raise RuntimeError(
+                raise _build.KernelError(
                     f"bytes score: a cluster of {cluster} blocks with {plan['smem']} bytes of "
                     f"shared memory each cannot be scheduled on {self.device}")
             self._plans[key] = plan

@@ -48,6 +48,8 @@ class CudaDecompressor:
             raise ValueError(f"tab_len must lie in [0, {MAX_EXPANSION}]")
         self.chunk_len = chunk_len
         self.device = resolve(device)
+        if self.device.type == "cuda":
+            _build.preload(NAME)  # a kernel that cannot load fails here
         self.tab_bytes = torch.from_numpy(tab_bytes).to(self.device)
         self.tab_len = torch.from_numpy(tab_len).to(self.device)
         self._plan: tuple[int, int] | None = None  # (grid, smem), from the first launch
@@ -62,7 +64,7 @@ class CudaDecompressor:
                 rc = lib.trivy_decompress_grid(self.chunk_len, grid, smem)
             if rc != 0:
                 msg = lib.trivy_cuda_error_string(rc).decode()
-                raise RuntimeError(f"decompress kernel launch failed: {msg} ({rc})")
+                raise _build.KernelError(f"decompress kernel launch failed: {msg} ({rc})")
             self._plan = (grid.value, smem.value)
         return self._plan
 
@@ -91,7 +93,7 @@ class CudaDecompressor:
             )
         if rc != 0:
             msg = lib.trivy_cuda_error_string(rc).decode()
-            raise RuntimeError(f"decompress kernel launch failed: {msg} ({rc})")
+            raise _build.KernelError(f"decompress kernel launch failed: {msg} ({rc})")
         LAUNCHES[NAME] += 1
         return out
 

@@ -54,9 +54,9 @@ def check_rows(rows: torch.Tensor, width: int | None = None) -> None:
         raise ValueError(f"rows are {rows.shape[1]} bytes wide, the kernel was built for {width}")
 
 
-def launch_error(lib, rc: int, what: str) -> RuntimeError:
-    return RuntimeError(f"{what} kernel launch failed: {lib.trivy_cuda_error_string(rc).decode()} "
-                        f"({rc})")
+def launch_error(lib, rc: int, what: str) -> _build.KernelError:
+    return _build.KernelError(f"{what} kernel launch failed: "
+                              f"{lib.trivy_cuda_error_string(rc).decode()} ({rc})")
 
 
 class CudaGramGate:
@@ -71,6 +71,8 @@ class CudaGramGate:
         self.chunk_len = chunk_len
         self.block = gate_block(chunk_len)
         self.device = resolve(device)
+        if self.device.type == "cuda":
+            _build.preload("gram_gate")  # a kernel that cannot load fails here
         self.p1, self.p2, self.hash_p, self.ngram = u32(p1), u32(p2), u32(hash_p), int(ngram)
         lut = lut32(lut)
         gate32 = np.asarray(gate32, dtype=np.uint32)

@@ -221,6 +221,8 @@ class CudaMatcher:
         self.tables = tables
         self.chunk_len = chunk_len
         self.device = resolve(device)
+        if self.device.type == "cuda":
+            _build.preload("match")  # a kernel that cannot load fails here
         self.name = name
         self._image: torch.Tensor | None = None
         self._grid = 0  # resident blocks on the card, found at the first launch
@@ -257,7 +259,7 @@ class CudaMatcher:
                 rc = lib.trivy_match_grid(SMEM_LIMIT, p.smem, ctypes.byref(grid))
                 self._check(lib, rc, "setup")
                 if grid.value < 1:
-                    raise RuntimeError(
+                    raise _build.KernelError(
                         f"no block of {p.smem} bytes of shared memory fits on {self.device}")
                 self._grid = grid.value
             rc = lib.trivy_match_launch(
@@ -273,7 +275,7 @@ class CudaMatcher:
     def _check(lib, rc: int, what: str) -> None:
         if rc != 0:
             msg = lib.trivy_cuda_error_string(rc).decode()
-            raise RuntimeError(f"match kernel {what} failed: {msg} ({rc})")
+            raise _build.KernelError(f"match kernel {what} failed: {msg} ({rc})")
 
 
 def build_match_fn_cuda(compiled: CompiledRules, chunk_len: int,

@@ -70,7 +70,7 @@ def plan(inst: torch.Tensor, bounds: torch.Tensor, rows: int) -> dict:
         rc = _build.load(NAME).trivy_verscmp_plan(inst.shape[1], rows, inst.data_ptr(),
                                                   bounds.data_ptr(), out)
     if rc != 0:
-        raise RuntimeError(f"verscmp plan failed ({rc})")
+        raise _build.KernelError(f"verscmp plan failed ({rc})")
     return {"group": out[0], "rows_per_group": out[1], "vector": bool(out[2]), "grid": out[3]}
 
 
@@ -96,7 +96,7 @@ def _launch(inst, bounds, a_idx, b_idx, ops, verdict: bool) -> torch.Tensor:
         )
     if rc != 0:
         msg = lib.trivy_cuda_error_string(rc).decode()
-        raise RuntimeError(f"verscmp kernel launch failed: {msg} ({rc})")
+        raise _build.KernelError(f"verscmp kernel launch failed: {msg} ({rc})")
     LAUNCHES[NAME] += 1
     return out
 

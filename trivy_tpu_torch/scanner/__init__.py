@@ -19,13 +19,15 @@ class ScanOptions:
 
 def build_report(name: str, artifact_type: str, results: list[Result],
                  os_info: OS | None, image_metadata: dict | None = None,
-                 skipped_files: int = 0) -> Report:
+                 skipped_files: int = 0, health: dict | None = None) -> Report:
     """The report of one artifact: its non-empty results and the metadata
     of ``Scanner.scan_artifact`` (ref: scan.go:164-204): the image's ID,
     diff IDs and config when ``image_metadata`` holds them (an image's
     ``ArtifactReference.image_metadata``), the OS when the analyzers found
     one, and ``SkippedFiles`` when files an analyzer wanted could not be
-    read."""
+    read. ``health`` is the scan's share of the trace context's health
+    counts (the JAX ``scan_artifact``'s before/after delta): a
+    ``scan.degraded`` there sets the report's ``Degraded``."""
     image = image_metadata or {}
     metadata = {"ImageID": image.get("id", ""), "DiffIDs": image.get("diff_ids", [])}
     if os_info is not None:
@@ -40,4 +42,5 @@ def build_report(name: str, artifact_type: str, results: list[Result],
         artifact_type=artifact_type,
         metadata=metadata,
         results=[r for r in results if not r.is_empty],
+        degraded=(health or {}).get("scan.degraded", 0) > 0,
     )

@@ -19,11 +19,14 @@ from trivy_tpu_torch.types import OS, BlobInfo, DetectedLicense, Result, ResultC
 
 class LocalDriver:
     """Detection against ``vuln_client`` (a loaded advisory DB, or None) on
-    ``device``; ``stats`` gathers the CVE join's counters."""
+    ``device``; ``stats`` gathers the CVE join's counters, and
+    ``host_fallback`` lets a failed join finish on the host."""
 
-    def __init__(self, vuln_client=None, device=DEFAULT_DEVICE, stats: Counter | None = None):
+    def __init__(self, vuln_client=None, device=DEFAULT_DEVICE, stats: Counter | None = None,
+                 host_fallback: bool = True):
         self.vuln_client = vuln_client
         self.device = device
+        self.host_fallback = host_fallback
         self.stats = stats if stats is not None else Counter()
 
     def scan(self, target: str, blobs: list[BlobInfo],
@@ -45,7 +48,8 @@ class LocalDriver:
 
             with ctx.span("driver.detect_vulns"):
                 results += detect_all(self.vuln_client, target, detail, self.device,
-                                      self.stats, list_all_pkgs=options.list_all_pkgs)
+                                      self.stats, list_all_pkgs=options.list_all_pkgs,
+                                      host_fallback=self.host_fallback)
         elif options.list_all_pkgs:
             # package inventory without detection
             results += self._package_results(target, detail)

@@ -38,8 +38,27 @@ framing only: rows hash and resolve against their uncompressed bytes.
 Threads, all scoped to one ``scan_files`` call: a feeder that consumes the
 input, chunks, hashes and packs rows into arena slabs and compresses them;
 one device worker that copies each slab to the device, runs the kernels
-and resolves the hits; and a confirm pool. A device or codec error fails
-the scan: there is no host fallback.
+and resolves the hits; and a confirm pool.
+
+A failed batch walks the JAX package's ladder (``trivy_tpu/secret/
+tpu_scanner.py``): an OOM-shaped error (``_is_oom``, PyTorch's "CUDA out of
+memory" included) halves the batch, any other error re-dispatches it whole
+up to ``BATCH_RETRIES`` times, a compressed batch being decoded to raw rows
+on the host first; each retry owns a fresh bucket-padded copy, and the
+source slab returns to the arena once. When a batch's retries run out the
+scan degrades (``obs.degrade_or_raise``): every file with device work
+outstanding, and the rest of the input, is scanned by the exact host engine
+from the bytes the host holds, in input order, and the degrade is logged,
+counted in ``ScanStats`` (``degraded``), in the trace (``secret.degraded``)
+and in the health channel that sets the report's ``Degraded``
+(``obs.note_scan_degraded``). The host rung is taken only on the CPU, and
+only with ``host_fallback`` on: on ``cuda`` the exhausted ladder raises its
+cause, so the card's work never ends on the host. A kernel fault
+(``ops._build.kernel_fault``: a kernel that cannot build, load or launch, or
+a CUDA error surfacing at a fetch) is never retried or degraded: it fails
+the scan. An encoder exception ships the batch raw, with a warning. The JAX
+package's deque of batches in flight is not ported: the worker runs one
+batch at a time, so a retry is dispatched at once.
 
 Each thread re-enters the scan's trace context (``obs.activate``) and
 records the JAX package's spans: the feeder ``secret.assemble``,
@@ -64,12 +83,13 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from trivy_tpu_torch import log, obs
+from trivy_tpu_torch import faults, log, obs
 from trivy_tpu_torch.device import resolve
 from trivy_tpu_torch.obs import recorder as flight
 from trivy_tpu_torch.obs.timeseries import DeviceBusyTracker
 from trivy_tpu_torch.ops.decompress import build_decompress_fn
 from trivy_tpu_torch.ops.gram_gate import LANE_ANCHOR, LANE_GRAM, LANE_NONASCII
+from trivy_tpu_torch.ops._build import kernel_fault
 from trivy_tpu_torch.ops.match_cuda import build_match_fn_cuda
 from trivy_tpu_torch.ops.prefilter import build_prefilter_fn
 from trivy_tpu_torch.secret.compress import COMPRESS_MIN_RATIO, CompressedSlab, SlabCodec
@@ -113,6 +133,30 @@ HIT_CACHE_ENTRIES = 1 << 16
 HIT_CACHE_VERSION = 4
 # the license gate's lanes, each counted in ScanStats as license_rows_<name>
 LIC_LANES = (("gram", LANE_GRAM), ("anchor", LANE_ANCHOR), ("nonascii", LANE_NONASCII))
+# re-dispatches allowed per failed batch before the scan degrades (OOM-shaped
+# splits don't consume this budget: halving shrinks the batch, so it ends on
+# its own); the JAX package's value
+BATCH_RETRIES = 2
+
+# error shapes that mean "the batch was too big", answered by halving the
+# batch instead of retrying it whole: the JAX package's spellings, which
+# cover PyTorch's "CUDA out of memory" and the injected kind
+_OOM_MARKERS = ("RESOURCE_EXHAUSTED", "resource_exhausted", "out of memory",
+                "Out of memory", "OOM")
+
+
+def _is_oom(err: BaseException) -> bool:
+    s = f"{type(err).__name__}: {err}"
+    return any(m in s for m in _OOM_MARKERS)
+
+
+class _DeviceFailed(Exception):
+    """The device worker's retry ladder is exhausted; ``cause`` is the
+    original device error."""
+
+    def __init__(self, cause: BaseException):
+        super().__init__(str(cause))
+        self.cause = cause
 
 
 def chunk_spans(n: int, chunk_len: int, overlap: int) -> list[int]:
@@ -156,6 +200,9 @@ class ScanStats:
         "rows_prefilter_hit",   # rows with >=1 prefilter candidate
         "rows_nfa_skipped",     # rows whose batch skipped the anchored matcher
         "batches_nfa_skipped",  # batches resolved by the prefilter alone
+        "batch_retries",        # failed batches re-dispatched whole
+        "batch_splits",         # OOM-shaped failures answered by halving
+        "degraded",             # scan runs that fell back to the exact host path
         "bytes_uploaded",       # bytes shipped to the card (see above)
         "bytes_dedup_hit",      # corpus bytes resolved without an upload
         "bytes_packed",         # corpus bytes sharing a row with another file
@@ -215,6 +262,9 @@ class TorchSecretScanner:
     ``cpu``), ``on`` or ``off``; with it on, batches cross to the card as
     compressed wire frames whenever they fit ``compress_min_ratio`` of the
     raw slab (0: ``COMPRESS_MIN_RATIO``), and all-zero rows are gated.
+    ``host_fallback`` (default on) lets a scan on the CPU whose batch
+    exhausted its ``BATCH_RETRIES`` finish on the exact host engine; off,
+    or on ``cuda``, the device error is raised.
     """
 
     def __init__(
@@ -228,8 +278,10 @@ class TorchSecretScanner:
         hit_cache_bytes: int = 0,
         compress: str = "",
         compress_min_ratio: float = 0.0,
+        host_fallback: bool = True,
     ):
         self.device = resolve(device)
+        self._host_fallback = host_fallback
         self.exact = SecretScanner(config)
         self.compiled: CompiledRules = compile_rules(self.exact.rules)
         self.chunk_len = chunk_len or CHUNK_LEN
@@ -444,10 +496,13 @@ class TorchSecretScanner:
         if self._prefilter is None:
             with ctx.span("secret.dispatch"):
                 hits = self._match(rows)
+            # the first blocking fetch: where a copy or kernel fault surfaces
+            faults.check("device.fetch", key="d0")
             with ctx.span("secret.device_wait"):
                 return hits.cpu().numpy(), None, True
         with ctx.span("secret.dispatch"):
             pre = self._prefilter(rows)
+        faults.check("device.fetch", key="d0")
         with ctx.span("secret.prefilter"):
             pre = pre.cpu().numpy()
         live = pre[:n_live]
@@ -560,6 +615,8 @@ class _ScanRun:
         self.row_waiters: dict[bytes, list] = {}
         self.total: int | None = None  # set once the input is exhausted
         self.error: BaseException | None = None
+        # set once by _degrade: the rest of the scan runs on the host engine
+        self.degraded = False
         self.stop = threading.Event()
         self.in_q: queue.Queue = queue.Queue(maxsize=FEED_QUEUE_DEPTH)
         self.arena = ChunkArena(
@@ -641,6 +698,15 @@ class _ScanRun:
         self.stop.set()
         self.feeder.join(timeout=10.0)
         self.worker.join(timeout=10.0)
+        # batches the worker never took (the scan degraded or failed while
+        # they were queued) return their slabs, once
+        while True:
+            try:
+                item = self.in_q.get_nowait()
+            except queue.Empty:
+                break
+            if item is not None:
+                self.arena.release(item[0])
         self.pool.shutdown(wait=False, cancel_futures=True)
         # push the dedup store's write-behind tail so the next scan, possibly
         # in another process, starts warm
@@ -648,8 +714,13 @@ class _ScanRun:
         flight.release_resident("arena", self._arena_bytes())
         self._publish()
 
-    def _aborted(self) -> bool:
+    def _closing(self) -> bool:
+        """The scan stopped or failed: nobody waits on further results."""
         return self.stop.is_set() or self.error is not None
+
+    def _aborted(self) -> bool:
+        """No more device work: the scan is closing or degraded."""
+        return self._closing() or self.degraded
 
     def _fail(self, err: BaseException) -> None:
         with self.cond:
@@ -657,6 +728,35 @@ class _ScanRun:
                 self.error = err
             self.cond.notify_all()
         self.stop.set()
+        if self.lic_gate is not None:
+            # the gate's verdicts are incomplete: the license analyzers
+            # classify every file they collected
+            self.lic_gate.degrade()
+
+    def _degrade(self, cause: BaseException) -> None:
+        """The ladder's last rung, once, where ``obs.degrade_or_raise``
+        allows it (else ``cause`` is raised): every file with unresolved
+        device work moves to the exact host engine (partial device results
+        are dropped), and the feeder routes the rest of the input there."""
+        with self.lock:
+            if self.degraded or self.error is not None:
+                return
+        obs.degrade_or_raise(
+            cause, device=self.sc.device, host_fallback=self.sc._host_fallback,
+            counter="secret.degraded", health=False, logger=logger,
+            message="device pipeline failed (%s); completing the scan on the exact host "
+                    "confirm path — slower, findings identical")
+        with self.lock:
+            self.degraded = True
+            moved = [(i, self.states.pop(i)) for i in sorted(self.states)]
+            self.row_waiters.clear()
+        if self.lic_gate is not None:
+            self.lic_gate.degrade()
+        self.stats.add(degraded=1)
+        for fidx, st in moved:
+            self._submit_host(fidx, st.path, st.data)
+        with self.cond:
+            self.cond.notify_all()
 
     # -- result plumbing ----------------------------------------------------
 
@@ -665,22 +765,41 @@ class _ScanRun:
             self.results[fidx] = value
             self.cond.notify_all()
 
+    def _acquire_slot(self) -> bool:
+        while not self._closing():
+            if self.confirm_slots.acquire(timeout=0.2):
+                with self.lock:
+                    self._confirm_inflight += 1
+                return True
+        return False
+
+    def _release_slot(self) -> None:
+        with self.lock:
+            self._confirm_inflight -= 1
+        self.confirm_slots.release()
+
     def _confirm_task(self, st: _FileState) -> Secret:
         try:
             with obs.activate(self.ctx), self.ctx.span("secret.confirm"):
                 return self.sc._confirm_inner(st, self.prof)
         finally:
-            with self.lock:
-                self._confirm_inflight -= 1
-            self.confirm_slots.release()
+            self._release_slot()
+
+    def _host_task(self, path: str, data: bytes) -> Secret:
+        # the degraded rung: the exact host engine is the parity oracle
+        try:
+            with obs.activate(self.ctx), self.ctx.span("secret.host_fallback"):
+                return self.sc.exact.scan_bytes(path, data)
+        finally:
+            self._release_slot()
 
     def _submit_confirm(self, fidx: int, st: _FileState) -> None:
-        while not self._aborted():
-            if self.confirm_slots.acquire(timeout=0.2):
-                with self.lock:
-                    self._confirm_inflight += 1
-                self._set_result(fidx, self.pool.submit(self._confirm_task, st))
-                return
+        if self._acquire_slot():
+            self._set_result(fidx, self.pool.submit(self._confirm_task, st))
+
+    def _submit_host(self, fidx: int, path: str, data: bytes) -> None:
+        if self._acquire_slot():
+            self._set_result(fidx, self.pool.submit(self._host_task, path, data))
 
     def _apply_hits(self, batch: list) -> None:
         """Credit resolved rows to their file segments; ``batch`` is
@@ -704,7 +823,9 @@ class _ScanRun:
         with self.lock:
             for segs, hit_rules, cand_rules, nfa_ran, _ in batch:
                 for fidx, ws, we in segs:
-                    st = self.states[fidx]
+                    st = self.states.get(fidx)
+                    if st is None:
+                        continue  # swept onto the host path by _degrade
                     for r in hit_rules:
                         st.rules.setdefault(r, []).append((ws, we))
                     if st.cand is not None:
@@ -712,7 +833,9 @@ class _ScanRun:
                         if not nfa_ran:
                             st.unchecked.update(guarded_anchored)
                 for fidx, _, _ in segs:
-                    st = self.states[fidx]
+                    st = self.states.get(fidx)
+                    if st is None:
+                        continue
                     st.pending -= 1
                     if st.pending == 0:
                         del self.states[fidx]
@@ -819,61 +942,151 @@ class _ScanRun:
         matcher uses, and the license gram gate of a fused scan's batches
         that carry a file it wants, read the resident rows, and the slab
         returns to the arena only after the results are fetched: by then
-        every kernel reading the copy has finished."""
+        every kernel reading the copy has finished. A failed batch walks
+        the ladder (:meth:`_recover`) on this thread."""
+        # the degrade and the failure below count into the scan's context
+        with obs.activate(self.ctx):
+            try:
+                try:
+                    self._dispatch_all()
+                except _DeviceFailed as e:
+                    self._degrade(e.cause)  # or raises the cause
+            except BaseException as e:
+                self._fail(e)
+
+    def _dispatch_all(self) -> None:
+        if self.sc.device.type == "cuda":
+            # the kernels launch through ctypes on this thread's device
+            torch.cuda.set_device(self.sc.device)
+        while True:
+            with self.ctx.span("secret.feed_wait"):
+                item = self._get_work()
+            if item is None:
+                return
+            # (slab_id, batch, meta, retries); a retry's slab_id is None: it
+            # owns its rows outright
+            work = [(*item, 0)]
+            while work:
+                slab_id, batch, meta, retries = work.pop()
+                try:
+                    hits, pre, nfa_ran, lic = self._attempt(slab_id, batch, meta)
+                except Exception as e:
+                    work.extend(self._recover(batch, meta, slab_id, retries, e))
+                    continue
+                if slab_id is not None:
+                    self.arena.release(slab_id)
+                self.stats.add(rows=len(meta), batches=1)
+                if not nfa_ran:
+                    self.stats.add(rows_nfa_skipped=len(meta), batches_nfa_skipped=1)
+                self._resolve(hits, meta, pre, nfa_ran, lic)
+
+    def _attempt(self, slab_id, batch, meta):
+        """One dispatch of one batch: the copy (or the wire frame and the
+        decompress kernel), the license gate when the batch carries a file
+        it wants, both matcher uses, and the blocking fetches. Returns
+        ``(hits, pre, nfa_ran, lic)``; raises whatever the card raised."""
         sc = self.sc
         ctx = self.ctx
         prof = self.prof
+        sc._busy.begin()
         try:
-            if sc.device.type == "cuda":
-                # the kernels launch through ctypes on this thread's device
-                torch.cuda.set_device(sc.device)
-            with obs.activate(ctx):
-                while True:
-                    with ctx.span("secret.feed_wait"):
-                        item = self._get_work()
-                    if item is None:
-                        return
-                    slab_id, batch, meta = item
-                    sc._busy.begin()
-                    try:
-                        if isinstance(batch, CompressedSlab):
-                            # the frame crosses (its wire from the pinned
-                            # arena slab) and the decompress kernel expands it
-                            with ctx.span("secret.dispatch"):
-                                parts = [torch.from_numpy(a) for a in batch.arrays()]
-                                if sc.device.type == "cuda":
-                                    parts = [t.to(sc.device, non_blocking=True)
-                                             for t in parts]
-                            with ctx.span("secret.decompress"):
-                                rows = sc._decompress(*parts)
-                            n_rows = batch.rows_pad
-                        else:
-                            with ctx.span("secret.dispatch"):
-                                rows = torch.from_numpy(self.arena.slab(slab_id)[:batch])
-                                if sc.device.type == "cuda":
-                                    rows = rows.to(sc.device, non_blocking=True)
-                            n_rows = batch
-                        # the gate is queued ahead of the matcher on one stream
-                        lic = None
-                        if self._want_lic(meta):
-                            with ctx.span("secret.dispatch"):
-                                lic = sc._lic_gate_fn(rows)
-                        t0 = time.perf_counter() if prof is not None else 0.0
-                        hits, pre, nfa_ran = sc.run_batch(rows, len(meta))
-                        if lic is not None:
-                            lic = lic.cpu().numpy()
-                    finally:
-                        sc._busy.end()
-                    if prof is not None:
-                        # the batch's rung, its live rows and the blocking fetches
-                        prof.bucket_dispatch(n_rows, len(meta), time.perf_counter() - t0)
-                    self.arena.release(slab_id)
-                    self.stats.add(rows=len(meta), batches=1)
-                    if not nfa_ran:
-                        self.stats.add(rows_nfa_skipped=len(meta), batches_nfa_skipped=1)
-                    self._resolve(hits, meta, pre, nfa_ran, lic)
-        except BaseException as e:
-            self._fail(e)
+            faults.check("device.dispatch", key="d0")
+            if isinstance(batch, CompressedSlab):
+                # the frame crosses (its wire from the pinned arena slab)
+                # and the decompress kernel expands it
+                with ctx.span("secret.dispatch"):
+                    parts = [torch.from_numpy(a) for a in batch.arrays()]
+                    if sc.device.type == "cuda":
+                        parts = [t.to(sc.device, non_blocking=True) for t in parts]
+                with ctx.span("secret.decompress"):
+                    rows = sc._decompress(*parts)
+            else:
+                with ctx.span("secret.dispatch"):
+                    host = batch if slab_id is None else self.arena.slab(slab_id)[:batch]
+                    rows = torch.from_numpy(host)
+                    if sc.device.type == "cuda":
+                        rows = rows.to(sc.device, non_blocking=True)
+            # the gate is queued ahead of the matcher on one stream
+            lic = None
+            if self._want_lic(meta):
+                with ctx.span("secret.dispatch"):
+                    lic = sc._lic_gate_fn(rows)
+            t0 = time.perf_counter() if prof is not None else 0.0
+            hits, pre, nfa_ran = sc.run_batch(rows, len(meta))
+            if lic is not None:
+                lic = lic.cpu().numpy()
+        finally:
+            sc._busy.end()
+        if prof is not None:
+            # the batch's rung, its live rows and the blocking fetches
+            prof.bucket_dispatch(int(rows.shape[0]), len(meta), time.perf_counter() - t0)
+        return hits, pre, nfa_ran, lic
+
+    def _rebatch(self, rows: np.ndarray, meta: list) -> np.ndarray:
+        """A fresh bucket-padded copy of a failed batch's live rows: the
+        source slab is released right after, so a retry never reads arena
+        memory the feeder may refill."""
+        n = next(b for b in self.sc._buckets if b >= len(meta))
+        out = np.zeros((n, self.sc.chunk_len), dtype=np.uint8)
+        out[: len(meta)] = rows[: len(meta)]
+        return out
+
+    def _recover(self, batch, meta: list, slab_id, retries: int, err: BaseException) -> list:
+        """The ladder's decision for one failed batch: the work items to
+        dispatch again, :class:`_DeviceFailed` when the ladder is
+        exhausted, or ``err`` itself when it is a kernel fault, which no
+        rung may absorb. Always ends the source slab's ownership, once.
+
+        A compressed batch is decoded to raw rows on the host first (the
+        reference decoder, byte-equal to the kernel), so every rung runs on
+        plain rows and a decoder fault cannot loop through the codec."""
+        sc = self.sc
+        ctx = self.ctx
+
+        def release() -> None:
+            if slab_id is not None:
+                self.arena.release(slab_id)
+
+        if kernel_fault(err):
+            release()
+            raise err
+        if isinstance(batch, CompressedSlab):
+            try:
+                rows = sc._codec.decode_slab(batch)
+            except Exception as dec_err:
+                # an undecodable frame is an encoder fault, not a device
+                # fault: no retry can fix it
+                logger.warning("compressed batch unrecoverable after device error (%s); "
+                               "decode failed: %s", err, dec_err)
+                release()
+                raise _DeviceFailed(err)
+        elif slab_id is not None:
+            rows = self.arena.slab(slab_id)[:batch]
+        else:
+            rows = batch
+        if _is_oom(err) and len(meta) > 1:
+            self.stats.add(batch_splits=1)
+            ctx.count("secret.batch_splits")
+            flight.record("oom", "secret.batch_split", {"rows": len(meta), "error": str(err)})
+            logger.warning("device OOM on a %d-row batch (%s); splitting and re-dispatching "
+                           "the halves", len(meta), err)
+            mid = (len(meta) + 1) // 2
+            halves = [(None, self._rebatch(rows[:mid], meta[:mid]), meta[:mid], retries),
+                      (None, self._rebatch(rows[mid:], meta[mid:]), meta[mid:], retries)]
+            release()
+            return halves
+        if retries < BATCH_RETRIES:
+            self.stats.add(batch_retries=1)
+            ctx.count("secret.batch_retries")
+            flight.record("retry", "secret.batch_retry",
+                          {"rows": len(meta), "attempt": retries + 1, "error": str(err)})
+            logger.warning("device error on a %d-row batch (retry %d/%d): %s",
+                           len(meta), retries + 1, BATCH_RETRIES, err)
+            fresh = self._rebatch(rows, meta)
+            release()
+            return [(None, fresh, meta, retries + 1)]
+        release()
+        raise _DeviceFailed(err)
 
     def _want_lic(self, meta) -> bool:
         """Whether a batch carries a file the license gate wants: batches
@@ -951,11 +1164,21 @@ class _ScanRun:
             if lic_gate is not None and lic_gate.wants(path):
                 lic_gate.skip(path)
 
-        def new_state(path: str, data: bytes, pending: int) -> _FileState:
-            return _FileState(
-                path=path, data=data, pending=pending,
-                cand=set() if use_pf else None,
-            )
+        def register(fidx: int, path: str, data: bytes, pending: int) -> bool:
+            """Enter a file's state; False when the scan degraded meanwhile
+            (the file then goes to the host engine: a state entered after
+            ``_degrade`` swept the table would never resolve)."""
+            st = _FileState(path=path, data=data, pending=pending,
+                            cand=set() if use_pf else None)
+            with self.lock:
+                if self.degraded:
+                    return False
+                self.states[fidx] = st
+                return True
+
+        def to_host(fidx: int, path: str, data: bytes) -> None:
+            lic_skip(path)
+            self._submit_host(fidx, path, data)
 
         def flush_copies() -> None:
             nonlocal copy_rows, copy_starts
@@ -1045,20 +1268,27 @@ class _ScanRun:
             arena slab (the wire stays in pinned, reused memory and takes
             part in the arena's backpressure): the dispatch item
             ``(wire_slab_id, CompressedSlab, meta)``, or None when the batch
-            can't beat the min-ratio wire budget and ships raw. An encoder
-            error fails the scan."""
-            with ctx.span("secret.compress"):
-                plan = sc._codec.plan(slab[: len(meta)])
-                total = plan.total()
-                rung = next((r for r in sc._wire_rungs[n] if r >= total), None)
-                if rung is None:
-                    return None
-                dst_id, dst = acquire()
-                try:
+            ships raw: it can't beat the min-ratio wire budget, or the
+            encoder raised (logged; a raw batch is the codec's failure
+            contract, never a failed scan)."""
+            dst_id = None
+            try:
+                with ctx.span("secret.compress"):
+                    plan = sc._codec.plan(slab[: len(meta)])
+                    total = plan.total()
+                    rung = next((r for r in sc._wire_rungs[n] if r >= total), None)
+                    if rung is None:
+                        return None
+                    dst_id, dst = acquire()
                     cs = sc._codec.emit(plan, n, rung, dst.reshape(-1))
-                except BaseException:
+            except _FeedAbort:
+                raise
+            except Exception as e:
+                logger.warning("slab compression failed (%s: %s); shipping raw",
+                               type(e).__name__, e)
+                if dst_id is not None:
                     self.arena.release(dst_id)
-                    raise
+                return None
             wire = rung + cs.frame_bytes()
             stats.add(
                 bytes_uploaded=wire,
@@ -1174,8 +1404,9 @@ class _ScanRun:
         def feed_big(fidx: int, path: str, data: bytes) -> None:
             nonlocal used, copy_win
             starts = chunk_spans(len(data), chunk_len, sc.overlap)
-            with self.lock:
-                self.states[fidx] = new_state(path, data, len(starts))
+            if not register(fidx, path, data, len(starts)):
+                to_host(fidx, path, data)
+                return
             lic_register(fidx, path, data)
             arr = np.frombuffer(data, dtype=np.uint8)
             n = arr.size
@@ -1223,30 +1454,45 @@ class _ScanRun:
         feed_ok = True
         try:
             for fidx, (path, data) in enumerate(self.files):
-                if self._aborted():
+                if self._closing():
                     break
                 total = fidx + 1
-                with ctx.span("secret.assemble"):
-                    if sc.exact.allow_path(path):
-                        # path-level global allowlist: skip the whole file
-                        # (ref: scanner.go:388-392) — no device work
-                        lic_skip(path)
-                        self._set_result(fidx, Secret(file_path=path))
-                    elif not data:
-                        # empty file: nothing for the device to match;
-                        # host-lane rules still run in the confirm, and the
-                        # license gate misses nothing in zero bytes
-                        if lic_gate is not None and lic_gate.wants(path):
-                            lic_gate.cover(path)
-                        self._submit_confirm(fidx, new_state(path, data, 0))
-                    elif len(data) <= pack_max:
-                        stats.add(bytes_in=len(data))
-                        with self.lock:
-                            self.states[fidx] = new_state(path, data, 1)
-                        lic_register(fidx, path, data)
-                        add_small(fidx, data)
-                    else:
-                        feed_big(fidx, path, data)
+                if self.degraded:
+                    # the device path is gone: straight to the exact host
+                    # engine (files _degrade swept keep their host results)
+                    pack_pending.clear()
+                    to_host(fidx, path, data)
+                    continue
+                try:
+                    with ctx.span("secret.assemble"):
+                        if sc.exact.allow_path(path):
+                            # path-level global allowlist: skip the whole
+                            # file (ref: scanner.go:388-392) — no device work
+                            lic_skip(path)
+                            self._set_result(fidx, Secret(file_path=path))
+                        elif not data:
+                            # empty file: nothing for the device to match;
+                            # host-lane rules still run in the confirm, and
+                            # the license gate misses nothing in zero bytes
+                            if lic_gate is not None and lic_gate.wants(path):
+                                lic_gate.cover(path)
+                            self._submit_confirm(fidx, _FileState(
+                                path=path, data=data, pending=0,
+                                cand=set() if use_pf else None))
+                        elif len(data) <= pack_max:
+                            stats.add(bytes_in=len(data))
+                            if register(fidx, path, data, 1):
+                                lic_register(fidx, path, data)
+                                add_small(fidx, data)
+                            else:
+                                to_host(fidx, path, data)
+                        else:
+                            feed_big(fidx, path, data)
+                except _FeedAbort:
+                    # mid-file: a degrade swept this file's state onto the
+                    # host path; otherwise the scan is closing
+                    if not self.degraded:
+                        break
             if not self._aborted():
                 emit_pack()  # the partial pack row
                 flush()  # the final partial slab
@@ -1261,7 +1507,7 @@ class _ScanRun:
             if slab is not None:
                 self.arena.release(slab_id)
             with self.cond:
-                if feed_ok and not self._aborted():
+                if feed_ok and not self._closing():
                     self.total = total
                 self.cond.notify_all()
             # end of input for the worker
