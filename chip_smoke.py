@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's secret, license, SBOM, filesystem
 vulnerability, image (archive, registry, daemon), repository and VM scans,
-its report formats, its multi-device dispatch and its client/server mode on
-one NVIDIA card.
+its incremental scans and ``watch``, its report formats, its multi-device
+dispatch and its client/server mode on one NVIDIA card.
 
-    python3 chip_smoke.py [--e2e-mib 128] [--license-mib 48] [--image-mib 64]
+    python3 chip_smoke.py [--e2e-mib 64] [--license-mib 48] [--image-mib 64]
         [--seed 0]
 
 Phases, each printing JSON lines:
@@ -99,7 +99,8 @@ Phases, each printing JSON lines:
    weighs the codec's host work against the link bytes. On a 16 MiB subset the
    Results must equal the port's own ``--device cpu`` run, with and without
    dedup and compression.
-5. dedup: the subset, a verbatim copy of it, eight 1 MiB zero-filled files
+5. dedup: the subset's first 2 MiB of files (``DEDUP_COPY_BYTES``), a
+   verbatim copy of them, eight 1 MiB zero-filled files
    (after a short text head, so that the analyzer's binary sniff keeps
    them) and a planted 1 MiB file with its copy, scanned on the card: rows
    must dedup and zero rows must be gated, every planted secret must be
@@ -121,20 +122,20 @@ Phases, each printing JSON lines:
    secret-only MB/s beside it, and with ``--no-shared-arena`` (no gate)
    the unfused MB/s and the same Results; on the subset the Results must
    equal ``--device cpu``.
-6b. feed: the feed's knobs. A 32 MiB cut of the e2e tree (its ``sub16``
-   subset and then its modules, hard-linked) scanned on the card at the
+6b. feed: the feed's knobs. The e2e tree's 16 MiB ``sub16`` subset
+   scanned on the card at the
    default one stream with two batches in flight and at four streams with
-   one and with three (``FEED_GRID``), then at ``--parallel`` 16 (5 is the
-   default, the grid's run), each under
-   ``torch.profiler`` with ``--metrics-out``: the MB/s, the streams'
+   one (``FEED_GRID``; ``--parallel`` runs at its default only), each
+   under ``torch.profiler`` with ``--metrics-out``: the MB/s, the streams'
    ``secret.feed_wait`` share, the card's busy share (kernel time over the
    scan's wall time), the stall verdict and the launches, with ``Results``
-   equal to the cut's ``--device cpu`` scan. The race probe (two slabs,
+   equal to the e2e phase's ``--device cpu`` scan of the subset. The
+   race probe (two slabs,
    four streams, three in flight, 64-row batches) with equal ``Results``.
    An autotune record of the sweep's best setting written with
    ``tuning.save_autotune`` in the phase's directory, which a
    ``--tuning-file`` scan must resolve from (``source: autotune``). The
-   cut and the license phase's subset with ``--tune``: their ``--device
+   subset and the license phase's subset with ``--tune``: their ``--device
    cpu`` Results, the controller's ticks and decisions. The redis
    cache against the fake RESP server of ``tests/test_redis_cache.py``:
    ``--secret-hit-cache`` cold, warm (no batch dispatched) and with every
@@ -172,6 +173,24 @@ Phases, each printing JSON lines:
    planted secret and package license reported, one ``verscmp`` launch per
    card scan and no bound bytes uploaded by the second; the kernel must
    equal its plain version on the first scan's captured dispatch.
+9b. incremental: ``scan_fs`` with an ``IncrementalOptions`` and an fs scan
+    cache, on a git copy of the fs-vuln tree (2,000 ``node_modules``
+    packages, 67 lockfiles, a debian root and 4 MiB of text with secrets,
+    about 2,100 units) with eight license texts added to its ``src`` unit,
+    with ``vuln,secret,license`` on the card and the fs-vuln phase's loaded
+    DB, launch counters to 0 just before each scan and read just after: a
+    cold ``--incremental`` scan equal to phase ``fs-vuln``'s full card scan
+    beside the eight licenses, every feed and license kernel launched; an
+    unchanged ``--since-last`` scan (no unit analyzed, no file read, no feed
+    or license kernel launched, one ``verscmp``); a secret planted in
+    ``src/module_0.py`` (one unit analyzed, the new finding on its line,
+    every other finding as before, and the feed and license kernels
+    launched as often as by a full scan of a tree holding ``src`` alone);
+    a commit and a ``--since-last`` scan at it, then every mtime touched and
+    ``--diff-base HEAD`` (every file keyed from git, no unit analyzed, no
+    feed launch); then ``cli.main(["watch", ..., "--watch-count", "1"])`` on
+    the same cache (one report, the diff-base scan's filtered ``Results``,
+    no feed launch). Printed per scan: seconds, units, file reuse, launches.
 10. ladder: the scan ladder on the card, after ``fs-vuln`` and on its tree
     and cve DB, each run through ``cli.main`` with a fresh cache and the
     launch counters set to 0 just before and read just after, 64-row
@@ -203,11 +222,12 @@ Phases, each printing JSON lines:
     or a report marked ``Degraded``, fails the smoke.
 10b. mesh: multi-device dispatch over ``[cuda:0, cuda:0]`` (one card
     twice: no number here is a multi-card number), after ``ladder`` on the
-    feed phase's 32 MiB cut in 256-row batches, each scan through
+    e2e tree's 16 MiB ``sub16`` subset (the feed phase's) in 128-row
+    batches, each scan through
     ``cli.scan_fs`` with scanner options, with the launch counters set to 0
     just before and read just after and a trace context counting
     ``mesh.d<i>.batches``: (a) round-robin (``dispatch="round_robin"``,
-    ``devices``) against the single-dispatch card scan and the cut's
+    ``devices``) against the single-dispatch card scan and the subset's
     ``--device cpu`` Results, both dispatch indices taking batches, their
     sum equal to the prefilter's launches; (b) the same under
     ``device.dispatch@d1:times=-1``: equal Results, no degrade, the
@@ -335,9 +355,11 @@ Phases, each printing JSON lines:
     phase's first scan (``launches_image``), in the ``sources`` phase's
     registry scan (``launches_registry``), in the ``ladder`` phase's runs
     (``launches_ladder``), in the ``server`` phase's client/server scan
-    (``launches_server``), and in the ``mesh`` phase's round-robin and
-    mesh runs with their batches by dispatch index; the scorer's times at
-    the shard widths.
+    (``launches_server``), in the ``incremental`` phase's cold scan
+    (``launches_incremental``) and in its scans of an unchanged tree
+    (``launches_incremental_rescans``, all zero but ``verscmp``'s), and in
+    the ``mesh`` phase's round-robin and mesh runs with their batches by
+    dispatch index; the scorer's times at the shard widths.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; the last line is ``{"ok": true, "device": {...}}``. Without a
@@ -383,8 +405,7 @@ from trivy_tpu_torch.db import VulnDB
 from trivy_tpu_torch.detector import library
 from trivy_tpu_torch.device import card_info
 from trivy_tpu_torch.fanal.image_registry import RegistryImage
-from trivy_tpu_torch.fanal.scan import DEFAULT_PARALLEL
-from trivy_tpu_torch.licensing.classify import LicenseClassifier
+from trivy_tpu_torch.licensing.classify import DEVICE_MIN_TEXTS, LicenseClassifier
 from trivy_tpu_torch.licensing.corpus_texts import FULL_TEXTS
 from trivy_tpu_torch.licensing.fused import get_gate_fn
 from trivy_tpu_torch.obs import metrics as obs_metrics
@@ -469,7 +490,14 @@ CODE_WORDS = (
 ).split()
 
 
+# a phase line's "t": seconds since the script started, to read where a
+# run's time went against the time limit
+T_START = time.perf_counter()
+
+
 def log(obj: dict) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1365,14 +1393,29 @@ def phase_e2e(root: Path, e2e_mib: int, seed: int, base: bytes) -> tuple[dict, l
     return result, planted
 
 
+# bytes of the subset's files (in name order) that the dedup phase copies
+# twice: a few hundred small files, each a duplicate of another, and a CPU
+# reference scan that stays short
+DEDUP_COPY_BYTES = 2 << 20
+
+
 def phase_dedup(tmp: Path, tree: Path, planted: list, seed: int, base: bytes) -> dict:
-    """The subset twice, eight zero-filled 1 MiB files and a planted file
-    with its copy, on the card's default feed, with counters to 0 just
-    before and read just after; then the CPU reference and two runs with
-    the persistent hit store."""
+    """The subset's first :data:`DEDUP_COPY_BYTES` twice, eight zero-filled
+    1 MiB files and a planted file with its copy, on the card's default
+    feed, with counters to 0 just before and read just after; then the CPU
+    reference and two runs with the persistent hit store."""
     root = tmp / "dedup"
-    for copy in ("a", "b"):
-        shutil.copytree(tree / "sub16", root / copy)
+    copied: set[str] = set()
+    total = 0
+    for src in sorted(p for p in (tree / "sub16").rglob("*") if p.is_file()):
+        if total >= DEDUP_COPY_BYTES:
+            break
+        rel = src.relative_to(tree / "sub16").as_posix()
+        for copy in ("a", "b"):
+            (root / copy / rel).parent.mkdir(parents=True, exist_ok=True)
+            shutil.copy2(src, root / copy / rel)
+        copied.add(rel)
+        total += src.stat().st_size
     rng = random.Random(seed + 1)
 
     def text(n: int) -> bytes:
@@ -1393,7 +1436,8 @@ def phase_dedup(tmp: Path, tree: Path, planted: list, seed: int, base: bytes) ->
         (root / rel).parent.mkdir(parents=True, exist_ok=True)
         (root / rel).write_bytes(data)
     want = {(f"{c}/{rel[len('sub16/'):]}", r, ln) for rel, r, ln in planted
-            if rel.startswith("sub16/") for c in ("a", "b")}
+            if rel.startswith("sub16/") and rel[len("sub16/"):] in copied
+            for c in ("a", "b")}
     want |= {("p/secret.py", rid, line), ("p/copy/secret.py", rid, line)}
 
     LAUNCHES.clear()
@@ -1551,35 +1595,17 @@ def phase_license(root: Path, mib: int, seed: int, base: bytes) -> dict:
     return result
 
 
-# the feed phase: the transfer streams and windows on a cut of the e2e tree,
-# --parallel at the default knobs, a race probe, the controller, an autotune
-# record and the redis cache. The grid is the default and the corners of
-# four streams, not every setting: no setting of the full grid stood apart
-# from the phase's own drift, and the whole smoke must stay inside its time
-FEED_CUT_BYTES = 32 << 20
-FEED_GRID = ((1, 2), (4, 1), (4, 3))  # (streams, in-flight windows)
-FEED_PARALLEL = (5, 16)
+# the feed phase: the transfer streams and windows on the e2e tree's sub16
+# subset, a race probe, the controller, an autotune record and the redis
+# cache. The grid is the default and four streams with one window, and
+# --parallel runs at its default alone, not every setting: no setting of the
+# full grid, nor --parallel 1 or 16, stood apart from the phase's own drift,
+# and the whole smoke must stay inside its time
+FEED_GRID = ((1, 2), (4, 1))  # (streams, in-flight windows)
 # the race probe: the smallest arena under the deepest windows, on 64-row
 # batches (many short batches in flight at once)
 FEED_RACE = ("--secret-arena-slabs", "2", "--secret-inflight", "3", "--secret-streams", "4")
 FEED_RACE_BATCH = 64
-
-
-def feed_cut(tree: Path, cut: Path) -> int:
-    """The e2e tree's ``sub16`` subset, then its top-level modules in name
-    order, hard-linked under ``cut`` up to :data:`FEED_CUT_BYTES`; returns
-    the bytes linked."""
-    total = 0
-    srcs = sorted(p for p in (tree / "sub16").rglob("*") if p.is_file())
-    srcs += sorted(p for p in tree.glob("src*/module_*.py"))
-    for src in srcs:
-        if total >= FEED_CUT_BYTES:
-            break
-        dst = cut / src.relative_to(tree)
-        dst.parent.mkdir(parents=True, exist_ok=True)
-        os.link(src, dst)
-        total += src.stat().st_size
-    return total
 
 
 def feed_run(target: Path, out: Path, tag: str, *extra: str, scanners: str = "secret") -> tuple:
@@ -1616,10 +1642,11 @@ def feed_run(target: Path, out: Path, tag: str, *extra: str, scanners: str = "se
 
 def phase_feed(root: Path, e2e_tree: Path, license_tree: Path, card: str) -> dict:
     """The feed's knobs on the card: the ``FEED_GRID`` settings of
-    ``--secret-streams`` and ``--secret-inflight`` over a 32 MiB cut of the
-    e2e tree, then ``--parallel`` at the default knobs, each run's
-    ``Results`` against the cut's ``--device cpu`` scan; the race probe; the
-    cut and the license phase's subset with ``--tune`` against their
+    ``--secret-streams`` and ``--secret-inflight`` over the e2e tree's
+    16 MiB ``sub16`` subset (``--parallel`` at its default only), each
+    run's ``Results`` against the e2e phase's ``--device cpu`` scan of it;
+    the race probe; the subset and the license phase's subset with
+    ``--tune`` against their
     ``--device cpu`` scans; an autotune record in ``root`` that a ``--tuning-file`` scan
     resolves from; and the redis cache (an in-process fake server): a cold
     and a warm ``--secret-hit-cache`` scan, then one whose every redis GET
@@ -1627,12 +1654,12 @@ def phase_feed(root: Path, e2e_tree: Path, license_tree: Path, card: str) -> dic
     from trivy_tpu_torch.tuning import save_autotune, topology_fingerprint
 
     t_phase = time.perf_counter()
-    cut = root / "cut"
-    cut_bytes = feed_cut(e2e_tree, cut)
+    cut = e2e_tree / "sub16"
+    cut_bytes = sum(f.stat().st_size for f in cut.rglob("*") if f.is_file())
     out = root / "out"
     out.mkdir(parents=True)
-    cpu, _ = run_cli(cut, out, "cut-cpu", "cpu")
-    want = cpu["Results"]
+    # the e2e phase's CPU scan of the subset, with the same options
+    want = json.loads((e2e_tree.parent / "sub16-cpu.json").read_text())["Results"]
     rows = []
     unequal = []
 
@@ -1650,12 +1677,6 @@ def phase_feed(root: Path, e2e_tree: Path, license_tree: Path, card: str) -> dic
               "--secret-inflight", str(inflight))
     default = f"s{secret_scanner.FEED_STREAMS}-i{secret_scanner.FEED_INFLIGHT}"
     best = max(rows, key=lambda r: r["MBps"])
-    knobs = ("--secret-streams", str(secret_scanner.FEED_STREAMS),
-             "--secret-inflight", str(secret_scanner.FEED_INFLIGHT))
-    for parallel in FEED_PARALLEL:
-        if parallel == DEFAULT_PARALLEL:
-            continue  # the grid's run at the default knobs
-        sweep(f"{default}-p{parallel}", *knobs, "--parallel", str(parallel))
     # the race probe: many short batches through the smallest arena
     default_batch = secret_scanner.BATCH
     secret_scanner.BATCH = FEED_RACE_BATCH
@@ -1671,7 +1692,7 @@ def phase_feed(root: Path, e2e_tree: Path, license_tree: Path, card: str) -> dic
                   [{k: r[k] for k in ("tag", "MBps", "feed_wait_share", "busy_share")}
                    for r in rows], meta={"card": card})
     tuned = sweep("autotune", "--tuning-file", str(record))
-    # the controller on the cut and on the license phase's subset
+    # the controller on the subset and on the license phase's subset
     full = []
     for tag, tree, scanners, extra, ref in (
             ("e2e-tune", cut, "secret", (), want),
@@ -1687,7 +1708,7 @@ def phase_feed(root: Path, e2e_tree: Path, license_tree: Path, card: str) -> dic
     fake = runpy.run_path(str(REPO / "tests" / "test_redis_cache.py"))["FakeRedis"]().start()
     try:
         url = f"redis://127.0.0.1:{fake.port}"
-        sub = cut / "sub16"
+        sub = cut
         redis = {}
         for tag, extra in (("cold", ()), ("warm", ()),
                            ("degraded", ("--fault-inject", "cache.redis.get:times=-1"))):
@@ -1701,15 +1722,9 @@ def phase_feed(root: Path, e2e_tree: Path, license_tree: Path, card: str) -> dic
     finally:
         fake.stop()
         faults.clear()
-    # the e2e phase's CPU scan of the same subset
-    sub_cpu = json.loads((e2e_tree.parent / "sub16-cpu.json").read_text())
-    redis_equal = all(r.pop("results") == sub_cpu["Results"] for r in redis.values())
-    by_tag = {r["tag"]: r for r in rows}
-    parallel = {p: by_tag[default if p == DEFAULT_PARALLEL else f"{default}-p{p}"]["MBps"]
-                for p in FEED_PARALLEL}
+    redis_equal = all(r.pop("results") == want for r in redis.values())
     result = {
         "phase": "feed", "cut_bytes": cut_bytes, "default": default, "best": best["tag"],
-        "parallel_MBps": parallel,
         "sweep": [{k: r[k] for k in ("tag", "MBps", "feed_wait_share", "busy_share",
                                      "batches", "results_equal_cpu")} for r in rows],
         "race": {k: race[k] for k in ("MBps", "batches", "launches", "results_equal_cpu")},
@@ -1734,7 +1749,7 @@ def phase_feed(root: Path, e2e_tree: Path, license_tree: Path, card: str) -> dic
     check(redis["degraded"]["cache_degraded"] and not redis["warm"]["cache_degraded"],
           "feed: a dead redis GET did not mark the report CacheDegraded")
     check(redis_equal, "feed: Results over redis differ from --device cpu")
-    result["cut_results"] = want  # phase mesh scans the same cut
+    result["cut_results"] = want  # phase mesh scans the same subset
     return result
 
 
@@ -2332,6 +2347,8 @@ def phase_fs_vuln(root: Path, db_dir: Path, seed: int, base: bytes, card: str) -
         "package_licenses": len(pkg_licenses), "card": card,
     }
     log(result)
+    # for phase incremental (popped by main): the card's full scan and the DB
+    result.update(full_results=full_reports[0]["Results"], full_launches=scans[3][4], db=db)
     check(result["vuln_equal"], "fs-vuln: Results or Metadata differ between card and CPU")
     check(result["full_equal"],
           "fs-vuln: vuln,secret,license Results or Metadata differ between card and CPU")
@@ -2359,6 +2376,184 @@ def phase_fs_vuln(root: Path, db_dir: Path, seed: int, base: bytes, card: str) -
          "shape": result["kernel_shape"], "vulnerable_rows": int(want.sum())})
     check(result["kernel_equal"],
           "verscmp kernel disagrees with its plain version on the fs-vuln dispatch")
+    return result
+
+
+# the kernels an unchanged incremental rescan must not launch: the secret
+# feed's and the license pass's
+INCR_FEED_KERNELS = ("prefilter", "anchored", "decompress", "gram_gate", "bytes_gate",
+                     "bytes_score")
+# the fs-vuln tree's units are about 2,100 (a directory each, node_modules'
+# packages included)
+INCR_MIN_UNITS = 2_000
+# license texts put in the edited unit, src/, of the phase's copy: enough for
+# the classifier's device path (DEVICE_MIN_TEXTS), and the fused gate sees
+# them in the secret feed, so every feed and license kernel has work there
+INCR_LICENSES = DEVICE_MIN_TEXTS
+INCR_COUNTS = ("units_total", "units_analyzed", "files_stat_reused", "files_git_reused",
+               "files_hashed", "files_walked", "files_scanned")
+
+
+def phase_incremental(root: Path, fs_tree: Path, db, db_dir: Path, full_results: list,
+                      full_launches: dict, card: str, device: str = "cuda") -> dict:
+    """Incremental scanning on a git copy of the fs-vuln tree with
+    ``vuln,secret,license`` on the card, one fs scan cache for every step
+    (launch counters to 0 just before each scan, read just after): (1) a cold
+    ``incremental`` scan, whose ``Results`` and launches equal phase
+    ``fs-vuln``'s full card scan's beside the license texts that the phase
+    adds to ``src/``, every feed and license kernel launched; (2) an
+    unchanged ``since_last`` scan: no unit analyzed, none of the feed's or
+    the license kernels launched, the same ``Results``; (3) a secret planted
+    in ``src/module_0.py`` and committed, then a ``since_last`` scan: one
+    unit analyzed, the new finding there and every other finding as before,
+    the manifest recorded at the new commit, and the feed and license
+    kernels launched as often as by a full scan of ``src`` alone; (4)
+    every mtime touched (a fresh checkout) and ``diff_base="HEAD"``: every
+    file keyed from git, no unit analyzed, no feed launch; (5)
+    ``cli.main(["watch", ..., "--watch-count", "1"])`` on the same cache:
+    (4)'s filtered ``Results``, no feed launch (a second tick over the
+    unchanged tree would repeat (2); the CPU tests hold several ticks
+    against the JAX ``watch``). ``device="cpu"`` is a dry
+    run: the plain versions launch no kernel, so only the feed's absence is
+    checked."""
+    from trivy_tpu_torch.cache import new_cache
+    from trivy_tpu_torch.incremental import IncrementalOptions
+    from trivy_tpu_torch.result import FilterOptions, filter_report
+
+    t_phase = time.perf_counter()
+    tree = root / "tree"
+    # hard links: the edit below writes a new file, so fs_tree keeps its own
+    shutil.copytree(fs_tree, tree, copy_function=os.link)
+    licenses = sorted(FULL_TEXTS)[:INCR_LICENSES]
+    for name in licenses:
+        (tree / "src" / f"LICENSE-{name}").write_text(FULL_TEXTS[name])
+    copy_s = time.perf_counter() - t_phase
+    git_commit_tree(tree)
+    git_s = time.perf_counter() - t_phase - copy_s
+    cache = new_cache("fs", str(root / "cache"))
+    steps = []
+
+    def scan(step: str, **incr) -> dict:
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        report, stats = cli.scan_fs(str(tree), scanners=("vuln", "secret", "license"), db=db,
+                                    device=device, cache=cache,
+                                    incremental=IncrementalOptions(enabled=True, **incr))
+        seconds = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        steps.append({"step": step, "seconds": seconds, "scan_seconds": stats["seconds"],
+                      "detect_s": stats["detect.seconds"], "components": stats["components"],
+                      **{k: stats[k] for k in INCR_COUNTS}, "launches": launches})
+        return {"report": report, "doc": report.to_dict(), "stats": stats,
+                "launches": launches}
+
+    cold = scan("cold")
+    warm = scan("unchanged", since_last=True)
+    rid = sorted(SAMPLES)[3]
+    target = tree / "src" / "module_0.py"
+    data = target.read_bytes()
+    data += b"" if data.endswith(b"\n") else b"\n"
+    line = data.count(b"\n") + 1
+    target.unlink()
+    target.write_bytes(data + SAMPLES[rid].encode() + b"\n")
+    git(tree, "commit", "-qam", "edit")  # pushed: the manifest records this commit
+    edited = scan("one-edit", since_last=True)
+    # the edited unit alone, in a full scan: what its analysis launches
+    solo = root / "solo"
+    shutil.copytree(tree / "src", solo / "src", copy_function=os.link)
+    LAUNCHES.clear()
+    cli.scan_fs(str(solo), scanners=("vuln", "secret", "license"), db=db, device=device)
+    solo_launches = dict(LAUNCHES)
+    stamp = time.time_ns() + 10**9
+    for d, dirs, names in os.walk(tree):
+        dirs[:] = [x for x in dirs if x != ".git"]
+        for n in names:
+            os.utime(os.path.join(d, n), ns=(stamp, stamp))
+    diffed = scan("diff-base", diff_base="HEAD")
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = root / "watch.json"
+    load_db = cli.load_db
+    cli.load_db = lambda *a: db  # the loaded DB, not a second load of db_dir
+    try:
+        rc = cli.main(["watch", "--scanners", "vuln,secret,license", "--device", device, "-q",
+                       "--db-repository", str(db_dir), "--cache-dir", str(root / "cache"),
+                       "--format", "json", "-o", str(out), "--watch-interval", "0.1",
+                       "--watch-count", "1", str(tree)])
+    finally:
+        cli.load_db = load_db
+    watch_s = time.perf_counter() - t0
+    watch_launches = dict(LAUNCHES)
+    watched = json.loads(out.read_text()) if out.exists() else {}
+    want = filter_report(Report.from_dict(diffed["doc"]), FilterOptions()).to_dict()
+
+    old_secrets, new_secrets = found(cold["doc"]), found(edited["doc"])
+
+    def others(doc: dict) -> list:
+        return [r for r in doc["Results"] if r["Class"] != "secret"]
+
+    # the tree of fs-vuln has no license file: the added texts are the only ones
+    file_licenses = {(lic["FilePath"], lic["Name"]) for r in cold["doc"]["Results"]
+                     if r["Class"] == "license-file" for lic in r["Licenses"]}
+
+    result = {
+        "phase": "incremental", "copy_s": copy_s, "git_s": git_s, "steps": steps,
+        "watch_s": watch_s, "watch_launches": watch_launches, "card": card,
+        # the OS result's target names the artifact: the copy's path aside
+        "cold_equals_full": [r for r in renamed(cold["doc"], str(fs_tree))
+                             if r["Class"] != "license-file"] == full_results,
+        "licenses_missed": sorted({(f"src/LICENSE-{k}", k) for k in licenses}
+                                  - file_licenses),
+        "solo_launches": solo_launches,
+        "unchanged_equal": warm["doc"]["Results"] == cold["doc"]["Results"],
+        "new_secret": sorted(new_secrets - old_secrets),
+        "others_equal": others(edited["doc"]) == others(cold["doc"]),
+        "diff_equal": diffed["doc"]["Results"] == edited["doc"]["Results"],
+        "watch_equal": watched.get("Results") == want["Results"],
+        "seconds": time.perf_counter() - t_phase,
+    }
+    log(result)
+    by = {s["step"]: s for s in steps}
+    check(result["cold_equals_full"], "incremental: the cold scan's Results differ from fs-vuln's")
+    check(by["cold"]["units_analyzed"] == by["cold"]["units_total"] > INCR_MIN_UNITS,
+          f"incremental: the cold scan analyzed {by['cold']['units_analyzed']} units")
+    check(not result["licenses_missed"],
+          f"incremental: license texts not reported: {result['licenses_missed']}")
+    on_card = device != "cpu"
+    feed = {k: cold["launches"].get(k, 0) for k in INCR_FEED_KERNELS}
+    check(not on_card or all(feed.values()),
+          f"incremental: the cold scan left feed or license kernels unlaunched: {feed}")
+    check(cold["launches"].get("verscmp", 0) == full_launches.get("verscmp", 0),
+          f"incremental: the cold scan's verscmp launches {cold['launches']}, the full "
+          f"scan's {full_launches}")
+    for step in ("unchanged", "diff-base"):
+        s = by[step]
+        check(s["units_analyzed"] == 0, f"incremental: {step} analyzed {s['units_analyzed']}")
+        check(not any(s["launches"].get(k, 0) for k in INCR_FEED_KERNELS),
+              f"incremental: {step} launched feed kernels {s['launches']}")
+        check(not on_card or s["launches"].get("verscmp", 0) == 1,
+              f"incremental: {step} launched verscmp {s['launches'].get('verscmp', 0)} times")
+    check(result["unchanged_equal"], "incremental: the unchanged rescan's Results differ")
+    check(by["unchanged"]["files_stat_reused"] == by["unchanged"]["files_walked"],
+          "incremental: the unchanged rescan read files")
+    check(by["one-edit"]["units_analyzed"] == 1,
+          f"incremental: the edit re-analyzed {by['one-edit']['units_analyzed']} units")
+    edit_feed = {k: edited["launches"].get(k, 0) for k in INCR_FEED_KERNELS}
+    check(edit_feed == {k: solo_launches.get(k, 0) for k in INCR_FEED_KERNELS}
+          and (not on_card or all(edit_feed.values())),
+          f"incremental: the edit launched {edit_feed}, a full scan of its unit "
+          f"{solo_launches}")
+    check(result["new_secret"] == [("src/module_0.py", rid, line)],
+          f"incremental: the planted secret: {result['new_secret']}")
+    check(old_secrets <= new_secrets, "incremental: a finding went missing after the edit")
+    check(result["others_equal"], "incremental: the edit changed findings beside its secret")
+    check(by["diff-base"]["files_git_reused"] == by["diff-base"]["files_walked"],
+          f"incremental: --diff-base git-reused {by['diff-base']['files_git_reused']} of "
+          f"{by['diff-base']['files_walked']} files")
+    check(result["diff_equal"], "incremental: the diff-base scan's Results differ")
+    check(rc == 0 and result["watch_equal"], f"incremental: watch exited {rc} or differs")
+    check(not any(watch_launches.get(k, 0) for k in INCR_FEED_KERNELS),
+          f"incremental: watch launched feed kernels {watch_launches}")
     return result
 
 
@@ -2603,11 +2798,11 @@ def phase_ladder(root: Path, fs_tree: Path, e2e_tree: Path, cve_dir: Path, card:
 # the spans tests/test_torch_trace_cli.py expects on its CPU scan, and the
 # CVE join's (its small tree stays below the join's batch threshold)
 # phase mesh: the round-robin, the breaker and the mesh over one card
-# twice, in 256-row (4 MiB) batches so that the 32 MiB cut makes enough
+# twice, in 128-row (2 MiB) batches so that the 16 MiB subset makes enough
 # batches for every dispatch index, and for the breaker to see a dead d1
 # fail its threshold of times
 MESH_DEVICES = ("cuda:0", "cuda:0")
-MESH_BATCH = 256
+MESH_BATCH = 128
 # corpus shards whose slabs the scorer is held at: 118 licenses make
 # Ls = 59 at m = 2 and Ls = 30 at m = 4 (the last shard padded)
 MESH_SHARDS = {2: 59, 4: 30}
@@ -2644,9 +2839,9 @@ def phase_mesh(root: Path, e2e_tree: Path, cut_results: list, base: bytes, seed:
                card: str) -> dict:
     """Multi-device dispatch over ``[cuda:0, cuda:0]`` (this machine has one
     card: no number here is a multi-card number). (a) the secret scan of
-    the feed phase's 32 MiB cut through ``cli.scan_fs`` with round-robin
-    scanner options against the single-dispatch card scan and the cut's
-    ``--device cpu`` Results, both dispatch indices taking batches; (b) the
+    the e2e tree's 16 MiB ``sub16`` subset (the feed phase's) through
+    ``cli.scan_fs`` with round-robin scanner options against the
+    single-dispatch card scan and the subset's ``--device cpu`` Results, both dispatch indices taking batches; (b) the
     same with ``device.dispatch@d1:times=-1``: the breaker opens on d1, the
     Results stay, nothing degrades; (c) both indices dead: the scan fails on
     the card; (d) a ``data = 2`` mesh: the Results, compression off, and
@@ -2661,8 +2856,8 @@ def phase_mesh(root: Path, e2e_tree: Path, cut_results: list, base: bytes, seed:
     from trivy_tpu_torch.parallel.mesh import PerDevice, get_mesh, hit_counts_psum
 
     t_phase = time.perf_counter()
-    cut = root / "cut"
-    cut_bytes = feed_cut(e2e_tree, cut)
+    cut = e2e_tree / "sub16"
+    cut_bytes = sum(f.stat().st_size for f in cut.rglob("*") if f.is_file())
     two = list(MESH_DEVICES)
     dev = two[0]
     runs = {}
@@ -3651,12 +3846,35 @@ def renamed(report: dict, name: str) -> list:
     return json.loads(json.dumps(report["Results"]).replace(old, json.dumps(name)[1:-1]))
 
 
-def git(cwd: Path, *args: str) -> None:
-    env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"), "GIT_AUTHOR_NAME": "smoke",
-           "GIT_AUTHOR_EMAIL": "smoke@example.com", "GIT_COMMITTER_NAME": "smoke",
-           "GIT_COMMITTER_EMAIL": "smoke@example.com", "GIT_CONFIG_NOSYSTEM": "1",
-           "GIT_CONFIG_GLOBAL": os.devnull}
-    subprocess.run(["git", *args], cwd=cwd, env=env, check=True, capture_output=True)
+GIT_ENV = {"GIT_AUTHOR_NAME": "smoke", "GIT_AUTHOR_EMAIL": "smoke@example.com",
+           "GIT_COMMITTER_NAME": "smoke", "GIT_COMMITTER_EMAIL": "smoke@example.com",
+           "GIT_CONFIG_NOSYSTEM": "1", "GIT_CONFIG_GLOBAL": os.devnull}
+
+
+def git(cwd: Path, *args: str, stdin: bytes | None = None) -> None:
+    env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"), **GIT_ENV}
+    subprocess.run(["git", *args], cwd=cwd, env=env, input=stdin, check=True,
+                   capture_output=True)
+
+
+def git_commit_tree(tree: Path) -> None:
+    """``tree`` made a git worktree with every file in one commit, written
+    as one pack by ``git fast-import``: ``git add`` writes an object file per
+    file, which on a 9p filesystem, where creating a file costs
+    milliseconds, took 10 s for the fs-vuln tree's 2,073 files."""
+    chunks = [b"commit refs/heads/main\ncommitter smoke <smoke@example.com> 0 +0000\n"
+              b"data 4\nbase\n"]
+    for d, dirs, names in os.walk(tree):
+        dirs[:] = sorted(x for x in dirs if x != ".git")
+        for name in sorted(names):
+            path = Path(d) / name
+            data = path.read_bytes()
+            chunks.append(f"M 100644 inline {path.relative_to(tree).as_posix()}\n"
+                          f"data {len(data)}\n".encode())
+            chunks.append(data + b"\n")
+    git(tree, "init", "-q", "-b", "main")
+    git(tree, "fast-import", "--quiet", stdin=b"".join(chunks))
+    git(tree, "reset", "-q")  # the index, from the commit and the files' stat
 
 
 def phase_sources(root: Path, image_root: Path, fs_tree: Path, db_dir: Path, fs_secrets: list,
@@ -3902,7 +4120,7 @@ def phase_sources(root: Path, image_root: Path, fs_tree: Path, db_dir: Path, fs_
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--e2e-mib", type=int, default=128, help="size of the e2e tree")
+    ap.add_argument("--e2e-mib", type=int, default=64, help="size of the e2e tree")
     ap.add_argument("--license-mib", type=int, default=48, help="size of the license tree")
     ap.add_argument("--image-mib", type=int, default=64, help="layer bytes of the image")
     ap.add_argument("--seed", type=int, default=0)
@@ -3954,6 +4172,11 @@ def main() -> int:
         cve = phase_cve(tmp / "cve", args.seed, card)
         fs_vuln = phase_fs_vuln(tmp / "fs-vuln", tmp / "cve" / "db", args.seed, base, card)
         fs_secrets = fs_vuln.pop("secrets_planted")
+        incremental = phase_incremental(tmp / "incremental", tmp / "fs-vuln" / "tree",
+                                        fs_vuln.pop("db"), tmp / "cve" / "db",
+                                        fs_vuln.pop("full_results"),
+                                        fs_vuln.pop("full_launches"), card)
+        shutil.rmtree(tmp / "incremental", ignore_errors=True)
         ladder = phase_ladder(tmp / "ladder", tmp / "fs-vuln" / "tree", tmp / "tree",
                               tmp / "cve", card)
         mesh = phase_mesh(tmp / "mesh", tmp / "tree", feed["cut_results"], base, args.seed, card)
@@ -4056,6 +4279,12 @@ def main() -> int:
         entry["launches_image"] = image["launches"].get(key, 0)
         entry["launches_registry"] = sources["launches_registry"].get(key, 0)
         entry["launches_ladder"] = ladder["launches"].get(key, 0)
+        # phase incremental: the cold scan, and every scan of an unchanged
+        # tree after it (the rescans, the diff-base scan, the watch)
+        entry["launches_incremental"] = incremental["steps"][0]["launches"].get(key, 0)
+        entry["launches_incremental_rescans"] = incremental["watch_launches"].get(key, 0) + sum(
+            st["launches"].get(key, 0) for st in incremental["steps"]
+            if st["step"] in ("unchanged", "diff-base"))
         # phase server's client/server scan: the client's feed and license
         # kernels and the in-process server's constraint kernel
         entry["launches_server"] = server["launches"].get(key, 0)

@@ -1187,3 +1187,47 @@ def test_concurrent_dispatches_on_card_equal_serial(card, tmp_path):
     for th in threads:
         th.join(timeout=300)
     assert bad == []
+
+
+FEED_KERNELS = ("prefilter", "anchored", "decompress", "gram_gate", "bytes_gate", "bytes_score")
+
+
+@pytest.mark.cuda
+def test_unchanged_incremental_rescan_launches_no_feed_kernel_on_card(card, tmp_path):
+    """``fs --incremental`` of a tree with secrets and license texts on the
+    card, then ``--since-last`` over the unchanged tree: the cold scan
+    launches the matcher, the fused gate and the classifier's kernels, the
+    rescan analyzes no unit and launches none of the feed's or the license
+    kernels, with the cold scan's ``Results``; ``verscmp`` launches in both."""
+    rng = np.random.default_rng(6)
+    tree = tmp_path / "tree"
+    texts = sorted(FULL_TEXTS)
+    files = {"web/package-lock.json": json.dumps({"lockfileVersion": 3, "packages": {
+        f"node_modules/p{i}/node_modules/{['lodash', 'minimist'][i % 2]}": {
+            "version": f"{rng.integers(0, 5)}.{rng.integers(0, 21)}.{rng.integers(0, 26)}"}
+        for i in range(1000)}})}
+    for i in range(12):
+        files[f"mod{i:02d}/LICENSE"] = FULL_TEXTS[texts[int(rng.integers(len(texts)))]]
+        files[f"mod{i:02d}/key.py"] = f"k = '{SAMPLES['github-pat']}'\n"
+    for rel, text in files.items():
+        (tree / rel).parent.mkdir(parents=True, exist_ok=True)
+        (tree / rel).write_text(text)
+    head = ["fs", "--scanners", "vuln,secret,license", "--db-repository", BUILD_DB(tmp_path),
+            "--device", "cuda", "-q", "--format", "json", "--cache-dir", str(tmp_path / "c")]
+    runs = []
+    for flag in ("--incremental", "--since-last"):
+        out, stats = tmp_path / f"{flag[2:]}.json", tmp_path / f"{flag[2:]}.stats.json"
+        match_cuda.LAUNCHES.clear()
+        assert cli.main([*head, "-o", str(out), "--stats-out", str(stats), flag,
+                         str(tree)]) == 0
+        runs.append((json.loads(out.read_text()), json.loads(stats.read_text()),
+                     dict(match_cuda.LAUNCHES)))
+    (cold, cold_st, cold_l), (warm, warm_st, warm_l) = runs
+    assert cold["Results"] == warm["Results"]
+    assert cold_st["units_analyzed"] == cold_st["units_total"] == 13
+    assert (warm_st["units_analyzed"], warm_st["files_stat_reused"]) == (0, 25)
+    # twelve license texts: the fused gate and the classifier's device path
+    assert all(cold_l.get(k, 0) > 0 for k in ("prefilter", "anchored", "gram_gate",
+                                               "bytes_gate", "bytes_score", "verscmp")), cold_l
+    assert not any(warm_l.get(k, 0) for k in FEED_KERNELS), warm_l
+    assert warm_l.get("verscmp", 0) == cold_l["verscmp"]

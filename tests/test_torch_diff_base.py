@@ -2,10 +2,13 @@
 derived image shares with its base are analyzed from the base under the
 derived image's keys, only the new layer from the target, and the report
 equals a plain scan's. A base that cannot be read exits 1 with no report in
-both CLIs; on ``fs`` (the JAX git diff scan, not ported) the flag exits 2
-from every source."""
+both CLIs. On ``fs``, ``rootfs`` and ``repo`` the flag is the git diff scan
+from every source: a report equal to the JAX one on a git worktree, exit 1
+and no report elsewhere."""
 
 import json
+import os
+import subprocess
 from pathlib import Path
 
 import pytest
@@ -145,21 +148,46 @@ def test_unreadable_base_exits_1_with_no_report(images, wd, monkeypatch, base):
 
 @pytest.mark.parametrize("source", ["cli", "env", "config"])
 @pytest.mark.parametrize("command", ["fs", "rootfs", "repo"])
-def test_diff_base_refused_off_image(images, wd, monkeypatch, capsys, source, command):
-    """``--diff-base`` on a tree is the JAX git diff scan, which the port
-    lacks: exit 2 from the command line, ``TRIVY_TPU_DIFF_BASE`` and
-    ``incremental.diff-base`` alike."""
+def test_diff_base_refused_off_image(images, wd, monkeypatch, source, command):
+    """``--diff-base`` on a tree is the JAX git diff scan, from the command
+    line, ``TRIVY_TPU_DIFF_BASE`` and ``incremental.diff-base`` alike: on a
+    git worktree both CLIs scan and give the same report; on a tree that is
+    no git worktree both exit 1 and write no report."""
+    monkeypatch.setenv("GIT_CEILING_DIRECTORIES", str(wd.parent))
     tree = wd / "tree"
     tree.mkdir()
-    argv = [command, "--device", "cpu", "-q"]
+    (tree / "app.env").write_text(f"token = {GHP}\n")
+    (wd / "trivy-secret.yaml").write_text("enable-builtin-rules: [github-pat]\n")
+    extra = []
     if source == "cli":
-        argv += ["--diff-base", "HEAD~1"]
+        extra = ["--diff-base", "HEAD"]
     elif source == "env":
-        monkeypatch.setenv("TRIVY_TPU_DIFF_BASE", "HEAD~1")
+        monkeypatch.setenv("TRIVY_TPU_DIFF_BASE", "HEAD")
     else:
-        (wd / "trivy-tpu.yaml").write_text("incremental:\n  diff-base: HEAD~1\n")
-    with pytest.raises(SystemExit) as exc:
-        cli.main([*argv, str(tree)])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert ("--diff-base" in err) and (source == "cli" or "JAX package" in err)
+        (wd / "trivy-tpu.yaml").write_text("incremental:\n  diff-base: HEAD\n")
+
+    def both() -> tuple[dict, dict, int, int]:
+        mine_out, ref_out = wd / "port.json", wd / "jax.json"
+        for p in (mine_out, ref_out):
+            p.unlink(missing_ok=True)
+        rc1 = cli.main([command, "--device", "cpu", "--format", "json", "-o", str(mine_out),
+                        "-q", "--cache-dir", str(wd / "c1"), *extra, str(tree)])
+        rc2 = jax_cli.main([command, "--backend", "cpu", "--format", "json", "-o",
+                            str(ref_out), "-q", "--cache-dir", str(wd / "c2"), *extra,
+                            str(tree)])
+        return (json.loads(mine_out.read_text()) if mine_out.exists() else {},
+                json.loads(ref_out.read_text()) if ref_out.exists() else {}, rc1, rc2)
+
+    mine, ref, rc1, rc2 = both()
+    assert rc1 == rc2 == 1 and mine == ref == {}
+    git_env = {"GIT_AUTHOR_NAME": "t", "GIT_AUTHOR_EMAIL": "t@t", "GIT_COMMITTER_NAME": "t",
+               "GIT_COMMITTER_EMAIL": "t@t", "GIT_CONFIG_GLOBAL": os.devnull,
+               "GIT_CONFIG_NOSYSTEM": "1"}
+    for args in (["init", "-q"], ["add", "-A"], ["commit", "-qm", "base"]):
+        subprocess.run(["git", *args], cwd=tree, check=True, capture_output=True,
+                       env={**os.environ, **git_env})
+    mine, ref, rc1, rc2 = both()
+    assert rc1 == rc2 == 0
+    assert mine["Results"] == ref["Results"] and mine["Metadata"] == ref["Metadata"]
+    assert [(r["Target"], s["RuleID"]) for r in mine["Results"] for s in r["Secrets"]] == [
+        ("app.env", "github-pat")]

@@ -298,7 +298,7 @@ def test_jax_flag_table_matches_the_jax_cli():
     from trivy_tpu_torch.flag import ENV_PREFIX, JAX_FLAGS
 
     assert set(JAX_FLAGS) == set(cli._TARGET_GROUPS) == {
-        "fs", "rootfs", "repo", "image", "vm", "sbom", "convert", "server"}
+        "fs", "rootfs", "repo", "watch", "image", "vm", "sbom", "convert", "server"}
     for command, flags in JAX_FLAGS.items():
         want = [(f.name, f.config_name) for g in jax_cli._TARGET_GROUPS[command]
                 for f in g().flags]

@@ -626,10 +626,10 @@ def test_ladder_settings_resolve_from_env_and_config(wd, monkeypatch):
     monkeypatch.setenv("TRIVY_TPU_TIMEOUT", "1")
     assert port_cli(wd, "env-slow", tree)[0] == 1
     monkeypatch.delenv("TRIVY_TPU_TIMEOUT")
-    # --tune is ported; --incremental is not
-    monkeypatch.setenv("TRIVY_TPU_INCREMENTAL", "true")
+    # --tune is ported; --fleet is not
+    monkeypatch.setenv("TRIVY_TPU_FLEET", "127.0.0.1:9")
     with pytest.raises(SystemExit) as exc:
-        port_cli(wd, "incremental", tree)
+        port_cli(wd, "fleet", tree)
     assert exc.value.code == 2
 
 

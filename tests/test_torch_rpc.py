@@ -577,11 +577,15 @@ def test_server_command_refuses_unported_and_garbage_settings(monkeypatch, capsy
                      "--tenants", "a:t"]) == 1  # a quota without a budget
 
 
+@pytest.mark.parametrize("flags", [["--diff-base", "HEAD~1"], ["--incremental"],
+                                   ["--since-last"]], ids=["diff-base", "incremental",
+                                                           "since-last"])
 @pytest.mark.parametrize("command", ["fs", "rootfs", "repo"])
-def test_server_with_diff_base_exits_2(env, wd, command, capsys):
-    """The JAX ``_run_fs_like`` refusal and its message."""
-    argv = [command, "--device", "cpu", "-q", "--server", "http://127.0.0.1:9",
-            "--diff-base", "HEAD~1", str(env["secret"])]
+def test_server_with_diff_base_exits_2(env, wd, command, capsys, flags):
+    """The JAX ``_run_fs_like`` refusal and its message, for each of the
+    incremental flags."""
+    argv = [command, "--device", "cpu", "-q", "--server", "http://127.0.0.1:9", *flags,
+            str(env["secret"])]
     assert cli.main(argv) == 2
     assert "require a local scan path (drop --server" in capsys.readouterr().err
     assert jax_cli.main([command, "--backend", "cpu", *argv[3:]]) == 2

@@ -1,5 +1,6 @@
 """Command line of the port: the ``fs``, ``rootfs`` and ``repo``
-vulnerability, secret and license scans, the ``image`` scan of an image
+vulnerability, secret and license scans, full or incremental, the
+``watch`` loop over a directory, the ``image`` scan of an image
 archive, registry or daemon image, the ``vm`` scan of a disk image, the
 ``sbom`` vulnerability scan, and ``convert`` of a saved JSON report.
 
@@ -18,10 +19,13 @@ archive, registry or daemon image, the ``vm`` scan of a disk image, the
         [--secret-inflight N] [--secret-arena-slabs N] [--secret-bucket-rungs N]
         [--no-secret-pack] [--no-secret-prefilter] [--tuning-file F]
         [--tune [--tuning-interval S]] [--server URL [--token T]]
+        [--incremental] [--since-last] [--diff-base <commit-ish>]
         [--stats-out F] <dir>
     python -m trivy_tpu_torch rootfs [the fs flags] <dir>
     python -m trivy_tpu_torch repo [the fs flags]
         [--branch B | --tag T | --commit C] (<url> | <dir>)
+    python -m trivy_tpu_torch watch [the fs flags but --server, --token and the
+        incremental ones] [--watch-interval S] [--watch-count N] <dir>
     python -m trivy_tpu_torch image [the fs flags] [--diff-base <image>]
         [--image-src docker,containerd,podman,remote] [--docker-host H]
         [--podman-host H] [--containerd-host H] [--platform OS/ARCH]
@@ -106,8 +110,10 @@ scanned in place. ``image`` walks each layer that its layer cache lacks the
 same way (``artifact/image.py``), every package analyzer included: of a
 docker-save or OCI-layout archive when the target is a path, else of the
 first daemon in ``--image-src`` order that holds the image, else of a
-registry pull (``remote``). ``--diff-base`` analyzes the layers the derived
-image shares with the base from the base. ``vm`` walks the ext4 partitions
+registry pull (``remote``). On ``image`` ``--diff-base`` analyzes the
+layers the derived image shares with the base from the base;
+``--incremental`` and ``--since-last`` are ignored there with a warning, as
+the JAX ``image`` ignores them. ``vm`` walks the ext4 partitions
 of a raw disk image (``artifact/vm.py``) with the analyzers of an image
 layer, its blob cached per image. Every application's packages then meet
 the advisory DB of ``--db-repository`` (or ``<cache-dir>/db``) in one
@@ -117,6 +123,24 @@ json`` on the same target, DB and working directory; ``sbom``'s equal those
 of ``python -m trivy_tpu.cli sbom --format json``. An image source that
 cannot be resolved or read, a clone that fails and an unreadable
 ``--diff-base`` exit with code 1 and write no report.
+
+``fs``, ``rootfs`` and ``repo`` with ``--incremental``, ``--since-last`` or
+``--diff-base <commit-ish>`` scan incrementally, as the JAX package does
+(``incremental/``): the tree's directory-atomic units are keyed by content
+and the analysis fingerprint in the scan cache (``--cache-dir``,
+``--cache-backend``), only the units the cache lacks are analyzed (only
+their files reach the card's kernels), and detection runs over every unit's
+blob. ``--since-last`` reuses a file's key when its size and mtime match the
+last scan's manifest, ``--diff-base`` when git calls the file unchanged
+since the clean commit the manifest was recorded at. A ref git cannot
+resolve, or a tree that is no git worktree, exits 1 with no report; any of
+the three with ``--server`` exits 2. ``--stats-out`` then holds the reuse
+counts (``units_total``, ``units_analyzed``, ``files_stat_reused``,
+``files_git_reused``, ``files_hashed``, ...). ``watch <dir>`` scans with
+``--since-last`` every ``--watch-interval`` seconds and writes the report
+after the first scan and after each one that analyzed a unit or lost one;
+``--timeout`` arms no alarm for it, and Ctrl-C ends it with the last exit
+code.
 
 ``server`` serves the JAX package's Cache and Scanner services
 (``rpc/server.py``): clients push analysis blobs, the server detects on
@@ -190,6 +214,10 @@ CVE_COUNTERS = ("cve.bounds_bytes_uploaded", "cve.resident_rows", "cve.dispatch_
 # the health counts of a scan that its counters carry: the scans and the
 # license batches that fell back to the host
 HEALTH_COUNTERS = ("scan.degraded", "license.degraded")
+# the reuse counts of an incremental scan in its counters (the JAX
+# artifact's ``last_stats`` apart from its unit keys)
+INCREMENTAL_COUNTERS = ("units_total", "units_analyzed", "units_reused", "files_stat_reused",
+                        "files_git_reused", "files_hashed", "bytes_reused")
 
 
 class ScanTimeout(BaseException):
@@ -257,7 +285,7 @@ def scan_fs(root: str, config_path: str | None = None, device=DEFAULT_DEVICE,
             cache_dir: str | None = None, java_db: str | None = None,
             list_all_pkgs: bool = False, host_fallback: bool = True, parallel: int = 0,
             tuning: TuningConfig | None = None, server: str | None = None, token: str = "",
-            **scanner_opts) -> tuple[Report, dict]:
+            cache=None, incremental=None, **scanner_opts) -> tuple[Report, dict]:
     """Scan the tree under ``root`` with ``scanners`` (any of ``vuln``,
     ``secret``, ``license``). With ``vuln``, packages meet ``db`` when given
     (a loaded DB keeps its resident join across scans), else the DB that
@@ -282,7 +310,21 @@ def scan_fs(root: str, config_path: str | None = None, device=DEFAULT_DEVICE,
     key (sent only when ``MissingBlobs`` says the server lacks it), and the
     server runs detection against its own DB (:func:`_remote_detect`). The
     counters then hold no ``cve.*`` join counts (the server has them) but
-    ``remote.blobs_sent``."""
+    ``remote.blobs_sent``.
+
+    With ``incremental`` (an :class:`~trivy_tpu_torch.incremental.
+    IncrementalOptions`) the scan is the JAX incremental one
+    (``incremental/fs.py``): the tree's units are keyed by content, only the
+    units ``cache`` lacks are analyzed (their files alone reach the secret
+    feed and the license kernels), and detection runs over every unit's blob
+    read back from ``cache``. The counters then also hold the reuse counts
+    (:data:`INCREMENTAL_COUNTERS`) and ``unit_set``, a digest of the unit
+    keys; files walked cover the whole tree, files scanned the dirty units'.
+    A ``diff_base`` git cannot resolve raises
+    :class:`~trivy_tpu_torch.incremental.manifest.GitDiffError`."""
+    if incremental is not None and server:
+        raise ValueError("--incremental/--diff-base/--since-last require a local scan path "
+                         "(drop --server or run the scan on the server)")
     check_scanners(scanners)
     dev = resolve(device)
     health0 = obs.current().health_snapshot()
@@ -294,6 +336,10 @@ def scan_fs(root: str, config_path: str | None = None, device=DEFAULT_DEVICE,
                               shared_arena=shared_arena, config_path=config_path,
                               java_db=java_db, list_all_pkgs=list_all_pkgs,
                               host_fallback=host_fallback, tuning=tuning, **scanner_opts)
+    if incremental is not None:
+        return _scan_incremental(root, analyzers, cache, incremental, skip_files, skip_dirs,
+                                 parallel, scanners, db, dev, list_all_pkgs, host_fallback,
+                                 stats, health0, t0)
     secret, licenses = analyzers.batch(root)
     walker = FSWalker(WalkOption(skip_files=list(skip_files), skip_dirs=list(skip_dirs)))
     workers = parallel or (tuning.parallel if tuning is not None else 0) or DEFAULT_PARALLEL
@@ -313,6 +359,33 @@ def scan_fs(root: str, config_path: str | None = None, device=DEFAULT_DEVICE,
                          health0, host_fallback, skipped_files=stats["files_skipped"])
     stats["components"] = _components([blob])
     return report, _finish_stats(stats, analyzers, () if server else scanners, t0)
+
+
+def _scan_incremental(root: str, analyzers: ScanAnalyzers, cache, incremental, skip_files,
+                      skip_dirs, parallel: int, scanners, db, dev, list_all_pkgs: bool,
+                      host_fallback: bool, stats: Counter, health0: dict,
+                      t0: float) -> tuple[Report, dict]:
+    """:func:`scan_fs`'s incremental half: the unit artifact's inspect,
+    then detection over its blobs as the applier merges them."""
+    import hashlib
+
+    from trivy_tpu_torch.incremental.fs import IncrementalFSArtifact
+
+    artifact = IncrementalFSArtifact(root, cache, analyzers, skip_files=skip_files,
+                                     skip_dirs=skip_dirs, parallel=parallel,
+                                     incremental=incremental)
+    ref = artifact.inspect()
+    blobs = cached_blobs(cache, ref.blob_ids)
+    stats.update(artifact.stats)
+    stats.update({k: artifact.last_stats[k] for k in INCREMENTAL_COUNTERS})
+    stats["analyze.seconds"] = time.perf_counter() - t0
+    report = _detect(blobs, ref.name, ref.type, scanners, db, dev, list_all_pkgs, stats,
+                     health0, host_fallback, skipped_files=stats["files_skipped"])
+    stats["components"] = _components(blobs)
+    out = _finish_stats(stats, analyzers, scanners, t0)
+    out["unit_set"] = hashlib.sha256(
+        "\n".join(sorted(artifact.last_stats["unit_keys"])).encode()).hexdigest()
+    return report, out
 
 
 def _remote_detect(blob, name: str, analyzers: ScanAnalyzers, skip_files, skip_dirs, scanners,
@@ -713,15 +786,26 @@ def image_flags() -> FlagGroup:
     ])
 
 
-def diff_base_flags() -> FlagGroup:
-    """The JAX incremental group's ``--diff-base``. On ``image`` the base
-    image; on ``fs``, ``rootfs`` and ``repo`` it is the JAX git diff scan,
-    which the port lacks: there it exits 2 (with ``--server``, with the JAX
-    CLI's message)."""
+def incremental_flags() -> FlagGroup:
+    """The JAX incremental group. On ``fs``, ``rootfs`` and ``repo`` the
+    unit-level incremental scan (``incremental/``); on ``image``
+    ``--diff-base`` is the base image, and ``--incremental`` and
+    ``--since-last`` are ignored with a warning, as the JAX ``image``
+    ignores them."""
     return FlagGroup("incremental", [
+        Flag("incremental", default=False, value_type=bool, config_name="incremental.enabled",
+             help="unit-level incremental scan: directory-atomic units are cached by content "
+                  "and analysis fingerprint, and unchanged units merge out of the cache "
+                  "(findings equal to a full scan's)"),
         Flag("diff-base", default=None, config_name="incremental.diff-base",
-             help="base image ref or archive: layers present in the base are seeded "
-                  "from it, only new layers are analyzed (image only)"),
+             help="scan only what changed since this base: a git commit-ish (fs, rootfs, "
+                  "repo; unchanged files keyed from the manifest recorded at that commit) "
+                  "or a base image ref or archive (image; layers present in the base are "
+                  "seeded from it, only new layers are analyzed)"),
+        Flag("since-last", default=False, value_type=bool,
+             config_name="incremental.since-last",
+             help="stat-walk repeat scan: files whose (size, mtime) match the last scan's "
+                  "manifest are not read"),
     ])
 
 
@@ -787,15 +871,18 @@ def admission_flags() -> FlagGroup:
 _FS_GROUPS = [global_flags, scan_flags, report_flags, secret_flags, license_flags, db_flags,
               server_client_flags, tuning_flags]
 # the commands that resolve a TuningConfig and scan through the secret feed
-TUNED_COMMANDS = ("fs", "rootfs", "repo", "image", "vm")
+TUNED_COMMANDS = ("fs", "rootfs", "repo", "watch", "image", "vm")
 # the commands whose --server runs the scan in client mode; the others with
 # the flag scan locally, as the JAX CLI's do
 CLIENT_COMMANDS = ("fs", "rootfs", "repo")
 _TARGET_GROUPS = {
-    "fs": [*_FS_GROUPS, diff_base_flags],
-    "rootfs": [*_FS_GROUPS, diff_base_flags],
-    "repo": [*_FS_GROUPS, diff_base_flags],
-    "image": [*_FS_GROUPS, image_flags, diff_base_flags],
+    "fs": [*_FS_GROUPS, incremental_flags],
+    "rootfs": [*_FS_GROUPS, incremental_flags],
+    "repo": [*_FS_GROUPS, incremental_flags],
+    # the JAX watch's groups: no client/server, no incremental flags
+    "watch": [global_flags, scan_flags, report_flags, secret_flags, license_flags, db_flags,
+              tuning_flags],
+    "image": [*_FS_GROUPS, image_flags, incremental_flags],
     "vm": _FS_GROUPS,
     "sbom": [global_flags, scan_flags, report_flags, db_flags, server_client_flags],
     "convert": [global_flags, report_flags],
@@ -805,6 +892,7 @@ _HELP = {
     "fs": "scan a local filesystem for vulnerabilities, secrets and licenses",
     "rootfs": "scan an exported root filesystem (the fs scan under another name)",
     "repo": "scan a git repository (local path or remote URL)",
+    "watch": "watch a directory: incremental re-scan on change (CI mode)",
     "image": "scan a container image (archive, OCI layout, daemon or registry ref)",
     "vm": "scan a VM disk image (raw; MBR/GPT + ext4)",
     "sbom": "scan an SBOM (CycloneDX/SPDX) for vulnerabilities",
@@ -812,8 +900,8 @@ _HELP = {
     "server": "run the scan server (detection on --device)",
 }
 _TARGET_HELP = {"fs": "directory to scan", "rootfs": "root filesystem directory",
-                "repo": "repository path or URL", "vm": "raw disk image",
-                "sbom": "SBOM file", "convert": "JSON report"}
+                "repo": "repository path or URL", "watch": "directory to watch",
+                "vm": "raw disk image", "sbom": "SBOM file", "convert": "JSON report"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -852,6 +940,11 @@ def build_parser() -> argparse.ArgumentParser:
             if cmd == "repo":
                 for ref in ("branch", "tag", "commit"):
                     sp.add_argument(f"--{ref}", default=None, help=f"{ref} to check out")
+            elif cmd == "watch":
+                sp.add_argument("--watch-interval", default=2.0, type=float,
+                                help="seconds between re-scans (default 2)")
+                sp.add_argument("--watch-count", default=0, type=int,
+                                help="stop after N scans (0 = run until ^C)")
             sp.add_argument("target", help=_TARGET_HELP[cmd])
     # the JAX CLI's bundle renderer, with its global flags
     sp = sub.add_parser("debug", help="render a flight-recorder diagnostic bundle "
@@ -878,9 +971,6 @@ def main(argv: list[str] | None = None) -> int:
         # one TuningConfig per run (a bad knob in the environment exits 2)
         args.tuning = (_resolve_tuning(opts, args.device)
                        if args.command in TUNED_COMMANDS else None)
-        if args.command in CLIENT_COMMANDS and opts["diff_base"] and not opts["server"]:
-            raise ValueError(f"--diff-base on {args.command} is the JAX package's git diff "
-                             f"scan, which this port does not have")
     except (ValueError, FileNotFoundError) as e:
         parser.error(str(e))
     log.init(quiet=opts["quiet"])
@@ -908,8 +998,9 @@ def main(argv: list[str] | None = None) -> int:
         raise ScanTimeout(f"scan exceeded --timeout={timeout}s")
 
     # the alarm is a signal, which only the main thread can take: a caller
-    # running main() on another thread gets no timeout
-    alarm = timeout > 0 and threading.current_thread() is threading.main_thread()
+    # running main() on another thread gets no timeout; watch is no one scan
+    alarm = (timeout > 0 and args.command != "watch"
+             and threading.current_thread() is threading.main_thread())
     if alarm:
         prev_handler = signal.signal(signal.SIGALRM, on_timeout)
         signal.alarm(timeout)
@@ -991,6 +1082,8 @@ def _run(args, opts: dict) -> int:
             # the JAX image, vm and sbom runners never read --server
             logger.warning("--server is ignored by %s: the scan runs locally, as the JAX "
                            "CLI's does", args.command)
+        if args.command == "watch":
+            return _run_watch(args, opts)
         if args.command == "sbom":
             # --skip-dirs, --skip-files and --parallel have no effect on an
             # SBOM, as in the JAX sbom
@@ -1005,6 +1098,12 @@ def _run(args, opts: dict) -> int:
             if not target:
                 logger.error("specify an image archive path (positional or --input)")
                 return 1
+            ignored = [f"--{k.replace('_', '-')}" for k in ("incremental", "since_last")
+                       if opts[k]]
+            if ignored:
+                # the JAX _run_image reads only --diff-base of the group
+                logger.warning("%s ignored by image: the scan runs as without it, as the JAX "
+                               "CLI's does", " and ".join(ignored))
             report, counters = _run_scan(scan_image, target, args, opts,
                                          cache=_make_cache(opts),
                                          parallel=max(0, opts["parallel"]),
@@ -1014,7 +1113,8 @@ def _run(args, opts: dict) -> int:
             report, counters = _run_scan(scan_vm, args.target, args, opts,
                                          cache=_make_cache(opts))
         else:
-            if opts["server"] and opts["diff_base"]:
+            incr = _incremental_options(opts)
+            if opts["server"] and incr is not None:
                 # the JAX _run_fs_like's refusal: the diff needs a local cache
                 logger.error("--incremental/--diff-base/--since-last require a local scan "
                              "path (drop --server or run the scan on the server)")
@@ -1023,9 +1123,22 @@ def _run(args, opts: dict) -> int:
             if args.command == "repo" and is_remote(target):
                 target = checkout_repo(target, branch=args.branch, tag=args.tag,
                                        commit=args.commit)
-            report, counters = _run_scan(scan_fs, target, args, opts,
-                                         parallel=max(0, opts["parallel"]),
-                                         server=opts["server"], token=opts["token"] or "")
+            if incr is None:
+                report, counters = _run_scan(scan_fs, target, args, opts,
+                                             parallel=max(0, opts["parallel"]),
+                                             server=opts["server"], token=opts["token"] or "")
+            else:
+                from trivy_tpu_torch.incremental.manifest import GitDiffError
+
+                try:
+                    report, counters = _run_scan(scan_fs, target, args, opts,
+                                                 parallel=max(0, opts["parallel"]),
+                                                 cache=_make_cache(opts), incremental=incr)
+                except GitDiffError as e:
+                    # a mistyped ref or no git worktree: an error, never a
+                    # quiet full scan
+                    logger.error("--diff-base %s: %s", incr.diff_base, e)
+                    return 1
         if args.stats_out:
             with open(args.stats_out, "w", encoding="utf-8") as f:
                 json.dump(counters, f, indent=2)
@@ -1037,6 +1150,65 @@ def _run(args, opts: dict) -> int:
         # a target or base that cannot be found, pulled or cloned: no report
         logger.error("%s", e)
         return 1
+
+
+def _incremental_options(opts: dict):
+    """The :class:`~trivy_tpu_torch.incremental.IncrementalOptions` of the
+    flags, None when none is set: a scan without them imports nothing of
+    ``incremental`` and writes no manifest (the JAX package's rule)."""
+    if not (opts["incremental"] or opts["diff_base"] or opts["since_last"]):
+        return None
+    from trivy_tpu_torch.incremental import IncrementalOptions
+
+    return IncrementalOptions.from_opts(opts)
+
+
+def _pause(seconds: float) -> None:
+    """The wait between two ``watch`` scans."""
+    time.sleep(seconds)
+
+
+def _run_watch(args, opts: dict) -> int:
+    """``watch <dir>`` (the JAX package's ``commands._run_watch``): scan,
+    then scan again every ``--watch-interval`` seconds, each scan a
+    ``--since-last`` incremental one on one cache. A report (and
+    ``--stats-out``) is written after the first scan and after every scan
+    that analyzed a unit or whose set of unit keys changed (a deletion).
+    Stops after ``--watch-count`` scans (0: never) or at Ctrl-C, with the
+    last report's exit code."""
+    from trivy_tpu_torch.incremental import IncrementalOptions
+
+    interval = float(args.watch_interval or 0) or 2.0
+    max_scans = int(args.watch_count or 0)
+    cache = _make_cache(opts)
+    # one DB for every scan, as the JAX watch keeps one driver
+    db = load_db(opts["db_repository"], opts["cache_dir"]) if "vuln" in opts["scanners"] else None
+    incr = IncrementalOptions(enabled=True, since_last=True)
+    rc = n = 0
+    prev_units = None
+    try:
+        while True:
+            n += 1
+            report, counters = _run_scan(scan_fs, args.target, args, opts,
+                                         parallel=max(0, opts["parallel"]), db=db,
+                                         cache=cache, incremental=incr)
+            analyzed = counters["units_analyzed"]
+            if n == 1 or analyzed > 0 or counters["unit_set"] != prev_units:
+                if args.stats_out:
+                    with open(args.stats_out, "w", encoding="utf-8") as f:
+                        json.dump(counters, f, indent=2)
+                rc = _emit(report, opts)
+                logger.info("watch scan #%d: %d/%d unit(s) re-analyzed", n, analyzed,
+                            counters["units_total"])
+            else:
+                logger.info("watch scan #%d: no changes", n)
+            prev_units = counters["unit_set"]
+            if max_scans and n >= max_scans:
+                return rc
+            _pause(interval)
+    except KeyboardInterrupt:
+        logger.info("watch stopped after %d scan(s)", n)
+        return rc
 
 
 def _run_server(args, opts: dict) -> int:

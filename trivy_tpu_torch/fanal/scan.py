@@ -188,7 +188,9 @@ class ReadAheadPool:
 def analyze_files(entries: Iterable[tuple[str, FileInfo, Callable[[], bytes]]], root: str,
                   group: AnalyzerGroup, secret: SecretAnalyzer | None,
                   licenses: list[LicenseAnalyzer], counts: Counter,
-                  read_ahead: int = 0) -> AnalysisResult:
+                  read_ahead: int = 0,
+                  result_for: Callable[[str], AnalysisResult] | None = None,
+                  walk_progress: bool = True) -> AnalysisResult:
     """Walk ``entries`` (``(rel, info, opener)`` of a tree under ``root`` or
     of a layer, ``root`` ``""``) through ``group`` and the batched analyzers,
     then finalize them: the secret analyzer first, as the fused gate is
@@ -204,6 +206,12 @@ def analyze_files(entries: Iterable[tuple[str, FileInfo, Callable[[], bytes]]], 
     analyzed in walk order, so results and counters do not depend on it.
     With 0 each file is read inline (a layer's or a disk's entries read
     from one stream).
+
+    With ``result_for`` (the incremental artifact's dirty units) each file's
+    per-file analyzer output goes into ``result_for(rel)`` and the returned
+    result holds only the batched analyzers' findings. ``walk_progress``
+    off leaves the walked bytes and the walk's end out of the progress, for
+    a caller that walked the entries itself.
 
     The scan's trace context gets the JAX walk's spans: ``fs.read_wait``
     (each read, or the wait on its read-ahead) and ``fs.batch_analyze``
@@ -237,7 +245,8 @@ def analyze_files(entries: Iterable[tuple[str, FileInfo, Callable[[], bytes]]], 
             progress.note_scanned(info.size)
             return
         counts["files_scanned"] += 1
-        group.analyze_file(result, takers, root, rel, info, content)
+        group.analyze_file(result if result_for is None else result_for(rel), takers, root,
+                           rel, info, content)
         for a in batch_takers:
             if a is secret:
                 a.collect(rel, content, dir_=root)
@@ -255,7 +264,8 @@ def analyze_files(entries: Iterable[tuple[str, FileInfo, Callable[[], bytes]]], 
                            progress=lambda: f"{n_analyzed[0]} files analyzed"):
             for rel, info, opener in entries:
                 counts["files_walked"] += 1
-                progress.note_walked(info.size)
+                if walk_progress:
+                    progress.note_walked(info.size)
                 takers = group.required(rel, info)
                 batch_takers = [a for a in batch if a.required(rel, info.size)]
                 wanted = bool(takers or batch_takers)
@@ -269,7 +279,8 @@ def analyze_files(entries: Iterable[tuple[str, FileInfo, Callable[[], bytes]]], 
                     entry = window.popleft()
                     buffered -= entry[1].size if entry[4] is not None else 0
                     analyze(*entry)
-            progress.finish_walk()
+            if walk_progress:
+                progress.finish_walk()
             while window:
                 analyze(*window.popleft())
             # the batched analyzers join their streaming device scans here

@@ -291,6 +291,7 @@ JAX_FLAGS = {
         "fs": _FS_LIKE,
         "rootfs": _FS_LIKE,
         "repo": _FS_LIKE,
+        "watch": _FS_LIKE[:7] + ("tuning",),
         "image": _FS_LIKE[:7] + ("client/server", "image", "fleet", "tuning", "incremental"),
         "vm": _FS_LIKE[:8] + ("tuning",),
         "sbom": ("global", "scan", "report", "db", "client/server"),
