@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's secret, license, SBOM, filesystem
 vulnerability, image (archive, registry, daemon), repository and VM scans,
 its incremental scans and ``watch``, its report formats, its multi-device
-dispatch and its client/server mode on one NVIDIA card.
+dispatch, its client/server mode and its fleet replica on one NVIDIA card.
 
     python3 chip_smoke.py [--e2e-mib 64] [--license-mib 48] [--image-mib 64]
         [--seed 0]
@@ -285,8 +285,8 @@ Phases, each printing JSON lines:
     ``formats``. An in-process ``start_server(device="cuda")`` with the
     loaded DB on a thread (``--max-concurrent-scans 2
     --admission-queue-depth 1``) and ``cli.main``'s ``fs --scanners
-    vuln,secret,license --server`` as the client, beside a local card scan
-    of the tree: (a) the client scan's ``Results`` and ``Metadata`` equal
+    vuln,secret,license --license-full --server`` as the client, beside a
+    local card scan of the tree: (a) the client scan's ``Results`` and ``Metadata`` equal
     the local scan's, with the matcher, decompressor and license kernels
     launched by the client and ``verscmp`` by the server (launch counters
     to 0 just before, read just after; the ``kernels`` line's
@@ -299,8 +299,17 @@ Phases, each printing JSON lines:
     to (c)'s, a wrong token refused with 401, SIGTERM drains it, exit 0;
     (f) (b)'s ``--trace-out`` holds one trace id with the server's spans
     under the client's ``rpc.scan``, and ``GET /metrics`` parses with
-    ``parse_text``. Printed: the local and client/server scans' seconds and
-    components/s, the sheds and the subprocess's start-up seconds.
+    ``parse_text``; (g) the fleet's replica side (``fleet_leg``): the tree
+    planned into four shards by ``fleet/plan.py::plan_fs_shards``, two sent
+    with ``scan_shard`` and two with ``submit(shard=)`` and ``wait_result``
+    to the in-process server, which analyses them on the card; their blobs
+    folded here in plan order through the port's ``LocalDriver`` as
+    ``trivy_tpu/fleet/merge.py:91-104`` folds them: the local scan's
+    ``Results``, every feed and license kernel launched by the server's
+    threads and one ``verscmp`` by the fold (the ``server-fleet`` line).
+    Printed: the local and client/server scans' seconds and components/s,
+    the sheds, the subprocess's start-up seconds, and the shards' and the
+    fold's seconds beside the local scan's.
 13. image: this slice's path. A seeded docker-save archive of about 64
     MiB of layer bytes (``--image-mib``) in five layers: a debian 12 base
     (the fs-vuln ``var/lib/dpkg/status`` and one planted secret; the
@@ -355,7 +364,8 @@ Phases, each printing JSON lines:
     phase's first scan (``launches_image``), in the ``sources`` phase's
     registry scan (``launches_registry``), in the ``ladder`` phase's runs
     (``launches_ladder``), in the ``server`` phase's client/server scan
-    (``launches_server``), in the ``incremental`` phase's cold scan
+    (``launches_server``) and in its shards with their fold
+    (``launches_shards``), in the ``incremental`` phase's cold scan
     (``launches_incremental``) and in its scans of an unchanged tree
     (``launches_incremental_rescans``, all zero but ``verscmp``'s), and in
     the ``mesh`` phase's round-robin and mesh runs with their batches by
@@ -3331,6 +3341,8 @@ def phase_formats(root: Path, fs_tree: Path, db_dir: Path, card: str) -> dict:
 # clients of run (c) scan, and the raw submits of run (d)'s burst
 SERVER_CLIENTS = 4
 SERVER_BURST = 8
+# the shards leg (g) of phase server plans the tree into
+FLEET_SHARDS = 4
 
 
 class RecordingCache(MemoryCache):
@@ -3376,6 +3388,90 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def fleet_leg(url: str, fs_tree: Path, db, device: str, local: dict, local_s: float) -> dict:
+    """Phase server's leg (g), the fleet's replica side: the port's
+    ``plan_fs_shards`` of the tree with ``vuln,secret,license
+    --license-full`` at ``FLEET_SHARDS`` shards; two shards sent with
+    ``scan_shard`` and the others with ``submit(shard=)`` and
+    ``wait_result`` to the server at ``url``, which analyses them on its
+    device; their blobs put into a memory cache in plan order and the port's
+    ``LocalDriver`` run here on the reference ``trivy_tpu/fleet/merge.py:91-104``
+    builds (the fold stays in this leg until the coordinator is ported). The
+    merged ``Results`` must equal ``local``'s, the shards must have launched
+    every feed and license kernel and no ``verscmp``, and the fold one
+    ``verscmp`` and nothing else (launch counters to 0 just before each
+    half, read just after)."""
+    import hashlib
+
+    from trivy_tpu_torch.artifact.image import ArtifactReference
+    from trivy_tpu_torch.cache import cached_blobs
+    from trivy_tpu_torch.fleet.plan import ShardSettings, plan_fs_shards
+    from trivy_tpu_torch.result import FilterOptions, filter_report
+    from trivy_tpu_torch.rpc.client import RemoteDriver
+    from trivy_tpu_torch.scanner import ScanOptions, build_report
+    from trivy_tpu_torch.scanner.local_driver import LocalDriver
+
+    scanners = ["vuln", "secret", "license"]
+    opts = ScanOptions(scanners=scanners)
+    t0 = time.perf_counter()
+    shards, total_bytes, total_files = plan_fs_shards(
+        str(fs_tree), ShardSettings(scanners=scanners, license_full=True, device=device),
+        FLEET_SHARDS)
+    plan_s = time.perf_counter() - t0
+    driver = RemoteDriver(url)
+    LAUNCHES.clear()
+    t1 = time.perf_counter()
+    resps = {s.index: driver.scan_shard(s.label(), s.wire, opts) for s in shards[:2]}
+    subs = [(s.index, driver.submit(s.label(), "", [], opts, shard=s.wire)) for s in shards[2:]]
+    for idx, sub in subs:
+        resps[idx] = driver.wait_result(sub["JobID"], timeout=600)
+    shards_s = time.perf_counter() - t1
+    launches = dict(LAUNCHES)
+    # the fold of trivy_tpu/fleet/merge.py:91-104: one blob per shard, in
+    # plan order, under the key the replica returned
+    cache = MemoryCache()
+    blob_ids = []
+    for idx in sorted(resps):
+        for b in resps[idx]["Blobs"]:
+            cache.put_blob(b["BlobID"], b["BlobInfo"])
+            blob_ids.append(b["BlobID"])
+    ref = ArtifactReference(
+        name=str(fs_tree).rstrip(os.path.sep), type="filesystem",
+        id="sha256:" + hashlib.sha256(("fleet:" + ":".join(blob_ids)).encode()).hexdigest(),
+        blob_ids=blob_ids)
+    health: dict = {}
+    for r in resps.values():
+        for k, v in r["Health"].items():
+            health[k] = health.get(k, 0) + v
+    LAUNCHES.clear()
+    t2 = time.perf_counter()
+    results, os_info = LocalDriver(db, torch.device(device)).scan(
+        ref.name, cached_blobs(cache, ref.blob_ids), opts)
+    report = build_report(ref.name, ref.type, results, os_info,
+                          skipped_files=health.get("walk.skipped", 0), health=health)
+    filter_report(report, FilterOptions(severities=cli.SEVERITIES))
+    fold_s = time.perf_counter() - t2
+    fold_launches = dict(LAUNCHES)
+    merged = json.loads(json.dumps(report.to_dict()))
+    result = {
+        "shards": len(shards), "files": total_files, "bytes": total_bytes,
+        "shard_bytes": [s.nbytes for s in shards], "plan_s": plan_s, "shards_s": shards_s,
+        "fold_s": fold_s, "leg_s": time.perf_counter() - t0, "local_s": local_s,
+        "launches": launches, "fold_launches": fold_launches, "health": health,
+        "equal_local": merged["Results"] == local["Results"],
+    }
+    log({"phase": "server-fleet", **result})
+    check(result["equal_local"], "server (g): the merged shard Results differ from the local scan")
+    if device == "cuda":
+        check(all(launches.get(k, 0) > 0 for k in IMAGE_KERNELS)
+              and not launches.get("verscmp", 0),
+              f"server (g): the shards' launches on the server {launches}")
+        check(fold_launches.get("verscmp", 0) == 1
+              and not any(fold_launches.get(k, 0) for k in IMAGE_KERNELS),
+              f"server (g): the fold's launches {fold_launches}")
+    return result
+
+
 def phase_server(root: Path, fs_tree: Path, db_dir: Path, card: str,
                  device: str = "cuda") -> dict:
     """Client/server mode on the card: an in-process ``start_server`` with
@@ -3407,8 +3503,8 @@ def phase_server(root: Path, fs_tree: Path, db_dir: Path, card: str,
     out = root / "out"
     out.mkdir(parents=True)
     subsets = server_subsets(fs_tree, root)
-    head = ["fs", "--scanners", "vuln,secret,license", "--db-repository", str(db_dir),
-            "--device", device, "--format", "json", "-q"]
+    head = ["fs", "--scanners", "vuln,secret,license", "--license-full", "--db-repository",
+            str(db_dir), "--device", device, "--format", "json", "-q"]
 
     def run(tag: str, *extra: str) -> tuple[dict, dict, float, dict]:
         LAUNCHES.clear()
@@ -3509,6 +3605,8 @@ def phase_server(root: Path, fs_tree: Path, db_dir: Path, card: str,
             "async_equal_sync": [Result.from_dict(r).to_dict() for r in job.get("Results", [])]
             == [r.to_dict() for r in sync],
         })
+        # (g) the fleet's replica side: shards of the tree, sync and async
+        result["fleet"] = fleet_leg(url, fs_tree, db, device, local, local_s)
         metrics = parse_text(get_metrics_text(url))
         result["metrics_scans"] = metrics["trivy_tpu_scans_total"].first()
     finally:
@@ -3569,7 +3667,7 @@ def phase_server(root: Path, fs_tree: Path, db_dir: Path, card: str,
     check(bool(shed) and all(c in (429, 503) and ra for c, ra in shed),
           f"server: burst codes {result['burst_codes']}, Retry-After {result['burst_retry_after']}")
     check(result["async_equal_sync"], "server: the async job differs from the sync scan")
-    check(result["metrics_scans"] >= 2 + 2 * SERVER_CLIENTS,
+    check(result["metrics_scans"] >= 2 + 2 * SERVER_CLIENTS + FLEET_SHARDS,
           f"server: /metrics counted {result['metrics_scans']} scans")
     check(result["subprocess_equal"], "server: the subprocess server's Results differ")
     check("401" in result["wrong_token"], f"server: wrong token {result['wrong_token']}")
@@ -4288,6 +4386,11 @@ def main() -> int:
         # phase server's client/server scan: the client's feed and license
         # kernels and the in-process server's constraint kernel
         entry["launches_server"] = server["launches"].get(key, 0)
+        # phase server's leg (g): the shards' kernels on the server's threads
+        # and the fold's constraint kernel
+        fleet = server["fleet"]
+        entry["launches_shards"] = (fleet["launches"].get(key, 0)
+                                    + fleet["fold_launches"].get(key, 0))
         # phase mesh's round-robin and data = 2 mesh runs over [cuda:0, cuda:0]
         for tag, run in (("round_robin", "round-robin"), ("mesh", "mesh")):
             entry[f"launches_{tag}"] = mesh["runs"][run]["launches"].get(key, 0)

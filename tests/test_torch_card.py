@@ -1231,3 +1231,42 @@ def test_unchanged_incremental_rescan_launches_no_feed_kernel_on_card(card, tmp_
                                                "bytes_gate", "bytes_score", "verscmp")), cold_l
     assert not any(warm_l.get(k, 0) for k in FEED_KERNELS), warm_l
     assert warm_l.get("verscmp", 0) == cold_l["verscmp"]
+
+
+@pytest.mark.cuda
+def test_fleet_shards_on_card_equal_cpu(card, tmp_path):
+    """A fleet replica's work on the card: an fs shard of ``secret,license
+    --license-full`` over :func:`card_files`' texts and every layer shard of
+    :func:`card_image` through ``execute_shard`` on ``cuda``, each blob and
+    key equal to the same shard's on the CPU, with the feed's and the
+    license kernels launched."""
+    from trivy_tpu_torch.artifact.image import ImageArchiveArtifact
+    from trivy_tpu_torch.cache import new_cache
+    from trivy_tpu_torch.fanal.scan import ScanAnalyzers
+    from trivy_tpu_torch.fleet import plan
+
+    tree = tmp_path / "tree"
+    apps, content = card_files()
+    for rel, data in {**apps, **content}.items():
+        (tree / rel).parent.mkdir(parents=True, exist_ok=True)
+        (tree / rel).write_bytes(data)
+    settings = plan.ShardSettings(scanners=["secret", "license"], license_full=True,
+                                  device="cuda")
+    (shard,) = plan.plan_fs_shards(str(tree), settings, 1)[0]
+    path = card_image(tmp_path)
+    scanners = ["vuln", "secret", "license"]
+    art = ImageArchiveArtifact(path, new_cache("memory"),
+                               ScanAnalyzers(scanners, "cpu", license_full=True, packages=True))
+    layers = plan.plan_image_shards(art, new_cache("memory"), plan.ShardSettings(
+        scanners=scanners, license_full=True, device="cuda")).shards
+    assert shard.wire["Backend"] == "auto" and len(layers) == 4
+    before = dict(match_cuda.LAUNCHES)
+    on_card = [plan.execute_shard(s.wire, new_cache("memory"), device=card)
+               for s in (shard, *layers)]
+    launched = kernel_launches(before)
+    on_cpu = [plan.execute_shard(s.wire, new_cache("memory"), device="cpu")
+              for s in (shard, *layers)]
+    assert json.dumps(on_card, sort_keys=True) == json.dumps(on_cpu, sort_keys=True)
+    assert all(launched[k] > 0 for k in FEED_KERNELS) and launched["verscmp"] == 0, launched
+    info = on_card[0][0]["BlobInfo"]
+    assert info["Secrets"] and len(info["Licenses"]) >= len(FULL_TEXTS)

@@ -6,8 +6,8 @@ port server) on an fs-vuln tree and a secret tree, each equal to both
 packages' local scans, with the blob ID the JAX client sends; concurrent
 clients through one port server, each equal to its serial scan (the
 constraint dispatch's buffers are shared per DB); a DB hot swap that
-releases the old join's device bytes; fleet ``Shard`` requests refused
-with 400; ``--server`` on ``image``, ``vm`` and ``sbom`` scanning locally
+releases the old join's device bytes; the fleet's register and
+deregister seams answering 404 (no coordinator); ``--server`` on ``image``, ``vm`` and ``sbom`` scanning locally
 with one warning, as the JAX CLI's do; and the ``server`` command in a
 subprocess. Every server stops in a ``finally``, every wait has its own
 timeout."""
@@ -522,28 +522,6 @@ def test_db_reload_releases_the_resident_join(tmp_path):
 
 
 # -- what the port's server refuses --------------------------------------------
-
-
-def test_shard_requests_answer_400(tmp_path):
-    """A fleet ``Shard`` block gets a loud 400, sync and async, never a scan."""
-    from trivy_tpu_torch.rpc.admission import resolve_admission
-
-    httpd, port = start_server(cache=new_cache("memory"), device="cpu",
-                               admission=resolve_admission({"max_concurrent_scans": 1}))
-    try:
-        base = f"http://127.0.0.1:{port}"
-        body = json.dumps({"Target": "t", "Shard": {"Index": 0}}).encode()
-        for path in (rpc.SCANNER_SCAN, rpc.SCAN_SUBMIT):
-            req = urllib.request.Request(base + path, data=body,
-                                         headers={"Content-Type": "application/json"})
-            with pytest.raises(urllib.error.HTTPError) as ei:
-                urllib.request.urlopen(req, timeout=WAIT)
-            assert ei.value.code == 400
-            assert "fleet shards are not ported" in json.loads(ei.value.read())["error"]
-        assert httpd.service.metrics.scans.value() == 0
-        assert httpd.service.admission.queue_depth() == 0
-    finally:
-        httpd.shutdown()
 
 
 def test_fleet_seams_answer_404(server):

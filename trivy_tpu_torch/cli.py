@@ -400,9 +400,7 @@ def _remote_detect(blob, name: str, analyzers: ScanAnalyzers, skip_files, skip_d
     from trivy_tpu_torch.rpc.client import RemoteCache, RemoteDriver
 
     t0 = time.perf_counter()
-    # with the JAX BlobInfo's two sections the port has no analyzer for
-    # (always empty here), the content key is the one the JAX client sends
-    blob_dict = {**blob.to_dict(), "Misconfigurations": [], "CustomResources": []}
+    blob_dict = blob.to_wire_dict()  # the JAX client's blob, so the JAX key
     blob_id = calc_key(calc_blob_key(blob_dict), analyzer_versions=analyzers.versions(),
                        hook_versions=HandlerManager().versions(),
                        skip_files=list(skip_files), skip_dirs=list(skip_dirs))

@@ -77,6 +77,18 @@ class FileInfo:
         return cls(size=st.st_size, mode=st.st_mode)
 
 
+def _opener(path: str, rel: str) -> Callable[[], bytes]:
+    """The reader of one walked file."""
+
+    def opener() -> bytes:
+        # an injected io fault reads as an unreadable file
+        faults.check("walker.read", key=rel)
+        with open(path, "rb") as f:
+            return f.read()
+
+    return opener
+
+
 class FSWalker:
     """Walk a directory tree, yielding each eligible file."""
 
@@ -137,13 +149,23 @@ class FSWalker:
                     logger.debug("file exceeds size threshold, skipping %s", rel)
                     continue
 
-                def opener(path=full, rel=rel) -> bytes:
-                    # an injected io fault reads as an unreadable file
-                    faults.check("walker.read", key=rel)
-                    with open(path, "rb") as f:
-                        return f.read()
+                yield rel, FileInfo.from_stat(st), _opener(full, rel)
 
-                yield rel, FileInfo.from_stat(st), opener
+    def walk_paths(self, root: str, rels) -> Iterator[tuple[str, FileInfo, Callable[[], bytes]]]:
+        """The files ``rels`` (slash-separated, relative to ``root``) in the
+        given order, as :meth:`walk` yields them but without its skip rules:
+        a fleet shard's planned paths. A path that cannot be stat'ed (deleted
+        since the plan) is counted as the walk counts a stat failure."""
+        root = os.path.abspath(root)
+        self.skipped = 0
+        for rel in rels:
+            full = os.path.join(root, *rel.split("/"))
+            try:
+                st = os.lstat(full)
+            except OSError as e:
+                self._note_skip(rel, e)
+                continue
+            yield rel, FileInfo.from_stat(st), _opener(full, rel)
 
     def _note_skip(self, what: str, err: OSError) -> None:
         """One tolerated walk/stat failure: never fatal, never silent."""

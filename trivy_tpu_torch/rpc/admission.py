@@ -937,12 +937,15 @@ class AdmissionController:
                 # the job id IS the scan's trace id; drop a client
                 # traceparent whose trace id lost the mint-time collision
                 # check (the scan must not join a trace the progress and
-                # result APIs aren't keyed by); the server refuses fleet
-                # shard jobs at submit, so no job shares a coordinator's
-                # trace here
+                # result APIs aren't keyed by). Fleet SHARD jobs are the
+                # exception: N concurrent shards share one coordinator
+                # trace (a single merged timeline) while each keeps its
+                # own job id — the server registers the job id as the
+                # shard's progress key, so the poll keying holds
                 tp = job.traceparent
                 joined = obs.parse_traceparent(tp)
-                if joined and joined[0] != job.id:
+                if joined and joined[0] != job.id \
+                        and not job.req.get("Shard"):
                     tp = None
                 # async jobs hold the DBReloader in-flight guard exactly
                 # like the sync _dispatch path: an advisory-DB hot swap

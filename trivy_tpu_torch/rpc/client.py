@@ -531,19 +531,23 @@ class RemoteDriver:
 
     def submit(self, target: str, artifact_id: str, blob_ids: list[str],
                options: ScanOptions,
-               deadline_s: float | None = None) -> dict:
+               deadline_s: float | None = None,
+               shard: dict | None = None) -> dict:
         """Submit a scan to the server's admission queue
         (``POST /scan/submit``); returns the submit document (``JobID``,
         ``QueuePosition``, ...). Sheds (429/503 + Retry-After) ride the
         normal full-jitter retry loop, so a busy-but-draining queue turns
-        into a later accepted submit, not an error. (The JAX client's
-        ``shard`` argument, a fleet shard spec, comes with the fleet.)"""
+        into a later accepted submit, not an error. ``shard`` attaches a
+        fleet shard spec: the server then runs that shard's ANALYSIS and
+        the job result carries its ``Blobs`` instead of scan results."""
         import os as _os
 
         ctx = obs.current()
         payload = self._scan_payload(
             target, artifact_id, blob_ids, options, bool(ctx.enabled)
         )
+        if shard is not None:
+            payload["Shard"] = shard
         if deadline_s is not None:
             payload["DeadlineSeconds"] = deadline_s
         # submit is NOT idempotent on the wire (it enqueues); the key is
@@ -555,6 +559,23 @@ class RemoteDriver:
             self.base, rpc.SCAN_SUBMIT, payload, self.token,
             self.token_header, self.timeout, self.retries, self.deadline,
         )
+
+    def scan_shard(self, target: str, shard: dict,
+                   options: ScanOptions) -> dict:
+        """Synchronous fleet-shard execution (``Scanner.Scan`` with a
+        ``Shard`` block) for replicas running without admission control /
+        the async job API; returns the raw shard response
+        (``Blobs``/``Health``/``Trace``)."""
+        ctx = obs.current()
+        payload = self._scan_payload(target, "", [], options,
+                                     bool(ctx.enabled))
+        payload["Shard"] = shard
+        with ctx.span("rpc.scan"):
+            return _post(
+                self.base, rpc.SCANNER_SCAN, payload, self.token,
+                self.token_header, self.timeout, self.retries,
+                self.deadline,
+            )
 
     def fetch_result(self, job_id: str) -> dict:
         """One fail-fast poll of a submitted job's result document."""

@@ -18,8 +18,17 @@ requests share the join but never one dispatch's buffers
 (``detector/library.py``). A server asked for ``cuda`` without a card, or
 whose kernel cannot be built, fails at boot. A DB hot swap releases the old
 join's device bytes from the flight ledger once the guarded requests have
-finished. Requests carrying a fleet ``Shard`` block answer 400: the fleet
-is not ported.
+finished.
+
+A request carrying a fleet ``Shard`` block (a JAX coordinator's, or the
+port client's ``scan_shard`` and ``submit(shard=)``) runs the ANALYSIS of
+that shard on this server's device (``fleet/plan.py::execute_shard``): on
+the card the secret feed and the license kernels run here, and the answer
+is the shard's ``Blobs`` with this server's ``Health`` delta (``Trace`` on
+``WantTrace``); detection and the merge stay with the coordinator. A shard
+with a scanner the port lacks (``misconfig``), an unknown kind or an
+unknown ``Backend`` answers 400, at the async front door too; one whose
+root or secret config this host cannot see fails loudly.
 
 With admission control enabled (:mod:`trivy_tpu_torch.rpc.admission`,
 ``--max-concurrent-scans > 0``) the server becomes an overload-safe
@@ -42,6 +51,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from trivy_tpu_torch import VERSION, log, obs, rpc
 from trivy_tpu_torch.cache import cached_blobs
 from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve
+from trivy_tpu_torch.fleet import plan as fleet_plan
 from trivy_tpu_torch.obs import metrics as obs_metrics
 from trivy_tpu_torch.obs import timeseries as obs_timeseries
 from trivy_tpu_torch.scanner import ScanOptions
@@ -85,11 +95,6 @@ ENV_MAX_REQUEST_BYTES = "TRIVY_TPU_MAX_REQUEST_BYTES"
 # alive after an early reply (shed, 401, draining); larger bodies close
 # the connection instead of being read just to keep a socket warm
 DRAIN_BODY_MAX = 1 * 1024 * 1024
-
-
-# the answer to a scan request or job that carries a fleet Shard block
-SHARD_REFUSED = ("fleet shards are not ported: this server runs detection scans only "
-                 "(drop the Shard block)")
 
 
 class BadRequest(ValueError):
@@ -339,13 +344,23 @@ class ScanServer:
     def scan(self, req: dict, traceparent: str | None = None,
              trace_id: str | None = None, queue_wait_s: float | None = None,
              tenant: str | None = None) -> dict:
-        if req.get("Shard") is not None:
-            raise BadRequest(SHARD_REFUSED)
         options = ScanOptions(
             scanners=req.get("Options", {}).get("Scanners", ["vuln"]),
             list_all_pkgs=bool(req.get("Options", {}).get("ListAllPkgs")),
         )
         target = req.get("Target", "")
+        # fleet shard execution: a request carrying a Shard block runs the
+        # ANALYSIS of that shard on this replica (its own device and feed)
+        # and returns the resulting blobs; detection and the merge through
+        # the applier stay on the coordinator. It rides the same trace-join,
+        # progress-registry, sampler and admission plumbing as a detection
+        # scan (the async job API works unchanged)
+        shard = req.get("Shard")
+        if shard is not None:
+            try:
+                fleet_plan.check_shard(shard)
+            except fleet_plan.ShardRefused as e:
+                raise BadRequest(str(e)) from None
         # per-request trace context: concurrent scans record into disjoint
         # tables (each handler thread carries its own contextvar value), and
         # the aggregates feed the shared /metrics registry afterwards. When
@@ -374,11 +389,22 @@ class ScanServer:
             # tracks shipped back in the Trace block and the process gauges
             # on GET /metrics; the progress registry serves
             # GET /scan/<trace_id>/progress while this request runs, with
-            # the request's blobs as its work-list
+            # the request's blobs as a detection scan's work-list and the
+            # shard's files as a shard's. A fleet shard job joins the
+            # COORDINATOR's trace id (so N shards merge into one timeline)
+            # but registers progress under its JOB id only: N concurrent
+            # shards share one trace id, and registering it would let the
+            # first to finish retire (and freeze) a sibling's live entry. A
+            # job id equal to the trace id (the first job of a trace takes
+            # it) is still its own job's key; a sync shard has no job id
             progress = ctx.progress()
-            self._progress_register(ctx.trace_id, progress)
+            if shard is not None:
+                progress_keys = [trace_id] if trace_id else []
+            else:
+                progress_keys = [ctx.trace_id]
+            for key in progress_keys:
+                self._progress_register(key, progress)
             blob_ids = list(req.get("BlobIDs", []))
-            progress.note_walked(0, files=len(blob_ids))
             sampler = obs_timeseries.start_sampler(
                 ctx, self.telemetry_interval
             )
@@ -387,12 +413,19 @@ class ScanServer:
                     logger, f"scan of {target or '<unnamed>'}", HEARTBEAT_SECS
                 ):
                     t0 = time.perf_counter()
-                    with ctx.span("server.scan"):
-                        blobs = cached_blobs(
-                            self.cache, blob_ids,
-                            on_read=lambda: progress.note_scanned(0))
-                        results, os_info = self.driver.scan(target, blobs, options)
-                    progress.finish_walk()
+                    if shard is not None:
+                        with ctx.span("server.shard"):
+                            blobs = fleet_plan.execute_shard(
+                                shard, self.cache, self.device,
+                                list_all_pkgs=options.list_all_pkgs)
+                    else:
+                        progress.note_walked(0, files=len(blob_ids))
+                        with ctx.span("server.scan"):
+                            cached = cached_blobs(
+                                self.cache, blob_ids,
+                                on_read=lambda: progress.note_scanned(0))
+                            results, os_info = self.driver.scan(target, cached, options)
+                        progress.finish_walk()
                     dt = time.perf_counter() - t0
                 progress.finish()
             finally:
@@ -400,12 +433,19 @@ class ScanServer:
                 # the finished table then serves the last honest snapshot
                 if sampler is not None:
                     sampler.stop()
-                self._progress_retire(ctx.trace_id)
+                for key in progress_keys:
+                    self._progress_retire(key)
             self.metrics.observe_scan(ctx, dt)
-        resp = {
-            "OS": os_info.to_dict() if os_info else None,
-            "Results": [r.to_dict() for r in results],
-        }
+        if shard is not None:
+            # shard responses carry blobs plus this replica's health delta
+            # (skipped files, degradations) so the coordinator's merged
+            # report sums SkippedFiles/Degraded exactly like a local scan
+            resp = {"Blobs": blobs, "Health": ctx.health_snapshot()}
+        else:
+            resp = {
+                "OS": os_info.to_dict() if os_info else None,
+                "Results": [r.to_dict() for r in results],
+            }
         if req.get("WantTrace"):
             from trivy_tpu_torch.obs import export as obs_export
 
@@ -851,10 +891,13 @@ def _make_handler(server: ScanServer, token: str, token_header: str):
                 })
                 return
             if req.get("Shard") is not None:
-                # refused at the front door, never queued as a job that
-                # would fail later
-                self._reply(400, {"error": SHARD_REFUSED})
-                return
+                # a shard this port cannot run is refused at the front
+                # door, never queued as a job that would fail later
+                try:
+                    fleet_plan.check_shard(req["Shard"])
+                except fleet_plan.ShardRefused as e:
+                    self._reply(400, {"error": str(e)})
+                    return
             deadline_s = req.pop("DeadlineSeconds", None)
             if deadline_s is not None:
                 try:

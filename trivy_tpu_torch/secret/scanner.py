@@ -543,6 +543,17 @@ class TorchSecretScanner:
                 self._staged.add_stage(
                     "license", lambda d: get_gate_fn(self.chunk_len, d), fn)
 
+    def seed_hit_entries(self, entries: list) -> int:
+        """Pre-warm the dedup store from a peer's export (a fleet shard's
+        ``WarmHits``); returns the entries accepted. Entries of another
+        fingerprint namespace are dropped with a warning by the store."""
+        return self._hit_store.seed(entries)
+
+    def export_warm_hits(self) -> list:
+        """Warm dedup entries (``[[persist_key, doc], ...]``, at most the
+        store's export limit) for a peer to seed from."""
+        return self._hit_store.export_warm()
+
     def _alloc_slab(self, rows: int, row_len: int) -> np.ndarray:
         """Arena slab: pinned host memory on the card (one asynchronous
         copy per batch), plain memory on the CPU."""

@@ -459,6 +459,13 @@ class BlobInfo:
             "WhiteoutFiles": list(self.whiteout_files),
         }
 
+    def to_wire_dict(self) -> dict[str, Any]:
+        """:meth:`to_dict` with the JAX blob's two sections the port has no
+        analyzer for (misconfigurations, custom resources), always empty:
+        the blob a JAX client or replica sends, whose content key is the JAX
+        key."""
+        return {**self.to_dict(), "Misconfigurations": [], "CustomResources": []}
+
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "BlobInfo":
         return cls(
