@@ -301,21 +301,26 @@ Phases, each printing JSON lines:
     (f) (b)'s ``--trace-out`` holds one trace id with the server's spans
     under the client's ``rpc.scan``, and ``GET /metrics`` parses with
     ``parse_text``; (g) the fleet through the port's coordinator
-    (``fleet_leg``, the ``server-fleet`` line): ``cli.main``'s ``--fleet
-    --fleet-telemetry-interval 0`` over the phase's server and a second one
-    on the card without admission (synchronous shards), launches counted
-    per trace context. (g1) ``fs`` of the tree in four shards: the local
-    scan's ``Results``, every feed and license kernel launched by the
-    replicas' shard scans and one ``verscmp`` by the coordinator's fold;
-    the other sub-legs scan ``secret,license`` without a DB: (g2) a few
-    MiB of the tree over one live and one dead replica: equal ``Results``,
-    no ``Degraded``, the dead replica's breaker open; (g3) the subtree over
+    (``fleet_leg``, the ``server-fleet`` line): ``cli.main``'s ``--fleet``
+    over the phase's server and a second one on the card without admission
+    (synchronous shards), launches counted per trace context. (g1) ``fs``
+    of the tree in four shards with the telemetry plane at its default
+    interval (1.0 s): the local scan's ``Results``, every feed and license
+    kernel launched by the replicas' shard scans and one ``verscmp`` by the
+    coordinator's fold, and the ``fleet`` block of ``--metrics-out`` naming
+    both replicas, scraped, with a headroom in [0, 1]; the other sub-legs
+    scan ``secret,license`` without a DB: (g2) a few MiB of the tree over
+    one live and one dead replica with the plane at 0.2 s: equal
+    ``Results``, no ``Degraded``, the dead replica's breaker open and its
+    failed scrapes in the ``fleet`` block; (g3) the subtree over
     two dead replicas: the local fallback launches the feed and license
     kernels in the coordinator, root ``Degraded``, equal ``Results``, and
     with ``--no-host-fallback`` exit 1; (g4) ``image --fleet`` of a
     three-layer archive of the subtree: the local image scan's ``Results``,
-    ``ImageID`` and ``DiffIDs``. The plan's, the fan-out's and the fold's
-    seconds and the coordinator's counters are printed.
+    ``ImageID`` and ``DiffIDs``; g3 and g4 run with
+    ``--fleet-telemetry-interval 0``. The plan's, the fan-out's and the
+    fold's seconds, the coordinator's counters and the replicas' headroom
+    and fleet MB/s are printed.
     Printed: the local and client/server scans' seconds and components/s,
     the sheds, the subprocess's start-up seconds, and the shards' and the
     fold's seconds beside the local scan's.
@@ -3482,19 +3487,27 @@ def fleet_leg(url: str, root: Path, fs_tree: Path, db_dir: Path, device: str, lo
     ``cli.main``'s ``--fleet`` over the phase's server and a second
     in-process port server on the card without admission (so the
     coordinator sends it synchronous ``scan_shard`` calls after a 404 on
-    submit), ``--fleet-telemetry-interval 0`` and a memory merge cache.
+    submit) and a memory merge cache.
     Kernel launches are counted per trace context (``launches_by_context``):
     the replicas' shard scans, the coordinator's local fallback and the
     coordinator's fold. (g1) ``fs`` of the tree with ``vuln,secret,license
     --license-full`` in four shards (each then holds the eight license
-    texts the classifier's device path takes): the local scan's
-    ``Results``, every feed and license kernel launched by the replicas and
-    no ``verscmp``, one ``verscmp`` by the fold and nothing else. The other
-    sub-legs scan with ``secret,license --license-full`` and no DB (no DB
-    load per command). (g2) a few MiB of the tree (``fleet_subtree``) over
-    the live server and a port nobody listens on:
-    the subtree's local ``Results``, no ``Degraded``, the dead replica's
-    breaker open and no shard on it. (g3) the subtree over two dead ports:
+    texts the classifier's device path takes), with the telemetry plane at
+    its default interval and ``--metrics-out`` and ``--timeseries-out``:
+    the local scan's ``Results``, every feed and license kernel launched by
+    the replicas and no ``verscmp``, one ``verscmp`` by the fold and nothing
+    else; the ``fleet`` block names both replicas, each scraped at least
+    once with a headroom in [0, 1], and a replica's summary holds
+    ``device_busy_ratio`` and ``queue_depth``; afterwards no
+    ``trivy_tpu_fleet_*`` row and no ``fleet-telemetry`` thread is left.
+    The other sub-legs scan with ``secret,license --license-full`` and no
+    DB (no DB load per command). (g2) a few MiB of the tree
+    (``fleet_subtree``) over the live server and a port nobody listens on,
+    the plane at 0.2 s: the subtree's local ``Results``, no ``Degraded``,
+    the dead replica's breaker open, no shard on it, and its block with at
+    least two failed scrapes and ``breaker_open``. g3 and g4 keep
+    ``--fleet-telemetry-interval 0``, the gated-off path. (g3) the subtree
+    over two dead ports:
     the local fallback on the card launches the feed and license kernels
     in the coordinator, the report is ``Degraded`` with the local
     ``Results``; with ``--no-host-fallback`` the command exits 1. (g4)
@@ -3508,7 +3521,8 @@ def fleet_leg(url: str, root: Path, fs_tree: Path, db_dir: Path, device: str, lo
     httpd2, port2 = start_server(cache=MemoryCache(), device=device)
     hosts = [url.split("://", 1)[1], f"127.0.0.1:{port2}"]
     head = ["--license-full", "--device", device, "--format", "json", "-q", "--cache-backend",
-            "memory", "--fleet-telemetry-interval", "0"]
+            "memory"]
+    off = ("--fleet-telemetry-interval", "0")
     vuln = ("--scanners", "vuln,secret,license", "--db-repository", str(db_dir))
     no_db = ("--scanners", "secret,license")
 
@@ -3523,6 +3537,20 @@ def fleet_leg(url: str, root: Path, fs_tree: Path, db_dir: Path, device: str, lo
         return {"rc": rc, "seconds": seconds, "launches": by_role(by),
                 "doc": json.loads(doc.read_text()) if doc.exists() else {},
                 "stats": json.loads(stats.read_text()) if stats.exists() else {}}
+
+    def plane(tag: str) -> dict:
+        """The ``fleet`` blocks of a sub-leg's ``--metrics-out`` and (when
+        written) ``--timeseries-out``."""
+        ts = out / f"{tag}.ts.json"
+        return {"metrics": json.loads((out / f"{tag}.metrics.json").read_text()).get("fleet"),
+                "timeseries": json.loads(ts.read_text()).get("fleet") if ts.exists() else None}
+
+    def fleet_mbs(ts_fleet: dict) -> float:
+        """The poller's fleet MB/s at its final tick: the healthy replicas'
+        last link MB/s, summed (``ReplicaPoller.status``)."""
+        return round(sum(rep["series"].get("link_mbs", {}).get("points", [[0, 0.0]])[-1][1]
+                         for rep in ts_fleet["replicas"].values()
+                         if rep["reachable"] and not rep["breaker_open"]), 1)
 
     def summary(r: dict) -> dict:
         st = r["stats"]
@@ -3539,22 +3567,32 @@ def fleet_leg(url: str, root: Path, fs_tree: Path, db_dir: Path, device: str, lo
     dead = [f"127.0.0.1:{free_port()}" for _ in range(2)]
     try:
         g1 = run("g1", "fs", fs_tree, *vuln, "--fleet", ",".join(hosts),
-                 "--fleet-shards-per-replica", "2")
+                 "--fleet-shards-per-replica", "2", "--metrics-out", str(out / "g1.metrics.json"),
+                 "--timeseries-out", str(out / "g1.ts.json"))
+        g1_rows = [line for line in obs_metrics.REGISTRY.render().splitlines()
+                   if line.startswith("trivy_tpu_fleet_")]
+        g1_threads = [t.name for t in threading.enumerate()
+                      if t.name.startswith("fleet-telemetry")]
         sub_local = run("sub-local", "fs", sub, *no_db)
-        g2 = run("g2", "fs", sub, *no_db, "--fleet", f"{hosts[0]},{dead[0]}")
+        g2 = run("g2", "fs", sub, *no_db, "--fleet", f"{hosts[0]},{dead[0]}",
+                 "--fleet-telemetry-interval", "0.2", "--metrics-out",
+                 str(out / "g2.metrics.json"))
         g2_breaker = breaker_open(f"fleet:{dead[0]}")
         UNFAULTED["off"] = True  # g3 degrades on purpose: every replica is dead
         try:
             g3 = run("g3", "fs", sub, *no_db, "--fleet", ",".join(dead),
-                     "--fleet-shards-per-replica", "2")
+                     "--fleet-shards-per-replica", "2", *off)
             g3_loud = run("g3-loud", "fs", sub, *no_db, "--fleet", ",".join(dead),
-                          "--fleet-shards-per-replica", "2", "--no-host-fallback")
+                          "--fleet-shards-per-replica", "2", "--no-host-fallback", *off)
         finally:
             UNFAULTED["off"] = False
         image_local = run("image-local", "image", image, *no_db)
-        g4 = run("g4", "image", image, *no_db, "--fleet", ",".join(hosts))
+        g4 = run("g4", "image", image, *no_db, "--fleet", ",".join(hosts), *off)
     finally:
         httpd2.shutdown()
+    g1_plane, g2_plane = plane("g1"), plane("g2")
+    g1_reps = (g1_plane["metrics"] or {}).get("replicas", {})
+    g2_dead = (g2_plane["metrics"] or {}).get("replicas", {}).get(dead[0], {})
 
     def meta(doc: dict) -> tuple:
         return doc.get("Metadata", {}).get("ImageID"), doc.get("Metadata", {}).get("DiffIDs")
@@ -3571,6 +3609,17 @@ def fleet_leg(url: str, root: Path, fs_tree: Path, db_dir: Path, device: str, lo
         "g3_degraded": g3["doc"].get("Degraded"), "g3_loud_rc": g3_loud["rc"],
         "g4_equal_local": (g4["doc"].get("Results") == image_local["doc"]["Results"]
                            and meta(g4["doc"]) == meta(image_local["doc"])),
+        "g1_interval_s": (g1_plane["metrics"] or {}).get("interval_s"),
+        "g1_headroom": {h: rep.get("headroom") for h, rep in g1_reps.items()},
+        "g1_scrapes": {h: rep.get("scrapes") for h, rep in g1_reps.items()},
+        "g1_fleet_mbs": fleet_mbs(g1_plane["timeseries"]) if g1_plane["timeseries"] else None,
+        "g1_busy_ratio_max": {h: rep.get("summary", {}).get("device_busy_ratio", {}).get("max")
+                              for h, rep in g1_reps.items()},
+        "g1_controller": {k: v for k, v in ((g1_plane["timeseries"] or {}).get("controller")
+                                            or {}).items() if k != "decision_log"},
+        "g1_rows_left": g1_rows, "g1_threads_left": g1_threads,
+        "g2_dead_replica": {k: g2_dead.get(k) for k in ("scrapes", "scrape_failures",
+                                                        "breaker_open", "headroom")},
     }
     # the shards the phase's server ran (its /metrics scans count them)
     result["server_shards"] = sum(r["stats"].get("fleet.replica_shards", {}).get(hosts[0], 0)
@@ -3579,6 +3628,17 @@ def fleet_leg(url: str, root: Path, fs_tree: Path, db_dir: Path, device: str, lo
     check(all(r["rc"] == 0 for r in (g1, sub_local, g2, g3, image_local, g4)),
           "server (g): a fleet leg's command failed")
     check(result["g1_equal_local"], "server (g1): the fleet's Results differ from the local scan")
+    check(result["g1_interval_s"] == 1.0 and sorted(g1_reps) == sorted(hosts)
+          and all(rep["scrapes"] >= 1 and 0.0 <= rep["headroom"] <= 1.0
+                  for rep in g1_reps.values()),
+          f"server (g1): the fleet block {result['g1_headroom']} {result['g1_scrapes']}")
+    check(any({"device_busy_ratio", "queue_depth"} <= set(rep["summary"])
+              for rep in g1_reps.values()),
+          "server (g1): no replica summary holds device_busy_ratio and queue_depth")
+    check(not g1_rows and not g1_threads,
+          f"server (g1): the plane outlived the scan: {g1_rows} {g1_threads}")
+    check(g1_plane["timeseries"] is not None and sorted(g1_plane["timeseries"]["replicas"])
+          == sorted(hosts), "server (g1): the --timeseries-out fleet block")
     check(not any("Degraded" in r["doc"] for r in (g1, g2, g4)),
           "server (g): a live fleet's report is Degraded")
     check(all(g1["stats"]["fleet.replica_shards"][h] > 0 for h in hosts),
@@ -3586,6 +3646,8 @@ def fleet_leg(url: str, root: Path, fs_tree: Path, db_dir: Path, device: str, lo
     check(result["g2_equal_local"] and g2_breaker == 1.0
           and g2["stats"]["fleet.replica_shards"][dead[0]] == 0,
           f"server (g2): equal {result['g2_equal_local']}, breaker {g2_breaker}")
+    check((g2_dead.get("scrape_failures") or 0) >= 2 and g2_dead.get("breaker_open") is True,
+          f"server (g2): the dead replica's block {result['g2_dead_replica']}")
     check(result["g3_equal_local"] and result["g3_degraded"] is True
           and g3["stats"]["fleet.local_fallback"] == g3["stats"]["fleet.shards"],
           f"server (g3): equal {result['g3_equal_local']}, Degraded {result['g3_degraded']}")

@@ -9,7 +9,8 @@ dead device degrading to the host), several devices: rows and tables on
 different devices refused, and round-robin over one card twice; and
 client/server mode: a client scan through a server on the card equal to
 the local card scan, and concurrent scans of one DB each equal to its
-serial scan.
+serial scan; and the fleet: shards, the coordinator and its telemetry plane
+on the card, each equal to the CPU.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither ``jax`` nor ``trivy_tpu``, so on a machine with a card and
@@ -1319,4 +1320,57 @@ def test_fleet_coordinator_on_card_equals_cpu(card, tmp_path):
     dead = report.to_dict()
     assert dead["Degraded"] is True and dead["Results"] == doc["Results"]
     assert counters["fleet.local_fallback"] == counters["fleet.shards"]
+    assert all(launched[k] > 0 for k in FEED_KERNELS) and launched["verscmp"] == 1, launched
+
+
+@pytest.mark.cuda
+def test_fleet_telemetry_on_card_equals_cpu(card, tmp_path):
+    """``chip_smoke.py``'s leg (g1) at a small size: ``scan_fleet`` of
+    :func:`card_files`' tree over two in-process port replicas with the
+    telemetry plane at its default interval (1.0 s), the replicas and the
+    coordinator on the card, then on the CPU: equal ``Results``, the
+    replicas launching the feed's and the license kernels, and a ``fleet``
+    doc naming both replicas, each scraped with a headroom in [0, 1]; no
+    poller thread and no ``trivy_tpu_fleet_*`` row outlives either scan."""
+    import threading
+
+    from trivy_tpu_torch import obs
+    from trivy_tpu_torch.cache import new_cache
+    from trivy_tpu_torch.fleet.coordinator import FleetConfig
+    from trivy_tpu_torch.obs import metrics as obs_metrics
+    from trivy_tpu_torch.rpc.admission import resolve_admission
+    from trivy_tpu_torch.rpc.server import start_server
+
+    tree = tmp_path / "tree"
+    apps, content = card_files()
+    for rel, data in {**apps, **content}.items():
+        (tree / rel).parent.mkdir(parents=True, exist_ok=True)
+        (tree / rel).write_bytes(data)
+    db = VulnDB.load(BUILD_DB(tmp_path))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        servers = [start_server(cache=new_cache("memory"), device=dev,
+                                admission=resolve_admission({"max_concurrent_scans": 2}))
+                   for _ in range(2)]
+        hosts = [f"127.0.0.1:{port}" for _, port in servers]
+        cfg = FleetConfig(hosts=list(hosts), speculate=0.0)
+        assert cfg.telemetry_interval == 1.0
+        try:
+            before = dict(match_cuda.LAUNCHES)
+            with obs.scan_context(name="fleet-telemetry-card", enabled=True) as ctx:
+                report, _ = cli.scan_fleet(
+                    "fs", str(tree), cfg, device=dev, scanners=("vuln", "secret", "license"),
+                    license_full=True, db=db)
+            got[dev] = (report.to_dict(), kernel_launches(before))
+        finally:
+            for httpd, _ in servers:
+                httpd.shutdown()
+        assert sorted(ctx.fleet["replicas"]) == sorted(hosts) and ctx.fleet["interval_s"] == 1.0
+        for rep in ctx.fleet["replicas"].values():
+            assert rep["scrapes"] >= 2 and 0.0 <= rep["headroom"] <= 1.0, rep
+        assert not [t for t in threading.enumerate() if t.name.startswith("fleet-telemetry")]
+        assert not [line for line in obs_metrics.REGISTRY.render().splitlines()
+                    if line.startswith("trivy_tpu_fleet_")]
+    doc, launched = got["cuda"]
+    assert doc["Results"] == got["cpu"][0]["Results"] and "Degraded" not in doc
     assert all(launched[k] > 0 for k in FEED_KERNELS) and launched["verscmp"] == 1, launched

@@ -7,11 +7,12 @@ command without a fleet and against the JAX CLI's ``--fleet``.
   fleet; ``fs`` and ``image`` also those of ``trivy_tpu.cli --fleet`` over
   JAX replicas.
 - Refusals: ``--fleet`` with ``--server`` and with each incremental flag
-  exits 2 with the JAX message; a non-zero telemetry interval (command
-  line, environment, config file, or only ``--fleet`` and the JAX default
-  1.0) and any ``--fleet-register-token`` exit 2 naming
-  ``--fleet-telemetry-interval 0``; a daemon image exits 1 with the
+  exits 2 with the JAX message; a daemon image exits 1 with the
   ``FleetError`` message.
+- The telemetry interval from the command line, the environment, the
+  config file or the JAX default 1.0, and ``--fleet-register-token``,
+  resolve into the fleet config and scan with the JAX CLI's ``Results``;
+  a negative or non-numeric interval exits 2.
 - Every replica dead: exit 0 with root ``"Degraded": true`` and the local
   scan's ``Results``; with ``--no-host-fallback`` exit 1.
 - ``--stats-out`` holds the coordinator's counters, ``--trace`` the fleet
@@ -25,6 +26,7 @@ directory holds a two-rule ``trivy-secret.yaml``.
 
 import ast
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -114,23 +116,63 @@ def test_fleet_refusals_exit_2(env, wd, capsys, command, extra, message):
     assert rc == 2 and message in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("how", ["cli", "env", "config", "default", "register-token"])
-def test_telemetry_settings_exit_2(env, wd, monkeypatch, capsys, how):
-    extra = ["--fleet", DEAD[0]]
-    if how == "cli":
-        extra += ["--fleet-telemetry-interval", "1"]
-    elif how == "env":
-        monkeypatch.setenv("TRIVY_TPU_FLEET_TELEMETRY_INTERVAL", "0.5")
-    elif how == "config":
-        (wd / "trivy-tpu.yaml").write_text("fleet:\n  telemetry-interval: 2\n")
-    elif how == "register-token":
-        extra = ["--fleet-register-token", "R", *OFF]
-    with pytest.raises(SystemExit) as exc:
-        run(wd, "gate", "fs", env["tree"], *extra)
-    err = capsys.readouterr().err
-    assert exc.value.code == 2 and "--fleet-telemetry-interval 0" in err
-    if how in ("cli", "env", "config", "default"):
-        assert "telemetry plane is not ported" in err
+@pytest.fixture(scope="module")
+def jax_secret_results(env, tmp_path_factory):
+    """The JAX CLI's ``fs --scanners secret`` of the tree without a fleet,
+    from a working directory with the two-rule config."""
+    d = tmp_path_factory.mktemp("jax-secret")
+    (d / "trivy-secret.yaml").write_text(RESTRICTED)
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        rc, doc = run(d, "jax", "fs", env["tree"], "--scanners", "secret", main=jax_cli.main)
+    finally:
+        os.chdir(cwd)
+    assert rc == 0 and doc["Results"]
+    return doc["Results"]
+
+
+@pytest.mark.parametrize("how,interval,bad", [
+    ("cli", 1.0, "-1"), ("env", 0.5, "abc"), ("config", 2.0, "-2"), ("default", 1.0, None),
+    ("register-token", 1.0, None)], ids=["cli", "env", "config", "default", "register-token"])
+def test_telemetry_settings_exit_2(env, wd, monkeypatch, port_fleet, jax_secret_results, how,
+                                   interval, bad):
+    """Each source of the interval resolves into the fleet config (the
+    register token too) and the scan runs the telemetry plane with the JAX
+    CLI's ``Results``; a negative or non-numeric interval from the same
+    source still exits 2."""
+    def source(value: str) -> list:
+        if how == "cli":
+            return ["--fleet-telemetry-interval", value]
+        if how == "env":
+            monkeypatch.setenv("TRIVY_TPU_FLEET_TELEMETRY_INTERVAL", value)
+        elif how == "config":
+            (wd / "trivy-tpu.yaml").write_text(f"fleet:\n  telemetry-interval: {value}\n")
+        elif how == "register-token":
+            return ["--fleet-register-token", value]
+        return []
+
+    configs = []
+    orig = cli.scan_fleet
+
+    def spy(kind, target, fleet, **kw):
+        configs.append((fleet.telemetry_interval, fleet.register_token))
+        return orig(kind, target, fleet, **kw)
+
+    monkeypatch.setattr(cli, "scan_fleet", spy)
+    extra = source(str(interval) if how != "register-token" else "R")
+    rc, mine = run(wd, "plane", "fs", env["tree"], "--scanners", "secret", "--fleet", port_fleet,
+                   "--metrics-out", str(wd / "m.json"), *extra)
+    assert rc == 0 and mine["Results"] == jax_secret_results and "Degraded" not in mine
+    assert configs == [(interval, "R" if how == "register-token" else "")]
+    fleet = json.loads((wd / "m.json").read_text())["fleet"]
+    assert fleet["interval_s"] == interval
+    assert sorted(fleet["replicas"]) == sorted(port_fleet.split(","))
+    if bad is not None:
+        extra = source(bad)
+        with pytest.raises(SystemExit) as exc:
+            run(wd, "bad", "fs", env["tree"], "--fleet", port_fleet, *extra)
+        assert exc.value.code == 2
 
 
 def test_the_fleet_from_the_environment_and_config(env, wd, monkeypatch, port_fleet):
@@ -205,6 +247,7 @@ def test_fleet_flags_equal_jax():
 
 
 NEW_MODULES = ("trivy_tpu_torch.fleet.coordinator", "trivy_tpu_torch.fleet.merge",
+               "trivy_tpu_torch.fleet.telemetry", "trivy_tpu_torch.fleet.controller",
                "trivy_tpu_torch.cli")
 
 

@@ -214,12 +214,32 @@ def test_config_needs_a_replica():
             JaxFleetConfig.from_opts(opts)
 
 
-def test_coordinator_refuses_the_telemetry_plane():
-    with pytest.raises(ValueError, match="--fleet-telemetry-interval 0"):
-        FleetCoordinator(FleetConfig(hosts=["a:1"]), ScanOptions())
-    with pytest.raises(ValueError, match="live join is not ported"):
-        FleetCoordinator(FleetConfig(hosts=["a:1"], telemetry_interval=0.0,
-                                     register_token="R"), ScanOptions())
+def test_coordinator_refuses_the_telemetry_plane(env):
+    """The coordinator takes the telemetry plane: with the JAX default
+    interval (1.0) and a register token it builds, and its ``run`` builds
+    the poller and the placement controller the poller ticks, sets the
+    context's fleet doc and ``--live`` fragment, and retires both."""
+    from trivy_tpu_torch.fleet.controller import FleetController
+    from trivy_tpu_torch.fleet.telemetry import ReplicaPoller
+
+    httpd, host = replica("port")
+    try:
+        coord = FleetCoordinator(FleetConfig(hosts=[host], register_token="R", speculate=0.0),
+                                 ScanOptions(scanners=["secret"]))
+        assert coord.cfg.telemetry_interval == 1.0 and coord.cfg.register_token == "R"
+        assert coord.controller is None and coord._poller is None
+        shards = port_fs_plan(env, 2)
+        with obs.scan_context(name="plane", enabled=True) as ctx:
+            blobs = coord.run(shards)
+    finally:
+        shutdown([httpd])
+    assert sorted(blobs) == sorted(s.index for s in shards)
+    assert isinstance(coord.controller, FleetController)
+    assert isinstance(coord._poller, ReplicaPoller) and coord._poller.controller is coord.controller
+    assert ctx.fleet["interval_s"] == 1.0 and list(ctx.fleet["replicas"]) == [host]
+    assert ctx.fleet["replicas"][host]["scrapes"] >= 2  # the baseline and the final tick
+    assert ctx.fleet_live == coord._poller.live_fragment
+    assert not [t for t in threading.enumerate() if t.name.startswith("fleet-telemetry")]
 
 
 # -- parity ------------------------------------------------------------------------

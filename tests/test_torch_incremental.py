@@ -681,8 +681,7 @@ def test_incremental_flags_resolve_from_every_source(tmp_path, wd, dbs, monkeypa
 
 def test_incremental_refused_with_server_and_fleet(tmp_path, wd, capsys):
     """With ``--server`` every incremental flag exits 2 with the JAX
-    message; ``--fleet`` without ``--fleet-telemetry-interval 0`` exits 2
-    (the fleet telemetry plane is not ported)."""
+    message, and so does ``--incremental`` with ``--fleet``."""
     root = make_tree(tmp_path, n_dirs=1)
     for flags in (["--incremental"], ["--since-last"], ["--diff-base", "HEAD"]):
         argv = ["fs", "--device", "cpu", "-q", "--server", "http://127.0.0.1:9", *flags,
@@ -692,9 +691,8 @@ def test_incremental_refused_with_server_and_fleet(tmp_path, wd, capsys):
         with pytest.raises(ValueError, match="local scan path"):
             cli.scan_fs(str(root), device="cpu", server="http://127.0.0.1:9",
                         incremental=IncrementalOptions(enabled=True))
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["fs", "--device", "cpu", "--incremental", "--fleet", "h:1", str(root)])
-    assert exc.value.code == 2
+    assert cli.main(["fs", "--device", "cpu", "--incremental", "--fleet", "h:1", str(root)]) == 2
+    assert "do not compose with --fleet" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flag", ["--incremental", "--since-last"])

@@ -19,9 +19,9 @@ archive, registry or daemon image, the ``vm`` scan of a disk image, the
         [--secret-inflight N] [--secret-arena-slabs N] [--secret-bucket-rungs N]
         [--no-secret-pack] [--no-secret-prefilter] [--tuning-file F]
         [--tune [--tuning-interval S]] [--server URL [--token T]]
-        [--fleet H:P,.. --fleet-telemetry-interval 0 [--fleet-inflight N]
-         [--fleet-shards-per-replica N] [--fleet-speculate X]
-         [--fleet-split-threshold X]]
+        [--fleet H:P,.. [--fleet-inflight N] [--fleet-shards-per-replica N]
+         [--fleet-speculate X] [--fleet-split-threshold X]
+         [--fleet-telemetry-interval S] [--fleet-register-token T]]
         [--incremental] [--since-last] [--diff-base <commit-ish>]
         [--stats-out F] <dir>
     python -m trivy_tpu_torch rootfs [the fs flags] <dir>
@@ -162,9 +162,13 @@ devices, their blobs merge into the scan cache and detection runs here, so
 the ``Results`` equal the scan's without a fleet; shards every server failed
 run here and mark the report ``Degraded`` (with ``--no-host-fallback`` the
 command exits 1). ``--fleet`` with ``--server``, or with an incremental
-flag on a tree, exits 2 as in JAX. The fleet's telemetry plane is not
-ported: a resolved ``--fleet-telemetry-interval`` above 0 (its JAX default
-is 1.0) and ``--fleet-register-token`` exit 2.
+flag on a tree, exits 2 as in JAX. The fleet's telemetry plane runs at
+``--fleet-telemetry-interval`` (1.0 s by default, 0 turns it off): replica
+scrapes, headroom-weighted placement, the dead and draining verdicts, and
+the ``fleet`` blocks of ``--metrics-out``, ``--timeseries-out``,
+``--trace-out``, ``--live`` and the heartbeat. ``--fleet-register-token``
+is kept in the fleet config, and, as in JAX, no command installs a
+register hook that reads it.
 """
 
 from __future__ import annotations
@@ -894,17 +898,14 @@ def server_client_flags() -> FlagGroup:
 def fleet_flags() -> FlagGroup:
     """The JAX fleet group of ``fs``, ``rootfs``, ``repo`` and ``image``:
     scatter one artifact's analysis over scan servers and merge the blobs
-    here. The telemetry plane is not ported: a non-zero
-    ``--fleet-telemetry-interval`` (1.0 by default, as in JAX) and any
-    ``--fleet-register-token`` exit 2."""
+    here."""
     interval = lambda v: validate_interval(v, "interval")  # noqa: E731
     return FlagGroup("fleet", [
         Flag("fleet", default=None, is_list=True, config_name="fleet.replicas",
              help="comma-separated replica addresses (host:port) for a scatter-gather scan: "
                   "the artifact splits at natural boundaries (image layers, byte-balanced "
                   "walk partitions) and shards fan out as async jobs, with work-stealing, "
-                  "speculative re-dispatch and per-replica circuit breakers (needs "
-                  "--fleet-telemetry-interval 0 here)"),
+                  "speculative re-dispatch and per-replica circuit breakers"),
         Flag("fleet-inflight", default=0, value_type=int, config_name="fleet.inflight",
              help="async shard jobs in flight per replica (0 = auto: 2; resolves through "
                   "the tuning config: env TRIVY_TPU_FLEET_INFLIGHT, autotune record)"),
@@ -918,9 +919,10 @@ def fleet_flags() -> FlagGroup:
                   "2.0; 0 disables)"),
         Flag("fleet-telemetry-interval", default=None, value_type=float,
              config_name="fleet.telemetry-interval", validator=interval,
-             help="replica health-poll cadence in seconds (JAX default 1.0); the poller is "
-                  "not ported, so --fleet needs 0 here (env "
-                  "TRIVY_TPU_FLEET_TELEMETRY_INTERVAL)"),
+             help="replica health-poll cadence in seconds: the coordinator scrapes each "
+                  "replica's /metrics and live progress into per-replica headroom series "
+                  "(default 1.0; 0 disables the poller entirely: no thread, no fleet "
+                  "gauges; env TRIVY_TPU_FLEET_TELEMETRY_INTERVAL)"),
         Flag("fleet-split-threshold", default=None, value_type=float,
              config_name="fleet.split-threshold", validator=interval,
              help="mid-scan re-planning multiplier: an in-flight fs shard past this x the "
@@ -928,8 +930,8 @@ def fleet_flags() -> FlagGroup:
                   "re-scattered (default 3.0; 0 disables; env "
                   "TRIVY_TPU_FLEET_SPLIT_THRESHOLD)"),
         Flag("fleet-register-token", default=None, config_name="fleet.register-token",
-             help="bearer token of the JAX live-join seam; the live join is not ported, so "
-                  "any value exits 2"),
+             help="dedicated bearer token for the POST /fleet/register live-join seam "
+                  "(default: the scan --token gates it; a bad token answers 403)"),
     ])
 
 
@@ -1090,8 +1092,6 @@ def main(argv: list[str] | None = None) -> int:
                        if args.command in TUNED_COMMANDS else None)
         args.fleet_config = None
         if args.command in FLEET_COMMANDS:
-            # the telemetry plane is not ported: its settings exit 2 from
-            # any source, as the settings of other unported flags do
             args.fleet_config = _fleet_config(opts, args.tuning)
     except (ValueError, FileNotFoundError) as e:
         parser.error(str(e))
@@ -1544,20 +1544,13 @@ def _run_scan(scan, target: str, args, opts: dict, **extra) -> tuple[Report, dic
 
 def _fleet_config(opts: dict, tuning: TuningConfig | None):
     """The run's :class:`~trivy_tpu_torch.fleet.coordinator.FleetConfig`,
-    None without ``--fleet``. Raises ``ValueError`` for a telemetry setting
-    the port lacks: a resolved ``--fleet-telemetry-interval`` above 0 (the
-    flag, its variable, the config file or the JAX default 1.0) or a
-    ``--fleet-register-token``."""
-    if opts["fleet_register_token"]:
-        raise ValueError("--fleet-register-token: the fleet's live join is not ported; drop "
-                         "the token and pass --fleet-telemetry-interval 0")
+    None without ``--fleet``; its ``telemetry_interval`` resolves the flag,
+    its variable, the config file and the default 1.0 in that order."""
     if not opts["fleet"]:
         return None
-    from trivy_tpu_torch.fleet.coordinator import FleetConfig, check_unported
+    from trivy_tpu_torch.fleet.coordinator import FleetConfig
 
-    cfg = FleetConfig.from_opts(opts, tuning=tuning)
-    check_unported(cfg)
-    return cfg
+    return FleetConfig.from_opts(opts, tuning=tuning)
 
 
 def _run_fleet(kind: str, target: str, args, opts: dict) -> tuple[Report, dict]:

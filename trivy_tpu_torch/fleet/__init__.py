@@ -1,6 +1,5 @@
 """The port's fleet package: scatter-gather scanning of one artifact over
-scan servers (the port of ``trivy_tpu/fleet/`` without its telemetry
-plane).
+scan servers (the port of ``trivy_tpu/fleet/``).
 
 - :mod:`trivy_tpu_torch.fleet.plan` holds the directory-atomic unit
   planner (``group_units``), which the incremental fs artifact
@@ -18,10 +17,16 @@ plane).
   coordinator's cache, so the ordinary detection path gives the report a
   single-host scan gives.
 
-The telemetry plane (the replica poller, the placement controller and the
-live join) is not ported: a non-zero ``--fleet-telemetry-interval`` and
-``--fleet-register-token`` exit 2. Nothing here is imported unless a scan
-asks for a fleet or a server runs a shard.
+- :mod:`trivy_tpu_torch.fleet.telemetry` (the replica poller: headroom
+  scores, the dead and draining verdicts, the ``trivy_tpu_fleet_*`` gauges
+  and the exports' ``fleet`` blocks) and
+  :mod:`trivy_tpu_torch.fleet.controller` (headroom to placement weights)
+  are the telemetry plane, which the coordinator starts when
+  ``--fleet-telemetry-interval`` is above 0 (1.0 s by default); the
+  coordinator's ``register_replica`` is the live join.
+
+Nothing here is imported unless a scan asks for a fleet or a server runs a
+shard, and the telemetry plane's modules not at interval 0.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Fleet coordinator: scatter shards to replicas, gather blobs back (the
-port of ``trivy_tpu/fleet/coordinator.py`` without its telemetry plane).
+port of ``trivy_tpu/fleet/coordinator.py``).
 
 Dispatch model: every replica gets ``inflight`` dedicated worker threads
 (the bounded per-replica in-flight window; each submit also rides the RPC
@@ -38,11 +38,20 @@ efficiency verdict lands in the profile's ``fleet`` block, and
 ``fleet.dispatch``, ``fleet.steal``, ``fleet.result``, ``fleet.drain`` and
 ``fleet.split`` fault sites prove every rung.
 
-The telemetry plane (the replica poller, its headroom scores, the placement
-controller and the live join) is not ported: a config asking for it
-(``telemetry_interval`` above 0, a ``register_token``) is refused. Without
-it every replica's headroom reads as none and every placement weight as 1,
-as in the JAX coordinator with its poller off.
+The telemetry plane rides the same fan-out when ``telemetry_interval`` is
+above 0 (1.0 s by default): a :class:`~trivy_tpu_torch.fleet.telemetry.ReplicaPoller`
+scrapes every replica's ``/metrics`` and shard progress into headroom
+scores, a :class:`~trivy_tpu_torch.fleet.controller.FleetController` turns
+them into the placement weights of requeue and steal targeting, and the
+poller's verdicts reach the coordinator: :meth:`FleetCoordinator.note_replica_dead`
+after two failed scrapes (the breaker trips and the replica's result polls
+abandon at once) and :meth:`FleetCoordinator.note_replica_draining` for a
+replica whose draining gauge reads 1. :meth:`FleetCoordinator.register_replica`
+and :meth:`FleetCoordinator.deregister_replica` add and withdraw a replica
+mid-sweep (the ``POST /fleet/register`` seam of a server that installs
+them as hooks). At interval 0 none of it exists: no thread, no buffer, no
+gauge, and neither module is imported; every headroom then reads as none
+and every weight as 1.
 """
 
 from __future__ import annotations
@@ -69,8 +78,8 @@ DEFAULT_RUN_TIMEOUT = 3600.0  # whole-fan-out wall cap
 RESULT_POLL_S = 0.1
 PROGRESS_EVERY_POLLS = 5  # fold replica progress every Nth result poll
 # a straggler split must leave a replica no headroom to hide behind: only
-# shards whose owning replica scores at or below this are split; with no
-# telemetry plane every headroom reads as none (0.0)
+# shards whose owning replica scores at or below this are split; with the
+# poller off every headroom reads as none (0.0)
 SPLIT_HEADROOM_MAX = 0.05
 
 
@@ -86,9 +95,8 @@ class FleetConfig:
     """Resolved coordinator knobs, the JAX ``FleetConfig``'s fields.
     ``inflight`` and ``split_threshold`` resolve through
     :class:`~trivy_tpu_torch.tuning.TuningConfig` (CLI > ``TRIVY_TPU_FLEET_*``
-    > autotune record > default); an explicit 0 wins. ``telemetry_interval``
-    and ``register_token`` belong to the telemetry plane, which this port
-    lacks: :class:`FleetCoordinator` refuses a config that sets either."""
+    > autotune record > default), as does ``telemetry_interval``; an
+    explicit 0 wins."""
 
     hosts: list = field(default_factory=list)
     token: str = ""
@@ -107,16 +115,16 @@ class FleetConfig:
     rpc_retries: int = 1  # replica-death detection must be fast: the
     rpc_deadline: float = 10.0  # coordinator's ladder is the real retry
     poll_s: float = RESULT_POLL_S
-    # the JAX replica health-poll cadence; 0 is the only value this port
-    # runs (no poller, no fleet gauges)
+    # replica health-poll cadence (the telemetry plane); 0 disables the
+    # poller entirely: no thread, no telemetry import, no fleet gauges
     telemetry_interval: float = DEFAULT_FLEET_TELEMETRY_INTERVAL
     # mid-scan re-planning: an in-flight fs shard running past
     # ``split_threshold x`` the median shard wall (floor
     # ``speculate_floor_s``) is split at a directory boundary and the
     # remainder re-scattered; 0 disables
     split_threshold: float = DEFAULT_FLEET_SPLIT_THRESHOLD
-    # bearer token of the JAX live-join seam (POST /fleet/register); this
-    # port has no live join
+    # bearer token a POST /fleet/register must present on the live-join
+    # seam; empty falls back to the scan token
     register_token: str = ""
 
     @classmethod
@@ -152,21 +160,6 @@ class FleetConfig:
 
     def target_shards(self) -> int:
         return max(1, len(self.hosts) * self.shards_per_replica)
-
-
-def check_unported(cfg: FleetConfig) -> None:
-    """Raise ``ValueError`` for a config that asks for the JAX telemetry
-    plane, which this port lacks: running without it would silently drop
-    the replica scrapes, the placement weights and the live join the JAX
-    coordinator gives."""
-    if cfg.telemetry_interval > 0:
-        raise ValueError(
-            f"the fleet telemetry plane is not ported: --fleet-telemetry-interval resolved to "
-            f"{cfg.telemetry_interval:g} (the JAX default is 1.0); pass "
-            "--fleet-telemetry-interval 0 to run the fleet without it")
-    if cfg.register_token:
-        raise ValueError("--fleet-register-token: the fleet's live join is not ported; "
-                         "drop the token and pass --fleet-telemetry-interval 0")
 
 
 def _normalize_100(buckets: dict[str, float]) -> dict[str, float]:
@@ -224,7 +217,6 @@ class FleetCoordinator:
         from trivy_tpu_torch.parallel.mesh import CircuitBreaker
         from trivy_tpu_torch.rpc.client import RemoteDriver
 
-        check_unported(cfg)
         self.cfg = cfg
         self.scan_options = scan_options
         self.local_cache = local_cache
@@ -235,8 +227,6 @@ class FleetCoordinator:
         ]
         self.breaker = CircuitBreaker(len(cfg.hosts), labels=[f"fleet:{h}" for h in cfg.hosts])
         self._sync_only = [False] * len(cfg.hosts)  # 404 on submit -> sync scan
-        # the JAX coordinator's stats keys; "joins" and
-        # "placement_decisions" stay 0 without the telemetry plane
         self.stats = {
             "replicas": len(cfg.hosts),
             "shards": 0,
@@ -248,9 +238,9 @@ class FleetCoordinator:
             "local_fallback": 0,
             "warm_seeded": 0,  # replicas sent a warm dedup payload
             "splits": 0,  # stragglers split at a directory boundary
-            "joins": 0,
+            "joins": 0,  # replicas that registered mid-sweep
             "drains": 0,  # replicas that handed queued work back
-            "placement_decisions": 0,
+            "placement_decisions": 0,  # controller re-weights applied
             "replica_shards": {h: 0 for h in cfg.hosts},
         }
         self._warm_sent: set[int] = set()
@@ -260,16 +250,173 @@ class FleetCoordinator:
         self._shards: list[_ShardState] = []
         self._durations: list[float] = []
         self._stop = False
-        # per-replica attempt wall accounting for the efficiency verdict
+        # the telemetry plane's inputs, the jobs polling on each replica (the
+        # poller scrapes their live progress), and per-replica attempt wall
+        # accounting for the efficiency verdict
+        self._active_jobs: dict[str, set[str]] = {h: set() for h in cfg.hosts}
         self._host_busy: dict[str, float] = {h: 0.0 for h in cfg.hosts}
         self._host_last_done: dict[str, float] = {}
         self._run_started = 0.0
         self.verdict: dict[str, dict] = {}  # set at fan-out end
-        # draining replicas take no new work; the placement weights bias
-        # requeue and steal targeting (all 1.0 without a controller)
+        # the elastic plane (every list grown in lockstep by register_replica):
+        # draining replicas take no new work, dead-marked replicas abandon
+        # their in-flight polls now, weights bias requeue and steal placement
         self._draining = [False] * len(cfg.hosts)
+        self._dead_marks = [False] * len(cfg.hosts)
         self._weights: dict[str, float] = {h: 1.0 for h in cfg.hosts}
         self._workers: list[threading.Thread] = []
+        self._running = False
+        self._ctx = None
+        self.controller = None  # FleetController while telemetry is on
+        self._poller = None  # ReplicaPoller while telemetry is on
+
+    def active_jobs(self, host: str) -> list[str]:
+        """The job ids polling on ``host`` now: the poller's progress
+        targets."""
+        with self._lock:
+            return list(self._active_jobs.get(host, ()))
+
+    # -- the elastic plane ---------------------------------------------------
+
+    def register_replica(self, host: str) -> dict:
+        """Live join: a replica appearing mid-sweep is probed, then every
+        per-replica structure grows in lockstep under the lock (breaker
+        slot, affinity queue, workers), so it steals work at once.
+        Idempotent on a duplicate (the joiner's retry ladder may re-POST); a
+        joiner that fails its health probe or is already draining is refused
+        with :class:`FleetError`, and the running fan-out is untouched."""
+        hosts = parse_fleet(host)
+        if len(hosts) != 1:
+            raise FleetError(f"register: exactly one replica address required, got {host!r}")
+        host = hosts[0]
+        faults.check("fleet.register", key=host)
+        with self._lock:
+            if host in self.cfg.hosts:
+                return {"Host": host, "Known": True, "Replicas": len(self.cfg.hosts)}
+        from trivy_tpu_torch.rpc.client import RemoteDriver, get_healthz
+
+        # the probe runs outside the lock: a dead joiner must not stall dispatch
+        try:
+            hz = get_healthz(host, deadline=self.cfg.rpc_deadline)
+        except Exception as e:
+            raise FleetError(f"register: health probe of {host} failed: {e}") from e
+        if (hz or {}).get("Status") == "draining":
+            raise FleetError(f"register: {host} is draining; refusing the join")
+        driver = RemoteDriver(host, token=self.cfg.token, retries=self.cfg.rpc_retries,
+                              deadline=self.cfg.rpc_deadline)
+        with self._cond:
+            if host in self.cfg.hosts:  # lost a duplicate-register race
+                return {"Host": host, "Known": True, "Replicas": len(self.cfg.hosts)}
+            i = len(self.cfg.hosts)
+            self.cfg.hosts.append(host)
+            self.drivers.append(driver)
+            self.breaker.grow(f"fleet:{host}")
+            self._sync_only.append(False)
+            self._draining.append(False)
+            self._dead_marks.append(False)
+            self._queues.append([])
+            self._active_jobs[host] = set()
+            self._host_busy[host] = 0.0
+            self._weights[host] = 1.0
+            self.stats["replicas"] = len(self.cfg.hosts)
+            self.stats["joins"] += 1
+            self.stats["replica_shards"].setdefault(host, 0)
+            if self._running and not self._stop:
+                ws = [threading.Thread(target=self._worker, args=(i, self._ctx), daemon=True,
+                                       name=f"fleet-worker-r{i}-{j}")
+                      for j in range(self.cfg.inflight)]
+                self._workers.extend(ws)
+                for w in ws:
+                    w.start()
+            self._cond.notify_all()
+        if self.controller is not None:
+            self.controller.add_host(host)
+        if self._ctx is not None:
+            self._ctx.count("fleet.joins")
+        logger.info("replica %s joined the fleet mid-sweep (now %d replica(s))", host,
+                    len(self.cfg.hosts))
+        flight.record("fleet", f"replica join {host}", {"replicas": len(self.cfg.hosts)})
+        return {"Host": host, "Known": False, "Replicas": len(self.cfg.hosts)}
+
+    def deregister_replica(self, host: str) -> dict:
+        """Live leave, the inverse of :meth:`register_replica`, through the
+        drain hand-back: the replica takes no new work, its queued shards
+        re-scatter to survivors and its in-flight attempts finish. Idempotent:
+        an unknown or already-draining host is an answer, never an error."""
+        hosts = parse_fleet(host)
+        if len(hosts) != 1:
+            raise FleetError(f"deregister: exactly one replica address required, got {host!r}")
+        host = hosts[0]
+        with self._cond:
+            try:
+                i = self.cfg.hosts.index(host)
+            except ValueError:
+                return {"Host": host, "Known": False, "Replicas": len(self.cfg.hosts)}
+            already = self._draining[i]
+            if not already:
+                self._note_draining_locked(i)
+                self._cond.notify_all()
+        if not already:
+            logger.info("replica %s deregistered from the fleet", host)
+        return {"Host": host, "Known": True, "Draining": True, "Replicas": len(self.cfg.hosts)}
+
+    def note_replica_draining(self, i: int) -> None:
+        """Telemetry verdict: replica ``i`` scraped as draining; hand its
+        queued shards back and stop assigning it work."""
+        with self._cond:
+            self._note_draining_locked(i)
+            self._cond.notify_all()
+
+    def note_replica_dead(self, i: int, reason: str = "") -> None:
+        """Telemetry verdict (two failed scrapes in a row): trip the
+        replica's fleet breaker now and mark it, so its in-flight result
+        polls abandon at once instead of waiting out the job timeout. This
+        breaker is the coordinator's, one slot per replica: the scan
+        ladder's per-device breakers are not touched."""
+        reason = reason or "2 consecutive dead telemetry scrapes"
+        with self._cond:
+            if i >= len(self._dead_marks) or self._dead_marks[i]:
+                return
+            self._dead_marks[i] = True
+            self._cond.notify_all()
+        self.breaker.trip(i, reason)
+        host = self.cfg.hosts[i] if i < len(self.cfg.hosts) else f"r{i}"
+        flight.record("dead", f"fleet replica {host}", {"reason": reason})
+        # the dead replica's bundle carries that replica's own flight
+        # recorder too (best effort: for a dead replica the pull's error is
+        # the evidence)
+        flight.auto_emit("dead-replica", ctx=self._ctx,
+                         extra={"replica_bundles": self._pull_replica_bundles([host])})
+
+    def note_replica_alive(self, i: int) -> None:
+        """A successful scrape (or attempt) of a dead-marked replica clears
+        the mark; the breaker's own half-open ladder decides re-entry."""
+        with self._lock:
+            if i < len(self._dead_marks):
+                self._dead_marks[i] = False
+
+    def _pull_replica_bundles(self, hosts: list[str]) -> dict[str, dict]:
+        """``GET /debug/bundle`` of each named replica, so the coordinator's
+        bundle carries the replica-side rings; a failed pull is recorded in
+        the bundle's place."""
+        from trivy_tpu_torch.rpc.client import fetch_debug_bundle
+
+        out: dict[str, dict] = {}
+        for h in hosts:
+            try:
+                out[h] = fetch_debug_bundle(h, token=self.cfg.token,
+                                            deadline=self.cfg.rpc_deadline)
+            except Exception as e:
+                out[h] = {"error": f"{type(e).__name__}: {e}"}
+        return out
+
+    def apply_placement(self, weights: dict, fired: int = 0) -> None:
+        """The controller's output: the placement weights that requeue
+        targeting and steal ordering read, and the decisions it fired."""
+        with self._lock:
+            self._weights = dict(weights)
+            if fired:
+                self.stats["placement_decisions"] += fired
 
     # -- queue mechanics (all under self._lock) ------------------------------
 
@@ -366,10 +513,20 @@ class FleetCoordinator:
         return None, ""
 
     def _owner_headroom_locked(self, s: _ShardState) -> float:
-        """Best headroom among the replicas running ``s``. Without the
-        telemetry plane no gauge argues that an owner can catch up, so it
-        reads 0.0 and the straggler deadline alone decides."""
-        return 0.0
+        """Best headroom among the replicas running ``s``: a split fires
+        only when even the most relieved owner is out of headroom. No
+        telemetry (the poller off, a host never scraped) reads as 0.0: with
+        no gauge arguing that the owner can catch up, the straggler deadline
+        alone decides."""
+        p = self._poller
+        if p is None or not s.running:
+            return 0.0
+        hs = []
+        for j in s.running:
+            if j < len(self.cfg.hosts):
+                rh = p.health.get(self.cfg.hosts[j])
+                hs.append(rh.headroom() if rh is not None else 0.0)
+        return max(hs) if hs else 0.0
 
     def _try_split_locked(self, i: int) -> _ShardState | None:
         """Mid-scan re-planning: when an in-flight fs shard's wall exceeds
@@ -450,8 +607,9 @@ class FleetCoordinator:
         return False
 
     def _weighted_target_locked(self, cands: list[int]) -> int:
-        """Least *weighted* queued bytes wins: a placement weight divides a
-        replica's apparent load (every weight is 1.0 in this port)."""
+        """Least *weighted* queued bytes wins: the controller's placement
+        weight divides a replica's apparent load, so a down-weighted
+        (drowning) replica looks fuller than its raw bytes say."""
         return min(cands, key=lambda j: (
             sum(s.spec.nbytes for s in self._queues[j])
             / max(0.05, self._weights.get(self.cfg.hosts[j], 1.0)), j))
@@ -560,6 +718,7 @@ class FleetCoordinator:
         # shard that failed this many times (across redispatches and
         # breaker probes) is declared dead and handed to the fallback
         self._attempt_cap = max(4, 2 * n)
+        self._ctx = ctx
         self._workers = [
             threading.Thread(target=self._worker, args=(i, ctx), daemon=True,
                              name=f"fleet-worker-r{i}-{j}")
@@ -567,10 +726,26 @@ class FleetCoordinator:
             for j in range(self.cfg.inflight)
         ]
         deadline = time.monotonic() + self.cfg.run_timeout
-        # the heartbeat's fleet fragment reads the coordinator's own breaker
-        # view (no telemetry plane: fleet MB/s unknown)
-        ctx.fleet_status = self._fleet_status
+        # the telemetry plane is optional: at interval 0 neither module is
+        # imported, no thread starts and no gauge exists, and the heartbeat's
+        # fleet fragment reads the coordinator's own breakers; the tickless
+        # placement controller rides the same gate (the poller ticks it)
+        poller = None
+        if self.cfg.telemetry_interval > 0:
+            from trivy_tpu_torch.fleet.controller import FleetController
+            from trivy_tpu_torch.fleet.telemetry import start_poller
+
+            self.controller = FleetController(list(self.cfg.hosts), ctx=ctx,
+                                              interval=self.cfg.telemetry_interval)
+            poller = start_poller(self, ctx, interval=self.cfg.telemetry_interval)
+            if poller is not None:
+                poller.controller = self.controller
+        self._poller = poller
+        ctx.fleet_status = lambda: self._fleet_status(poller)
+        if poller is not None:
+            ctx.fleet_live = poller.live_fragment
         with self._cond:
+            self._running = True
             for w in self._workers:
                 w.start()
         try:
@@ -583,15 +758,19 @@ class FleetCoordinator:
         finally:
             with self._cond:
                 self._stop = True
+                self._running = False
                 ws = list(self._workers)
                 self._cond.notify_all()
             for w in ws:
                 w.join(timeout=30.0)
+            if poller is not None:
+                poller.stop()
         dead = [s for s in self._shards if s.state == "dead"]
         if dead:
             self._fallback(dead, ctx)
         # the fan-out's shape as trace counters, so --trace and
-        # --metrics-out carry the steal/speculation/redispatch story
+        # --metrics-out carry the steal/speculation/redispatch story (joins
+        # and placement decisions were counted live as they fired)
         for key in ("steals", "speculative", "redispatches", "splits", "drains"):
             if self.stats[key]:
                 ctx.count(f"fleet.{key}", self.stats[key])
@@ -617,16 +796,22 @@ class FleetCoordinator:
             self.stats["joins"], self.stats["drains"], self.stats["local_fallback"])
         return out
 
-    def _fleet_status(self) -> dict:
+    def _fleet_status(self, poller) -> dict:
         """Heartbeat-sized fleet snapshot: shards done/total and replica
-        health from the coordinator's own breakers (fleet MB/s unknown)."""
+        health. With the poller off, health is the coordinator's own breaker
+        view and the fleet's MB/s is unknown."""
         with self._lock:
             done = sum(1 for s in self._shards if s.done)
             total = len(self._shards)
-        n = len(self.cfg.hosts)
-        open_ = sum(1 for j in range(n) if self.breaker.is_open(j))
-        return {"replicas": n, "healthy": n - open_, "breaker_open": open_, "fleet_mbs": None,
-                "shards_done": done, "shards_total": total}
+        if poller is not None:
+            st = poller.status()
+        else:
+            n = len(self.cfg.hosts)
+            open_ = sum(1 for j in range(n) if self.breaker.is_open(j))
+            st = {"replicas": n, "healthy": n - open_, "breaker_open": open_, "fleet_mbs": None}
+        st["shards_done"] = done
+        st["shards_total"] = total
+        return st
 
     def _efficiency_verdict(self) -> dict[str, dict]:
         """Per-replica efficiency buckets summing to exactly 100%:
@@ -793,6 +978,7 @@ class FleetCoordinator:
         wall = time.monotonic() - t0
         with self._cond:
             self._host_busy[host] += wall
+            self._dead_marks[i] = False  # it answered: the verdict lapses
             shard.running.discard(i)
             if shard.done:
                 # a twin attempt (or the other side of a split) already won;
@@ -891,8 +1077,19 @@ class FleetCoordinator:
         """Poll a shard job to its end: its result, None when the shard was
         won elsewhere or the run was abandoned, :class:`ReplicaDraining`
         for a job the replica's queue rejected as draining, ``RPCError`` for
-        a failed, expired or rejected job, a job past ``job_timeout`` or a
-        replica that stopped answering."""
+        a failed, expired or rejected job, a job past ``job_timeout``, a
+        replica that stopped answering or one the poller declared dead. The
+        job is in :meth:`active_jobs` while it polls."""
+        host = self.cfg.hosts[i]
+        with self._lock:
+            self._active_jobs[host].add(job_id)
+        try:
+            return self._poll_result_inner(i, shard, job_id)
+        finally:
+            with self._lock:
+                self._active_jobs[host].discard(job_id)
+
+    def _poll_result_inner(self, i: int, shard: _ShardState, job_id: str):
         from trivy_tpu_torch.rpc.client import RPCError
 
         ctx = obs.current()
@@ -905,6 +1102,11 @@ class FleetCoordinator:
                 # the twin won, or the run was abandoned (timeout): stop
                 # polling so worker joins don't outlive the scan
                 return None
+            if self._dead_marks[i]:
+                # the poller declared this replica dead: abandon the poll now,
+                # so the shard re-dispatches instead of waiting out the timeout
+                raise RPCError(f"replica {self.cfg.hosts[i]} declared dead by telemetry; "
+                               f"abandoning job {job_id[:8]}")
             try:
                 doc = driver.fetch_result(job_id)
             except RPCError:

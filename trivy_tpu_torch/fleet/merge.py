@@ -56,6 +56,12 @@ class FleetArtifact:
     def stats(self) -> dict:
         return dict(self.coordinator.stats) if self.coordinator else {}
 
+    def telemetry(self) -> dict:
+        """The fan-out's fleet telemetry doc (per-replica health series, set
+        on the scan context at poller stop), or {} when the poller was off
+        or no fan-out has run."""
+        return dict(obs.current().fleet or {})
+
     def inspect(self) -> ArtifactReference:
         ctx = obs.current()
         self.coordinator = FleetCoordinator(self.fleet_config, self.scan_options,

@@ -210,9 +210,13 @@ class TraceContext:
         # secret scan run's (merge_wire) when the codec is on; None on
         # uncompressed scans
         self.wire: dict | None = None
-        # a fleet coordinator's heartbeat-status callable (shards done,
-        # replicas healthy), set for its fan-out; None on other scans
+        # the fleet telemetry plane (trivy_tpu_torch/fleet/telemetry.py): the
+        # per-replica health doc set at poller stop, and the coordinator's
+        # heartbeat-status and --live-fragment callables; all None on scans
+        # that are not fleet scans, so exports show no empty block
+        self.fleet: dict | None = None
         self.fleet_status = None
+        self.fleet_live = None
         # always-on scan progress, created lazily by progress()
         self._progress = None
         # telemetry probes: cheap callables returning {series: value},
@@ -746,8 +750,9 @@ class heartbeat:
             if ctl is not None:
                 frag += f" ({len(ctl.decisions)} decisions)"
             parts.append(frag)
-        # a fleet coordinator's fragment: shards done and replica health
-        # from its breakers while it fans out
+        # a fleet coordinator's fragment while it fans out: shards done and
+        # replica health (from the poller, with the fleet's MB/s, or from its
+        # breakers with the poller off)
         status = ctx.fleet_status
         if status is not None:
             try:

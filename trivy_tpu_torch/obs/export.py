@@ -23,9 +23,11 @@ second process of the Chrome trace, under the client's trace id, and a
 ``remote`` block in the metrics and time-series documents. Every
 path-based writer gzips when the destination ends in ``.gz``. The
 documents carry the JAX package's keys. A fleet scan's profile carries its
-``fleet`` block (per-shard rows and the efficiency verdict); the metrics
-and time-series documents' ``fleet`` blocks hold the fleet telemetry
-plane's replica series, which the port does not have.
+``fleet`` block (per-shard rows and the efficiency verdict); with the
+fleet telemetry plane on, the metrics document's ``fleet`` block holds each
+replica's headroom and series summary, the time-series document's the full
+points, and the Chrome trace one process per replica with its series as
+counter tracks.
 """
 
 from __future__ import annotations
@@ -256,6 +258,22 @@ def chrome_trace_events(ctx: TraceContext) -> list[dict]:
             emit_counters(pid, doc["timeseries"], base_us)
         if doc.get("tuning"):
             emit_tuning(pid, doc["tuning"], base_us)
+    fleet = ctx.fleet
+    if fleet:
+        # the fleet's replicas join the one timeline as processes of their
+        # own, after the remote shard traces' pids: the poller's series
+        # (scraped on the coordinator's clock, so no shift) as counter tracks
+        for i, (host, rep) in enumerate(sorted((fleet.get("replicas") or {}).items())):
+            pid = 2 + len(remote_docs) + i
+            events.append({
+                "name": "process_name",
+                "ph": "M",
+                "pid": pid,
+                "tid": 0,
+                "args": {"name": f"trivy-tpu fleet replica {host}"},
+            })
+            if rep.get("series"):
+                emit_counters(pid, rep["series"])
     return events
 
 
@@ -314,6 +332,14 @@ def metrics_dict(ctx: TraceContext) -> dict:
     if dev is not None:
         # kernel loads and HBM residency, present once the ledgers hold any
         doc["device"] = dev
+    if ctx.fleet:
+        # the fleet telemetry plane: each replica's headroom and health
+        # summary (the series' points ride --timeseries-out)
+        doc["fleet"] = {
+            "interval_s": ctx.fleet.get("interval_s"),
+            "replicas": {host: {k: v for k, v in rep.items() if k != "series"}
+                         for host, rep in (ctx.fleet.get("replicas") or {}).items()},
+        }
     if remote_docs:
         # each joined server's stage histograms and counters
         doc["remote"] = [
@@ -385,6 +411,9 @@ def timeseries_dict(ctx: TraceContext) -> dict:
     ]
     if remote:
         doc["remote"] = remote
+    if ctx.fleet:
+        # the full-points twin of metrics_dict's fleet block
+        doc["fleet"] = ctx.fleet
     return doc
 
 

@@ -536,11 +536,12 @@ def read_bundle(path: str) -> dict:
         return json.load(f)
 
 
-def auto_emit(reason: str, ctx=None, error=None) -> str | None:
+def auto_emit(reason: str, ctx=None, error=None, extra: dict | None = None) -> str | None:
     """Emit a diagnostic bundle for a failure-shaped moment (a terminal
-    failure, a degraded completion): at most one per (scan, reason), and
-    only with a debug dir configured. Never raises: forensics must not take
-    the scan down with it."""
+    failure, a degraded completion, a dead fleet replica): at most one per
+    (scan, reason), and only with a debug dir configured. ``extra`` keys
+    join the bundle's top level (a dead replica's ``replica_bundles``).
+    Never raises: forensics must not take the scan down with it."""
     st = _STATE
     if not st.debug_dir:
         return None
@@ -555,6 +556,8 @@ def auto_emit(reason: str, ctx=None, error=None) -> str | None:
         st.emitted.add(key)
     try:
         doc = build_bundle(ctx=ctx, reason=reason, error=error)
+        if extra:
+            doc.update(extra)
         path = write_bundle(doc, st.debug_dir)
     except Exception as e:
         logger.warning("debug bundle emit (%s) failed: %s", reason, e)

@@ -476,8 +476,9 @@ def start_sampler(ctx, interval: float | None = None) -> Sampler | None:
 class LiveProgress:
     """The ``--live`` line: one carriage-returned status line on stderr on a
     short cadence (progress %, MB/s, ETA, link MB/s, card busy %, arena
-    occupancy, compiles and HBM residency, and with ``--tune`` the
-    controller's knobs and decision count), ended with a newline."""
+    occupancy, a fleet scan's replicas, compiles and HBM residency, and with
+    ``--tune`` the controller's knobs and decision count), ended with a
+    newline."""
 
     def __init__(self, ctx, stream=None, interval: float = 0.5):
         import sys
@@ -514,6 +515,14 @@ class LiveProgress:
             free = ts.latest("secret.arena_free_slabs")
             if free is not None:
                 parts.append(f"arena free {free:.0f}")
+        # the fleet column: the telemetry poller's per-replica fragment, set
+        # by the coordinator while a fan-out with the poller runs
+        fleet_live = self.ctx.fleet_live
+        if fleet_live is not None:
+            try:
+                parts.append(fleet_live())
+            except Exception:
+                pass
         from trivy_tpu_torch.obs import recorder as _recorder
 
         dev = _recorder.live_fragment()

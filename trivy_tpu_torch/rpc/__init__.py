@@ -45,9 +45,9 @@ def scan_result_path(job_id: str) -> str:
 
 # elastic fleet live-join seam: POST /fleet/register with {"Host": addr}
 # asks the coordinator embedded in this server to adopt a replica
-# mid-sweep; 404 unless a coordinator installed its hook, 403 on a bad
-# token, idempotent on duplicates. The port's coordinator has no live join
-# (the fleet telemetry plane is not ported), so its servers answer 404 here
+# mid-sweep; 404 unless a coordinator installed its hook
+# (``FleetCoordinator.register_replica``), 403 on a bad token, idempotent
+# on duplicates
 FLEET_REGISTER = "/fleet/register"
 
 # the explicit inverse: POST /fleet/deregister with {"Host": addr} asks

@@ -448,6 +448,27 @@ def fetch_debug_bundle(server: str, token: str = "",
     return doc
 
 
+def post_register(server: str, host: str, token: str = "",
+                  token_header: str = rpc.DEFAULT_TOKEN_HEADER, timeout: float = 30.0,
+                  retries: int = MAX_RETRIES, deadline: float = RETRY_DEADLINE) -> dict:
+    """Announce replica ``host`` to the coordinator at ``server`` (``POST
+    /fleet/register``). Rides the normal full-jitter retry ladder: the seam
+    is idempotent server-side (a duplicate register answers ``Known:
+    true``), so a retry after a lost 200 is safe."""
+    return _post(server if "://" in server else f"http://{server}", rpc.FLEET_REGISTER,
+                 {"Host": host}, token, token_header, timeout, retries, deadline)
+
+
+def post_deregister(server: str, host: str, token: str = "",
+                    token_header: str = rpc.DEFAULT_TOKEN_HEADER, timeout: float = 30.0,
+                    retries: int = MAX_RETRIES, deadline: float = RETRY_DEADLINE) -> dict:
+    """Withdraw replica ``host`` from the coordinator at ``server`` (``POST
+    /fleet/deregister``), the inverse of :func:`post_register`; idempotent
+    server-side, so the retry ladder is safe here too."""
+    return _post(server if "://" in server else f"http://{server}", rpc.FLEET_DEREGISTER,
+                 {"Host": host}, token, token_header, timeout, retries, deadline)
+
+
 class RemoteCache:
     """Cache facade backed by the server's Cache service
     (ref: pkg/cache/remote.go) — what client-side analysis writes to."""

@@ -301,9 +301,9 @@ class ScanServer:
         self.draining = False
         # elastic fleet live-join seam: a coordinator embedded in this
         # process installs its register_replica here; None keeps
-        # POST /fleet/register a plain 404 with ZERO register state. The
-        # port has no coordinator yet: both hooks stay None. An optional
-        # dedicated token gates the seam independently of the scan token
+        # POST /fleet/register a plain 404 with ZERO register state (no CLI
+        # path installs one, as in the JAX server). An optional dedicated
+        # token gates the seam independently of the scan token
         self.fleet_register_hook = None
         self.fleet_register_token = ""
         # the explicit inverse seam: a coordinator installs its
