@@ -416,6 +416,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from pathlib import Path
@@ -3372,6 +3373,327 @@ class RecordingCache(MemoryCache):
         super().put_blob(blob_id, info)
 
 
+# -- phase misconf: the misconfiguration scanner in the feed's walk ------------
+
+# multi-stage Dockerfiles with continuations, each service its own variant
+MISCONF_DOCKERFILE = """# build stage
+FROM golang:1.22 AS build
+WORKDIR /src
+RUN apt-get update && \\
+    apt-get install -y git curl && \\
+    go build -o /bin/app{i} ./cmd
+FROM alpine:latest
+MAINTAINER ops@example.com
+RUN apk add curl
+ADD bin/ /opt/app{i}
+COPY --from=build /bin/app{i} /bin/app{i}
+EXPOSE 22 8080
+USER root
+CMD ["/bin/app{i}"]
+"""
+# Kubernetes manifests: several kinds in one file, and one hardened pod
+MISCONF_MANIFEST = """apiVersion: apps/v1
+kind: Deployment
+metadata:
+  name: web{i}
+spec:
+  template:
+    spec:
+      hostPID: true
+      containers:
+      - name: app
+        image: nginx:latest
+---
+apiVersion: batch/v1
+kind: CronJob
+metadata:
+  name: job{i}
+spec:
+  jobTemplate:
+    spec:
+      template:
+        spec:
+          containers:
+          - name: job
+            image: busybox:1.36
+            securityContext:
+              privileged: true
+---
+apiVersion: v1
+kind: Service
+metadata:
+  name: svc{i}
+spec:
+  ports: [{{port: 80}}]
+"""
+MISCONF_HARDENED = """apiVersion: v1
+kind: Pod
+metadata:
+  name: good
+  annotations:
+    container.apparmor.security.beta.kubernetes.io/app: runtime/default
+spec:
+  automountServiceAccountToken: false
+  containers:
+  - name: app
+    image: nginx:1.25.3
+    securityContext:
+      allowPrivilegeEscalation: false
+      runAsNonRoot: true
+      runAsUser: 10001
+      runAsGroup: 10001
+      readOnlyRootFilesystem: true
+      seccompProfile:
+        type: RuntimeDefault
+      capabilities:
+        drop: [ALL]
+    resources:
+      limits: {cpu: "1", memory: 1Gi}
+      requests: {cpu: 500m, memory: 512Mi}
+"""
+# the phase's secret rules (``--secret-config``): four built-ins, so that
+# its CPU scans, each a reference for a card scan, stay short
+MISCONF_RULES = ("aws-access-key-id", "github-pat", "gitlab-pat", "slack-access-token")
+# the failures every Dockerfile and every manifest above must report
+MISCONF_IDS = {"DS001", "DS002", "DS004", "DS005", "DS022", "DS026", "DS029",
+               "KSV001", "KSV010", "KSV011", "KSV013", "KSV017", "KSV018"}
+# leg (b)'s custom checks: a Python check over YAML/JSON and a Rego check
+# over manifests (the check API of trivy_tpu_torch/misconf/custom.py)
+MISCONF_PY_CHECK = """
+@check(id="USR-PY-001", severity="HIGH", types=("yaml", "json"), title="debug enabled")
+def debug_enabled(docs):
+    for doc in docs:
+        if isinstance(doc, dict) and doc.get("debug") is True:
+            yield Failure("debug is enabled", start_line=doc.line("debug"))
+"""
+MISCONF_REGO_CHECK = """
+# METADATA
+# title: "Deployment not allowed"
+# custom:
+#   id: USR-K8S-100
+#   severity: CRITICAL
+#   input:
+#     selector:
+#     - type: kubernetes
+package user.kubernetes.USR100
+
+deny[msg] {
+    input.kind == "Deployment"
+    msg := sprintf("deployment %s is forbidden", [input.metadata.name])
+}
+"""
+# an image history that rebuilds as a Dockerfile failing DS005 (ADD) and
+# DS025 (apk add without --no-cache)
+MISCONF_HISTORY = [
+    {"created_by": "/bin/sh -c #(nop) ADD file:0a1b2c in / "},
+    {"created_by": "/bin/sh -c #(nop)  CMD [\"sh\"]", "empty_layer": True},
+    {"created_by": "/bin/sh -c apk add curl"},
+    {"created_by": "/bin/sh -c #(nop)  USER root", "empty_layer": True},
+]
+
+
+def write_misconf_tree(root: Path, seed: int, base: bytes) -> int:
+    """Leg (a)'s tree, about 2 MiB: eight Dockerfiles, eight manifests and
+    the hardened pod, a plain YAML and a JSON file, planted secrets, twelve
+    license files and source text. Returns the bytes written."""
+    rng = random.Random(seed + 23)
+    keys = sorted(FULL_TEXTS)
+    written = 0
+
+    def put(rel: str, data: bytes) -> None:
+        nonlocal written
+        p = root / rel
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_bytes(data)
+        written += len(data)
+
+    for i in range(8):
+        put(f"svc{i}/Dockerfile", MISCONF_DOCKERFILE.format(i=i).encode())
+        put(f"deploy/app-{i}.yaml", MISCONF_MANIFEST.format(i=i).encode())
+        rule = MISCONF_RULES[i % len(MISCONF_RULES)]
+        put(f"app/settings_{i}.py", base[:2048] + SAMPLES[rule].encode() + b"\n")
+    put("deploy/hardened.yaml", MISCONF_HARDENED.encode())
+    put("config/values.yaml", b"replicas: 3\ndebug: true\nimage:\n  tag: latest\n")
+    put("config/settings.json", b'{\n  "debug": true,\n  "port": 8080\n}\n')
+    for i in range(12):
+        put(f"lic/p{i}/LICENSE", license_text(rng, base, keys[i % len(keys)], i % 3, 8192))
+    for i in range(6):
+        off = rng.randrange(0, len(base) - (256 << 10))
+        put(f"src/module_{i}.py", base[off : off + (256 << 10)])
+    return written
+
+
+def config_failures(report: dict) -> dict[str, set]:
+    """{target: failed check ids} of a report's config results."""
+    return {r["Target"]: {m["ID"] for m in r.get("Misconfigurations", [])
+                          if m["Status"] == "FAIL"}
+            for r in report["Results"] if r["Class"] == "config"}
+
+
+def phase_misconf(root: Path, seed: int, base: bytes, card: str) -> dict:
+    """``--scanners misconfig`` in the feed's walk, through ``cli.main``:
+    (a) ``fs --scanners misconfig,secret,license --license-full`` on the
+    card (launch counters to 0 just before, read just after) and on the CPU:
+    equal ``Results`` and ``Metadata``, the expected DS/KSV failures, every
+    feed and license kernel launched; (b) the same with a Python and a Rego
+    ``--config-check`` and the four ported ``--misconfig-scanners``; (c) a
+    ``.tf`` file stops the default scan with exit 2 and no report; (d)
+    ``image --scanners misconfig,secret`` of a small archive, its history's
+    Dockerfile checks under the JAX target, card against CPU; (e) ``-d
+    --log-format json``, ``version --format json``, ``--backend cpu`` and
+    ``--backend pallas --device cpu`` on the CPU, ``--backend pallas`` on
+    the card. Each leg prints its ``t``."""
+    from trivy_tpu_torch import VERSION
+    from trivy_tpu_torch.misconf import custom
+    from trivy_tpu_torch.misconf.checks import unregister
+
+    t_phase = time.perf_counter()
+    tree, out = root / "tree", root / "out"
+    written = write_misconf_tree(tree, seed, base)
+    out.mkdir(parents=True)
+    rules = root / "secret.yaml"
+    rules.write_text("enable-builtin-rules:\n" + "".join(f"  - {r}\n" for r in MISCONF_RULES))
+    result: dict = {"phase": "misconf", "tree_bytes": written}
+    head = ("--license-full", "--secret-config", str(rules))
+    scanners = "misconfig,secret,license"
+
+    # (a) the card against the CPU
+    LAUNCHES.clear()
+    on_card, stats = run_cli(tree, out, "a-cuda", "cuda", *head, scanners=scanners)
+    launches = dict(LAUNCHES)
+    on_cpu, _ = run_cli(tree, out, "a-cpu", "cpu", *head, scanners=scanners)
+    fails = config_failures(on_card)
+    reported = set().union(*fails.values()) if fails else set()
+    leg_a = {"seconds": stats["seconds"], "launches": launches,
+             "config_results": len(fails), "secret_results": sum(
+                 1 for r in on_card["Results"] if r["Class"] == "secret"),
+             "license_results": sum(1 for r in on_card["Results"] if r.get("Licenses")),
+             "equal_to_cpu": (on_card["Results"] == on_cpu["Results"]
+                              and on_card["Metadata"] == on_cpu["Metadata"])}
+    log({"phase": "misconf-a", **leg_a})
+    check(leg_a["equal_to_cpu"], "misconf (a): Results or Metadata differ from --device cpu")
+    check(MISCONF_IDS <= reported, f"misconf (a): missing {sorted(MISCONF_IDS - reported)}")
+    check(not fails.get("deploy/hardened.yaml"), "misconf (a): the hardened pod failed "
+          f"{sorted(fails.get('deploy/hardened.yaml', ()))}")
+    check(all(launches.get(k, 0) > 0 for k in IMAGE_KERNELS),
+          f"misconf (a): a kernel was not launched on the main path: {launches}")
+    check(leg_a["secret_results"] == 8 and leg_a["license_results"] > 0,
+          f"misconf (a): {leg_a['secret_results']} secret results, "
+          f"{leg_a['license_results']} license results")
+    result["a"] = leg_a
+
+    # (c) a type of a later slice stops the default scan: exit 2, no report
+    (tree / "infra").mkdir()
+    (tree / "infra" / "main.tf").write_text('resource "aws_s3_bucket" "b" {}\n')
+    rc = cli.main(["fs", "--scanners", "misconfig", "--format", "json", "-q", "-o",
+                   str(out / "c.json"), "--device", "cuda", str(tree)])
+    shutil.rmtree(tree / "infra")
+    result["c"] = {"rc": rc, "report_written": (out / "c.json").exists()}
+    log({"phase": "misconf-c", **result["c"]})
+    check(rc == 2 and not (out / "c.json").exists(),
+          f"misconf (c): a .tf file gave exit {rc}, report written: {result['c']}")
+
+    # (d) an image's history as a Dockerfile, beside its layers' files
+    layers = [layer_tar(tree / "svc0", extra={"deploy/app.yaml": MISCONF_MANIFEST.format(
+                  i=0).encode()}),
+              layer_tar(tree / "app")]
+    IMAGES["docker_save_tar"](str(root / "image.tar"), layers, history=MISCONF_HISTORY,
+                              repo_tag="chip-smoke/misconf:latest")
+    image = {}
+    for device in ("cuda", "cpu"):
+        path = out / f"d-{device}.json"
+        rc = cli.main(["image", "--scanners", "misconfig,secret", "--format", "json", "-q",
+                       "-o", str(path), "--device", device, "--secret-config", str(rules),
+                       "--cache-dir",
+                       str(root / f"cache-{device}"), str(root / "image.tar")])
+        check(rc == 0, f"misconf (d): image scan on {device} exited {rc}")
+        image[device] = json.loads(path.read_text())
+    history = config_failures(image["cuda"]).get("Dockerfile (image history)", set())
+    result["d"] = {"results": len(image["cuda"]["Results"]), "history_failures": sorted(history),
+                   "equal_to_cpu": (image["cuda"]["Results"] == image["cpu"]["Results"]
+                                    and image["cuda"]["Metadata"] == image["cpu"]["Metadata"])}
+    log({"phase": "misconf-d", **result["d"]})
+    check(result["d"]["equal_to_cpu"], "misconf (d): image Results differ from --device cpu")
+    check({"DS005", "DS025"} <= history, f"misconf (d): history failures {sorted(history)}")
+
+    # (e) the global flags and the small commands
+    err = io.StringIO()
+    # the port's log lines alone: a library's warning would print as text
+    with contextlib.redirect_stderr(err), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        rc = cli.main(["fs", "--scanners", "misconfig", "-d", "--log-format", "json",
+                       "--format", "json", "-o", str(out / "e.json"), "--device", "cuda",
+                       str(tree)])
+    lines = [ln for ln in err.getvalue().splitlines() if ln.strip()]
+    docs = []
+    for ln in lines:
+        try:
+            docs.append(json.loads(ln))
+        except ValueError:
+            docs.append(None)
+    json_ok = rc == 0 and bool(docs) and all(isinstance(d, dict) and d.get("trace_id")
+                                             for d in docs)
+    ver = io.StringIO()
+    with contextlib.redirect_stdout(ver):
+        vrc = cli.main(["version", "--format", "json"])
+    backends = {}
+    for tag, extra in (("cpu", ["--backend", "cpu"]),
+                       ("pallas-device-cpu", ["--backend", "pallas", "--device", "cpu"]),
+                       ("pallas", ["--backend", "pallas"])):
+        LAUNCHES.clear()
+        rc_b = cli.main(["fs", "--scanners", "secret", "--format", "json", "-q", "-o",
+                         str(out / f"e-{tag}.json"), "--secret-config", str(rules), *extra,
+                         str(tree / "app")])
+        backends[tag] = {"rc": rc_b, "launches": sum(LAUNCHES.values()),
+                         "results": json.loads((out / f"e-{tag}.json").read_text())["Results"]}
+    result["e"] = {"log_lines": len(docs), "log_json_with_trace_id": json_ok,
+                   "version": json.loads(ver.getvalue() or "{}"), "version_rc": vrc,
+                   "backend_launches": {k: v["launches"] for k, v in backends.items()}}
+    log({"phase": "misconf-e", **result["e"]})
+    check(json_ok, f"misconf (e): -d --log-format json gave rc {rc} and lines {lines[:3]}")
+    check(vrc == 0 and result["e"]["version"] == {"Version": VERSION},
+          f"misconf (e): version printed {ver.getvalue()!r}")
+    check(all(b["rc"] == 0 for b in backends.values())
+          and backends["cpu"]["launches"] == backends["pallas-device-cpu"]["launches"] == 0
+          and backends["pallas"]["launches"] > 0
+          and backends["cpu"]["results"] == backends["pallas"]["results"]
+          == backends["pallas-device-cpu"]["results"],
+          f"misconf (e): --backend runs {result['e']['backend_launches']}")
+
+    # (b) custom checks, last: they stay registered in the process until
+    # the phase takes them out
+    checks = root / "checks"
+    checks.mkdir()
+    (checks / "debug.py").write_text(MISCONF_PY_CHECK)
+    (checks / "deploy.rego").write_text(MISCONF_REGO_CHECK)
+    extra = ("--config-check", str(checks), "--misconfig-scanners",
+             "dockerfile,kubernetes,yaml,json")
+    try:
+        LAUNCHES.clear()
+        b_card, b_stats = run_cli(tree, out, "b-cuda", "cuda", *head, *extra, scanners=scanners)
+        b_launches = dict(LAUNCHES)
+        b_cpu, _ = run_cli(tree, out, "b-cpu", "cpu", *head, *extra, scanners=scanners)
+    finally:
+        for cid in list(custom._custom_ids):
+            unregister(cid)
+        custom._custom_ids.clear()
+        custom._loaded_files.clear()
+    b_fails = config_failures(b_card)
+    custom_ids = set().union(*b_fails.values()) & {"USR-PY-001", "USR-K8S-100"}
+    result["b"] = {"seconds": b_stats["seconds"], "launches": b_launches,
+                   "custom_ids": sorted(custom_ids),
+                   "equal_to_cpu": (b_card["Results"] == b_cpu["Results"]
+                                    and b_card["Metadata"] == b_cpu["Metadata"])}
+    log({"phase": "misconf-b", **result["b"]})
+    check(result["b"]["equal_to_cpu"], "misconf (b): Results differ from --device cpu")
+    check(custom_ids == {"USR-PY-001", "USR-K8S-100"},
+          f"misconf (b): custom checks reported {sorted(custom_ids)}")
+    result["seconds"] = time.perf_counter() - t_phase
+    result["launches"] = launches
+    log({"phase": "misconf-done", "seconds": result["seconds"], "card": card})
+    return result
+
+
 def server_subsets(fs_tree: Path, root: Path) -> list[Path]:
     """Client t's lockfile set: the t-th npm, golang and cargo lockfiles of
     the fs-vuln tree (a few thousand components, plants among them)."""
@@ -4486,6 +4808,8 @@ def main() -> int:
         formats = phase_formats(tmp / "formats", tmp / "fs-vuln" / "tree", tmp / "cve" / "db",
                                 card)
         shutil.rmtree(tmp / "formats", ignore_errors=True)
+        misconf = phase_misconf(tmp / "misconf", args.seed, base, card)
+        shutil.rmtree(tmp / "misconf", ignore_errors=True)
         server = phase_server(tmp / "server", tmp / "fs-vuln" / "tree", tmp / "cve" / "db",
                               card)
         shutil.rmtree(tmp / "server", ignore_errors=True)
@@ -4570,6 +4894,8 @@ def main() -> int:
     # phase and in the server phase's client/server scan
     for entry, key in zip(kernels, (*IMAGE_KERNELS, "verscmp"), strict=True):
         entry["launches_formats"] = formats["launches"].get(key, 0)
+        # phase misconf's leg (a): fs --scanners misconfig,secret,license
+        entry["launches_misconf"] = misconf["launches"].get(key, 0)
         entry["launches_image"] = image["launches"].get(key, 0)
         entry["launches_registry"] = sources["launches_registry"].get(key, 0)
         entry["launches_ladder"] = ladder["launches"].get(key, 0)

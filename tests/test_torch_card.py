@@ -9,8 +9,9 @@ dead device degrading to the host), several devices: rows and tables on
 different devices refused, and round-robin over one card twice; and
 client/server mode: a client scan through a server on the card equal to
 the local card scan, and concurrent scans of one DB each equal to its
-serial scan; and the fleet: shards, the coordinator and its telemetry plane
-on the card, each equal to the CPU.
+serial scan; the fleet: shards, the coordinator and its telemetry plane
+on the card, each equal to the CPU; and a misconfiguration scan beside the
+secret feed on the card, equal to the CPU.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither ``jax`` nor ``trivy_tpu``, so on a machine with a card and
@@ -1374,3 +1375,45 @@ def test_fleet_telemetry_on_card_equals_cpu(card, tmp_path):
     doc, launched = got["cuda"]
     assert doc["Results"] == got["cpu"][0]["Results"] and "Degraded" not in doc
     assert all(launched[k] > 0 for k in FEED_KERNELS) and launched["verscmp"] == 1, launched
+
+
+@pytest.mark.cuda
+def test_misconfig_scan_on_card_equals_cpu(card, tmp_path):
+    """``fs --scanners misconfig,secret`` of Dockerfiles, manifests, a YAML
+    and a JSON file and planted secrets on the card: the ``Results`` and
+    ``Metadata`` of the same scan on the CPU, the DS and KSV failures
+    reported, the matcher launched."""
+    files = {
+        "svc/Dockerfile": "FROM golang:1.22 AS build\nRUN apt-get update && \\\n"
+                          "    apt-get install -y git\nFROM alpine:latest\nUSER root\n"
+                          "CMD [\"/app\"]\n",
+        "deploy/app.yaml": "apiVersion: apps/v1\nkind: Deployment\nmetadata:\n  name: web\n"
+                           "spec:\n  template:\n    spec:\n      hostPID: true\n"
+                           "      containers:\n      - name: app\n        image: nginx:latest\n"
+                           "---\napiVersion: v1\nkind: Pod\nmetadata:\n  name: p\nspec:\n"
+                           "  containers:\n  - name: c\n    image: i:1\n    securityContext:\n"
+                           "      privileged: true\n",
+        "config/values.yaml": "replicas: 3\n",
+        "config/settings.json": "{\"port\": 8080}\n",
+    }
+    for i in range(8):
+        files[f"src/key{i}.py"] = f"k = '{SAMPLES['github-pat']}'\n"
+    tree = tmp_path / "tree"
+    for rel, text in files.items():
+        (tree / rel).parent.mkdir(parents=True, exist_ok=True)
+        (tree / rel).write_text(text)
+    docs = {}
+    for device in ("cuda", "cpu"):
+        out = tmp_path / f"{device}.json"
+        match_cuda.LAUNCHES.clear()
+        assert cli.main(["fs", "--scanners", "misconfig,secret", "--device", device, "-q",
+                         "--format", "json", "-o", str(out), str(tree)]) == 0
+        docs[device] = (json.loads(out.read_text()), dict(match_cuda.LAUNCHES))
+    (card_doc, launches), (cpu_doc, _) = docs["cuda"], docs["cpu"]
+    assert card_doc["Results"] == cpu_doc["Results"]
+    assert card_doc["Metadata"] == cpu_doc["Metadata"]
+    fails = {m["ID"] for r in card_doc["Results"] for m in r.get("Misconfigurations", [])
+             if m["Status"] == "FAIL"}
+    assert {"DS001", "DS002", "KSV017", "KSV010"} <= fails
+    assert sum(1 for r in card_doc["Results"] if r["Class"] == "secret") == 8
+    assert launches.get("prefilter", 0) > 0, launches

@@ -179,7 +179,7 @@ def test_fs_table_format_with_licenses(license_tree, capsys):
 
 def test_fs_rejects_unknown_scanners(tree):
     with pytest.raises(SystemExit):
-        cli.main(["fs", "--device", "cpu", "-q", "--scanners", "secret,misconfig", str(tree)])
+        cli.main(["fs", "--device", "cpu", "-q", "--scanners", "secret,rbac", str(tree)])
 
 
 def test_fs_table_format(tree, tmp_path, capsys):

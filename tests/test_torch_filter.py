@@ -229,26 +229,28 @@ def test_dependency_tree_setting_equals_jax(env, wd, monkeypatch, source):
 
 
 # a setting of each command's JAX flags that the port still lacks: the
-# global group's log format on fs, the db group's offline-scan on sbom
-UNPORTED = {"fs-secret": ("log.format", "log:\n  format: json\n"),
-            "sbom": ("offline-scan", "offline-scan: true\n")}
+# report group's compliance spec, on fs and on sbom (every global, scan and
+# db flag is ported)
+UNPORTED = {"fs-secret": ("compliance", "compliance: docker-cis-1.6.0\n"),
+            "sbom": ("compliance", "compliance: docker-cis-1.6.0\n")}
 
 
 @pytest.mark.parametrize("command", ["fs-secret", "sbom"])
 def test_unported_jax_settings_refused_per_command(env, wd, monkeypatch, capsys, command):
-    """A JAX setting the port lacks refuses on ``fs`` and ``sbom``:
-    ``log.format`` (the global group) on ``fs``, ``offline-scan`` on
-    ``sbom``, and ``TRIVY_TPU_BACKEND`` on both."""
+    """A JAX setting the port lacks refuses on ``fs`` and ``sbom``, from the
+    config file (``compliance``) and from the environment
+    (``TRIVY_TPU_COMPLIANCE``)."""
     key, text = UNPORTED[command]
     (wd / "trivy-tpu.yaml").write_text(text)
     with pytest.raises(SystemExit) as exc:
         run_both(env, wd, command)
     assert exc.value.code == 2 and f"'{key}'" in capsys.readouterr().err
     (wd / "trivy-tpu.yaml").unlink()
-    monkeypatch.setenv("TRIVY_TPU_BACKEND", "cpu")
+    monkeypatch.setenv("TRIVY_TPU_COMPLIANCE", "docker-cis-1.6.0")
     with pytest.raises(SystemExit) as exc:
         run_both(env, wd, command)
-    assert exc.value.code == 2 and "TRIVY_TPU_BACKEND sets --backend" in capsys.readouterr().err
+    assert (exc.value.code == 2
+            and "TRIVY_TPU_COMPLIANCE sets --compliance" in capsys.readouterr().err)
 
 
 @pytest.mark.parametrize("command,config", [
@@ -297,7 +299,7 @@ def test_jax_flag_table_matches_the_jax_cli():
     from trivy_tpu_torch.flag import ENV_PREFIX, JAX_FLAGS
 
     assert set(JAX_FLAGS) == set(cli._TARGET_GROUPS) == {
-        "fs", "rootfs", "repo", "watch", "image", "vm", "sbom", "convert", "server"}
+        "fs", "rootfs", "repo", "watch", "image", "vm", "sbom", "convert", "server", "clean"}
     for command, flags in JAX_FLAGS.items():
         want = [(f.name, f.config_name) for g in jax_cli._TARGET_GROUPS[command]
                 for f in g().flags]

@@ -334,22 +334,23 @@ def test_convert_keeps_the_degraded_flag(env, wd):
     assert json.loads((wd / "port.out").read_text())["Degraded"] is True
 
 
-def test_convert_refuses_misconfigurations(env, wd, capsys):
-    """A report with misconfiguration results exits 2 and writes nothing,
-    where the JAX CLI converts it."""
+def test_convert_refuses_misconfigurations(env, wd):
+    """A report with misconfiguration results, once refused with exit 2,
+    now converts to the JAX ``convert``'s bytes in each format that renders
+    them."""
     doc = json.loads(env["report"].read_text(encoding="utf-8"))
     doc["Results"].append({"Target": "Dockerfile", "Class": "config", "Type": "dockerfile",
                            "Misconfigurations": [MisconfResult(
                                id="DS002", title="root user", severity="HIGH",
-                               status="FAIL").to_dict()]})
+                               message="Last USER command in Dockerfile should not be 'root'",
+                               start_line=2, end_line=2, status="FAIL").to_dict()]})
     src = wd / "misconf.json"
     src.write_text(json.dumps(doc), encoding="utf-8")
-    rc = cli.main(["convert", "--format", "sarif", "-o", str(wd / "port.out"), str(src)])
-    assert rc == 2 and not (wd / "port.out").exists()
-    assert "Misconfigurations" in capsys.readouterr().err
-    assert jax_cli.main(["convert", "--format", "sarif", "-q", "-o", str(wd / "jax.out"),
-                         str(src)]) == 0
-    assert "DS002" in (wd / "jax.out").read_text()
+    for fmt in ("sarif", "table", "json"):
+        for main, out in ((cli.main, wd / "port.out"), (jax_cli.main, wd / "jax.out")):
+            assert main(["convert", "--format", fmt, "-q", "-o", str(out), str(src)]) == 0
+        assert (wd / "port.out").read_bytes() == (wd / "jax.out").read_bytes(), fmt
+        assert "DS002" in (wd / "port.out").read_text()
 
 
 def test_convert_takes_no_device(env):

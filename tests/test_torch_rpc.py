@@ -541,11 +541,13 @@ def test_server_on_cuda_without_a_card_fails_at_boot():
 
 
 def test_server_command_refuses_unported_and_garbage_settings(monkeypatch, capsys):
-    monkeypatch.setenv("TRIVY_TPU_SKIP_DB_UPDATE", "true")
+    # every JAX flag of the server is ported now: a garbage value of one
+    # (the global group's log format) exits 2 as an unported one did
+    monkeypatch.setenv("TRIVY_TPU_LOG_FORMAT", "xml")
     with pytest.raises(SystemExit) as exc:
         cli.main(["server", "--device", "cpu", "--listen", "127.0.0.1:9"])
-    assert exc.value.code == 2 and "TRIVY_TPU_SKIP_DB_UPDATE" in capsys.readouterr().err
-    monkeypatch.delenv("TRIVY_TPU_SKIP_DB_UPDATE")
+    assert exc.value.code == 2 and "log-format" in capsys.readouterr().err
+    monkeypatch.delenv("TRIVY_TPU_LOG_FORMAT")
     monkeypatch.setenv("TRIVY_TPU_MAX_CONCURRENT_SCANS", "banana")
     with pytest.raises(SystemExit) as exc:
         cli.main(["server", "--device", "cpu", "--listen", "127.0.0.1:9"])

@@ -73,15 +73,18 @@ def test_sbom_scan_group_equals_jax(env, wd, monkeypatch, scanners, option):
 
 
 def test_scan_sbom_applies_the_jax_scanner_rule(env):
-    """``scan_sbom``: a list without ``vuln`` scans ``vuln`` only; with it,
-    the list stays; an unknown scanner is refused."""
+    """``scan_sbom``: a list without ``vuln`` scans ``vuln`` only
+    (``misconfig`` alone too, as in JAX); with it, the
+    list stays; an unknown scanner is refused."""
     from trivy_tpu_torch.db import VulnDB
 
     db = VulnDB.load(env["db"])
     runs = {s: cli.scan_sbom(env["bom"], db=db, device="cpu", scanners=s)[0].to_dict()
-            for s in (("vuln",), ("secret",), ("license",), ("vuln", "license"))}
+            for s in (("vuln",), ("secret",), ("license",), ("misconfig",),
+                      ("vuln", "license"))}
     assert runs[("secret",)]["Results"] == runs[("vuln",)]["Results"]
     assert runs[("license",)]["Results"] == runs[("vuln",)]["Results"]
+    assert runs[("misconfig",)]["Results"] == runs[("vuln",)]["Results"]
     assert len(runs[("vuln", "license")]["Results"]) > len(runs[("vuln",)]["Results"])
     with pytest.raises(ValueError, match="unsupported scanners"):
-        cli.scan_sbom(env["bom"], db=db, device="cpu", scanners=("misconfig",))
+        cli.scan_sbom(env["bom"], db=db, device="cpu", scanners=("rbac",))

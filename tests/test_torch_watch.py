@@ -162,22 +162,22 @@ def test_watch_arms_no_timeout_alarm(tmp_path, wd, monkeypatch):
 
 @pytest.mark.parametrize("how", ["cli", "env", "config"])
 def test_watch_refuses_flags_the_port_lacks(tmp_path, wd, monkeypatch, capsys, how):
-    """The misconfiguration group of the JAX watch exits 2 from every
-    source; ``--server`` and ``--incremental``, which no watch takes, exit 2
-    in both CLIs."""
+    """A misconfiguration type the port lacks, named in the watch's
+    misconfiguration group, exits 2 from every source (the group itself is
+    ported); ``--server`` and ``--incremental``, which no watch takes, exit
+    2 in both CLIs."""
     root = make_tree(tmp_path, n_dirs=1)
     argv = ["watch", "--device", "cpu", "-q", "--watch-count", "1"]
     if how == "cli":
-        argv += ["--config-check", "p.rego"]
+        argv += ["--misconfig-scanners", "terraform"]
     elif how == "env":
-        monkeypatch.setenv("TRIVY_TPU_MISCONFIG_SCANNERS", "dockerfile")
+        monkeypatch.setenv("TRIVY_TPU_MISCONFIG_SCANNERS", "helm")
     else:
-        (wd / "trivy-tpu.yaml").write_text("misconfiguration:\n  config-check: [p.rego]\n")
+        (wd / "trivy-tpu.yaml").write_text("misconfiguration:\n  scanners: [cloudformation]\n")
     with pytest.raises(SystemExit) as exc:
         cli.main([*argv, str(root)])
     assert exc.value.code == 2
-    if how != "cli":
-        assert "JAX package" in capsys.readouterr().err
+    assert "not ported yet" in capsys.readouterr().err
     for flag in ("--server", "--incremental"):
         for main, dev in ((cli.main, ["--device", "cpu"]), (jax_cli.main, ["--backend", "cpu"])):
             with pytest.raises(SystemExit) as exc:

@@ -241,10 +241,10 @@ class ImageArchiveArtifact:
         try:
             counts: Counter = Counter()
             layer_res = LayerResult()
-            secret, licenses = self.analyzers.batch("", skip_secret=skip_secret)
+            secret, batched = self.analyzers.batch("", skip_secret=skip_secret)
             with archive.layer_stream(index) as stream:
                 result = analyze_files(self.walker.walk(stream, layer_res), "",
-                                       self.analyzers.group, secret, licenses, counts)
+                                       self.analyzers.group, secret, batched, counts)
             blob = result.to_blob_info()
             self.handlers.post_handle(result, blob)
             blob.diff_id = diff_id
@@ -259,7 +259,8 @@ class ImageArchiveArtifact:
     def _analyze_config(self, archive) -> BlobInfo:
         """Image-config analysis as a synthetic top blob."""
         an = self.analyzers
-        blob = analyze_image_config(archive.config, an.scanner is not None, an.config_path)
+        blob = analyze_image_config(archive.config, an.scanner is not None, an.config_path,
+                                    misconfig=an.misconfig)
         blob.diff_id = archive.image_id
         return blob
 

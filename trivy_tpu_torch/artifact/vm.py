@@ -82,8 +82,8 @@ class VMImageArtifact:
         if not missing:
             logger.debug("cache hit for %s -> %s", self.path, blob_id)
             return ref
-        secret, licenses = self.analyzers.batch("")
-        result = analyze_files(self._entries(), "", self.analyzers.group, secret, licenses,
+        secret, batched = self.analyzers.batch("")
+        result = analyze_files(self._entries(), "", self.analyzers.group, secret, batched,
                                self.stats)
         blob = result.to_blob_info()
         self.handlers.post_handle(result, blob)

@@ -1,16 +1,19 @@
 """Command line of the port: the ``fs``, ``rootfs`` and ``repo``
-vulnerability, secret and license scans, full or incremental, the
-``watch`` loop over a directory, the ``image`` scan of an image
-archive, registry or daemon image, the ``vm`` scan of a disk image, the
-``sbom`` vulnerability scan, and ``convert`` of a saved JSON report.
+vulnerability, misconfiguration, secret and license scans, full or
+incremental, the ``watch`` loop over a directory, the ``image`` scan of an
+image archive, registry or daemon image, the ``vm`` scan of a disk image,
+the ``sbom`` vulnerability scan, ``convert`` of a saved JSON report, and
+the JAX CLI's ``clean``, ``plugin`` and ``version``.
 
-    python -m trivy_tpu_torch fs [--scanners vuln,secret,license]
+    python -m trivy_tpu_torch fs [--scanners vuln,misconfig,secret,license]
         [--db-repository DIR] [--cache-dir D] [--java-db DIR] [--list-all-pkgs]
         [--license-full] [--no-shared-arena] [--secret-config F]
+        [--config-check F|DIR,..] [--misconfig-scanners dockerfile,kubernetes,yaml,json]
         [--severity S,..] [--ignorefile F] [--ignore-policy F.py|F.rego]
         [--vex DOC|repo ..] [--show-suppressed] [--exit-code N] [-c CONFIG]
         [--format FORMAT] [-t TEMPLATE|@FILE] [--dependency-tree] [-o OUT]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--backend auto|pallas|xla|cpu] [-d] [--log-format plain|json]
+        [--skip-db-update] [--offline-scan]
         [--no-secret-dedup] [--secret-dedup-mb N] [--secret-hit-cache]
         [--cache-backend fs|memory|redis://H:P|rediss://H:P] [--cache-ttl S]
         [--redis-ca F] [--redis-cert F] [--redis-key F] [--redis-insecure]
@@ -45,6 +48,10 @@ archive, registry or daemon image, the ``vm`` scan of a disk image, the
         [--max-concurrent-scans N [admission flags]] [--device cuda|cpu]
     python -m trivy_tpu_torch convert [report flags as above] <report.json>
     python -m trivy_tpu_torch debug <bundle.json.gz>
+    python -m trivy_tpu_torch clean (--all | --scan-cache | --vuln-db) [--cache-dir D]
+    python -m trivy_tpu_torch plugin (install <dir|archive> | list | run <name> [args]
+        | uninstall <name>)
+    python -m trivy_tpu_torch version [--format text|json]
 
 ``FORMAT`` is any of the JAX CLI's nine: ``table`` (the default; with
 ``--dependency-tree`` the reversed dependency tree of each vulnerable
@@ -54,7 +61,7 @@ Go-template subset or ``@file``) and ``cosign-vuln``. ``--dependency-tree``
 and the SBOM and snapshot formats scan the whole package inventory, as
 ``--list-all-pkgs`` does. ``convert`` reads a JSON report, filters it and
 writes it in the format asked for, as the JAX ``convert`` does; it touches
-no device. A report with misconfiguration results exits 2.
+no device.
 
 Every command can trace itself as the JAX CLI does: ``--trace`` prints the
 span table, the stall verdict and the hottest rules after the scan;
@@ -92,24 +99,34 @@ the secret feed, and ``--parallel``, the read-ahead workers of ``fs``,
 server dies, and marks the report ``CacheDegraded``.
 
 Runs on the card unless ``--device cpu`` is given, and fails when CUDA is
-asked for and missing. Flags resolve as the JAX package's do (``flag.py``):
-the command line, then ``TRIVY_TPU_<NAME>`` in the environment, then the
-config file (``-c``, else ``trivy-tpu.yaml`` or ``trivy_tpu.yaml`` in the
-working directory), then the default; ``--device`` and ``--stats-out`` are
-the port's own and come from the command line only. A JAX flag the port
-lacks exits with code 2 from the command line, the environment or the
-config file alike. The report then passes
-the JAX package's filter: ``--severity``, VEX documents, the ignore file
+asked for and missing; without ``--device``, ``--backend cpu`` (the JAX
+flag) runs on the CPU and its other values on the card. ``-d`` logs debug
+lines, ``--log-format json`` one JSON object per line with the scan's
+``trace_id``. ``--skip-db-update`` and ``--offline-scan`` are taken and
+read by nothing, as in the JAX package: no scan fetches a DB. Flags resolve
+as the JAX package's do (``flag.py``): the command line, then
+``TRIVY_TPU_<NAME>`` in the environment, then the config file (``-c``,
+else ``trivy-tpu.yaml`` or ``trivy_tpu.yaml`` in the working directory),
+then the default; ``--device`` and ``--stats-out`` are the port's own and
+come from the command line only. A JAX flag the port lacks exits with code
+2 from the command line, the environment or the config file alike. The
+report then passes the JAX package's filter: ``--severity``, VEX documents, the ignore file
 (``.trivyignore`` in the working directory by default, plain or YAML), a
 Python or Rego ``--ignore-policy``, and the dedup.
 
 ``fs`` (and ``rootfs``, the same scan) walks the tree once through the
 analyzers of ``fanal/scan.py``: the OS identity analyzers always, the
 lockfile, installed-package, binary and OS package DB analyzers when the
-report can show packages (``vuln``, ``license`` or ``--list-all-pkgs``),
-the secret and license analyzers as their scanners ask. ``repo`` clones a
-URL (``artifact/repo.py``) and scans the checkout as ``fs``; a path is
-scanned in place. ``image`` walks each layer that its layer cache lacks the
+report can show packages (``vuln``, ``license`` or ``--list-all-pkgs``) or
+with ``misconfig``, the secret, license and config analyzers as their
+scanners ask. ``misconfig`` scans the ``dockerfile``, ``kubernetes``,
+``yaml`` and ``json`` types (``misconf/``) with the ``--config-check``
+Python and Rego checks; naming another JAX type in
+``--misconfig-scanners`` exits 2, and so does a scan that meets a file of
+one (terraform, cloudformation, helm, azure-arm) it would evaluate, with no
+report. ``image`` also checks the image history rebuilt as a Dockerfile.
+``repo`` clones a URL (``artifact/repo.py``) and scans the checkout as
+``fs``; a path is scanned in place. ``image`` walks each layer that its layer cache lacks the
 same way (``artifact/image.py``), every package analyzer included: of a
 docker-save or OCI-layout archive when the target is a path, else of the
 first daemon in ``--image-src`` order that holds the image, else of a
@@ -162,7 +179,9 @@ devices, their blobs merge into the scan cache and detection runs here, so
 the ``Results`` equal the scan's without a fleet; shards every server failed
 run here and mark the report ``Degraded`` (with ``--no-host-fallback`` the
 command exits 1). ``--fleet`` with ``--server``, or with an incremental
-flag on a tree, exits 2 as in JAX. The fleet's telemetry plane runs at
+flag on a tree, exits 2 as in JAX; ``--fleet`` with ``misconfig`` exits 2
+too, as fleet shards do not carry it yet. The fleet's telemetry plane runs
+at
 ``--fleet-telemetry-interval`` (1.0 s by default, 0 turns it off): replica
 scrapes, headroom-weighted placement, the dead and draining verdicts, and
 the ``fleet`` blocks of ``--metrics-out``, ``--timeseries-out``,
@@ -182,7 +201,7 @@ import threading
 import time
 from collections import Counter
 
-from trivy_tpu_torch import faults, log, obs
+from trivy_tpu_torch import VERSION, faults, log, obs
 from trivy_tpu_torch import report as report_pkg
 from trivy_tpu_torch.artifact.image import (
     ImageSourceOption,
@@ -206,6 +225,8 @@ from trivy_tpu_torch.fanal.scan import (
 )
 from trivy_tpu_torch.fanal.walker import FSWalker, WalkOption
 from trivy_tpu_torch.fleet import FleetError
+from trivy_tpu_torch.fleet.plan import BACKENDS
+from trivy_tpu_torch.misconf import UnportedTypeError, check_file_types
 from trivy_tpu_torch.flag import JAX_FLAGS, Flag, FlagGroup, load_config_file, resolve_all
 from trivy_tpu_torch.obs import export
 from trivy_tpu_torch.obs import recorder as flight
@@ -222,6 +243,9 @@ from trivy_tpu_torch.types import Report
 logger = log.logger("cli")
 
 SEVERITIES = ["UNKNOWN", "LOW", "MEDIUM", "HIGH", "CRITICAL"]
+# the JAX --misconfig-scanners choices, the types of misconf/detection.py
+MISCONFIG_TYPES = ["dockerfile", "terraform", "cloudformation", "kubernetes", "helm",
+                   "azure-arm", "yaml", "json"]
 # formats that force the whole package inventory, as --list-all-pkgs does
 LIST_ALL_FORMATS = ("cyclonedx", "spdx", "spdx-json", "github")
 # the walk's counters in a scan's counters (fanal/scan.py analyze_files)
@@ -306,8 +330,12 @@ def scan_fs(root: str, config_path: str | None = None, device=DEFAULT_DEVICE,
             tuning: TuningConfig | None = None, server: str | None = None, token: str = "",
             cache=None, incremental=None, **scanner_opts) -> tuple[Report, dict]:
     """Scan the tree under ``root`` with ``scanners`` (any of ``vuln``,
-    ``secret``, ``license``). With ``vuln``, packages meet ``db`` when given
-    (a loaded DB keeps its resident join across scans), else the DB that
+    ``misconfig``, ``secret``, ``license``; ``check_paths`` and
+    ``misconfig_scanners`` in ``scanner_opts`` are the misconfiguration
+    flags, and a file of a type the port cannot scan raises
+    :class:`~trivy_tpu_torch.misconf.UnportedTypeError`). With ``vuln``,
+    packages meet ``db`` when given (a loaded DB keeps its resident join
+    across scans), else the DB that
     :func:`load_db` finds. ``parallel`` workers (0: ``tuning.parallel``,
     else ``DEFAULT_PARALLEL``) read the files ahead of the analyzers;
     ``tuning`` (a :class:`~trivy_tpu_torch.tuning.TuningConfig`) also sets
@@ -359,16 +387,18 @@ def scan_fs(root: str, config_path: str | None = None, device=DEFAULT_DEVICE,
         return _scan_incremental(root, analyzers, cache, incremental, skip_files, skip_dirs,
                                  parallel, scanners, db, dev, list_all_pkgs, host_fallback,
                                  stats, health0, t0)
-    secret, licenses = analyzers.batch(root)
+    secret, batched = analyzers.batch(root)
     walker = FSWalker(WalkOption(skip_files=list(skip_files), skip_dirs=list(skip_dirs)))
     workers = parallel or (tuning.parallel if tuning is not None else 0) or DEFAULT_PARALLEL
-    result = analyze_files(walker.walk(root), root, analyzers.group, secret, licenses, stats,
+    result = analyze_files(walker.walk(root), root, analyzers.group, secret, batched, stats,
                            read_ahead=workers)
     blob = result.to_blob_info()
     HandlerManager().post_handle(result, blob)
     stats["analyze.seconds"] = time.perf_counter() - t0
     # walk and stat failures count as the JAX package's walker counts them
     stats["files_skipped"] += walker.skipped
+    logger.debug("walked %d files under %s: %d analyzed, %d skipped", stats["files_walked"],
+                 root, stats["files_scanned"], stats["files_skipped"])
     name = root if root == os.path.sep else root.rstrip(os.path.sep)
     if server:
         report = _remote_detect(blob, name, analyzers, skip_files, skip_dirs, scanners,
@@ -603,6 +633,8 @@ def scan_fleet(kind: str, target: str, fleet, cache=None, config_path: str | Non
     from trivy_tpu_torch.fleet.plan import ShardSettings
 
     check_scanners(scanners)
+    if "misconfig" in scanners:
+        raise ValueError("fleet shards do not carry the misconfig scanner yet")
     dev = resolve(device)
     health0 = obs.current().health_snapshot()
     stats: Counter = Counter()
@@ -641,6 +673,8 @@ def scan_fleet(kind: str, target: str, fleet, cache=None, config_path: str | Non
 
 def global_flags() -> FlagGroup:
     return FlagGroup("global", [
+        Flag("debug", default=False, value_type=bool, help="debug logging",
+             config_name="debug", short="d"),
         Flag("quiet", default=False, value_type=bool, help="errors only",
              config_name="quiet", short="q"),
         Flag("cache-dir", default=None, help="cache directory", config_name="cache.dir"),
@@ -687,6 +721,8 @@ def global_flags() -> FlagGroup:
                   "busy, arena occupancy) to stderr during the scan"),
         Flag("timeout", default=300, value_type=int, config_name="timeout",
              help="scan timeout seconds (ref default 5m); a scan past it exits 1"),
+        Flag("log-format", default="plain", choices=["plain", "json"], config_name="log.format",
+             help="log line format: plain, or one JSON object per line"),
         Flag("fault-inject", default=None, config_name="fault-inject",
              help="arm the deterministic fault-injection harness, e.g. "
                   "'device.dispatch@d0:at=2,device.dispatch@license:times=-1' "
@@ -714,6 +750,9 @@ def scan_flags() -> FlagGroup:
              help="directories to skip"),
         Flag("skip-files", default=[], is_list=True, config_name="scan.skip-files",
              help="files to skip"),
+        Flag("backend", default="auto", choices=list(BACKENDS), config_name="scan.backend",
+             help="the JAX backend's name for the device: cpu runs on the CPU, auto, "
+                  "pallas and xla on cuda; an explicit --device wins"),
         Flag("parallel", default=0, value_type=int, config_name="scan.parallel",
              help="host workers (0 = 5): the read-ahead pool of fs, rootfs and repo, the "
                   "layers image analyzes at once, and the secret confirm pool"),
@@ -831,12 +870,31 @@ def license_flags() -> FlagGroup:
     ])
 
 
+def misconf_flags() -> FlagGroup:
+    return FlagGroup("misconfiguration", [
+        Flag("config-check", default=[], is_list=True,
+             config_name="misconfiguration.config-check",
+             help="paths to custom check files/dirs (Python check API or .rego)"),
+        Flag("misconfig-scanners", default=[], is_list=True,
+             config_name="misconfiguration.scanners", choices=MISCONFIG_TYPES,
+             validator=check_file_types,
+             help="limit misconfig file types (ported: dockerfile, kubernetes, yaml, json)"),
+    ])
+
+
 def db_flags() -> FlagGroup:
+    """The JAX db group. ``--skip-db-update`` and ``--offline-scan`` are
+    taken and read by nothing, as in the JAX package: no scan fetches a
+    DB."""
     return FlagGroup("db", [
+        Flag("skip-db-update", default=False, value_type=bool, config_name="db.skip-update",
+             help="do not refresh the vuln DB (no command refreshes it)"),
         Flag("db-repository", default=None, config_name="db.repository",
              help="advisory DB directory (default: <cache-dir>/db)"),
         Flag("java-db", default=None, config_name="db.java-repository",
              help="java DB directory (jar sha1 -> maven coordinates)"),
+        Flag("offline-scan", default=False, value_type=bool, config_name="offline-scan",
+             help="no network access (no scan reaches the network for a DB)"),
     ])
 
 
@@ -983,10 +1041,10 @@ def admission_flags() -> FlagGroup:
     ])
 
 
-_FS_GROUPS = [global_flags, scan_flags, report_flags, secret_flags, license_flags, db_flags,
-              server_client_flags, tuning_flags]
+_FS_GROUPS = [global_flags, scan_flags, report_flags, secret_flags, license_flags,
+              misconf_flags, db_flags, server_client_flags, tuning_flags]
 # the JAX fleet commands' groups: the fleet group after client/server
-_FLEET_GROUPS = [*_FS_GROUPS[:7], fleet_flags, tuning_flags]
+_FLEET_GROUPS = [*_FS_GROUPS[:8], fleet_flags, tuning_flags]
 # the commands that resolve a TuningConfig and scan through the secret feed
 TUNED_COMMANDS = ("fs", "rootfs", "repo", "watch", "image", "vm")
 # the commands whose --server runs the scan in client mode; the others with
@@ -999,13 +1057,14 @@ _TARGET_GROUPS = {
     "rootfs": [*_FLEET_GROUPS, incremental_flags],
     "repo": [*_FLEET_GROUPS, incremental_flags],
     # the JAX watch's groups: no client/server, no incremental flags
-    "watch": [global_flags, scan_flags, report_flags, secret_flags, license_flags, db_flags,
-              tuning_flags],
+    "watch": [global_flags, scan_flags, report_flags, secret_flags, license_flags,
+              misconf_flags, db_flags, tuning_flags],
     "image": [*_FLEET_GROUPS, image_flags, incremental_flags],
     "vm": _FS_GROUPS,
     "sbom": [global_flags, scan_flags, report_flags, db_flags, server_client_flags],
     "convert": [global_flags, report_flags],
     "server": [global_flags, db_flags, admission_flags],
+    "clean": [global_flags],
 }
 _HELP = {
     "fs": "scan a local filesystem for vulnerabilities, secrets and licenses",
@@ -1017,6 +1076,7 @@ _HELP = {
     "sbom": "scan an SBOM (CycloneDX/SPDX) for vulnerabilities",
     "convert": "convert a saved JSON report into another format",
     "server": "run the scan server (detection on --device)",
+    "clean": "clean caches and databases",
 }
 _TARGET_HELP = {"fs": "directory to scan", "rootfs": "root filesystem directory",
                 "repo": "repository path or URL", "watch": "directory to watch",
@@ -1041,9 +1101,17 @@ def build_parser() -> argparse.ArgumentParser:
             sp.add_argument("--device", choices=["cuda", "cpu"], default=DEFAULT_DEVICE,
                             help="device of the detection (the resident CVE join)")
             continue
+        if cmd == "clean":
+            sp.add_argument("--all", action="store_true", dest="clean_all")
+            sp.add_argument("--scan-cache", action="store_true")
+            sp.add_argument("--vuln-db", action="store_true", dest="vuln_db")
+            continue
         if cmd != "convert":  # convert touches no device and scans nothing
-            # the port's own flags: the command line only
-            sp.add_argument("--device", choices=["cuda", "cpu"], default=DEFAULT_DEVICE)
+            # the port's own flags: the command line only; an unset
+            # --device follows --backend (cuda unless it is cpu)
+            sp.add_argument("--device", choices=["cuda", "cpu"], default=None,
+                            help="device of the scan (default: cuda; the CPU with "
+                                 "--backend cpu)")
             sp.add_argument("--stats-out", default="",
                             help="write the scan's counters (files, components, seconds, "
                                  "the CVE join's rows, dispatches and bound bytes uploaded, "
@@ -1071,6 +1139,17 @@ def build_parser() -> argparse.ArgumentParser:
     groups_by_cmd["debug"] = [global_flags()]
     groups_by_cmd["debug"][0].add_to_parser(sp)
     sp.add_argument("target", help="diagnostic bundle path (.json.gz or .json)")
+    # the JAX CLI's flagless commands (trivy_tpu/cli.py build_parser)
+    pp = sub.add_parser("plugin", help="manage plugins (install/list/run/uninstall)")
+    psub = pp.add_subparsers(dest="plugin_cmd")
+    psub.add_parser("install").add_argument("source")
+    psub.add_parser("list")
+    psub.add_parser("uninstall").add_argument("name")
+    pr = psub.add_parser("run")
+    pr.add_argument("name")
+    pr.add_argument("plugin_args", nargs=argparse.REMAINDER)
+    vp = sub.add_parser("version", help="print version")
+    vp.add_argument("--format", default="text", choices=["text", "json"])
     p.set_defaults(_groups_by_cmd=groups_by_cmd)
     return p
 
@@ -1078,10 +1157,18 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.command == "version":
+        print(json.dumps({"Version": VERSION}) if args.format == "json"
+              else f"trivy-tpu version {VERSION}")
+        return 0
+    if args.command == "plugin":
+        return _run_plugin(parser, args)
     try:
         config = load_config_file(args.config)
         opts = resolve_all(args._groups_by_cmd[args.command], args, config,
                            command=args.command if args.command in JAX_FLAGS else None)
+        if "backend" in opts and args.device is None:
+            args.device = "cpu" if opts["backend"] == "cpu" else DEFAULT_DEVICE
         interval = opts["telemetry_interval"]
         if interval is None:
             interval = timeseries.default_interval()
@@ -1095,7 +1182,7 @@ def main(argv: list[str] | None = None) -> int:
             args.fleet_config = _fleet_config(opts, args.tuning)
     except (ValueError, FileNotFoundError) as e:
         parser.error(str(e))
-    log.init(quiet=opts["quiet"])
+    log.init(debug=opts["debug"], quiet=opts["quiet"], fmt=opts["log_format"])
     if args.command == "debug":
         return _run_debug(args.target)
     # flight-recorder forensics destination (--debug-dir wins over
@@ -1189,6 +1276,8 @@ def _write_exports(ctx, opts: dict) -> None:
 
 def _run(args, opts: dict) -> int:
     """The command's scan, its ``--stats-out`` counters and its report."""
+    if args.command == "clean":
+        return _run_clean(args, opts)
     try:
         # validate the ignore policy up front: a broken policy file must not
         # cost the user a full scan before failing
@@ -1200,6 +1289,10 @@ def _run(args, opts: dict) -> int:
         # whole inventory (trivy_tpu/commands.py::_scan_options)
         opts["list_all_pkgs"] = (opts["list_all_pkgs"] or opts["dependency_tree"]
                                  or opts["format"] in LIST_ALL_FORMATS)
+        if args.fleet_config is not None and "misconfig" in opts["scanners"]:
+            logger.error("--fleet with the misconfig scanner is not ported yet: a fleet shard "
+                         "names no misconfiguration types; drop --fleet or the scanner")
+            return 2
         if (opts.get("server") and args.command not in CLIENT_COMMANDS
                 and args.fleet_config is None):
             # the JAX image, vm and sbom runners never read --server
@@ -1286,7 +1379,9 @@ def _run(args, opts: dict) -> int:
             with open(args.stats_out, "w", encoding="utf-8") as f:
                 json.dump(counters, f, indent=2)
         return _emit(report, opts)
-    except PolicyError as e:
+    except (PolicyError, UnportedTypeError) as e:
+        # a broken policy, or a file of a misconfiguration type the port
+        # cannot scan: no report
         logger.error("%s", e)
         return 2
     except (DaemonError, RegistryError, RepoError, DiffBaseError) as e:
@@ -1450,17 +1545,65 @@ def _image_source(opts: dict) -> ImageSourceOption:
 
 def _run_convert(path: str, opts: dict) -> int:
     """Re-render the saved JSON report at ``path`` through :func:`_emit`
-    (the JAX package's ``commands._run_convert``). A report with
-    misconfiguration results exits 2 and writes nothing: the port has no
-    misconfiguration types, and writing the report without them would drop
-    findings."""
+    (the JAX package's ``commands._run_convert``)."""
     with open(path, encoding="utf-8") as f:
         doc = json.load(f)
-    if any(r.get("Misconfigurations") for r in doc.get("Results") or []):
-        logger.error("%s: results hold 'Misconfigurations', which this port cannot write "
-                     "(no misconfiguration scanning); convert it with trivy_tpu.cli", path)
-        return 2
     return _emit(Report.from_dict(doc), opts)
+
+
+def _run_clean(args, opts: dict) -> int:
+    """``clean`` (the JAX package's ``commands._run_clean``): with
+    ``--scan-cache`` the fs scan cache of ``--cache-dir`` is cleared, with
+    ``--vuln-db`` ``<cache-dir>/db`` is removed, ``--all`` does both; with
+    neither it exits 1."""
+    import shutil
+
+    from trivy_tpu_torch.cache.fs import default_cache_dir
+
+    scan_cache = args.scan_cache or args.clean_all
+    vuln_db = args.vuln_db or args.clean_all
+    if not (scan_cache or vuln_db):
+        logger.error("specify what to clean: --scan-cache, --vuln-db or --all")
+        return 1
+    if scan_cache:
+        new_cache("fs", opts["cache_dir"]).clear()
+        logger.info("scan cache cleared")
+    if vuln_db:
+        target = os.path.join(opts["cache_dir"] or default_cache_dir(), "db")
+        if os.path.isdir(target):
+            shutil.rmtree(target)
+            logger.info("%s removed", target)
+        else:
+            logger.info("%s not present", target)
+    return 0
+
+
+def _run_plugin(parser, args) -> int:
+    """``plugin install|list|uninstall|run`` (the JAX CLI's, over the same
+    plugin root): a :class:`~trivy_tpu_torch.plugin.PluginError` or an
+    ``OSError`` exits 1, ``run`` exits with the plugin's code."""
+    from trivy_tpu_torch import plugin
+
+    try:
+        if args.plugin_cmd == "install":
+            manifest = plugin.install(args.source)
+            print(f"installed {manifest['name']} {manifest.get('version', '')}")
+        elif args.plugin_cmd == "list":
+            for m in plugin.list_installed():
+                print(f"{m['name']}\t{m.get('version', '')}\t{m.get('summary', '')}")
+        elif args.plugin_cmd == "uninstall":
+            print("removed" if plugin.uninstall(args.name) else f"{args.name} is not installed")
+        elif args.plugin_cmd == "run":
+            return plugin.run(args.name, list(args.plugin_args or []))
+        else:
+            parser.parse_args(["plugin", "--help"])
+        return 0
+    except plugin.PluginError as e:
+        logger.error("%s", e)
+        return 1
+    except OSError as e:  # an unreadable archive, a binary that will not run
+        logger.error("plugin %s failed: %s", args.plugin_cmd, e)
+        return 1
 
 
 def _emit(report: Report, opts: dict) -> int:
@@ -1531,6 +1674,7 @@ def _run_scan(scan, target: str, args, opts: dict, **extra) -> tuple[Report, dic
         license_full=opts["license_full"], shared_arena=not opts["no_shared_arena"],
         db_repository=opts["db_repository"], cache_dir=opts["cache_dir"],
         java_db=opts["java_db"], list_all_pkgs=opts["list_all_pkgs"],
+        check_paths=opts["config_check"], misconfig_scanners=opts["misconfig_scanners"],
         dedup=not opts["no_secret_dedup"],
         # its own handle: the hit store outlives any one use of the cache
         hit_cache=_make_cache(opts) if opts["secret_hit_cache"] else None,

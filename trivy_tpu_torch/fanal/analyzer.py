@@ -8,9 +8,10 @@ merge into one :class:`AnalysisResult`, sorted deterministically before it
 becomes the scan's blob (ref: analyzer.go:188-301), so the report's order of
 applications and packages is that of the JAX package.
 
-The secret and license analyzers are batched (collect during the walk,
-finalize once) and live beside the group in ``fanal/secret.py`` and
-``fanal/license.py``; their findings merge into the same result.
+The secret, license and config analyzers are batched (collect during the
+walk, finalize once) and live beside the group in ``fanal/secret.py``,
+``fanal/license.py`` and ``fanal/config.py``; their findings merge into
+the same result.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from trivy_tpu_torch.types import (
     Application,
     BlobInfo,
     LicenseFile,
+    Misconfiguration,
     OS,
     PackageInfo,
     Secret,
@@ -121,6 +123,7 @@ class AnalysisResult:
     digests: dict = field(default_factory=dict)
     package_infos: list[PackageInfo] = field(default_factory=list)
     applications: list[Application] = field(default_factory=list)
+    misconfigurations: list[Misconfiguration] = field(default_factory=list)
     secrets: list[Secret] = field(default_factory=list)
     licenses: list[LicenseFile] = field(default_factory=list)
     system_files: list[str] = field(default_factory=list)  # for the sysfile filter
@@ -141,6 +144,7 @@ class AnalysisResult:
             self.digests.update(other.digests)
         self.package_infos.extend(other.package_infos)
         self.applications.extend(other.applications)
+        self.misconfigurations.extend(other.misconfigurations)
         self.secrets.extend(other.secrets)
         self.licenses.extend(other.licenses)
         self.system_files.extend(other.system_files)
@@ -153,6 +157,7 @@ class AnalysisResult:
         self.applications.sort(key=lambda a: (a.file_path, a.type))
         for app in self.applications:
             app.packages.sort(key=lambda p: (p.name, p.version, p.file_path))
+        self.misconfigurations.sort(key=lambda m: m.file_path)
         self.secrets.sort(key=lambda s: s.file_path)
         self.licenses.sort(key=lambda l: (l.file_path, l.pkg_name))
 
@@ -165,6 +170,7 @@ class AnalysisResult:
             digests=self.digests,
             package_infos=self.package_infos,
             applications=self.applications,
+            misconfigurations=self.misconfigurations,
             secrets=self.secrets,
             licenses=self.licenses,
         )

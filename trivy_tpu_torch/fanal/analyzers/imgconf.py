@@ -1,13 +1,12 @@
-"""Image-config analysis (ref: pkg/fanal/analyzer/imgconf/{secret,apk}), the
-port of ``trivy_tpu/fanal/analyzers/imgconf.py``.
+"""Image-config analysis (ref: pkg/fanal/analyzer/imgconf/{secret,dockerfile,apk}),
+the port of ``trivy_tpu/fanal/analyzers/imgconf.py``.
 
 Analyzes the container *config* rather than layer contents: the
-environment variables are scanned for secrets by the exact host engine, and
-version-pinned ``apk add`` packages are read from the build history. The
-JAX package's third part, the history rebuilt as a Dockerfile for the
-misconfiguration checks, belongs to the ``misconfig`` scanner, which the
-port does not have. The result is one blob that the image artifact puts on
-top of its layers.
+environment variables are scanned for secrets by the exact host engine,
+with the ``misconfig`` scanner the build history is rebuilt as a Dockerfile
+and run through the Dockerfile checks, and version-pinned ``apk add``
+packages are read from the history. The result is one blob that the image
+artifact puts on top of its layers.
 """
 
 from __future__ import annotations
@@ -18,15 +17,49 @@ import re
 from trivy_tpu_torch.fanal.applier import APK_HISTORY_TARGET
 from trivy_tpu_torch.types import BlobInfo, Package, PackageInfo, PkgIdentifier
 
-# pseudo-path of config-derived secret findings (rendered as a scan target)
+# pseudo-paths for config-derived findings (rendered as scan targets)
 ENV_TARGET = "container image config (env)"
+HISTORY_TARGET = "Dockerfile (image history)"
+
+# the instructions a history entry may start with; anything else is a RUN
+_INSTRUCTIONS = {
+    "FROM", "RUN", "CMD", "LABEL", "MAINTAINER", "EXPOSE", "ENV", "ADD", "COPY", "ENTRYPOINT",
+    "VOLUME", "USER", "WORKDIR", "ARG", "ONBUILD", "STOPSIGNAL", "HEALTHCHECK", "SHELL",
+}
 
 
-def analyze_image_config(config: dict, secret: bool, secret_config_path: str | None = None
-                         ) -> BlobInfo:
+def history_to_dockerfile(config: dict) -> str:
+    """Reconstruct an approximate Dockerfile from config history
+    (ref: imgconf/dockerfile/dockerfile.go builds scanner input the same
+    way: each created_by entry becomes an instruction)."""
+    lines = []
+    for h in config.get("history", []):
+        cmd = (h.get("created_by") or "").strip()
+        if not cmd:
+            continue
+        # strip the classic builder prefixes
+        for prefix in ("/bin/sh -c #(nop) ", "/bin/sh -c #(nop)"):
+            if cmd.startswith(prefix):
+                cmd = cmd[len(prefix):].strip()
+                break
+        else:
+            if cmd.startswith("/bin/sh -c "):
+                cmd = "RUN " + cmd[len("/bin/sh -c "):]
+        # buildkit style: "RUN /bin/sh -c cmd # buildkit"
+        if cmd.endswith("# buildkit"):
+            cmd = cmd[: -len("# buildkit")].strip()
+        if cmd.split(" ", 1)[0].upper() not in _INSTRUCTIONS:
+            cmd = f"RUN {cmd}"
+        lines.append(cmd)
+    return "\n".join(lines) + ("\n" if lines else "")
+
+
+def analyze_image_config(config: dict, secret: bool, secret_config_path: str | None = None,
+                         misconfig: bool = False) -> BlobInfo:
     """The config's blob: with ``secret``, the ENV secrets (under the rules
-    of ``secret_config_path`` when that file exists); always, the apk
-    history packages."""
+    of ``secret_config_path`` when that file exists); with ``misconfig``,
+    the history's Dockerfile checks under :data:`HISTORY_TARGET`; always,
+    the apk history packages."""
     blob = BlobInfo()
 
     # ENV secrets (ref: imgconf/secret — env vars as scannable content)
@@ -41,6 +74,18 @@ def analyze_image_config(config: dict, secret: bool, secret_config_path: str | N
         found = SecretScanner(cfg).scan_bytes(ENV_TARGET, content)
         if found.findings:
             blob.secrets.append(found)
+
+    # history misconfig (ref: imgconf/dockerfile): every registered check,
+    # custom ones included, whatever --misconfig-scanners says, as in JAX
+    if misconfig:
+        dockerfile_text = history_to_dockerfile(config)
+        if dockerfile_text:
+            from trivy_tpu_torch.misconf import MisconfScanner
+
+            mc = MisconfScanner().scan_file("Dockerfile", dockerfile_text.encode())
+            if mc is not None and (mc.failures or mc.successes):
+                mc.file_path = HISTORY_TARGET
+                blob.misconfigurations.append(mc)
 
     # apk packages named in history commands (ref: imgconf/apk — for images
     # whose package DB was stripped, the `apk add` history still names what

@@ -4,8 +4,8 @@ overlayfs semantics (ref: pkg/fanal/applier/docker.go:94-165), the port of
 
 Whiteout files delete the shadowed path; opaque dirs delete everything the
 lower layers put under them; later layers win for OS identity, repository
-and same-path packages, applications, secrets and licenses, which carry
-their layer id. A filesystem scan or an SBOM is one blob.
+and same-path packages, applications, misconfigurations, secrets and
+licenses, which carry their layer id. A filesystem scan or an SBOM is one blob.
 """
 
 from __future__ import annotations
@@ -34,13 +34,14 @@ def apply_layers(blobs: list[BlobInfo]) -> ArtifactDetail:
     app_by_path: dict[tuple, object] = {}
     secret_by_path: dict[str, object] = {}
     lic_by_key: dict[tuple, object] = {}
+    misconf_by_path: dict[str, object] = {}
 
     for blob in blobs:
         layer = blob.diff_id
         whiteouts = blob.whiteout_files
         opaques = blob.opaque_dirs
         if whiteouts or opaques:
-            for d in (pkg_by_path, secret_by_path):
+            for d in (pkg_by_path, secret_by_path, misconf_by_path):
                 for path in [p for p in d if _deleted_by_whiteouts(p, whiteouts, opaques)]:
                     del d[path]
             for d in (app_by_path, lic_by_key):  # tuple keys: path first
@@ -73,6 +74,9 @@ def apply_layers(blobs: list[BlobInfo]) -> ArtifactDetail:
         for lic in blob.licenses:
             lic.layer = lic.layer or layer
             lic_by_key[(lic.file_path, lic.pkg_name, lic.type)] = lic
+        for mc in blob.misconfigurations:
+            mc.layer = mc.layer or layer
+            misconf_by_path[mc.file_path] = mc
 
     # history-reconstructed apk packages are a fallback for stripped-DB
     # images only: when a real package DB was analyzed, reconstruction
@@ -87,4 +91,5 @@ def apply_layers(blobs: list[BlobInfo]) -> ArtifactDetail:
     detail.applications = [app_by_path[k] for k in sorted(app_by_path, key=lambda k: (k[0], k[1]))]
     detail.secrets = [secret_by_path[k] for k in sorted(secret_by_path)]
     detail.licenses = [lic_by_key[k] for k in sorted(lic_by_key)]
+    detail.misconfigurations = [misconf_by_path[k] for k in sorted(misconf_by_path)]
     return detail

@@ -18,7 +18,7 @@ from __future__ import annotations
 import os.path
 
 from trivy_tpu_torch.device import resolve
-from trivy_tpu_torch.fanal.analyzer import AnalyzerType
+from trivy_tpu_torch.fanal.analyzer import AnalysisResult, AnalyzerType
 from trivy_tpu_torch.types import LicenseFile
 
 # canonical license file stems (ref: licensing/license.go acceptable names)
@@ -101,3 +101,7 @@ class LicenseAnalyzer:
             for (path, _t), findings in zip(files, per_file)
             if findings
         ]
+
+    def finalize_into(self, result: AnalysisResult) -> None:
+        """:meth:`finalize` into ``result``'s licenses."""
+        result.licenses.extend(self.finalize())

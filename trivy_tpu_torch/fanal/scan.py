@@ -4,9 +4,10 @@ directory tree (``fs``, ``rootfs``) and for every layer of an image.
 :class:`ScanAnalyzers` holds what one scan shares: the per-file analyzer
 group, the one :class:`~trivy_tpu_torch.secret.scanner.TorchSecretScanner`
 (its kernels and tables are built once per scan, however many layers it
-reads) and the fused license gate. :meth:`ScanAnalyzers.batch` gives a tree
-or a layer its own batched analyzers over them; each streams through its
-own ``scan_files`` call, so layers may run at once.
+reads), the fused license gate and the misconfiguration settings.
+:meth:`ScanAnalyzers.batch` gives a tree or a layer its own batched
+analyzers over them; each streams through its own ``scan_files`` call, so
+layers may run at once.
 :func:`analyze_files` walks one tree or layer through them (ref:
 pkg/fanal/artifact/local/fs.go and image/image.go, which share
 ``AnalyzerGroup.AnalyzeFile``).
@@ -29,13 +30,15 @@ from trivy_tpu_torch.fanal.analyzer import (
     AnalyzerGroup,
     AnalyzerOptions,
 )
+from trivy_tpu_torch.fanal.config import ConfigAnalyzer
 from trivy_tpu_torch.fanal.license import LicenseAnalyzer
 from trivy_tpu_torch.fanal.secret import SecretAnalyzer
 from trivy_tpu_torch.fanal.walker import FileInfo
+from trivy_tpu_torch.misconf import check_file_types
 
 logger = log.logger("analyze")
 
-SCANNERS = ("vuln", "secret", "license")
+SCANNERS = ("vuln", "misconfig", "secret", "license")
 
 
 def check_scanners(scanners) -> None:
@@ -49,8 +52,11 @@ class ScanAnalyzers:
     """The analyzers of one scan with ``scanners``: the OS identity
     analyzers always, the package analyzers when ``packages`` is true or,
     left None, when the report can show packages (``vuln``, ``license`` or
-    ``list_all_pkgs``), the secret and license analyzers as their scanners
-    ask (source headers only with ``license_full``). With both scanners and
+    ``list_all_pkgs``) or with ``misconfig`` (whose cache keys then equal the
+    JAX package's), the secret and license analyzers as their scanners ask
+    (source headers only with ``license_full``), and with ``misconfig`` the
+    config analyzer, with the ``--config-check`` files of ``check_paths``
+    and limited to the types of ``misconfig_scanners`` when given. With both scanners and
     ``shared_arena`` the license analyzers ride the secret feed's rows
     through one :class:`~trivy_tpu_torch.licensing.fused.FusedLicenseGate`.
     ``host_fallback`` lets the secret feed and the license classifier finish
@@ -61,13 +67,17 @@ class ScanAnalyzers:
                  shared_arena: bool = True, config_path: str | None = None,
                  java_db: str | None = None, list_all_pkgs: bool = False,
                  packages: bool | None = None, host_fallback: bool = True,
-                 **scanner_opts):
+                 check_paths=(), misconfig_scanners=(), **scanner_opts):
         from trivy_tpu_torch.licensing.fused import FusedLicenseGate
         from trivy_tpu_torch.secret.engine import ScannerConfig
         from trivy_tpu_torch.secret.scanner import TorchSecretScanner
 
         check_scanners(scanners)
         self.device = resolve(device)
+        self.misconfig = "misconfig" in scanners
+        self.check_paths = list(check_paths)
+        self.misconfig_scanners = list(misconfig_scanners)
+        check_file_types(self.misconfig_scanners)
         self.config_path = config_path
         self.host_fallback = host_fallback
         self.tuning = scanner_opts.get("tuning")
@@ -88,24 +98,30 @@ class ScanAnalyzers:
                 # the gram gate's kernel loads with the scan, not mid-feed
                 self.scanner._ensure_license_stage()
         if packages is None:
-            packages = "vuln" in scanners or "license" in scanners or list_all_pkgs
+            packages = (list_all_pkgs
+                        or any(s in scanners for s in ("vuln", "license", "misconfig")))
         self.group = AnalyzerGroup(AnalyzerOptions(enabled=None if packages else OS_IDENTITY,
                                                    extra={"java_db_path": java_db}))
 
     def batch(self, root: str, skip_secret: bool = False
-              ) -> tuple[SecretAnalyzer | None, list[LicenseAnalyzer]]:
+              ) -> tuple[SecretAnalyzer | None, list[ConfigAnalyzer | LicenseAnalyzer]]:
         """Fresh batched analyzers for the tree or layer at ``root`` (``""``
-        for a layer). ``skip_secret`` leaves the secret analyzer out (an
-        image's base layers); the license analyzers then classify every
-        file, as no feed covers any."""
+        for a layer): the secret analyzer, and the others in the JAX
+        package's finalize order (config, then license). ``skip_secret``
+        leaves the secret analyzer out (an image's base layers); the license
+        analyzers then classify every file, as no feed covers any."""
         secret = None
         if self.scanner is not None and not skip_secret:
             secret = SecretAnalyzer(root, config_path=self.config_path, scanner=self.scanner,
                                     license_gate=self.gate)
         gate = self.gate if secret is not None else None
-        return secret, [LicenseAnalyzer(k, self.device, gate=gate, host_fallback=self.host_fallback,
-                                        tuning=self.tuning)
-                        for k in self.license_kinds]
+        others: list = []
+        if self.misconfig:
+            others.append(ConfigAnalyzer(self.check_paths, self.misconfig_scanners))
+        others += [LicenseAnalyzer(k, self.device, gate=gate, host_fallback=self.host_fallback,
+                                   tuning=self.tuning)
+                   for k in self.license_kinds]
+        return secret, others
 
     def versions(self) -> dict[str, int]:
         """type -> version of every analyzer this scan runs on a layer that
@@ -187,12 +203,13 @@ class ReadAheadPool:
 
 def analyze_files(entries: Iterable[tuple[str, FileInfo, Callable[[], bytes]]], root: str,
                   group: AnalyzerGroup, secret: SecretAnalyzer | None,
-                  licenses: list[LicenseAnalyzer], counts: Counter,
+                  batched: list, counts: Counter,
                   read_ahead: int = 0,
                   result_for: Callable[[str], AnalysisResult] | None = None,
                   walk_progress: bool = True) -> AnalysisResult:
     """Walk ``entries`` (``(rel, info, opener)`` of a tree under ``root`` or
-    of a layer, ``root`` ``""``) through ``group`` and the batched analyzers,
+    of a layer, ``root`` ``""``) through ``group`` and the batched analyzers
+    (``secret`` and the ``batched`` others of :meth:`ScanAnalyzers.batch`),
     then finalize them: the secret analyzer first, as the fused gate is
     complete only then. ``counts`` gains ``files_walked``,
     ``files_scanned`` and ``files_skipped``, the files an analyzer wanted
@@ -215,15 +232,15 @@ def analyze_files(entries: Iterable[tuple[str, FileInfo, Callable[[], bytes]]], 
 
     The scan's trace context gets the JAX walk's spans: ``fs.read_wait``
     (each read, or the wait on its read-ahead) and ``fs.batch_analyze``
-    (the batched analyzers' finalize, where the secret and license scans
-    drain), ``walk.skipped``, and the always-on progress (bytes walked
-    against scanned); a heartbeat logs the progress every 30 s of a long
-    walk."""
+    (the batched analyzers' finalize, where the secret, misconfiguration
+    and license scans drain), ``walk.skipped``, and the always-on progress
+    (bytes walked against scanned); a heartbeat logs the progress every 30 s
+    of a long walk."""
     ctx = obs.current()
     progress = ctx.progress()
     read_span = ctx.enabled
     result = AnalysisResult()
-    batch = ([secret] if secret is not None else []) + licenses
+    batch = ([secret] if secret is not None else []) + batched
     n_analyzed = [0]  # read by the heartbeat thread
 
     def analyze(rel, info, takers, batch_takers, load) -> None:
@@ -287,7 +304,8 @@ def analyze_files(entries: Iterable[tuple[str, FileInfo, Callable[[], bytes]]], 
             with ctx.span("fs.batch_analyze"):
                 if secret is not None:
                     result.secrets = secret.finalize()
-                result.licenses = [lf for a in licenses for lf in a.finalize()]
+                for a in batched:
+                    a.finalize_into(result)
     except BaseException:
         if secret is not None:
             secret.abort()

@@ -297,5 +297,6 @@ JAX_FLAGS = {
         "sbom": ("global", "scan", "report", "db", "client/server"),
         "convert": ("global", "report"),
         "server": ("global", "db", "admission"),
+        "clean": ("global",),
     }.items()
 }

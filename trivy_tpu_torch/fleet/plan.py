@@ -65,8 +65,10 @@ BACKENDS = ("auto", "pallas", "xla", "cpu")
 
 class ShardRefused(ValueError):
     """A shard this port cannot run as asked: an unknown kind, a scanner it
-    lacks (``misconfig``) or an unknown backend. A server answers it with
-    400, never with a scan that would give other keys and findings."""
+    cannot run on a shard (``misconfig``: the shard names no type, so a JAX
+    replica scans every one, and the port lacks some) or an unknown backend.
+    A server answers it with 400, never with a scan that would give other
+    keys and findings."""
 
 
 @dataclass
@@ -367,17 +369,23 @@ def plan_image_shards(artifact: ImageArchiveArtifact, cache,
 def check_shard(shard) -> None:
     """Raise :class:`ShardRefused` for a shard this port cannot run as
     asked: not an object, a kind other than ``fs`` and ``image-layer``, a
-    scanner the port lacks (``misconfig``; dropping it would give other
-    keys and findings) or a backend outside the JAX choices. Host-independent
+    scanner unknown to the port or ``misconfig`` (a shard carries no
+    misconfiguration types, so a JAX replica scans all of them, some of
+    which the port lacks; dropping the scanner would give other keys and
+    findings) or a backend outside the JAX choices. Host-independent
     and cheap: a server checks it before it queues a shard job."""
     if not isinstance(shard, dict):
         raise ShardRefused("Shard must be a JSON object")
     if shard.get("Kind") not in SHARD_KINDS:
         raise ShardRefused(f"unknown shard kind: {shard.get('Kind')!r}")
+    scanners = list(shard.get("Scanners") or ["secret"])
     try:
-        check_scanners(list(shard.get("Scanners") or ["secret"]))
+        check_scanners(scanners)
     except ValueError as e:
         raise ShardRefused(f"shard: {e}") from None
+    if "misconfig" in scanners:
+        raise ShardRefused("shard: scanner 'misconfig' is not ported to fleet shards (a shard "
+                           "names no misconfiguration types, and the port lacks some)")
     backend = shard.get("Backend") or "auto"
     if backend not in BACKENDS:
         raise ShardRefused(f"shard: unknown backend {backend!r}: use {', '.join(BACKENDS)}")
@@ -465,11 +473,11 @@ def _execute_fs_shard(shard: dict, settings: ShardSettings, cache,
             f"fs shard root {root!r} does not exist on this host — fleet fs scans require "
             "replicas to share the scanned filesystem")
     analyzers = _analyzers(settings, None, list_all_pkgs)
-    secret, licenses = analyzers.batch(root)
+    secret, batched = analyzers.batch(root)
     # a path deleted since the plan counts as walk.skipped (the response's
     # Health), as a single-host walk counts it
     entries = FSWalker().walk_paths(root, shard.get("Paths") or [])
-    result = analyze_files(entries, root, analyzers.group, secret, licenses, Counter(),
+    result = analyze_files(entries, root, analyzers.group, secret, batched, Counter(),
                            read_ahead=settings.parallel or DEFAULT_PARALLEL)
     blob = result.to_blob_info()
     handlers = HandlerManager()

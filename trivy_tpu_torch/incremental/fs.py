@@ -96,10 +96,11 @@ class IncrementalFSArtifact:
 
     def fingerprint(self) -> str:
         """Digest of everything that can change the findings: the analyzer
-        and handler versions, the skip lists and the ``--secret-config``
-        file's content (the JAX fingerprint's misconfiguration knobs are
-        empty: the port has none). A manifest or unit blob of another
-        configuration is then unreachable, never served."""
+        and handler versions, the skip lists, the ``--secret-config`` file's
+        content and the misconfiguration knobs (``--config-check`` paths,
+        ``--misconfig-scanners``), as in the JAX fingerprint. A manifest or
+        unit blob of another configuration is then unreachable, never
+        served."""
         secret_cfg_digest = ""
         path = self.analyzers.config_path
         if path and os.path.exists(path):
@@ -115,8 +116,8 @@ class IncrementalFSArtifact:
             "skip_files": sorted(self.skip_files),
             "skip_dirs": sorted(self.skip_dirs),
             "secret_config": secret_cfg_digest,
-            "check_paths": [],
-            "misconfig_scanners": [],
+            "check_paths": sorted(self.analyzers.check_paths),
+            "misconfig_scanners": sorted(self.analyzers.misconfig_scanners),
         }
         return hashlib.sha256(
             json.dumps(doc, sort_keys=True, separators=(",", ":")).encode()).hexdigest()
@@ -257,12 +258,12 @@ class IncrementalFSArtifact:
         through the handlers into the cache under its key."""
         unit_of = {rel: unit for unit, files, _ in dirty for rel, _size in files}
         unit_results = {unit: AnalysisResult() for unit, _, _ in dirty}
-        secret, licenses = self.analyzers.batch(self.root)
+        secret, batched = self.analyzers.batch(self.root)
         counts: Counter = Counter()
         batch = analyze_files(
             ((rel, by_rel[rel][1], by_rel[rel][3]) for _u, files, _n in dirty
              for rel, _size in files),
-            self.root, self.analyzers.group, secret, licenses, counts,
+            self.root, self.analyzers.group, secret, batched, counts,
             read_ahead=self.parallel, result_for=lambda rel: unit_results[unit_of[rel]],
             walk_progress=False)
         self.stats["files_scanned"] += counts["files_scanned"]
@@ -278,11 +279,11 @@ class IncrementalFSArtifact:
     def _split_batch_result(batch: AnalysisResult, unit_of: dict, unit_results: dict,
                             dirty: list) -> None:
         """The batched analyzers' findings (all that ``analyze_files`` with
-        ``result_for`` returns: secrets and licenses) into the units of their
-        paths. A path outside the dirty set cannot occur; one is kept,
+        ``result_for`` returns: misconfigurations, secrets and licenses) into
+        the units of their paths. A path outside the dirty set cannot occur; one is kept,
         loudly, in the first unit rather than dropped."""
         first_unit = min(u for u, _, _ in dirty)
-        for attr in ("secrets", "licenses"):
+        for attr in ("misconfigurations", "secrets", "licenses"):
             for item in getattr(batch, attr):
                 r = unit_results.get(unit_of.get(item.file_path, ""))
                 if r is None:

@@ -1,10 +1,17 @@
-"""Minimal logging facade: per-subsystem loggers under one root, configured
-once by the CLI (``--quiet``)."""
+"""Logging facade, the port of ``trivy_tpu/log.py``: per-subsystem loggers
+under one root, configured once by the CLI (``--debug``/``-d``,
+``--quiet``, ``--log-format plain|json``). The JSON format writes one
+object per line (``ts``, ``level``, ``subsystem``, ``msg``, the active
+scan's ``trace_id``, ``exc``) with the JAX package's keys and subsystem
+names, so one collector reads both packages' lines.
+"""
 
 from __future__ import annotations
 
+import json
 import logging
 import sys
+import time
 
 _ROOT_NAME = "trivy_tpu_torch"
 
@@ -15,16 +22,50 @@ def logger(prefix: str | None = None) -> logging.Logger:
     return logging.getLogger(name)
 
 
-def init(quiet: bool = False) -> None:
+class _JSONFormatter(logging.Formatter):
+    """One JSON object per line:
+    {"ts", "level", "subsystem", "msg", "trace_id"}."""
+
+    def format(self, record: logging.LogRecord) -> str:
+        subsystem = record.name
+        if subsystem.startswith(_ROOT_NAME):
+            subsystem = subsystem[len(_ROOT_NAME):].lstrip(".") or "root"
+        doc = {
+            # UTC with an explicit Z: collectors correlating logs across
+            # hosts must not have to guess the zone
+            "ts": time.strftime("%Y-%m-%dT%H:%M:%S", time.gmtime(record.created))
+            + f".{int((record.created % 1) * 1000):03d}Z",
+            "level": record.levelname,
+            "subsystem": subsystem,
+            "msg": record.getMessage(),
+        }
+        # the active scan's trace id (a server handler joins the client's
+        # trace, so its lines carry the client's id); imported late, as the
+        # span layer logs through this module
+        try:
+            from trivy_tpu_torch import obs
+
+            doc["trace_id"] = obs.current().trace_id
+        except Exception:
+            pass
+        if record.exc_info:
+            doc["exc"] = self.formatException(record.exc_info)
+        return json.dumps(doc)
+
+
+def init(debug: bool = False, quiet: bool = False, stream=None, fmt: str = "plain") -> None:
     """Configure the root package logger (re-configuration replaces the
-    previous handler)."""
+    previous handler): errors only with ``quiet``, else debug lines with
+    ``debug``; ``fmt`` ``json`` for one JSON object per line."""
     root = logging.getLogger(_ROOT_NAME)
     for h in list(root.handlers):
         root.removeHandler(h)
-    handler = logging.StreamHandler(sys.stderr)
-    handler.setFormatter(
-        logging.Formatter("%(asctime)s %(levelname)s [%(name)s] %(message)s", "%H:%M:%S")
-    )
+    handler = logging.StreamHandler(stream if stream is not None else sys.stderr)
+    if fmt == "json":
+        handler.setFormatter(_JSONFormatter())
+    else:
+        handler.setFormatter(
+            logging.Formatter("%(asctime)s %(levelname)s [%(name)s] %(message)s", "%H:%M:%S"))
     root.addHandler(handler)
-    root.setLevel(logging.ERROR if quiet else logging.INFO)
+    root.setLevel(logging.ERROR if quiet else logging.DEBUG if debug else logging.INFO)
     root.propagate = False

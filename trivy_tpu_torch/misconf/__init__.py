@@ -1,0 +1,29 @@
+"""Misconfiguration (IaC) scanning, the port of ``trivy_tpu/misconf/`` for
+the ``dockerfile``, ``kubernetes``, ``yaml`` and ``json`` types.
+
+Host-only work, as in the JAX package: a registry of structured Python
+checks over typed inputs replaces the reference's rego engine (ref:
+pkg/misconf/scanner.go, pkg/iac/**), with the same check IDs, severities
+and CauseMetadata lines in the output.
+
+Layout:
+- detection:  file-type sniffing/routing (ref: pkg/iac/detection/detect.go)
+- parse:      dockerfile / yaml-json (line-tracking) / kubernetes views
+- checks:     check registry + builtin Docker (DS*) and Kubernetes (KSV*)
+              check sets
+- custom:     ``--config-check`` Python and Rego check files
+- scanner:    facade mapping files -> [types.Misconfiguration]
+              (ref: pkg/misconf/scanner.go:141, ResultsToMisconf :443-499)
+"""
+
+from trivy_tpu_torch.misconf.scanner import (
+    PORTED_TYPES,
+    UNPORTED_TYPES,
+    MisconfScanner,
+    ScannerOption,
+    UnportedTypeError,
+    check_file_types,
+)
+
+__all__ = ["MisconfScanner", "ScannerOption", "UnportedTypeError", "PORTED_TYPES",
+           "UNPORTED_TYPES", "check_file_types"]

@@ -1,0 +1,190 @@
+"""Misconfiguration scanner facade (ref: pkg/misconf/scanner.go:101-141),
+the port of ``trivy_tpu/misconf/scanner.py`` for the types it has:
+
+- dockerfile / kubernetes  → per-file structural checks (DS*/KSV*)
+- yaml / json              → user-supplied custom checks only (matching the
+                             reference's generic scanners, which evaluate
+                             nothing without custom policies)
+
+producing ``types.Misconfiguration`` records with the reference's
+successes/failures/CauseMetadata shape (ref: scanner.go:443-499).
+
+The JAX package's other types (terraform, terraform plan, cloudformation,
+helm, azure-arm) have no engine here yet. A scan never drops one quietly:
+naming one in ``file_types`` raises :class:`ValueError`, and a file the
+scan would evaluate that :func:`~trivy_tpu_torch.misconf.detection.
+detect_type` gives one of them stops the scan with
+:class:`UnportedTypeError`.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from trivy_tpu_torch import faults, log
+from trivy_tpu_torch.misconf import detection
+from trivy_tpu_torch.misconf.checks import evaluate
+from trivy_tpu_torch.types import Misconfiguration
+
+logger = log.logger("misconf")
+
+# scanner display names per file type (ref: scanner.go NewScanner per type)
+_SCANNER_NAMES = {
+    detection.FILE_TYPE_DOCKERFILE: "Dockerfile",
+    detection.FILE_TYPE_KUBERNETES: "Kubernetes",
+    detection.FILE_TYPE_YAML: "YAML",
+    detection.FILE_TYPE_JSON: "JSON",
+}
+
+# the types the port scans, and the JAX package's others, which it does not
+PORTED_TYPES = (
+    detection.FILE_TYPE_DOCKERFILE,
+    detection.FILE_TYPE_KUBERNETES,
+    detection.FILE_TYPE_YAML,
+    detection.FILE_TYPE_JSON,
+)
+UNPORTED_TYPES = (
+    detection.FILE_TYPE_TERRAFORM,
+    detection.FILE_TYPE_TERRAFORM_PLAN,
+    detection.FILE_TYPE_CLOUDFORMATION,
+    detection.FILE_TYPE_HELM,
+    detection.FILE_TYPE_AZURE_ARM,
+)
+
+
+class UnportedTypeError(Exception):
+    """A file the scan would evaluate has a type the port cannot scan; the
+    JAX package would report its misconfigurations, so the scan stops
+    rather than give a report without them."""
+
+    def __init__(self, path: str, file_type: str):
+        super().__init__(
+            f"{path}: misconfiguration type {file_type!r} is not ported yet (this port "
+            f"scans {', '.join(PORTED_TYPES)}); pass --misconfig-scanners to leave it out, "
+            "or scan with trivy_tpu.cli")
+        self.path = path
+        self.file_type = file_type
+
+
+def check_file_types(file_types) -> None:
+    """Raise :class:`ValueError` naming the first unported type asked for."""
+    for t in file_types:
+        if t in UNPORTED_TYPES:
+            raise ValueError(f"misconfiguration type {t!r} is not ported yet: use "
+                             f"{', '.join(PORTED_TYPES)}")
+
+
+@dataclass
+class ScannerOption:
+    """Subset of the reference's ScannerOption relevant here."""
+
+    namespaces: list[str] = field(default_factory=list)
+    include_non_failures: bool = False
+    check_ids_disabled: list[str] = field(default_factory=list)
+    check_paths: list[str] = field(default_factory=list)  # custom check files/dirs
+    file_types: list[str] = field(default_factory=list)  # limit scanned types
+
+
+class MisconfScanner:
+    def __init__(self, option: ScannerOption | None = None):
+        self.option = option or ScannerOption()
+        check_file_types(self.option.file_types)
+        self._disabled = set(self.option.check_ids_disabled)
+        if self.option.check_paths:
+            from trivy_tpu_torch.misconf.custom import load_custom_checks
+
+            load_custom_checks(self.option.check_paths)
+
+    def _enabled(self, c) -> bool:
+        return c.id not in self._disabled and c.avd_id not in self._disabled
+
+    def scan_files(self, files: list[tuple[str, bytes]]) -> list[Misconfiguration]:
+        from trivy_tpu_torch import obs
+
+        with obs.span("misconf.scan_files"):
+            return self._scan_files(files)
+
+    def _scan_files(self, files: list[tuple[str, bytes]]) -> list[Misconfiguration]:
+        from trivy_tpu_torch import obs
+
+        ctx = obs.current()
+        per_file: list[tuple[str, str, bytes]] = []
+        with ctx.span("misconf.parse"):
+            for path, content in files:
+                try:
+                    ftype = detection.detect_type(path, content)
+                except Exception as e:  # one bad file must not kill the batch
+                    logger.debug("misconf type detection failed for %s: %s", path, e)
+                    continue
+                if ftype is None:
+                    continue
+                if self.option.file_types and ftype not in self.option.file_types:
+                    continue
+                if ftype in UNPORTED_TYPES:
+                    raise UnportedTypeError(path, ftype)
+                per_file.append((path, ftype, content))
+
+        out: list[Misconfiguration] = []
+        with ctx.span("misconf.eval"):
+            for path, ftype, content in per_file:
+                try:
+                    faults.check("misconf.eval", key=path)
+                    mc = self.scan_file(path, content, ftype)
+                except Exception as e:
+                    # per-file failure domain: one crashing engine or check
+                    # must not kill the whole misconfig pass — count it,
+                    # log it, and keep scanning the rest
+                    logger.warning("misconf evaluation failed for %s (skipped): %s", path, e)
+                    ctx.count("misconf.skipped")
+                    ctx.health_count("misconf.skipped")
+                    continue
+                if mc is not None:
+                    out.append(mc)
+        out = [mc for mc in out if mc.failures or mc.successes]
+        out.sort(key=lambda m: m.file_path)
+        return out
+
+    # -- single-file types ---------------------------------------------------
+
+    def scan_file(self, path: str, content: bytes, ftype: str | None = None
+                  ) -> Misconfiguration | None:
+        if ftype is None:
+            try:
+                ftype = detection.detect_type(path, content)
+            except Exception as e:
+                logger.debug("misconf type detection failed for %s: %s", path, e)
+                return None
+        if ftype is None:
+            return None
+        if ftype in UNPORTED_TYPES:
+            raise UnportedTypeError(path, ftype)
+        try:
+            parsed = self._parse(ftype, content)
+        except Exception as e:
+            logger.debug("misconf parse failed for %s (%s): %s", path, ftype, e)
+            return None
+        if parsed is None:
+            return None
+        return evaluate(ftype, path, parsed, _SCANNER_NAMES.get(ftype, ftype),
+                        enabled=self._enabled)
+
+    @staticmethod
+    def _parse(ftype: str, content: bytes):
+        if ftype == detection.FILE_TYPE_DOCKERFILE:
+            from trivy_tpu_torch.misconf.parse import dockerfile
+
+            return dockerfile.parse(content)
+        if ftype == detection.FILE_TYPE_KUBERNETES:
+            from trivy_tpu_torch.misconf.parse import kubernetes
+
+            return kubernetes.parse(content)
+        if ftype in (detection.FILE_TYPE_YAML, detection.FILE_TYPE_JSON):
+            # generic types evaluate only user-supplied custom checks
+            # (ref: pkg/iac/scanners/generic — no builtin bundle)
+            from trivy_tpu_torch.misconf.checks import checks_for
+            from trivy_tpu_torch.misconf.parse import yamljson
+
+            if not checks_for(ftype):
+                return None
+            return yamljson.load_all(content)
+        return None

@@ -2,8 +2,7 @@
 port's copy of ``trivy_tpu/report/``: ``json``, ``table``, ``sarif``, the
 SBOM formats ``cyclonedx``, ``spdx`` and ``spdx-json`` (``sbom/io.py``),
 ``github``, ``template`` and ``cosign-vuln``. Each writes the bytes the JAX
-package's writer writes for the same report; the port's results hold no
-misconfigurations, so the writers leave out their sections."""
+package's writer writes for the same report."""
 
 from __future__ import annotations
 

@@ -1,11 +1,10 @@
 """SARIF 2.1.0 writer (ref: pkg/report/sarif.go), the port's copy of
 ``trivy_tpu/report/sarif.py``.
 
-One run with one rule per distinct finding ID (vulnerability, secret rule);
-results reference rules by index and carry physical locations with line
-regions, matching the reference's shape so SARIF consumers (e.g.
-code-scanning UIs) ingest both identically. The port's results hold no
-misconfigurations, so the JAX writer's loop over them is left out.
+One run with one rule per distinct finding ID (vulnerability, secret rule,
+misconfiguration check); results reference rules by index and carry
+physical locations with line regions, matching the reference's shape so
+SARIF consumers (e.g. code-scanning UIs) ingest both identically.
 """
 
 from __future__ import annotations
@@ -119,6 +118,17 @@ def write_sarif(report: Report, out, **kw) -> None:
                 f"Artifact: {result.target}\nType: secret\nSecret {s.title}\n"
                 f"Severity: {s.severity}\nMatch: {s.match}",
                 uri, s.start_line, s.end_line,
+            )
+        for m in result.misconfigurations:
+            if m.status != "FAIL":
+                continue
+            idx = rule_for(m.id, m.title, m.severity, m.description, m.primary_url)
+            add_result(
+                m.id, idx,
+                f"Artifact: {result.target}\nType: {result.type}\n"
+                f"Vulnerability {m.id}\nSeverity: {m.severity}\n"
+                f"Message: {m.message}",
+                uri, m.start_line, m.end_line,
             )
 
     doc = {

@@ -1,7 +1,7 @@
 """Table report writer (ref: pkg/report/table), byte for byte the JAX
-package's ``report/table.py`` on the port's results (which hold no
-misconfigurations): per target a grid of its vulnerabilities, each secret
-finding with its censored code context, a grid of the licenses found, and
+package's ``report/table.py``: per target a grid of its vulnerabilities,
+each secret finding with its censored code context, the failed checks of a
+configuration file, a grid of the licenses found, and
 the packages of a result that has no finding; with ``dependency_tree`` the
 reversed dependency-origin tree of each vulnerable package; with
 ``show_suppressed`` a grid of the findings the filter suppressed.
@@ -134,6 +134,17 @@ def _write_result(result: Result, out) -> None:
                 marker = ">" if line.is_cause else " "
                 out.write(f"{line.number:>4} {marker} {line.content}\n")
             out.write(_rule(40) + "\n")
+    if result.misconfigurations:
+        fails = [m for m in result.misconfigurations if m.status == "FAIL"]
+        counter = Counter(m.severity for m in fails)
+        _header(out, f"{result.target} ({result.type})",
+                f"— {len(fails)} failures ({_severity_summary(counter)})")
+        for m in fails:
+            out.write(f"\n{m.severity}: {m.id} — {m.title}\n")
+            if m.message:
+                out.write(f"  {m.message}\n")
+            if m.start_line:
+                out.write(f"  at {result.target}:{m.start_line}\n")
     if result.licenses:
         counter = Counter(lic.severity for lic in result.licenses)
         _header(

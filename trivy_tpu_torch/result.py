@@ -216,6 +216,9 @@ def filter_report(report: Report, options: FilterOptions) -> Report:
                 v for v in result.vulnerabilities if v.severity in sevs
             ]
             result.secrets = [s for s in result.secrets if s.severity in sevs]
+            result.misconfigurations = [
+                m for m in result.misconfigurations if m.severity in sevs
+            ]
             result.licenses = [l for l in result.licenses if l.severity in sevs]
 
         def keep_unignored(items, entries, kind, id_of, path_of):
@@ -246,6 +249,10 @@ def filter_report(report: Report, options: FilterOptions) -> Report:
         result.secrets = keep_unignored(
             result.secrets, ignores.secrets, "secret",
             lambda s: s.rule_id, lambda s: result.target,
+        )
+        result.misconfigurations = keep_unignored(
+            result.misconfigurations, ignores.misconfigurations, "misconfiguration",
+            lambda m: m.id, lambda m: result.target,
         )
         result.licenses = keep_unignored(
             result.licenses, ignores.licenses, "license",
@@ -298,5 +305,6 @@ def _apply_policy(result, policy: IgnorePolicy) -> None:
         return kept
 
     result.vulnerabilities = keep(result.vulnerabilities, "vulnerability")
+    result.misconfigurations = keep(result.misconfigurations, "misconfiguration")
     result.secrets = keep(result.secrets, "secret")
     result.licenses = keep(result.licenses, "license")

@@ -26,8 +26,8 @@ that shard on this server's device (``fleet/plan.py::execute_shard``): on
 the card the secret feed and the license kernels run here, and the answer
 is the shard's ``Blobs`` with this server's ``Health`` delta (``Trace`` on
 ``WantTrace``); detection and the merge stay with the coordinator. A shard
-with a scanner the port lacks (``misconfig``), an unknown kind or an
-unknown ``Backend`` answers 400, at the async front door too; one whose
+with the ``misconfig`` scanner (not ported to shards), an unknown kind or
+an unknown ``Backend`` answers 400, at the async front door too; one whose
 root or secret config this host cannot see fails loudly.
 
 With admission control enabled (:mod:`trivy_tpu_torch.rpc.admission`,

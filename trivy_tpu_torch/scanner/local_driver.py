@@ -1,7 +1,8 @@
 """Local scan driver (ref: pkg/scanner/local/scan.go), the port of
 ``trivy_tpu/scanner/local_driver.py``: applies the layers, then assembles
 the per-class results in the reference's order — vulnerabilities (else,
-with ``--list-all-pkgs``, the package inventory), secrets, licenses — and
+with ``--list-all-pkgs``, the package inventory), misconfigurations,
+secrets, licenses — and
 runs the post-scan hooks (ref: scan.go:63-151, 229-318).
 """
 
@@ -53,6 +54,10 @@ class LocalDriver:
         elif options.list_all_pkgs:
             # package inventory without detection
             results += self._package_results(target, detail)
+        if "misconfig" in options.scanners:
+            results += [Result(target=mc.file_path, cls=ResultClass.CONFIG.value,
+                               type=mc.file_type, misconfigurations=mc.successes + mc.failures)
+                        for mc in detail.misconfigurations]
         if "secret" in options.scanners:
             results += [Result(target=s.file_path, cls=ResultClass.SECRET.value,
                                secrets=s.findings) for s in detail.secrets]

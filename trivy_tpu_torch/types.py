@@ -1,9 +1,11 @@
-"""Report types of the secret, license and vulnerability scans.
+"""Report types of the secret, license, vulnerability and misconfiguration
+scans.
 
 The subset of ``trivy_tpu.types`` that those scans produce: secret findings
 and the per-file ``Secret``; license findings, the per-file ``LicenseFile``
 and the report's ``DetectedLicense``; packages, applications, the OS, the
-SBOM's ``BlobInfo`` and its merged ``ArtifactDetail``, and the
+per-file ``Misconfiguration`` with its ``MisconfResult`` checks, the
+``BlobInfo`` and its merged ``ArtifactDetail``, and the
 ``DetectedVulnerability``; the per-target ``Result`` and the top-level
 ``Report``. Their ``to_dict`` forms use the same JSON field names
 and order as the JAX package (and the reference's JSON schema), so the two
@@ -82,6 +84,112 @@ class Code:
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "Code":
         return cls(lines=[Line.from_dict(x) for x in d.get("lines", [])])
+
+
+@dataclass
+class MisconfResult:
+    """One policy evaluation result (ref: types.MisconfResult)."""
+
+    id: str
+    avd_id: str = ""
+    type: str = ""
+    title: str = ""
+    description: str = ""
+    message: str = ""
+    namespace: str = ""
+    query: str = ""
+    resolution: str = ""
+    severity: str = "UNKNOWN"
+    primary_url: str = ""
+    references: list[str] = field(default_factory=list)
+    status: str = "FAIL"  # PASS | FAIL | EXCEPTION
+    start_line: int = 0
+    end_line: int = 0
+    resource: str = ""
+    provider: str = ""
+    service: str = ""
+    code: Code = field(default_factory=Code)
+
+    def to_dict(self) -> dict[str, Any]:
+        return {
+            "ID": self.id,
+            "AVDID": self.avd_id,
+            "Type": self.type,
+            "Title": self.title,
+            "Description": self.description,
+            "Message": self.message,
+            "Namespace": self.namespace,
+            "Query": self.query,
+            "Resolution": self.resolution,
+            "Severity": self.severity,
+            "PrimaryURL": self.primary_url,
+            "References": list(self.references),
+            "Status": self.status,
+            "CauseMetadata": {
+                "StartLine": self.start_line,
+                "EndLine": self.end_line,
+                "Resource": self.resource,
+                "Provider": self.provider,
+                "Service": self.service,
+                "Code": self.code.to_dict(),
+            },
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "MisconfResult":
+        cm = d.get("CauseMetadata", {}) or {}
+        return cls(
+            id=d.get("ID", ""),
+            avd_id=d.get("AVDID", ""),
+            type=d.get("Type", ""),
+            title=d.get("Title", ""),
+            description=d.get("Description", ""),
+            message=d.get("Message", ""),
+            namespace=d.get("Namespace", ""),
+            query=d.get("Query", ""),
+            resolution=d.get("Resolution", ""),
+            severity=d.get("Severity", "UNKNOWN"),
+            primary_url=d.get("PrimaryURL", ""),
+            references=list(d.get("References", []) or []),
+            status=d.get("Status", "FAIL"),
+            start_line=cm.get("StartLine", 0),
+            end_line=cm.get("EndLine", 0),
+            resource=cm.get("Resource", ""),
+            provider=cm.get("Provider", ""),
+            service=cm.get("Service", ""),
+            code=Code.from_dict(cm.get("Code", {}) or {}),
+        )
+
+
+@dataclass
+class Misconfiguration:
+    """The check results of one configuration file (ref:
+    pkg/fanal/types/misconf.go Misconfiguration)."""
+
+    file_type: str = ""
+    file_path: str = ""
+    successes: list[MisconfResult] = field(default_factory=list)
+    failures: list[MisconfResult] = field(default_factory=list)
+    layer: str = ""
+
+    def to_dict(self) -> dict[str, Any]:
+        return {
+            "FileType": self.file_type,
+            "FilePath": self.file_path,
+            "Successes": [r.to_dict() for r in self.successes],
+            "Failures": [r.to_dict() for r in self.failures],
+            "Layer": self.layer,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "Misconfiguration":
+        return cls(
+            file_type=d.get("FileType", ""),
+            file_path=d.get("FilePath", ""),
+            successes=[MisconfResult.from_dict(x) for x in d.get("Successes", [])],
+            failures=[MisconfResult.from_dict(x) for x in d.get("Failures", [])],
+            layer=d.get("Layer", ""),
+        )
 
 
 @dataclass
@@ -424,8 +532,7 @@ class BlobInfo:
     fields a filesystem scan, an image layer or an SBOM fills. ``diff_id``
     is the layer its findings carry; whiteouts and opaque dirs delete what
     lower layers put at those paths. An image layer's blob is cached in its
-    ``to_dict`` form, the JAX package's without the misconfiguration and
-    custom-resource lists."""
+    ``to_dict`` form, the JAX package's without the custom-resource list."""
 
     os: OS | None = None
     repository: dict[str, str] | None = None  # {"Family":..., "Release":...}
@@ -434,6 +541,7 @@ class BlobInfo:
     digests: dict[str, str] = field(default_factory=dict)  # executable sha256s
     package_infos: list[PackageInfo] = field(default_factory=list)
     applications: list[Application] = field(default_factory=list)
+    misconfigurations: list[Misconfiguration] = field(default_factory=list)
     secrets: list[Secret] = field(default_factory=list)
     licenses: list[LicenseFile] = field(default_factory=list)
     diff_id: str = ""
@@ -451,6 +559,7 @@ class BlobInfo:
             "Digests": dict(self.digests) or None,
             "PackageInfos": [p.to_dict() for p in self.package_infos],
             "Applications": [a.to_dict() for a in self.applications],
+            "Misconfigurations": [m.to_dict() for m in self.misconfigurations],
             "Secrets": [s.to_dict() for s in self.secrets],
             "Licenses": [l.to_dict() for l in self.licenses],
             "DiffID": self.diff_id,
@@ -460,11 +569,10 @@ class BlobInfo:
         }
 
     def to_wire_dict(self) -> dict[str, Any]:
-        """:meth:`to_dict` with the JAX blob's two sections the port has no
-        analyzer for (misconfigurations, custom resources), always empty:
-        the blob a JAX client or replica sends, whose content key is the JAX
-        key."""
-        return {**self.to_dict(), "Misconfigurations": [], "CustomResources": []}
+        """:meth:`to_dict` with the JAX blob's one section the port has no
+        analyzer for (custom resources), always empty: the blob a JAX client
+        or replica sends, whose content key is the JAX key."""
+        return {**self.to_dict(), "CustomResources": []}
 
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "BlobInfo":
@@ -476,6 +584,8 @@ class BlobInfo:
             digests=dict(d.get("Digests") or {}),
             package_infos=[PackageInfo.from_dict(x) for x in d.get("PackageInfos", []) or []],
             applications=[Application.from_dict(x) for x in d.get("Applications", []) or []],
+            misconfigurations=[Misconfiguration.from_dict(x)
+                               for x in d.get("Misconfigurations", []) or []],
             secrets=[Secret.from_dict(x) for x in d.get("Secrets", []) or []],
             licenses=[LicenseFile.from_dict(x) for x in d.get("Licenses", []) or []],
             diff_id=d.get("DiffID", ""),
@@ -495,6 +605,7 @@ class ArtifactDetail:
     digests: dict[str, str] = field(default_factory=dict)
     packages: list[Package] = field(default_factory=list)
     applications: list[Application] = field(default_factory=list)
+    misconfigurations: list[Misconfiguration] = field(default_factory=list)
     secrets: list[Secret] = field(default_factory=list)
     licenses: list[LicenseFile] = field(default_factory=list)
 
@@ -607,15 +718,17 @@ class ModifiedFinding:
 
 @dataclass
 class Result:
-    """One report section: the secret findings of one target file, a license
-    section, or the vulnerabilities (and, with ``--list-all-pkgs``, the
-    packages) of the OS packages or of one application."""
+    """One report section: the secret findings of one target file, the
+    checks of one configuration file, a license section, or the
+    vulnerabilities (and, with ``--list-all-pkgs``, the packages) of the OS
+    packages or of one application."""
 
     target: str
     cls: str = ResultClass.SECRET.value
     type: str = ""
     packages: list[Package] = field(default_factory=list)
     vulnerabilities: list[DetectedVulnerability] = field(default_factory=list)
+    misconfigurations: list[MisconfResult] = field(default_factory=list)
     secrets: list[SecretFinding] = field(default_factory=list)
     licenses: list[DetectedLicense] = field(default_factory=list)
     modified_findings: list[ModifiedFinding] = field(default_factory=list)
@@ -626,6 +739,8 @@ class Result:
             d["Packages"] = [p.to_dict() for p in self.packages]
         if self.vulnerabilities:
             d["Vulnerabilities"] = [v.to_dict() for v in self.vulnerabilities]
+        if self.misconfigurations:
+            d["Misconfigurations"] = [m.to_dict() for m in self.misconfigurations]
         if self.secrets:
             d["Secrets"] = [s.to_dict() for s in self.secrets]
         if self.licenses:
@@ -644,6 +759,9 @@ class Result:
             vulnerabilities=[
                 DetectedVulnerability.from_dict(x) for x in d.get("Vulnerabilities", []) or []
             ],
+            misconfigurations=[
+                MisconfResult.from_dict(x) for x in d.get("Misconfigurations", []) or []
+            ],
             secrets=[SecretFinding.from_dict(x) for x in d.get("Secrets", []) or []],
             licenses=[DetectedLicense.from_dict(x) for x in d.get("Licenses", []) or []],
             modified_findings=[
@@ -654,7 +772,8 @@ class Result:
 
     @property
     def is_empty(self) -> bool:
-        return not (self.packages or self.vulnerabilities or self.secrets or self.licenses)
+        return not (self.packages or self.vulnerabilities or self.misconfigurations
+                    or self.secrets or self.licenses)
 
 
 @dataclass
