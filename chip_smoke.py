@@ -5,7 +5,7 @@ its incremental scans and ``watch``, its report formats, its multi-device
 dispatch, its client/server mode and its fleet (coordinator and replicas) on
 one NVIDIA card.
 
-    python3 chip_smoke.py [--e2e-mib 64] [--license-mib 48] [--image-mib 64]
+    python3 chip_smoke.py [--e2e-mib 48] [--license-mib 48] [--image-mib 32]
         [--seed 0]
 
 Phases, each printing JSON lines:
@@ -266,7 +266,8 @@ Phases, each printing JSON lines:
     cut of the fs-vuln tree (a lockfile of each kind, the debian root, 100
     ``node_modules`` packages, the trace phase's license files, one planted
     secret) plus a lockfile whose packages depend on five planted npm
-    packages (no plant in the cut has a dependent), with the cve DB.
+    packages (no plant in the cut has a dependent) and an AWS key, with the
+    cve DB and the secret rules of the plants and of phase misconf.
     ``fs --scanners vuln,secret,license --list-all-pkgs`` once on the
     card with each of ``json``, ``cyclonedx``, ``spdx-json``, ``spdx``,
     ``sarif``, ``github``, ``cosign-vuln``, ``table --dependency-tree`` and
@@ -282,6 +283,15 @@ Phases, each printing JSON lines:
     one ``verscmp`` launch; the dependency tree must name the five planted
     packages and their dependents. Printed: bytes, card, CPU, convert and
     writer seconds per format, the SBOM's components and the launches.
+12a. misconf: ``--scanners misconfig`` in the feed's walk (the config
+    analyzer, ``trivy_tpu_torch/misconf/``), card against ``--device cpu``:
+    (a) Dockerfiles, manifests, YAML and JSON beside secrets and licenses;
+    (b) custom Python and Rego checks; (c) a CloudFormation template, a type
+    not ported yet, stops the scan with exit 2; (d) an image's history as a
+    Dockerfile; (e) the global flags and small commands; (f) a Terraform
+    monorepo of 360 ``.tf`` files (about 2 MiB of HCL) with a plan and two
+    ARM templates beside the feed, printed with its seconds, launches and
+    ``misconf.terraform`` span (``phase_misconf``).
 12b. server: client/server mode on the fs-vuln tree and the cve DB, after
     ``formats``. An in-process ``start_server(device="cuda")`` with the
     loaded DB on a thread (``--max-concurrent-scans 2
@@ -475,6 +485,8 @@ SAMPLES: dict[str, str] = runpy.run_path(str(REPO / "tests" / "secret_samples.py
 CUSTOM = runpy.run_path(str(REPO / "tests" / "test_torch_rulesets.py"))
 # docker-save and OCI-layout archive writers, shared with the tests
 IMAGES = runpy.run_path(str(REPO / "tests" / "imagetest.py"))
+# the seeded Terraform monorepo of phase misconf's leg (f), shared with the tests
+TFTREE = runpy.run_path(str(REPO / "tests" / "tftree.py"))
 # the custom rulesets checked on the card: one widens the tables past the
 # built-ins' shapes, one goes below the screen's width (1- and 2-byte
 # keywords, a 3-byte anchor)
@@ -507,6 +519,9 @@ SHORT_BATCH = 8  # live rows of the short check batch
 # as an OCI layout, and the sources phase serves from the daemon and derives
 # from: small, as the CPU scan of it sets much of the phase's time
 IMAGE_CUT_MIB = 8
+# license files in the image's content layer: each text in each form at each
+# width rung once (the license phase's tree cycles through them four times)
+IMAGE_LICENSE_FILES = 3 * len(FULL_TEXTS) * (len(BYTES_WIDTHS) + 1)
 
 # words of the generated source text; some are rule keywords, as in real code
 CODE_WORDS = (
@@ -1342,6 +1357,28 @@ def run_cli(target: Path, out_dir: Path, tag: str, device: str, *extra: str,
     return json.loads(out.read_text()), json.loads(stats.read_text())
 
 
+def cpu_cli(target: Path, out_dir: Path, tag: str, *extra: str, scanners: str = "secret",
+            command: str = "fs") -> subprocess.Popen:
+    """:func:`run_cli` with ``--device cpu`` in a child process (``python -m
+    trivy_tpu_torch``, four threads), so that a CPU reference runs beside
+    the card's scans; :func:`cpu_cli_wait` reads its report."""
+    out, stats = out_dir / f"{tag}.json", out_dir / f"{tag}.stats.json"
+    return subprocess.Popen(
+        [sys.executable, "-m", "trivy_tpu_torch", command, "--scanners", scanners, "--format",
+         "json", "-o", str(out), "--stats-out", str(stats), "--device", "cpu", "-q", *extra,
+         str(target)],
+        env={**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "4"},
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+
+
+def cpu_cli_wait(proc: subprocess.Popen, out_dir: Path, tag: str) -> tuple[dict, dict]:
+    _, err = proc.communicate()
+    check(proc.returncode == 0,
+          f"fs scan ({tag}) exited {proc.returncode}: {err.decode()[-2000:]}")
+    return (json.loads((out_dir / f"{tag}.json").read_text()),
+            json.loads((out_dir / f"{tag}.stats.json").read_text()))
+
+
 def found(report: dict, prefix: str = "") -> set:
     return {
         (prefix + r["Target"], s["RuleID"], s["StartLine"])
@@ -1514,10 +1551,13 @@ HEADERS = {
 }
 
 
-def write_license_tree(root: Path, mib: int, seed: int, base: bytes) -> tuple[dict, int]:
+def write_license_tree(root: Path, mib: int, seed: int, base: bytes,
+                       license_files: int = 2048) -> tuple[dict, int]:
     """The license tree; returns {relpath: license name} of the planted
     license files and the bytes written. ``root/sub`` is a subset with its
-    own plants (each text in each form once), headers and source."""
+    own plants (each text in each form once), headers and source.
+    ``license_files`` license files (cycling through every text, form and
+    width rung) come before the source that fills the tree to ``mib``."""
     rng = random.Random(seed + 7)
     keys = sorted(FULL_TEXTS)
     planted: dict[str, str] = {}
@@ -1545,7 +1585,7 @@ def write_license_tree(root: Path, mib: int, seed: int, base: bytes) -> tuple[di
     def header_file(rel: str, ext: str) -> None:
         put(rel + ext, HEADERS[ext].encode() + text(rng.randrange(2048, 8192)))
 
-    for i in range(2048):
+    for i in range(license_files):
         license_file(f"lic/d{i % 64}/p{i}", i)
     for i in range(3 * len(keys)):
         license_file(f"sub/lic/p{i}", i)
@@ -3191,7 +3231,7 @@ FORMATS_TEMPLATE = (
 )
 # what the formats phase copies from the fs-vuln tree: one lockfile of each
 # kind, the debian root, 100 node_modules packages, the trace phase's license
-# files and one planted secret
+# files and one planted secret (``src/module_0.py``)
 FORMATS_CUT = ("services/web00", "services/go00", "crates/c00", "etc/os-release",
                "var/lib/dpkg/status", "licenses", "src/module_0.py")
 FORMATS_NODE_MODULES = 100
@@ -3232,7 +3272,22 @@ def write_formats_tree(src: Path, dst: Path) -> list[tuple]:
     (dst / "services/edges").mkdir(parents=True)
     (dst / "services/edges/package-lock.json").write_text(json.dumps(
         {"name": "edges", "lockfileVersion": 3, "packages": packages}))
+    # an AWS key, under an anchored rule, so that the anchored stage runs
+    # with the phase's few rules (formats_rules)
+    (dst / "services/edges/deploy.env").write_text(
+        f"AWS_ACCESS_KEY_ID={SAMPLES['aws-access-key-id']}\n")
     return edges
+
+
+def formats_rules(tree: Path, path: Path) -> None:
+    """The formats phase's ``--secret-config``: the four rules of phase
+    misconf and the planted secret's, so that each CPU reference stays
+    short (the plain matcher over the 113 built-in rules costs it about
+    40 s); the matcher's full rules are the e2e and license phases'."""
+    text = (tree / "src/module_0.py").read_text(encoding="latin-1")
+    planted = {rid for rid, tok in SAMPLES.items() if tok in text}
+    path.write_text("enable-builtin-rules:\n" + "".join(
+        f"  - {r}\n" for r in sorted(planted | set(MISCONF_RULES))))
 
 
 def phase_formats(root: Path, fs_tree: Path, db_dir: Path, card: str) -> dict:
@@ -3253,8 +3308,9 @@ def phase_formats(root: Path, fs_tree: Path, db_dir: Path, card: str) -> dict:
     out.mkdir(parents=True)
     tmpl = root / "report.tmpl"
     tmpl.write_text(FORMATS_TEMPLATE)
+    formats_rules(tree, root / "secret.yaml")
     head = ["fs", "--scanners", "vuln,secret,license", "--db-repository", str(db_dir),
-            "--list-all-pkgs", "-q"]
+            "--list-all-pkgs", "--secret-config", str(root / "secret.yaml"), "-q"]
 
     def fmt_args(fmt: str) -> list[str]:
         extra = {"table": ["--dependency-tree"], "template": ["-t", f"@{tmpl}"]}
@@ -3482,6 +3538,14 @@ deny[msg] {
     msg := sprintf("deployment %s is forbidden", [input.metadata.name])
 }
 """
+# leg (c)'s stop: a type of a later slice
+MISCONF_CFN = ("AWSTemplateFormatVersion: '2010-09-09'\nResources:\n  Bucket:\n"
+               "    Type: AWS::S3::Bucket\n")
+# leg (f): a credential planted in each place of the monorepo (provider
+# blocks and .tfvars), under the phase's four rules, and the ids it must fail
+TF_SECRETS = {"aws": "aws-access-key-id", "gitlab": "gitlab-pat", "github": "github-pat",
+              "slack": "slack-access-token"}
+TF_IDS = {"AVD-AWS-0092", "AVD-AWS-0107", "AVD-GCP-0002", "AVD-AZU-0008", "AVD-GIT-0001"}
 # an image history that rebuilds as a Dockerfile failing DS005 (ADD) and
 # DS025 (apk add without --no-cache)
 MISCONF_HISTORY = [
@@ -3523,6 +3587,52 @@ def write_misconf_tree(root: Path, seed: int, base: bytes) -> int:
     return written
 
 
+def misconf_terraform(tree: Path, out: Path, rules: Path, seed: int) -> dict:
+    """Phase misconf's leg (f): ``fs --scanners misconfig,secret`` of the
+    seeded Terraform monorepo on the card and on the CPU."""
+    t_leg = time.perf_counter()
+    planted = {place: SAMPLES[rule] for place, rule in TF_SECRETS.items()}
+    counts = TFTREE["write_tf_monorepo"](tree, seed, secrets=planted)
+    metrics = out / "f-cuda.metrics.json"
+    head = ("--secret-config", str(rules))
+    LAUNCHES.clear()
+    on_card, stats = run_cli(tree, out, "f-cuda", "cuda", *head, "--metrics-out", str(metrics),
+                             scanners="misconfig,secret")
+    launches = dict(LAUNCHES)
+    on_cpu, cpu_stats = run_cli(tree, out, "f-cpu", "cpu", *head, scanners="misconfig,secret")
+    spans = json.loads(metrics.read_text())["spans"]
+    fails = config_failures(on_card)
+    reported = set().union(*fails.values()) if fails else set()
+    secrets = sorted((r["Target"], s["RuleID"]) for r in on_card["Results"]
+                     for s in r.get("Secrets", []))
+    leg = {"tf_files": counts["tf_files"], "tf_bytes": counts["tf_bytes"],
+           "tree_bytes": counts["bytes"], "seconds": stats["seconds"],
+           "cpu_seconds": cpu_stats["seconds"],
+           "terraform_span_s": spans.get("misconf.terraform", {}).get("total"),
+           "misconf_span_s": spans.get("misconf.scan_files", {}).get("total"),
+           "launches": launches, "config_results": len(fails),
+           "failures": sum(1 for r in on_card["Results"] for m in r.get("Misconfigurations", [])
+                           if m["Status"] == "FAIL"),
+           "types": sorted({r["Type"] for r in on_card["Results"] if r["Class"] == "config"}),
+           "secrets": secrets,
+           "equal_to_cpu": (on_card["Results"] == on_cpu["Results"]
+                            and on_card["Metadata"] == on_cpu["Metadata"])}
+    shutil.rmtree(tree, ignore_errors=True)
+    leg["leg_seconds"] = time.perf_counter() - t_leg
+    log({"phase": "misconf-f", **leg})
+    check(leg["equal_to_cpu"], "misconf (f): Results or Metadata differ from --device cpu")
+    check(TF_IDS <= reported and any(i.startswith("AVD-DIG-") for i in reported),
+          f"misconf (f): missing {sorted(TF_IDS - reported)} or every AVD-DIG id")
+    check(leg["types"] == ["azure-arm", "terraform", "terraformplan-json"],
+          f"misconf (f): config results of the types {leg['types']}")
+    check(sorted(rule for _, rule in secrets) == sorted(TF_SECRETS.values()),
+          f"misconf (f): secrets {secrets}")
+    check(all(launches.get(k, 0) > 0 for k in ("prefilter", "anchored", "decompress")),
+          f"misconf (f): a feed kernel was not launched: {launches}")
+    check(leg["terraform_span_s"] is not None, "misconf (f): no misconf.terraform span")
+    return leg
+
+
 def config_failures(report: dict) -> dict[str, set]:
     """{target: failed check ids} of a report's config results."""
     return {r["Target"]: {m["ID"] for m in r.get("Misconfigurations", [])
@@ -3537,12 +3647,21 @@ def phase_misconf(root: Path, seed: int, base: bytes, card: str) -> dict:
     equal ``Results`` and ``Metadata``, the expected DS/KSV failures, every
     feed and license kernel launched; (b) the same with a Python and a Rego
     ``--config-check`` and the four ported ``--misconfig-scanners``; (c) a
-    ``.tf`` file stops the default scan with exit 2 and no report; (d)
+    CloudFormation template stops the default scan with exit 2 and no
+    report; (d)
     ``image --scanners misconfig,secret`` of a small archive, its history's
     Dockerfile checks under the JAX target, card against CPU; (e) ``-d
     --log-format json``, ``version --format json``, ``--backend cpu`` and
     ``--backend pallas --device cpu`` on the CPU, ``--backend pallas`` on
-    the card. Each leg prints its ``t``."""
+    the card; (f) ``fs --scanners misconfig,secret`` of a Terraform
+    monorepo (``tests/tftree.py``: 48 modules called by 12 environment
+    roots, 360 ``.tf`` files, about 2 MiB of HCL, every provider, a plan
+    of just under 1 MiB, two ARM templates, four planted credentials) on
+    the card (counters to 0 just before, read just after) and on the CPU:
+    equal ``Results`` and ``Metadata``, the expected ids, the four secrets,
+    the feed's kernels launched; its seconds, launches and the
+    ``misconf.terraform`` span's seconds on a line of its own. Each leg
+    prints its ``t``."""
     from trivy_tpu_torch import VERSION
     from trivy_tpu_torch.misconf import custom
     from trivy_tpu_torch.misconf.checks import unregister
@@ -3583,15 +3702,15 @@ def phase_misconf(root: Path, seed: int, base: bytes, card: str) -> dict:
     result["a"] = leg_a
 
     # (c) a type of a later slice stops the default scan: exit 2, no report
-    (tree / "infra").mkdir()
-    (tree / "infra" / "main.tf").write_text('resource "aws_s3_bucket" "b" {}\n')
+    (tree / "cfn").mkdir()
+    (tree / "cfn" / "stack.yaml").write_text(MISCONF_CFN)
     rc = cli.main(["fs", "--scanners", "misconfig", "--format", "json", "-q", "-o",
                    str(out / "c.json"), "--device", "cuda", str(tree)])
-    shutil.rmtree(tree / "infra")
+    shutil.rmtree(tree / "cfn")
     result["c"] = {"rc": rc, "report_written": (out / "c.json").exists()}
     log({"phase": "misconf-c", **result["c"]})
-    check(rc == 2 and not (out / "c.json").exists(),
-          f"misconf (c): a .tf file gave exit {rc}, report written: {result['c']}")
+    check(rc == 2 and not (out / "c.json").exists(), "misconf (c): a CloudFormation "
+          f"template gave exit {rc}, report written: {result['c']}")
 
     # (d) an image's history as a Dockerfile, beside its layers' files
     layers = [layer_tar(tree / "svc0", extra={"deploy/app.yaml": MISCONF_MANIFEST.format(
@@ -3659,6 +3778,10 @@ def phase_misconf(root: Path, seed: int, base: bytes, card: str) -> dict:
           and backends["cpu"]["results"] == backends["pallas"]["results"]
           == backends["pallas-device-cpu"]["results"],
           f"misconf (e): --backend runs {result['e']['backend_launches']}")
+
+    # (f) a Terraform monorepo at the size of a real infrastructure
+    # repository, beside the feed
+    result["f"] = misconf_terraform(root / "terraform", out, rules, seed)
 
     # (b) custom checks, last: they stay registered in the process until
     # the phase takes them out
@@ -4257,7 +4380,7 @@ def write_image_layers(root: Path, seed: int, base: bytes, mib: int) -> dict:
         f"node_modules/{name}": {"version": vuln}}}))
     apps_mib = sum(f.stat().st_size for f in (root / "apps").rglob("*") if f.is_file()) >> 20
     licenses, _written = write_license_tree(root / "content", max(1, mib - apps_mib), seed,
-                                            base)
+                                            base, license_files=IMAGE_LICENSE_FILES)
     secrets = fs_secrets + [planted("content", f"app/settings_{i}.py") for i in range(4)]
     hidden += [planted("content", "app/drop.env"), planted("content", "legacy/keys.py")]
     top = root / "top" / "etc" / "motd"
@@ -4509,8 +4632,9 @@ def phase_sources(root: Path, image_root: Path, fs_tree: Path, db_dir: Path, fs_
     a plain scan, both plants reported. (d) A git repository of the
     checkout's code: ``repo file://... --branch`` equals ``fs`` of its tree.
     (e) ``mkfs.ext4 -d`` of the fs-vuln tree with the trace phase's license
-    files: ``vm`` on the card equals the CPU, every plant reported, all six
-    kernels launched; the rescan a cache hit."""
+    files: ``vm`` on the card equals the CPU (a child process running beside
+    the card's scans), every plant reported, all six kernels launched; the
+    rescan a cache hit."""
     t_phase = time.perf_counter()
     os.environ.pop("DOCKER_HOST", None)  # never the machine's own daemon
     load_fake("imagetest")
@@ -4668,12 +4792,17 @@ def phase_sources(root: Path, image_root: Path, fs_tree: Path, db_dir: Path, fs_
         f.truncate(((2 * tree_bytes) >> 20) + 64 << 20)
     subprocess.run(["mkfs.ext4", "-q", "-d", str(fs_tree), str(disk)], check=True)
     mkfs_s = time.perf_counter() - t0
+    # the CPU reference in a child process beside the card's scan and rescan
+    cpu_proc = cpu_cli(disk, root, "vm-cpu", "--license-full", "--db-repository", str(db_dir),
+                       "--cache-dir", str(root / "cache-vm-cpu"),
+                       scanners="vuln,secret,license", command="vm")
     vm = []
-    for device, cache in (("cuda", "cache-vm"), ("cpu", "cache-vm-cpu"), ("cuda", "cache-vm")):
+    for _ in range(2):
         LAUNCHES.clear()
-        rep, st = cli.scan_vm(str(disk), device=device, cache_dir=str(root / cache), **kw)
+        rep, st = cli.scan_vm(str(disk), device="cuda", cache_dir=str(root / "cache-vm"), **kw)
         vm.append((rep.to_dict(), st, dict(LAUNCHES)))
-    (vm_r, vm_st, vm_launches), (cpu_r, cpu_st, _), (re_r, re_st, re_launches) = vm
+    (vm_r, vm_st, vm_launches), (re_r, re_st, re_launches) = vm
+    cpu_r, cpu_st = cpu_cli_wait(cpu_proc, root, "vm-cpu")
     found_v = {(v["PkgName"], v["VulnerabilityID"], v["InstalledVersion"])
                for r in vm_r["Results"] for v in r.get("Vulnerabilities", [])}
     vm_missed = [p for p in plants() if (p[2], p[3], p[4]) not in found_v]
@@ -4736,9 +4865,9 @@ def phase_sources(root: Path, image_root: Path, fs_tree: Path, db_dir: Path, fs_
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--e2e-mib", type=int, default=64, help="size of the e2e tree")
+    ap.add_argument("--e2e-mib", type=int, default=48, help="size of the e2e tree")
     ap.add_argument("--license-mib", type=int, default=48, help="size of the license tree")
-    ap.add_argument("--image-mib", type=int, default=64, help="layer bytes of the image")
+    ap.add_argument("--image-mib", type=int, default=32, help="layer bytes of the image")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -4894,8 +5023,10 @@ def main() -> int:
     # phase and in the server phase's client/server scan
     for entry, key in zip(kernels, (*IMAGE_KERNELS, "verscmp"), strict=True):
         entry["launches_formats"] = formats["launches"].get(key, 0)
-        # phase misconf's leg (a): fs --scanners misconfig,secret,license
+        # phase misconf's leg (a): fs --scanners misconfig,secret,license;
+        # leg (f): fs --scanners misconfig,secret of the Terraform monorepo
         entry["launches_misconf"] = misconf["launches"].get(key, 0)
+        entry["launches_misconf_terraform"] = misconf["f"]["launches"].get(key, 0)
         entry["launches_image"] = image["launches"].get(key, 0)
         entry["launches_registry"] = sources["launches_registry"].get(key, 0)
         entry["launches_ladder"] = ladder["launches"].get(key, 0)

@@ -60,6 +60,7 @@ HERE = Path(__file__).resolve().parent
 SAMPLES = runpy.run_path(str(HERE / "secret_samples.py"))["SAMPLES"]
 BUILD_DB = runpy.run_path(str(HERE / "dbtest.py"))["build_db"]
 CUSTOM = runpy.run_path(str(HERE / "test_torch_rulesets.py"))
+TFTREE = runpy.run_path(str(HERE / "tftree.py"))
 # samples of the built-in rules and of the custom rulesets that widen the
 # tables (edges) and go below the screen's width (short)
 SAMPLES_OF = {"builtin": sorted(SAMPLES.values()), "edges": CUSTOM["RULESETS"]["edges"][1],
@@ -1375,6 +1376,35 @@ def test_fleet_telemetry_on_card_equals_cpu(card, tmp_path):
     doc, launched = got["cuda"]
     assert doc["Results"] == got["cpu"][0]["Results"] and "Degraded" not in doc
     assert all(launched[k] > 0 for k in FEED_KERNELS) and launched["verscmp"] == 1, launched
+
+
+@pytest.mark.cuda
+def test_terraform_scan_on_card_equals_cpu(card, tmp_path):
+    """``fs --scanners misconfig,secret`` of a seeded Terraform monorepo
+    (modules called by environment roots, ``.tfvars``, ``.tf.json``, every
+    provider, a plan and two ARM templates) with planted credentials on the
+    card: the ``Results`` and ``Metadata`` of the same scan on the CPU, the
+    cloud failures and every secret reported, the feed's kernels launched."""
+    tree = tmp_path / "tree"
+    TFTREE["write_tf_monorepo"](tree, 1, modules=8, envs=4, blocks=4, plan_bytes=64 << 10,
+                                secrets={"aws": SAMPLES["aws-access-key-id"],
+                                         "github": SAMPLES["github-pat"]})
+    docs = {}
+    for device in ("cuda", "cpu"):
+        out = tmp_path / f"{device}.json"
+        match_cuda.LAUNCHES.clear()
+        assert cli.main(["fs", "--scanners", "misconfig,secret", "--device", device, "-q",
+                         "--format", "json", "-o", str(out), str(tree)]) == 0
+        docs[device] = (json.loads(out.read_text()), dict(match_cuda.LAUNCHES))
+    (card_doc, launches), (cpu_doc, _) = docs["cuda"], docs["cpu"]
+    assert card_doc["Results"] == cpu_doc["Results"]
+    assert card_doc["Metadata"] == cpu_doc["Metadata"]
+    fails = {m["ID"] for r in card_doc["Results"] for m in r.get("Misconfigurations", [])
+             if m["Status"] == "FAIL"}
+    assert {"AVD-AWS-0107", "AVD-AZU-0008", "AVD-GCP-0002"} <= fails
+    assert sorted(s["RuleID"] for r in card_doc["Results"] for s in r.get("Secrets", [])) == [
+        "aws-access-key-id", "github-pat"]
+    assert launches.get("prefilter", 0) > 0, launches
 
 
 @pytest.mark.cuda

@@ -35,7 +35,12 @@ import pytest
 
 from tests.daemontest import FakeDockerDaemon
 from tests.test_torch_fleet_coordinator import DEAD, fleet_threads, replica
-from tests.test_torch_fleet_replica import RESTRICTED, env, shutdown  # noqa: F401
+from tests.test_torch_fleet_replica import (  # noqa: F401
+    RESTRICTED,
+    clean_breaker_gauges,
+    env,
+    shutdown,
+)
 from tests.test_torch_image_daemon import no_host_daemons, save_tar_bytes  # noqa: F401
 from tests.test_torch_match import few_torch_threads  # noqa: F401
 from trivy_tpu import cli as jax_cli
@@ -221,7 +226,8 @@ def test_stats_trace_warm_seed_and_tuning(env, wd, port_fleet, capsys):
                      str(wd / "first.json"), *cache, str(env["tree"])]) == 0
     capsys.readouterr()
     assert cli.main(["fs", "--device", "cpu", "--format", "json", "-o", str(wd / "f.json"),
-                     *cache, "--fleet", port_fleet, *OFF, "--fleet-inflight", "3", "--trace",
+                     *cache, "--fleet", port_fleet, *OFF, "--fleet-split-threshold", "0",
+                     "--fleet-inflight", "3", "--trace",
                      "--stats-out", str(wd / "s.json"), "--metrics-out", str(wd / "m.json"),
                      str(env["tree"])]) == 0
     stats = json.loads((wd / "s.json").read_text())

@@ -41,6 +41,7 @@ import pytest
 
 from tests.test_torch_fleet_replica import (  # noqa: F401
     ALL,
+    clean_breaker_gauges,
     env,
     jax_option,
     jax_scan_options,
@@ -154,9 +155,11 @@ def port_single(env, kind: str, scanners=("secret",)):
 def port_fleet_scan(env, kind: str, hosts, scanners=("secret",), built=None, **cfg_kw):
     """The port coordinator's scan over ``hosts``: (report, counters,
     artifact); ``built`` collects the artifact before it inspects, for a
-    test that watches the fan-out from another thread."""
+    test that watches the fan-out from another thread. Speculation, the
+    telemetry plane and the mid-scan split are off unless asked for."""
     cfg_kw.setdefault("speculate", 0.0)
     cfg_kw.setdefault("telemetry_interval", 0.0)
+    cfg_kw.setdefault("split_threshold", 0.0)
     cfg = FleetConfig(hosts=list(hosts), **cfg_kw)
     built = [] if built is None else built
     db = VulnDB.load(env["db"]) if "vuln" in scanners else None

@@ -51,6 +51,7 @@ from trivy_tpu.db import VulnDB as JaxVulnDB
 from trivy_tpu.fleet import plan as jax_plan
 from trivy_tpu.fleet.coordinator import FleetConfig
 from trivy_tpu.fleet.merge import FleetArtifact
+from trivy_tpu.parallel import mesh as jax_mesh
 from trivy_tpu.rpc.admission import resolve_admission as jax_resolve_admission
 from trivy_tpu.rpc.server import start_server as jax_start_server
 from trivy_tpu.scanner import ScanOptions as JaxScanOptions
@@ -61,6 +62,7 @@ from trivy_tpu_torch.cache import new_cache
 from trivy_tpu_torch.fanal.scan import ScanAnalyzers, analyze_files
 from trivy_tpu_torch.fanal.walker import FSWalker
 from trivy_tpu_torch.fleet import plan
+from trivy_tpu_torch.parallel import mesh
 from trivy_tpu_torch.rpc.admission import resolve_admission
 from trivy_tpu_torch.rpc.client import RemoteDriver, RPCError, get_progress
 from trivy_tpu_torch.rpc.server import start_server
@@ -122,6 +124,28 @@ def image_shards(env, scanners=ALL):
     jcache = jax_new_cache("memory", None)
     art = JaxImageArchiveArtifact(env["image"], jcache, jax_option(env, scanners))
     return jax_plan.plan_image_shards(art, jcache, jax_scan_options(scanners)).shards
+
+
+@pytest.fixture(autouse=True)
+def clean_breaker_gauges():
+    """Each test starts with no row in either package's process-global
+    breaker gauge and puts back what was there. A coordinator's breaker
+    rows (``fleet:<host>``) stay open after a scan over dead replicas, and
+    an in-process server with admission reads a gauge whose every row is
+    open as every device dead: busy, it sheds ``/scan/submit`` with 503
+    ``breakers-open``, so a test after such a scan in the same process
+    falls back to a local, degraded scan. The modules that scan over dead
+    replicas import this fixture too."""
+    gauges = [jax_mesh._BREAKER_OPEN, mesh._BREAKER_OPEN]
+    saved = [dict(g._values) for g in gauges]
+    for g in gauges:
+        with g._lock:
+            g._values.clear()
+    yield
+    for g, rows in zip(gauges, saved):
+        with g._lock:
+            g._values.clear()
+            g._values.update(rows)
 
 
 def port_server(admission: bool = True, cache=None):
@@ -284,8 +308,12 @@ def single_host(env, kind: str, scanners):
 
 
 def fleet_scan(env, kind: str, hosts, scanners, backend="cpu", **cfg_kw):
+    """The JAX coordinator's scan over ``hosts``: speculation, the telemetry
+    plane and the mid-scan split off unless asked for, so a shard slow
+    under load adds no scan to the counts the tests compare."""
     cfg_kw.setdefault("speculate", 0.0)
     cfg_kw.setdefault("telemetry_interval", 0.0)
+    cfg_kw.setdefault("split_threshold", 0.0)
     cfg = FleetConfig(hosts=list(hosts), **cfg_kw)
     cache = jax_new_cache("memory", None)
     so = jax_scan_options(scanners)

@@ -433,11 +433,11 @@ def test_one_crashing_file_does_not_kill_the_batch():
 
 
 @pytest.mark.parametrize("path,content,ftype", [
-    ("infra/main.tf", b'resource "x" "y" {}\n', "terraform"),
-    ("plan.json", b'{"format_version": "1.2", "planned_values": {}}', "terraformplan-json"),
     ("stack.yaml", DETECT[9][1], "cloudformation"),
+    ("stack.json", DETECT[10][1], "cloudformation"),
+    ("tags.yaml", DETECT[11][1], "cloudformation"),
     ("chart/Chart.yaml", b"apiVersion: v2\nname: c\n", "helm"),
-    ("arm.json", DETECT[16][1], "azure-arm"),
+    ("chart/templates/dep.yaml", DETECT[18][1], "helm"),
 ])
 def test_an_unported_type_stops_the_scan(path, content, ftype):
     files = [("Dockerfile", DOCKERFILES["Dockerfile"]), (path, content)]
@@ -591,7 +591,24 @@ NEW_MODULES = ("trivy_tpu_torch.misconf", "trivy_tpu_torch.misconf.scanner",
                "trivy_tpu_torch.misconf.parse.dockerfile",
                "trivy_tpu_torch.misconf.parse.kubernetes",
                "trivy_tpu_torch.misconf.parse.yamljson", "trivy_tpu_torch.fanal.config",
-               "trivy_tpu_torch.plugin", "trivy_tpu_torch.log", "trivy_tpu_torch.cli")
+               "trivy_tpu_torch.plugin", "trivy_tpu_torch.log", "trivy_tpu_torch.cli",
+               "trivy_tpu_torch.misconf.state", "trivy_tpu_torch.misconf.hcl",
+               "trivy_tpu_torch.misconf.hcl.lexer", "trivy_tpu_torch.misconf.hcl.parser",
+               "trivy_tpu_torch.misconf.hcl.functions", "trivy_tpu_torch.misconf.hcl.evaluator",
+               "trivy_tpu_torch.misconf.terraform", "trivy_tpu_torch.misconf.tfplan",
+               "trivy_tpu_torch.misconf.arm", "trivy_tpu_torch.misconf.adapters",
+               "trivy_tpu_torch.misconf.adapters.aws_state",
+               "trivy_tpu_torch.misconf.adapters.aws_tf",
+               "trivy_tpu_torch.misconf.adapters.google_state",
+               "trivy_tpu_torch.misconf.adapters.google_tf",
+               "trivy_tpu_torch.misconf.adapters.azure_tf",
+               "trivy_tpu_torch.misconf.adapters.github_state",
+               "trivy_tpu_torch.misconf.adapters.extra_providers",
+               "trivy_tpu_torch.misconf.checks.cloud_aws",
+               "trivy_tpu_torch.misconf.checks.cloud_google",
+               "trivy_tpu_torch.misconf.checks.cloud_azure",
+               "trivy_tpu_torch.misconf.checks.cloud_github",
+               "trivy_tpu_torch.misconf.checks.cloud_extra")
 
 
 def test_new_modules_import_neither_jax_nor_the_jax_package():

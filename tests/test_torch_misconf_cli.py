@@ -247,7 +247,7 @@ def test_config_check_and_scanners_from_every_source(env, wd, monkeypatch, sourc
 
 
 @pytest.mark.parametrize("source", ["cli", "env", "config"])
-@pytest.mark.parametrize("ftype", ["terraform", "helm"])
+@pytest.mark.parametrize("ftype", ["cloudformation", "helm"])
 def test_a_named_unported_type_exits_2(env, wd, monkeypatch, capsys, source, ftype):
     args = []
     if source == "cli":
@@ -264,7 +264,7 @@ def test_a_named_unported_type_exits_2(env, wd, monkeypatch, capsys, source, fty
 
 
 @pytest.mark.parametrize("rel,content", [
-    ("infra/main.tf", b'resource "aws_s3_bucket" "b" {}\n'),
+    ("cfn/stack.json", b'{"Resources": {"B": {"Type": "AWS::S3::Bucket"}}}'),
     ("cfn/stack.yaml", b"AWSTemplateFormatVersion: '2010-09-09'\nResources:\n  B:\n"
                        b"    Type: AWS::S3::Bucket\n"),
     ("chart/Chart.yaml", b"apiVersion: v2\nname: c\nversion: 0.1.0\n"),

@@ -169,7 +169,7 @@ def test_watch_refuses_flags_the_port_lacks(tmp_path, wd, monkeypatch, capsys, h
     root = make_tree(tmp_path, n_dirs=1)
     argv = ["watch", "--device", "cpu", "-q", "--watch-count", "1"]
     if how == "cli":
-        argv += ["--misconfig-scanners", "terraform"]
+        argv += ["--misconfig-scanners", "cloudformation"]
     elif how == "env":
         monkeypatch.setenv("TRIVY_TPU_MISCONFIG_SCANNERS", "helm")
     else:

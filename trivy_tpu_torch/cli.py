@@ -8,7 +8,7 @@ the JAX CLI's ``clean``, ``plugin`` and ``version``.
     python -m trivy_tpu_torch fs [--scanners vuln,misconfig,secret,license]
         [--db-repository DIR] [--cache-dir D] [--java-db DIR] [--list-all-pkgs]
         [--license-full] [--no-shared-arena] [--secret-config F]
-        [--config-check F|DIR,..] [--misconfig-scanners dockerfile,kubernetes,yaml,json]
+        [--config-check F|DIR,..] [--misconfig-scanners dockerfile,terraform,..]
         [--severity S,..] [--ignorefile F] [--ignore-policy F.py|F.rego]
         [--vex DOC|repo ..] [--show-suppressed] [--exit-code N] [-c CONFIG]
         [--format FORMAT] [-t TEMPLATE|@FILE] [--dependency-tree] [-o OUT]
@@ -120,10 +120,12 @@ lockfile, installed-package, binary and OS package DB analyzers when the
 report can show packages (``vuln``, ``license`` or ``--list-all-pkgs``) or
 with ``misconfig``, the secret, license and config analyzers as their
 scanners ask. ``misconfig`` scans the ``dockerfile``, ``kubernetes``,
-``yaml`` and ``json`` types (``misconf/``) with the ``--config-check``
-Python and Rego checks; naming another JAX type in
-``--misconfig-scanners`` exits 2, and so does a scan that meets a file of
-one (terraform, cloudformation, helm, azure-arm) it would evaluate, with no
+``terraform`` (``.tf``, ``.tf.json``, ``.tfvars``, local modules),
+``azure-arm``, ``yaml`` and ``json`` types, and terraform plans (type
+``terraformplan-json``, no ``--misconfig-scanners`` choice, as in JAX)
+(``misconf/``) with the ``--config-check`` Python and Rego checks; naming
+``cloudformation`` or ``helm`` in ``--misconfig-scanners`` exits 2, and so
+does a scan that meets a file of either type it would evaluate, with no
 report. ``image`` also checks the image history rebuilt as a Dockerfile.
 ``repo`` clones a URL (``artifact/repo.py``) and scans the checkout as
 ``fs``; a path is scanned in place. ``image`` walks each layer that its layer cache lacks the
@@ -243,7 +245,8 @@ from trivy_tpu_torch.types import Report
 logger = log.logger("cli")
 
 SEVERITIES = ["UNKNOWN", "LOW", "MEDIUM", "HIGH", "CRITICAL"]
-# the JAX --misconfig-scanners choices, the types of misconf/detection.py
+# the JAX --misconfig-scanners choices, the types of misconf/detection.py;
+# misconf/scanner.py::UNPORTED_TYPES (cloudformation, helm) exit 2
 MISCONFIG_TYPES = ["dockerfile", "terraform", "cloudformation", "kubernetes", "helm",
                    "azure-arm", "yaml", "json"]
 # formats that force the whole package inventory, as --list-all-pkgs does
@@ -878,7 +881,8 @@ def misconf_flags() -> FlagGroup:
         Flag("misconfig-scanners", default=[], is_list=True,
              config_name="misconfiguration.scanners", choices=MISCONFIG_TYPES,
              validator=check_file_types,
-             help="limit misconfig file types (ported: dockerfile, kubernetes, yaml, json)"),
+             help="limit misconfig file types (ported: dockerfile, terraform, "
+                  "kubernetes, azure-arm, yaml, json)"),
     ])
 
 

@@ -1,5 +1,6 @@
 """Misconfiguration (IaC) scanning, the port of ``trivy_tpu/misconf/`` for
-the ``dockerfile``, ``kubernetes``, ``yaml`` and ``json`` types.
+the ``dockerfile``, ``kubernetes``, ``terraform``, ``terraformplan-json``,
+``azure-arm``, ``yaml`` and ``json`` types.
 
 Host-only work, as in the JAX package: a registry of structured Python
 checks over typed inputs replaces the reference's rego engine (ref:
@@ -9,8 +10,13 @@ and CauseMetadata lines in the output.
 Layout:
 - detection:  file-type sniffing/routing (ref: pkg/iac/detection/detect.go)
 - parse:      dockerfile / yaml-json (line-tracking) / kubernetes views
+- hcl:        HCL2 lexer, parser, evaluator and function library
+- terraform:  module-aware evaluation of a terraform file set → BlockVals
+              (``state``); ``tfplan``: plan JSON → the same BlockVals
+- adapters:   BlockVals → each provider's typed state
+- arm:        ARM templates (expressions, the Azure state, its checks)
 - checks:     check registry + builtin Docker (DS*) and Kubernetes (KSV*)
-              check sets
+              check sets, and the cloud check sets over typed state
 - custom:     ``--config-check`` Python and Rego check files
 - scanner:    facade mapping files -> [types.Misconfiguration]
               (ref: pkg/misconf/scanner.go:141, ResultsToMisconf :443-499)

@@ -11,10 +11,11 @@ A check yields Failure records with line causes; checks that run and yield
 nothing become Successes — matching the reference's successes/failures
 split per file.
 
-The built-in sets are the Docker (DS*) and Kubernetes (KSV*) checks. Cloud
-checks (``register_cloud``) are kept apart, as in the JAX package; the
-port has no typed cloud state to run them over yet, so a custom
-``cloud_check`` registers and is not evaluated.
+The built-in sets are the Docker (DS*) and Kubernetes (KSV*) checks, and
+the cloud checks (``register_cloud``: AWS, Google, Azure with ARM's own,
+GitHub and the five smaller providers), which :func:`evaluate_cloud` runs
+over the typed provider state of a terraform set, a terraform plan or an
+ARM template.
 """
 
 from __future__ import annotations
@@ -93,6 +94,11 @@ def unregister(check_id: str) -> None:
     _cloud_registry.pop(check_id, None)
 
 
+def cloud_checks() -> list[Check]:
+    _load_builtins()
+    return sorted(_cloud_registry.values(), key=lambda c: c.id)
+
+
 def checks_for(file_type: str) -> list[Check]:
     _load_builtins()
     return sorted(
@@ -114,12 +120,19 @@ def _load_builtins() -> None:
     """Register the built-in sets once. The flag is set after the imports,
     under a lock: the JAX package sets it first, so a second thread (an
     image's layers analyzed at once) can read a registry still without the
-    Kubernetes checks and drop every manifest of its layer."""
+    Kubernetes checks and drop every manifest of its layer. The imports
+    follow the JAX order."""
     global _loaded
     if _loaded:
         return
     with _load_lock:
         if not _loaded:
+            import trivy_tpu_torch.misconf.arm  # noqa: F401  (azure cloud checks)
+            import trivy_tpu_torch.misconf.checks.cloud_aws  # noqa: F401
+            import trivy_tpu_torch.misconf.checks.cloud_azure  # noqa: F401
+            import trivy_tpu_torch.misconf.checks.cloud_extra  # noqa: F401
+            import trivy_tpu_torch.misconf.checks.cloud_github  # noqa: F401
+            import trivy_tpu_torch.misconf.checks.cloud_google  # noqa: F401
             import trivy_tpu_torch.misconf.checks.docker  # noqa: F401
             import trivy_tpu_torch.misconf.checks.kubernetes  # noqa: F401
 
@@ -178,3 +191,62 @@ def _result_base(check: Check, scanner_name: str) -> dict:
         provider=check.provider,
         service=check.service,
     )
+
+
+def evaluate_cloud(
+    state,
+    files: list[str],
+    file_type: str,
+    scanner_name: str,
+    enabled: Callable[[Check], bool] = lambda c: True,
+) -> dict[str, Misconfiguration]:
+    """Run cloud checks over typed provider state; group results per file.
+
+    A check with no failure in a given scanned file is a PASS for that file
+    (per-file status, matching the reference's per-input successes).
+    """
+    out: dict[str, Misconfiguration] = {
+        f: Misconfiguration(file_type=file_type, file_path=f) for f in files
+    }
+    state_provider = getattr(state, "provider", "")
+    # plan JSON evaluates the terraform check set but keeps its own label
+    match_type = "terraform" if file_type == "terraformplan-json" else file_type
+    for check in cloud_checks():
+        if not enabled(check):
+            continue
+        if check.file_types and match_type not in check.file_types:
+            continue  # check routed to other IaC types
+        if state_provider and check.provider and check.provider != state_provider:
+            continue  # check belongs to another cloud provider's state
+        if check.targets and not getattr(state, check.targets, None):
+            continue  # no matching resources: check not evaluated (no PASS noise)
+        failures = list(check.fn(state))
+        base = _result_base(check, scanner_name)
+        failed_files: set[str] = set()
+        for f in failures:
+            val = f.val
+            file = getattr(val, "file", "") or ""
+            if file not in out:
+                # cause in an unscanned file (e.g. module dir outside input):
+                # attribute to the first scanned file as a fallback
+                file = files[0] if files else ""
+                if file not in out:
+                    continue
+            failed_files.add(file)
+            out[file].failures.append(
+                MisconfResult(
+                    status="FAIL",
+                    message=f.message,
+                    start_line=getattr(val, "line", 0) or 0,
+                    end_line=getattr(val, "end_line", 0) or 0,
+                    resource=f.resource,
+                    **base,
+                )
+            )
+        for file, mc in out.items():
+            if file not in failed_files:
+                mc.successes.append(MisconfResult(status="PASS", **base))
+    for mc in out.values():
+        mc.successes.sort(key=lambda r: r.id)
+        mc.failures.sort(key=lambda r: (r.id, r.start_line, r.message))
+    return out

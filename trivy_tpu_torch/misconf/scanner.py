@@ -2,6 +2,10 @@
 the port of ``trivy_tpu/misconf/scanner.py`` for the types it has:
 
 - dockerfile / kubernetes  → per-file structural checks (DS*/KSV*)
+- terraform                → whole-file-set HCL evaluation → every
+                             provider's typed state → cloud checks
+- terraformplan-json       → plan resources → the same adapters and checks
+- azure-arm                → template resolution → ARM checks
 - yaml / json              → user-supplied custom checks only (matching the
                              reference's generic scanners, which evaluate
                              nothing without custom policies)
@@ -9,8 +13,8 @@ the port of ``trivy_tpu/misconf/scanner.py`` for the types it has:
 producing ``types.Misconfiguration`` records with the reference's
 successes/failures/CauseMetadata shape (ref: scanner.go:443-499).
 
-The JAX package's other types (terraform, terraform plan, cloudformation,
-helm, azure-arm) have no engine here yet. A scan never drops one quietly:
+The JAX package's other types (cloudformation, helm) have no engine here
+yet. A scan never drops one quietly:
 naming one in ``file_types`` raises :class:`ValueError`, and a file the
 scan would evaluate that :func:`~trivy_tpu_torch.misconf.detection.
 detect_type` gives one of them stops the scan with
@@ -23,7 +27,7 @@ from dataclasses import dataclass, field
 
 from trivy_tpu_torch import faults, log
 from trivy_tpu_torch.misconf import detection
-from trivy_tpu_torch.misconf.checks import evaluate
+from trivy_tpu_torch.misconf.checks import evaluate, evaluate_cloud
 from trivy_tpu_torch.types import Misconfiguration
 
 logger = log.logger("misconf")
@@ -34,6 +38,9 @@ _SCANNER_NAMES = {
     detection.FILE_TYPE_KUBERNETES: "Kubernetes",
     detection.FILE_TYPE_YAML: "YAML",
     detection.FILE_TYPE_JSON: "JSON",
+    detection.FILE_TYPE_TERRAFORM: "Terraform",
+    detection.FILE_TYPE_AZURE_ARM: "Azure ARM",
+    detection.FILE_TYPE_TERRAFORM_PLAN: "Terraform Plan",
 }
 
 # the types the port scans, and the JAX package's others, which it does not
@@ -42,13 +49,13 @@ PORTED_TYPES = (
     detection.FILE_TYPE_KUBERNETES,
     detection.FILE_TYPE_YAML,
     detection.FILE_TYPE_JSON,
-)
-UNPORTED_TYPES = (
     detection.FILE_TYPE_TERRAFORM,
     detection.FILE_TYPE_TERRAFORM_PLAN,
+    detection.FILE_TYPE_AZURE_ARM,
+)
+UNPORTED_TYPES = (
     detection.FILE_TYPE_CLOUDFORMATION,
     detection.FILE_TYPE_HELM,
-    detection.FILE_TYPE_AZURE_ARM,
 )
 
 
@@ -108,6 +115,7 @@ class MisconfScanner:
         from trivy_tpu_torch import obs
 
         ctx = obs.current()
+        tf_files: dict[str, bytes] = {}
         per_file: list[tuple[str, str, bytes]] = []
         with ctx.span("misconf.parse"):
             for path, content in files:
@@ -122,9 +130,15 @@ class MisconfScanner:
                     continue
                 if ftype in UNPORTED_TYPES:
                     raise UnportedTypeError(path, ftype)
-                per_file.append((path, ftype, content))
+                if ftype == detection.FILE_TYPE_TERRAFORM:
+                    tf_files[path] = content
+                else:
+                    per_file.append((path, ftype, content))
 
         out: list[Misconfiguration] = []
+        if tf_files:
+            with ctx.span("misconf.terraform"):
+                out.extend(self._scan_terraform(tf_files))
         with ctx.span("misconf.eval"):
             for path, ftype, content in per_file:
                 try:
@@ -158,6 +172,10 @@ class MisconfScanner:
             return None
         if ftype in UNPORTED_TYPES:
             raise UnportedTypeError(path, ftype)
+        if ftype == detection.FILE_TYPE_TERRAFORM_PLAN:
+            return self._scan_tfplan(path, content)
+        if ftype == detection.FILE_TYPE_AZURE_ARM:
+            return self._scan_arm(path, content)
         try:
             parsed = self._parse(ftype, content)
         except Exception as e:
@@ -167,6 +185,84 @@ class MisconfScanner:
             return None
         return evaluate(ftype, path, parsed, _SCANNER_NAMES.get(ftype, ftype),
                         enabled=self._enabled)
+
+    # -- engines -------------------------------------------------------------
+
+    def _scan_terraform(self, tf_files: dict[str, bytes]) -> list[Misconfiguration]:
+        from trivy_tpu_torch.misconf import terraform
+
+        try:
+            texts = {p: c.decode("utf-8", "replace") for p, c in tf_files.items()}
+            resources = terraform.load(texts)
+        except Exception as e:
+            logger.warning("terraform evaluation failed: %s", e)
+            return []
+        return self._evaluate_tf_resources(resources, sorted(tf_files),
+                                           detection.FILE_TYPE_TERRAFORM)
+
+    def _evaluate_tf_resources(self, resources, files: list[str], ftype: str
+                               ) -> list[Misconfiguration]:
+        """Adapt parsed terraform resources into every provider's typed
+        state and evaluate the provider check sets, merging per file (ref:
+        pkg/iac/adapters/terraform/* each adapting one provider)."""
+        from trivy_tpu_torch.misconf.adapters import (
+            aws_tf,
+            azure_tf,
+            extra_providers,
+            github_state,
+            google_tf,
+        )
+
+        merged: dict[str, Misconfiguration] = {}
+        for adapt in (
+            aws_tf.adapt,
+            azure_tf.adapt,
+            google_tf.adapt,
+            github_state.adapt,
+            extra_providers.adapt_digitalocean,
+            extra_providers.adapt_openstack,
+            extra_providers.adapt_oracle,
+            extra_providers.adapt_cloudstack,
+            extra_providers.adapt_nifcloud,
+        ):
+            try:
+                state = adapt(resources)
+            except Exception as e:
+                logger.warning("%s adapter failed: %s", adapt.__module__, e)
+                continue
+            by_file = evaluate_cloud(state, files, ftype, _SCANNER_NAMES.get(ftype, ftype),
+                                     enabled=self._enabled)
+            for path, mc in by_file.items():
+                if path not in merged:
+                    merged[path] = mc
+                else:
+                    merged[path].failures.extend(mc.failures)
+                    merged[path].successes.extend(mc.successes)
+        for mc in merged.values():
+            mc.successes.sort(key=lambda r: r.id)
+            mc.failures.sort(key=lambda r: (r.id, r.start_line, r.message))
+        return list(merged.values())
+
+    def _scan_tfplan(self, path: str, content: bytes) -> Misconfiguration | None:
+        from trivy_tpu_torch.misconf import tfplan
+
+        try:
+            resources = tfplan.load(path, content)
+        except Exception as e:
+            logger.debug("tfplan parse failed for %s: %s", path, e)
+            return None
+        out = self._evaluate_tf_resources(resources, [path],
+                                          detection.FILE_TYPE_TERRAFORM_PLAN)
+        return out[0] if out else None
+
+    def _scan_arm(self, path: str, content: bytes) -> Misconfiguration | None:
+        from trivy_tpu_torch.misconf import arm
+
+        try:
+            return arm.scan(path, content, enabled=self._enabled)
+        except Exception as e:
+            logger.debug("ARM evaluation failed for %s: %s", path, e)
+            return None
 
     @staticmethod
     def _parse(ftype: str, content: bytes):
