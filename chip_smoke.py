@@ -286,8 +286,10 @@ Phases, each printing JSON lines:
 12a. misconf: ``--scanners misconfig`` in the feed's walk (the config
     analyzer, ``trivy_tpu_torch/misconf/``), card against ``--device cpu``:
     (a) Dockerfiles, manifests, YAML and JSON beside secrets and licenses;
-    (b) custom Python and Rego checks; (c) a CloudFormation template, a type
-    not ported yet, stops the scan with exit 2; (d) an image's history as a
+    (b) custom Python and Rego checks; (c) a seeded tree of CloudFormation
+    stacks and Helm charts beside a Dockerfile and two credentials, printed
+    with its seconds, the feed's launches and the ``misconf.helm`` span, and
+    ``--compliance docker-cis-1.6.0`` of (a)'s tree; (d) an image's history as a
     Dockerfile; (e) the global flags and small commands; (f) a Terraform
     monorepo of 360 ``.tf`` files (about 2 MiB of HCL) with a plan and two
     ARM templates beside the feed, printed with its seconds, launches and
@@ -487,6 +489,8 @@ CUSTOM = runpy.run_path(str(REPO / "tests" / "test_torch_rulesets.py"))
 IMAGES = runpy.run_path(str(REPO / "tests" / "imagetest.py"))
 # the seeded Terraform monorepo of phase misconf's leg (f), shared with the tests
 TFTREE = runpy.run_path(str(REPO / "tests" / "tftree.py"))
+# the seeded CloudFormation and Helm tree of phase misconf's leg (c)
+IACTREE = runpy.run_path(str(REPO / "tests" / "iactree.py"))
 # the custom rulesets checked on the card: one widens the tables past the
 # built-ins' shapes, one goes below the screen's width (1- and 2-byte
 # keywords, a 3-byte anchor)
@@ -3538,9 +3542,9 @@ deny[msg] {
     msg := sprintf("deployment %s is forbidden", [input.metadata.name])
 }
 """
-# leg (c)'s stop: a type of a later slice
-MISCONF_CFN = ("AWSTemplateFormatVersion: '2010-09-09'\nResources:\n  Bucket:\n"
-               "    Type: AWS::S3::Bucket\n")
+# leg (c): a credential planted in a stack and in a chart's values, under
+# two of the phase's rules
+IAC_SECRETS = {"aws": "aws-access-key-id", "github": "github-pat"}
 # leg (f): a credential planted in each place of the monorepo (provider
 # blocks and .tfvars), under the phase's four rules, and the ids it must fail
 TF_SECRETS = {"aws": "aws-access-key-id", "gitlab": "gitlab-pat", "github": "github-pat",
@@ -3633,6 +3637,68 @@ def misconf_terraform(tree: Path, out: Path, rules: Path, seed: int) -> dict:
     return leg
 
 
+def misconf_iac(tree: Path, out: Path, rules: Path, seed: int, a_tree: Path) -> dict:
+    """Phase misconf's leg (c): ``fs --scanners misconfig,secret`` of a
+    seeded tree of CloudFormation stacks in YAML and JSON (intrinsics),
+    Helm charts (``_helpers.tpl``, ``values.yaml``, templates), a
+    Dockerfile beside them and two credentials, on the card (counters to 0
+    just before, read just after) and on the CPU; then ``--compliance
+    docker-cis-1.6.0 --format json`` of leg (a)'s tree, card against CPU."""
+    t_leg = time.perf_counter()
+    planted = {place: SAMPLES[rule] for place, rule in IAC_SECRETS.items()}
+    IACTREE["write_iac_tree"](tree, seed, stacks=3, charts=3, secrets=planted)
+    metrics = out / "c-cuda.metrics.json"
+    head = ("--secret-config", str(rules))
+    LAUNCHES.clear()
+    on_card, stats = run_cli(tree, out, "c-cuda", "cuda", *head, "--metrics-out", str(metrics),
+                             scanners="misconfig,secret")
+    launches = dict(LAUNCHES)
+    on_cpu, cpu_stats = run_cli(tree, out, "c-cpu", "cpu", *head, scanners="misconfig,secret")
+    spans = json.loads(metrics.read_text())["spans"]
+    fails = {(r["Type"], m["ID"]) for r in on_card["Results"]
+             for m in r.get("Misconfigurations", []) if m["Status"] == "FAIL"}
+    secrets = sorted((r["Target"], s["RuleID"]) for r in on_card["Results"]
+                     for s in r.get("Secrets", []))
+    compliance = {}
+    for device in ("cuda", "cpu"):
+        path = out / f"c-compliance-{device}.json"
+        rc = cli.main(["fs", "--scanners", "misconfig,secret",
+                       "--secret-config", str(rules), "--compliance", "docker-cis-1.6.0",
+                       "--format", "json", "-q", "-o", str(path), "--device", device,
+                       str(a_tree)])
+        check(rc == 0, f"misconf (c): --compliance on {device} exited {rc}")
+        compliance[device] = json.loads(path.read_text())
+    leg = {"seconds": stats["seconds"], "cpu_seconds": cpu_stats["seconds"],
+           "helm_span_s": spans.get("misconf.helm", {}).get("total"),
+           "misconf_span_s": spans.get("misconf.scan_files", {}).get("total"),
+           "launches": {k: launches.get(k, 0) for k in ("prefilter", "anchored", "decompress")},
+           "types": sorted({r["Type"] for r in on_card["Results"] if r["Class"] == "config"}),
+           "failures": len(fails), "secrets": secrets,
+           "equal_to_cpu": (on_card["Results"] == on_cpu["Results"]
+                            and on_card["Metadata"] == on_cpu["Metadata"]),
+           "compliance": compliance["cuda"]["SummaryControls"],
+           "compliance_equal_to_cpu": compliance["cuda"] == compliance["cpu"]}
+    shutil.rmtree(tree, ignore_errors=True)
+    leg["leg_seconds"] = time.perf_counter() - t_leg
+    log({"phase": "misconf-c", **leg})
+    check(leg["equal_to_cpu"], "misconf (c): Results or Metadata differ from --device cpu")
+    want = ({("cloudformation", i) for i in IACTREE["CFN_IDS"]}
+            | {("helm", i) for i in IACTREE["HELM_IDS"]})
+    check(want <= fails, f"misconf (c): missing {sorted(want - fails)}")
+    check({"cloudformation", "helm", "dockerfile"} <= set(leg["types"]),
+          f"misconf (c): config results of the types {leg['types']}")
+    check(sorted(rule for _, rule in secrets) == sorted(IAC_SECRETS.values()),
+          f"misconf (c): secrets {secrets}")
+    check(all(leg["launches"][k] > 0 for k in leg["launches"]),
+          f"misconf (c): a feed kernel was not launched: {launches}")
+    check(leg["helm_span_s"] is not None, "misconf (c): no misconf.helm span")
+    check(leg["compliance_equal_to_cpu"] and compliance["cuda"]["ID"] == "docker-cis-1.6.0"
+          and compliance["cuda"]["SummaryControls"].get("FAIL", 0) > 0,
+          f"misconf (c): --compliance gave {leg['compliance']}, equal to the CPU: "
+          f"{leg['compliance_equal_to_cpu']}")
+    return leg
+
+
 def config_failures(report: dict) -> dict[str, set]:
     """{target: failed check ids} of a report's config results."""
     return {r["Target"]: {m["ID"] for m in r.get("Misconfigurations", [])
@@ -3646,9 +3712,13 @@ def phase_misconf(root: Path, seed: int, base: bytes, card: str) -> dict:
     card (launch counters to 0 just before, read just after) and on the CPU:
     equal ``Results`` and ``Metadata``, the expected DS/KSV failures, every
     feed and license kernel launched; (b) the same with a Python and a Rego
-    ``--config-check`` and the four ported ``--misconfig-scanners``; (c) a
-    CloudFormation template stops the default scan with exit 2 and no
-    report; (d)
+    ``--config-check`` and four ``--misconfig-scanners``; (c) a seeded tree
+    of CloudFormation stacks (YAML and JSON), Helm charts, a Dockerfile and
+    two credentials with ``misconfig,secret`` on the card and on the CPU:
+    equal ``Results`` and ``Metadata``, the stacks' and the charts' ids, the
+    ``misconf.helm`` span and the feed's launches on a line of their own;
+    then ``--compliance docker-cis-1.6.0`` of (a)'s tree, card against CPU;
+    (d)
     ``image --scanners misconfig,secret`` of a small archive, its history's
     Dockerfile checks under the JAX target, card against CPU; (e) ``-d
     --log-format json``, ``version --format json``, ``--backend cpu`` and
@@ -3701,16 +3771,8 @@ def phase_misconf(root: Path, seed: int, base: bytes, card: str) -> dict:
           f"{leg_a['license_results']} license results")
     result["a"] = leg_a
 
-    # (c) a type of a later slice stops the default scan: exit 2, no report
-    (tree / "cfn").mkdir()
-    (tree / "cfn" / "stack.yaml").write_text(MISCONF_CFN)
-    rc = cli.main(["fs", "--scanners", "misconfig", "--format", "json", "-q", "-o",
-                   str(out / "c.json"), "--device", "cuda", str(tree)])
-    shutil.rmtree(tree / "cfn")
-    result["c"] = {"rc": rc, "report_written": (out / "c.json").exists()}
-    log({"phase": "misconf-c", **result["c"]})
-    check(rc == 2 and not (out / "c.json").exists(), "misconf (c): a CloudFormation "
-          f"template gave exit {rc}, report written: {result['c']}")
+    # (c) CloudFormation and Helm beside the feed, and --compliance
+    result["c"] = misconf_iac(root / "iac", out, rules, seed, tree)
 
     # (d) an image's history as a Dockerfile, beside its layers' files
     layers = [layer_tar(tree / "svc0", extra={"deploy/app.yaml": MISCONF_MANIFEST.format(
@@ -3958,7 +4020,11 @@ def fleet_leg(url: str, root: Path, fs_tree: Path, db_dir: Path, device: str, lo
     ``Results``; with ``--no-host-fallback`` the command exits 1. (g4)
     ``image --fleet`` of a three-layer archive of the subtree
     (``fleet_image``) over both servers: the local image scan's ``Results``,
-    ``ImageID`` and ``DiffIDs``."""
+    ``ImageID`` and ``DiffIDs``. (g5) ``fs --scanners misconfig,secret`` of
+    a tree like phase misconf's leg (c) (CloudFormation, Helm charts, a
+    Dockerfile, two credentials) in two shards over both servers: the local
+    scan's ``Results``, the feed's kernels launched by the replicas'
+    shards."""
     from trivy_tpu_torch.rpc.server import start_server
 
     out = root / "fleet"
@@ -4033,6 +4099,13 @@ def fleet_leg(url: str, root: Path, fs_tree: Path, db_dir: Path, device: str, lo
             UNFAULTED["off"] = False
         image_local = run("image-local", "image", image, *no_db)
         g4 = run("g4", "image", image, *no_db, "--fleet", ",".join(hosts), *off)
+        iac = root / "fleet-iac"
+        IACTREE["write_iac_tree"](iac, 5, stacks=3, charts=3,
+                                  secrets={k: SAMPLES[v] for k, v in IAC_SECRETS.items()})
+        misconf = ("--scanners", "misconfig,secret")
+        iac_local = run("iac-local", "fs", iac, *misconf)
+        g5 = run("g5", "fs", iac, *misconf, "--fleet", ",".join(hosts),
+                 "--fleet-shards-per-replica", "1", *off)
     finally:
         httpd2.shutdown()
     g1_plane, g2_plane = plane("g1"), plane("g2")
@@ -4046,6 +4119,10 @@ def fleet_leg(url: str, root: Path, fs_tree: Path, db_dir: Path, device: str, lo
         "hosts": hosts, "dead": dead, "local_s": local_s, "subtree_files": sum(
             1 for p in sub.rglob("*") if p.is_file()), "image_bytes": image_bytes,
         "g1": summary(g1), "g2": summary(g2), "g3": summary(g3), "g4": summary(g4),
+        "g5": summary(g5), "iac_local_s": iac_local["seconds"],
+        "g5_equal_local": g5["doc"].get("Results") == iac_local["doc"].get("Results"),
+        "g5_types": sorted({r["Type"] for r in g5["doc"].get("Results", [])
+                            if r["Class"] == "config"}),
         "sub_local_s": sub_local["seconds"], "image_local_s": image_local["seconds"],
         "g1_equal_local": g1["doc"].get("Results") == local["Results"],
         "g2_equal_local": g2["doc"].get("Results") == sub_local["doc"]["Results"],
@@ -4070,8 +4147,11 @@ def fleet_leg(url: str, root: Path, fs_tree: Path, db_dir: Path, device: str, lo
     result["server_shards"] = sum(r["stats"].get("fleet.replica_shards", {}).get(hosts[0], 0)
                                   for r in (g1, g2, g4))
     log({"phase": "server-fleet", **result})
-    check(all(r["rc"] == 0 for r in (g1, sub_local, g2, g3, image_local, g4)),
+    check(all(r["rc"] == 0 for r in (g1, sub_local, g2, g3, image_local, g4, iac_local, g5)),
           "server (g): a fleet leg's command failed")
+    check(result["g5_equal_local"] and {"cloudformation", "helm"} <= set(result["g5_types"]),
+          f"server (g5): misconfig fleet equal {result['g5_equal_local']}, types "
+          f"{result['g5_types']}")
     check(result["g1_equal_local"], "server (g1): the fleet's Results differ from the local scan")
     check(result["g1_interval_s"] == 1.0 and sorted(g1_reps) == sorted(hosts)
           and all(rep["scrapes"] >= 1 and 0.0 <= rep["headroom"] <= 1.0
@@ -4084,7 +4164,7 @@ def fleet_leg(url: str, root: Path, fs_tree: Path, db_dir: Path, device: str, lo
           f"server (g1): the plane outlived the scan: {g1_rows} {g1_threads}")
     check(g1_plane["timeseries"] is not None and sorted(g1_plane["timeseries"]["replicas"])
           == sorted(hosts), "server (g1): the --timeseries-out fleet block")
-    check(not any("Degraded" in r["doc"] for r in (g1, g2, g4)),
+    check(not any("Degraded" in r["doc"] for r in (g1, g2, g4, g5)),
           "server (g): a live fleet's report is Degraded")
     check(all(g1["stats"]["fleet.replica_shards"][h] > 0 for h in hosts),
           f"server (g1): shards by replica {g1['stats']['fleet.replica_shards']}")
@@ -4110,6 +4190,9 @@ def fleet_leg(url: str, root: Path, fs_tree: Path, db_dir: Path, device: str, lo
               f"server (g3): the local fallback's launches {g3['launches']}")
         check(g4["launches"]["replicas"].get("prefilter", 0) > 0 and not g4["launches"]["fold"],
               f"server (g4): launches {g4['launches']}")
+        check(all(g5["launches"]["replicas"].get(k, 0) > 0
+                  for k in ("prefilter", "anchored", "decompress"))
+              and not g5["launches"]["fallback"], f"server (g5): launches {g5['launches']}")
     return result
 
 
@@ -4616,6 +4699,133 @@ def git_commit_tree(tree: Path) -> None:
     git(tree, "reset", "-q")  # the index, from the commit and the files' stat
 
 
+# phase sources' leg (f): node-collector output in the cluster dump, one
+# node passing and one failing the kubelet checks
+NODE_INFO = {
+    "kubeletServiceFilePermissions": {"values": [600]},
+    "kubeletServiceFileOwnership": {"values": ["root:root"]},
+    "kubeletConfFilePermissions": {"values": [600]},
+    "kubeletAnonymousAuthArgumentSet": {"values": ["false"]},
+    "kubeletAuthorizationModeArgumentSet": {"values": ["Webhook"]},
+    "kubeletReadOnlyPortArgumentSet": {"values": ["0"]},
+    "kubeletRotateCertificatesArgumentSet": {"values": ["true"]},
+}
+K8S_KINDS = ("Pod", "Deployment", "StatefulSet", "DaemonSet", "ReplicaSet", "Job", "CronJob")
+
+
+def k8s_dump(path: Path, images: list[str], seed: int, n: int = 20) -> None:
+    """A ``kubectl get -o json`` dump of ``n`` workloads of every kind over
+    ``images`` (some privileged, some on the host network, one with a token
+    in its environment), a Service and two ``NodeInfo`` documents."""
+    rng = random.Random(seed)
+    items = []
+    for i in range(n):
+        kind = K8S_KINDS[i % len(K8S_KINDS)]
+        c = {"name": f"c{i}", "image": images[i % len(images)]}
+        if rng.random() < 0.4:
+            c["securityContext"] = {"privileged": True}
+        if i == 3:
+            c["env"] = [{"name": "TOKEN", "value": SAMPLES["github-pat"]}]
+        spec = {"containers": [c], **({"hostNetwork": True} if rng.random() < 0.3 else {})}
+        body = (spec if kind == "Pod" else
+                {"schedule": "0 * * * *", "jobTemplate": {"spec": {"template": {"spec": spec}}}}
+                if kind == "CronJob" else {"template": {"spec": spec}})
+        items.append({"apiVersion": "v1" if kind == "Pod" else "apps/v1", "kind": kind,
+                      "metadata": {"name": f"w{i:02d}",
+                                   "namespace": rng.choice(["default", "prod"])},
+                      "spec": body})
+    bad = {**NODE_INFO, "kubeletAnonymousAuthArgumentSet": {"values": ["true"]}}
+    items += [{"apiVersion": "v1", "kind": "Service", "metadata": {"name": "svc"}},
+              *({"apiVersion": "v1", "kind": "NodeInfo", "type": "node-collector",
+                 "metadata": {"name": name}, "info": info}
+                for name, info in (("worker-1", NODE_INFO), ("worker-2", bad)))]
+    path.write_text(json.dumps({"apiVersion": "v1", "kind": "List", "items": items}))
+
+
+def sources_k8s(root: Path, seed: int) -> dict:
+    """Phase sources' leg (f): ``k8s --manifests <dump> --scan-images`` of
+    about twenty workloads and a ``NodeInfo`` over two images of a tokenless
+    in-process registry (a ``package-lock.json`` of 602 packages, two of
+    them vulnerable, and a token; a clean one) and an image no registry
+    holds, with the fixture DB of
+    ``tests/dbtest.py``, on the card (launch counters to 0 just before,
+    read just after) and on the CPU: equal JSON, the images' findings, an
+    error row for the missing one; then ``--compliance k8s-nsa-1.0`` on
+    both. The feed's kernels and ``verscmp`` must launch."""
+    t_leg = time.perf_counter()
+    load_fake("imagetest")  # the registry fake imports it
+    registrytest, dbtest = load_fake("registrytest"), load_fake("dbtest")
+    db_dir = dbtest.build_db(root / "k8s-db")
+    reg = registrytest.MemoryRegistry()
+
+    def config(layer: bytes) -> bytes:
+        return json.dumps({"architecture": "amd64", "os": "linux", "config": {},
+                           "rootfs": {"type": "layers",
+                                      "diff_ids": [registrytest.digest_of(layer)]}}).encode()
+
+    web = layer_tar(None, extra={
+        "etc/alpine-release": b"3.18.4\n",
+        # past the join's batch threshold (512 packages), so that the CVE
+        # join runs on the card as in a real application image
+        "app/package-lock.json": json.dumps({"lockfileVersion": 3, "packages": {
+            "node_modules/lodash": {"version": "4.17.15"},
+            "node_modules/minimist": {"version": "1.2.0"},
+            **{f"node_modules/dep-{i:03d}": {"version": f"1.{i % 7}.{i}"}
+               for i in range(600)}}}).encode(),
+        "app/settings.env": f"DEPLOY_TOKEN={SAMPLES['github-pat']}\n".encode()})
+    clean = layer_tar(None, extra={"etc/alpine-release": b"3.18.4\n",
+                                   "app/main.py": b"print('hello')\n" * 64})
+    push_image(reg, "k8s/web", "1", [web], config(web))
+    push_image(reg, "k8s/clean", "2", [clean], config(clean))
+    server, host = registrytest.start_registry(reg)
+    dump = root / "k8s-dump.json"
+    k8s_dump(dump, [f"{host}/k8s/web:1", f"{host}/k8s/clean:2", "127.0.0.1:9/k8s/gone:1"],
+             seed)
+    docs, launches, seconds = {}, {}, {}
+    try:
+        for device in ("cuda", "cpu"):
+            for tag, extra in (("images", ["--scan-images", "--insecure", "--db-repository",
+                                           str(db_dir)]),
+                               ("nsa", ["--compliance", "k8s-nsa-1.0"])):
+                out = root / f"k8s-{tag}-{device}.json"
+                LAUNCHES.clear()
+                t0 = time.perf_counter()
+                rc = cli.main(["k8s", "--manifests", str(dump), "--format", "json", "-o",
+                               str(out), "--device", device, *extra])
+                seconds[f"{tag}-{device}"] = time.perf_counter() - t0
+                launches[f"{tag}-{device}"] = dict(LAUNCHES)
+                check(rc == 0, f"sources (f): k8s {tag} on {device} exited {rc}")
+                docs[f"{tag}-{device}"] = json.loads(out.read_text())
+    finally:
+        server.shutdown()
+    card = docs["images-cuda"]
+    rows = {r["Image"]: r for r in card["Images"]}
+    web_ids = {f.get("VulnerabilityID") or f.get("RuleID")
+               for f in rows.get(f"{host}/k8s/web:1", {}).get("Findings", [])}
+    leg = {"workloads": len(card["Resources"]), "images": len(card["Images"]),
+           "kinds": sorted({r["Kind"] for r in card["Resources"]}),
+           "web_findings": sorted(web_ids),
+           "seconds": seconds, "launches": launches["images-cuda"],
+           "nsa": docs["nsa-cuda"]["SummaryControls"],
+           "equal_to_cpu": docs["images-cuda"] == docs["images-cpu"],
+           "nsa_equal_to_cpu": docs["nsa-cuda"] == docs["nsa-cpu"]}
+    leg["leg_seconds"] = time.perf_counter() - t_leg
+    log({"phase": "sources-k8s", **leg})
+    check(leg["equal_to_cpu"] and leg["nsa_equal_to_cpu"],
+          "sources (f): k8s JSON differs between card and CPU")
+    check(leg["workloads"] == 22 and "NodeInfo" in leg["kinds"],
+          f"sources (f): {leg['workloads']} rows of kinds {leg['kinds']}")
+    check({"CVE-2021-23337", "github-pat"} <= web_ids, f"sources (f): web findings {web_ids}")
+    check(bool(rows.get("127.0.0.1:9/k8s/gone:1", {}).get("Error")),
+          "sources (f): the missing image has no error row")
+    check(all(leg["launches"].get(k, 0) > 0 for k in ("prefilter", "anchored", "decompress",
+                                                       "verscmp")),
+          f"sources (f): a kernel was not launched by the image scans: {leg['launches']}")
+    check(not any(launches["nsa-cuda"].values()),
+          f"sources (f): --compliance launched a kernel: {launches['nsa-cuda']}")
+    return leg
+
+
 def phase_sources(root: Path, image_root: Path, fs_tree: Path, db_dir: Path, fs_secrets: list,
                   first: dict, cut: dict, card: str) -> dict:
     """The image targets that are not archives, then ``repo`` and ``vm``, on
@@ -4634,7 +4844,7 @@ def phase_sources(root: Path, image_root: Path, fs_tree: Path, db_dir: Path, fs_
     (e) ``mkfs.ext4 -d`` of the fs-vuln tree with the trace phase's license
     files: ``vm`` on the card equals the CPU (a child process running beside
     the card's scans), every plant reported, all six kernels launched; the
-    rescan a cache hit."""
+    rescan a cache hit. (f) ``k8s`` (:func:`sources_k8s`)."""
     t_phase = time.perf_counter()
     os.environ.pop("DOCKER_HOST", None)  # never the machine's own daemon
     load_fake("imagetest")
@@ -4822,6 +5032,9 @@ def phase_sources(root: Path, image_root: Path, fs_tree: Path, db_dir: Path, fs_
         "rescan_equal": re_r["Results"] == vm_r["Results"], "missed": vm_missed[:5],
         "secrets_missed": vm_missed_secrets, "licenses_missed": vm_missed_lic,
     }
+    # (f) k8s: a cluster dump with its workload images scanned on the card
+    result["k8s"] = sources_k8s(root, len(fs_secrets))
+    result["launches_k8s"] = result["k8s"]["launches"]
     result["seconds"] = time.perf_counter() - t_phase
     log(result)
     r = result["registry"]
@@ -5027,8 +5240,13 @@ def main() -> int:
         # leg (f): fs --scanners misconfig,secret of the Terraform monorepo
         entry["launches_misconf"] = misconf["launches"].get(key, 0)
         entry["launches_misconf_terraform"] = misconf["f"]["launches"].get(key, 0)
+        # leg (c): fs --scanners misconfig,secret of the CloudFormation and
+        # Helm tree (the feed's kernels only)
+        entry["launches_misconf_iac"] = misconf["c"]["launches"].get(key, 0)
         entry["launches_image"] = image["launches"].get(key, 0)
         entry["launches_registry"] = sources["launches_registry"].get(key, 0)
+        # phase sources' leg (f): k8s --scan-images of the dump's images
+        entry["launches_k8s"] = sources["launches_k8s"].get(key, 0)
         entry["launches_ladder"] = ladder["launches"].get(key, 0)
         # phase incremental: the cold scan, and every scan of an unchanged
         # tree after it (the rescans, the diff-base scan, the watch)
@@ -5043,7 +5261,8 @@ def main() -> int:
         # shard scans, the coordinator's fold and its local fallback
         entry["launches_fleet"] = {
             f"{leg}_{role}": server["fleet"][leg]["launches"][role].get(key, 0)
-            for leg in ("g1", "g2", "g3", "g4") for role in ("replicas", "fold", "fallback")}
+            for leg in ("g1", "g2", "g3", "g4", "g5")
+            for role in ("replicas", "fold", "fallback")}
         # phase mesh's round-robin and data = 2 mesh runs over [cuda:0, cuda:0]
         for tag, run in (("round_robin", "round-robin"), ("mesh", "mesh")):
             entry[f"launches_{tag}"] = mesh["runs"][run]["launches"].get(key, 0)

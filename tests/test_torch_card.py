@@ -61,6 +61,7 @@ SAMPLES = runpy.run_path(str(HERE / "secret_samples.py"))["SAMPLES"]
 BUILD_DB = runpy.run_path(str(HERE / "dbtest.py"))["build_db"]
 CUSTOM = runpy.run_path(str(HERE / "test_torch_rulesets.py"))
 TFTREE = runpy.run_path(str(HERE / "tftree.py"))
+IACTREE = runpy.run_path(str(HERE / "iactree.py"))
 # samples of the built-in rules and of the custom rulesets that widen the
 # tables (edges) and go below the screen's width (short)
 SAMPLES_OF = {"builtin": sorted(SAMPLES.values()), "edges": CUSTOM["RULESETS"]["edges"][1],
@@ -1402,6 +1403,36 @@ def test_terraform_scan_on_card_equals_cpu(card, tmp_path):
     fails = {m["ID"] for r in card_doc["Results"] for m in r.get("Misconfigurations", [])
              if m["Status"] == "FAIL"}
     assert {"AVD-AWS-0107", "AVD-AZU-0008", "AVD-GCP-0002"} <= fails
+    assert sorted(s["RuleID"] for r in card_doc["Results"] for s in r.get("Secrets", [])) == [
+        "aws-access-key-id", "github-pat"]
+    assert launches.get("prefilter", 0) > 0, launches
+
+
+@pytest.mark.cuda
+def test_cloudformation_and_chart_scan_on_card_equals_cpu(card, tmp_path):
+    """``fs --scanners misconfig,secret`` of a seeded tree of CloudFormation
+    stacks (YAML and JSON, with intrinsics), Helm charts, a Dockerfile
+    beside them and planted credentials on the card: the ``Results`` and
+    ``Metadata`` of the same scan on the CPU, the stacks' and the charts'
+    failures, every secret, the feed's kernels launched."""
+    tree = tmp_path / "tree"
+    IACTREE["write_iac_tree"](tree, 2, stacks=3, charts=3,
+                              secrets={"aws": SAMPLES["aws-access-key-id"],
+                                       "github": SAMPLES["github-pat"]})
+    docs = {}
+    for device in ("cuda", "cpu"):
+        out = tmp_path / f"{device}.json"
+        match_cuda.LAUNCHES.clear()
+        assert cli.main(["fs", "--scanners", "misconfig,secret", "--device", device, "-q",
+                         "--format", "json", "-o", str(out), str(tree)]) == 0
+        docs[device] = (json.loads(out.read_text()), dict(match_cuda.LAUNCHES))
+    (card_doc, launches), (cpu_doc, _) = docs["cuda"], docs["cpu"]
+    assert card_doc["Results"] == cpu_doc["Results"]
+    assert card_doc["Metadata"] == cpu_doc["Metadata"]
+    fails = {(r["Type"], m["ID"]) for r in card_doc["Results"]
+             for m in r.get("Misconfigurations", []) if m["Status"] == "FAIL"}
+    assert {("cloudformation", i) for i in IACTREE["CFN_IDS"]} <= fails
+    assert {("helm", i) for i in IACTREE["HELM_IDS"]} <= fails
     assert sorted(s["RuleID"] for r in card_doc["Results"] for s in r.get("Secrets", [])) == [
         "aws-access-key-id", "github-pat"]
     assert launches.get("prefilter", 0) > 0, launches

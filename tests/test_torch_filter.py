@@ -174,13 +174,10 @@ def test_config_file_skip_dirs(env, wd):
 
 
 @pytest.mark.parametrize("source", ["cli", "env", "config"])
-def test_unported_jax_setting_refused(env, wd, monkeypatch, capsys, source):
-    """``compliance`` is a JAX flag the port lacks (it needs misconfiguration
-    scanning): from the command line, the environment or ``trivy-tpu.yaml``
-    the JAX CLI honours it (it writes the spec's control report instead of
-    the scan's), and the port exits 2 instead of writing a report the user
-    did not ask for; from the environment and the config file its message
-    names the setting and the flag."""
+def test_compliance_setting_equals_jax(env, wd, monkeypatch, source):
+    """``compliance`` from the command line, the environment or
+    ``trivy-tpu.yaml``: both CLIs write the spec's control report of the
+    filtered scan instead of the scan's, byte for byte."""
     extra = []
     if source == "cli":
         extra = ["--compliance", "docker-cis-1.6.0"]
@@ -188,22 +185,11 @@ def test_unported_jax_setting_refused(env, wd, monkeypatch, capsys, source):
         monkeypatch.setenv("TRIVY_TPU_COMPLIANCE", "docker-cis-1.6.0")
     else:
         (wd / "trivy-tpu.yaml").write_text("compliance: docker-cis-1.6.0\n")
-    with pytest.raises(SystemExit) as exc:
-        run_both(env, wd, "fs-vuln", *extra)
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    if source == "cli":
-        assert "--compliance" in err
-    else:
-        setting = "TRIVY_TPU_COMPLIANCE" if source == "env" else "'compliance'"
-        assert setting in err and "--compliance" in err
-    out = wd / "jax.json"
-    rc = jax_cli.main([*COMMANDS["fs-vuln"](env), "--backend", "cpu", "--format", "json",
-                       "-o", str(out), "-q", "--cache-dir", str(wd / "c2"), *extra,
-                       str(env["tree"])])
-    assert rc == 0
-    doc = json.loads(out.read_text())
-    assert doc["ID"] == "docker-cis-1.6.0" and "SummaryControls" in doc
+    mine, ref, rc1, rc2 = run_both(env, wd, "fs-vuln", *extra)
+    assert rc1 == rc2 == 0
+    assert mine == ref
+    assert mine["ID"] == "docker-cis-1.6.0" and "SummaryControls" in mine
+    assert (wd / "port.json").read_bytes() == (wd / "jax.json").read_bytes()
 
 
 @pytest.mark.parametrize("source", ["env", "config"])
@@ -228,29 +214,22 @@ def test_dependency_tree_setting_equals_jax(env, wd, monkeypatch, source):
     assert tables[0] == tables[1] and "│ lodash" in tables[0]
 
 
-# a setting of each command's JAX flags that the port still lacks: the
-# report group's compliance spec, on fs and on sbom (every global, scan and
-# db flag is ported)
-UNPORTED = {"fs-secret": ("compliance", "compliance: docker-cis-1.6.0\n"),
-            "sbom": ("compliance", "compliance: docker-cis-1.6.0\n")}
+# the report group's compliance spec on fs and on sbom: the setting the
+# port lacked last, now taken from every source as the JAX CLI takes it
+COMPLIANCE = {"fs-secret": "docker-cis-1.6.0", "sbom": "k8s-nsa-1.0"}
 
 
 @pytest.mark.parametrize("command", ["fs-secret", "sbom"])
-def test_unported_jax_settings_refused_per_command(env, wd, monkeypatch, capsys, command):
-    """A JAX setting the port lacks refuses on ``fs`` and ``sbom``, from the
-    config file (``compliance``) and from the environment
-    (``TRIVY_TPU_COMPLIANCE``)."""
-    key, text = UNPORTED[command]
-    (wd / "trivy-tpu.yaml").write_text(text)
-    with pytest.raises(SystemExit) as exc:
-        run_both(env, wd, command)
-    assert exc.value.code == 2 and f"'{key}'" in capsys.readouterr().err
-    (wd / "trivy-tpu.yaml").unlink()
+def test_compliance_settings_per_command_equal_jax(env, wd, monkeypatch, command):
+    """``compliance`` on ``fs`` and ``sbom``, from the config file and then
+    from the environment (``TRIVY_TPU_COMPLIANCE``, which wins): the JAX
+    CLI's control report."""
+    (wd / "trivy-tpu.yaml").write_text(f"compliance: {COMPLIANCE[command]}\n")
+    mine, ref, rc1, rc2 = run_both(env, wd, command)
+    assert rc1 == rc2 == 0 and mine == ref and mine["ID"] == COMPLIANCE[command]
     monkeypatch.setenv("TRIVY_TPU_COMPLIANCE", "docker-cis-1.6.0")
-    with pytest.raises(SystemExit) as exc:
-        run_both(env, wd, command)
-    assert (exc.value.code == 2
-            and "TRIVY_TPU_COMPLIANCE sets --compliance" in capsys.readouterr().err)
+    mine, ref, rc1, rc2 = run_both(env, wd, command)
+    assert rc1 == rc2 == 0 and mine == ref and mine["ID"] == "docker-cis-1.6.0"
 
 
 @pytest.mark.parametrize("command,config", [
@@ -294,18 +273,22 @@ def test_ported_and_unknown_settings_still_resolve(env, wd, monkeypatch):
 
 
 def test_jax_flag_table_matches_the_jax_cli():
-    """``flag.JAX_FLAGS`` is the JAX CLI's flag list for each ported
-    command: every flag's name and config key, in order."""
-    from trivy_tpu_torch.flag import ENV_PREFIX, JAX_FLAGS
+    """Every command the port shares with the JAX CLI has the JAX flags:
+    each flag's name, config key and environment name, and no other. So no
+    JAX setting is dropped from the command line, the environment or the
+    config file."""
+    from trivy_tpu_torch.flag import ENV_PREFIX
 
-    assert set(JAX_FLAGS) == set(cli._TARGET_GROUPS) == {
+    assert set(cli._TARGET_GROUPS) == {
         "fs", "rootfs", "repo", "watch", "image", "vm", "sbom", "convert", "server", "clean"}
-    for command, flags in JAX_FLAGS.items():
-        want = [(f.name, f.config_name) for g in jax_cli._TARGET_GROUPS[command]
-                for f in g().flags]
-        assert list(flags) == want, command
-        envs = {g().flags[0].env_name for g in jax_cli._TARGET_GROUPS[command]}
-        assert envs <= {ENV_PREFIX + n.upper().replace("-", "_") for n, _ in flags}
+    assert set(cli._TARGET_GROUPS) <= set(jax_cli._TARGET_GROUPS)
+    for command, groups in cli._TARGET_GROUPS.items():
+        want = sorted((f.name, f.config_name) for g in jax_cli._TARGET_GROUPS[command]
+                      for f in g().flags)
+        got = sorted((f.name, f.config_name) for g in groups for f in g().flags)
+        assert got == want, command
+        assert all(f.env_name == ENV_PREFIX + f.name.upper().replace("-", "_")
+                   for g in groups for f in g().flags)
 
 
 @pytest.mark.parametrize("command", sorted(COMMANDS))

@@ -190,7 +190,7 @@ def test_shard_settings_read_the_wire_back(tree):
 
 
 @pytest.mark.parametrize("shard,match", [
-    ({"Kind": "fs", "Scanners": ["secret", "misconfig"]}, "misconfig"),
+    ({"Kind": "fs", "Scanners": ["secret", "rootkit"]}, "rootkit"),
     ({"Kind": "fs", "Backend": "tpu"}, "unknown backend 'tpu'"),
     ({"Kind": "nope"}, "unknown shard kind"),
     (["fs"], "JSON object"),

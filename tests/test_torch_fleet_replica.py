@@ -9,9 +9,10 @@ behind the port server's ``Shard`` branch, and the port client's
   findings under another key (the port runs only the OS identity analyzers
   there, a deliberate difference), and the JAX key with ``ListAllPkgs``. A
   file deleted after the plan lands in ``Health`` as ``walk.skipped``.
-- Server: a shard with a scanner the port lacks or an unknown backend
-  answers 400, sync and async, and is never queued; a root or secret
-  config this host cannot see fails the shard loudly (500, a failed job).
+- Server: a shard with an unknown backend answers 400, sync and async,
+  and is never queued; a ``misconfig`` shard gives the JAX server's blobs;
+  a root or secret config this host cannot see fails the shard loudly
+  (500, a failed job).
 - The JAX coordinator (``trivy_tpu.fleet.merge.FleetArtifact``) over port
   replicas gives the JAX single-host ``Results``: fs with ``secret``, with
   ``secret,license`` and with ``vuln``, an image of six layers, a replica
@@ -242,7 +243,6 @@ def test_a_file_deleted_after_the_plan_is_skipped_in_health(env, tmp_path):
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"Scanners": ["secret", "misconfig"]}, "misconfig"),
     ({"Backend": "tpu"}, "unknown backend"),
 ])
 def test_unported_shards_answer_400_sync_and_async(env, change, match):
@@ -257,6 +257,29 @@ def test_unported_shards_answer_400_sync_and_async(env, change, match):
         assert httpd.service.admission.queue_depth() == 0
     finally:
         httpd.shutdown()
+
+
+@pytest.mark.parametrize("change", [{"Scanners": ["secret", "misconfig"]}])
+def test_a_misconfig_shard_answers_as_the_jax_server_sync_and_async(env, change):
+    """The shard that answered 400 before the misconfiguration types were
+    all ported: a port and a JAX server answer it sync and as an async job
+    with the same ``Blobs``, each scanning every type."""
+    shard = {**fs_shards(env, n=1)[0].wire, **change}
+    blobs = []
+    for make in (port_server, jax_server):
+        httpd, port = make()
+        try:
+            base = f"http://127.0.0.1:{port}"
+            code, doc = post(base + rpc.SCANNER_SCAN, {"Target": "t", "Shard": shard})
+            assert code == 200, doc
+            driver = RemoteDriver(base, retries=0)
+            sub = driver.submit("t", "", [], ScanOptions(scanners=list(change["Scanners"])),
+                                shard=shard)
+            assert driver.wait_result(sub["JobID"], timeout=WAIT)["Blobs"] == doc["Blobs"]
+            blobs.append(doc["Blobs"])
+        finally:
+            httpd.shutdown()
+    assert blobs[0] == blobs[1]
 
 
 def test_a_root_or_config_this_host_lacks_fails_the_shard(env):

@@ -1,14 +1,16 @@
 """The port's misconfiguration core against the JAX package, on the CPU:
 detection of every type, the Dockerfile, YAML/JSON and Kubernetes parsers,
 the DS* and KSV* check sets, custom Python and Rego checks, the scanner's
-failure domain and its refusal of the types the port lacks, the types'
-dict forms and the image history's Dockerfile. Inputs are the JAX tests'
+failure domain, the CloudFormation and Helm inputs that once stopped a
+scan, the types' dict forms and the image history's Dockerfile. Inputs are the JAX tests'
 fixtures and trees made from a numpy seed; every comparison is exact.
 
 - The built-in check sets have the JAX ids and metadata.
 - One check file loads into both packages and gives the same results.
 - ``_load_builtins`` is safe under concurrent first use, where the JAX
   registry can be read half loaded (a fault of the reference).
+- A custom check outlives the scan that loaded it, in both packages (a
+  fault of the reference the port keeps).
 - The new modules import neither ``jax`` nor ``trivy_tpu``.
 """
 
@@ -42,7 +44,6 @@ from trivy_tpu_torch.fanal.config import MAX_CONFIG_BYTES, ConfigAnalyzer
 from trivy_tpu_torch.misconf import (
     MisconfScanner,
     ScannerOption,
-    UnportedTypeError,
     custom,
     detection,
 )
@@ -212,15 +213,24 @@ def cloud(state):
 """
 
 
-@pytest.fixture(autouse=True)
-def _clean_custom_checks():
-    """Take every custom check out of both registries after each test."""
-    yield
+def drop_custom_checks():
+    """Take every custom check out of both registries."""
     for mod, unreg in ((custom, unregister), (jax_custom, jax_unregister)):
         for cid in list(mod._custom_ids):
             unreg(cid)
         mod._custom_ids.clear()
         mod._loaded_files.clear()
+
+
+@pytest.fixture(autouse=True)
+def _clean_custom_checks():
+    """Run each test with the registries a fresh process has: before it, as
+    well as after. Custom checks stay registered process-wide in both
+    packages, and a test of another file in the same worker (the JAX
+    ``tests/test_iac.py::TestCustomChecks``) leaves its checks behind."""
+    drop_custom_checks()
+    yield
+    drop_custom_checks()
 
 
 def seeded_dockerfile(rng: np.random.Generator) -> bytes:
@@ -429,7 +439,7 @@ def test_one_crashing_file_does_not_kill_the_batch():
     assert health.get("misconf.skipped") == 1
 
 
-# -- the types the port lacks ------------------------------------------------
+# -- CloudFormation and Helm inputs that once stopped a scan ------------------
 
 
 @pytest.mark.parametrize("path,content,ftype", [
@@ -439,20 +449,41 @@ def test_one_crashing_file_does_not_kill_the_batch():
     ("chart/Chart.yaml", b"apiVersion: v2\nname: c\n", "helm"),
     ("chart/templates/dep.yaml", DETECT[18][1], "helm"),
 ])
-def test_an_unported_type_stops_the_scan(path, content, ftype):
+def test_cloudformation_and_helm_inputs_scan_as_in_jax(path, content, ftype):
+    """The inputs that stopped a scan before CloudFormation and Helm were
+    ported: beside a Dockerfile, with every type, with the type named and
+    with it left out, the port's results equal the JAX package's."""
     files = [("Dockerfile", DOCKERFILES["Dockerfile"]), (path, content)]
-    with pytest.raises(UnportedTypeError) as exc:
-        MisconfScanner().scan_files(files)
-    assert exc.value.path == path and exc.value.file_type == ftype and path in str(exc.value)
-    # a file --misconfig-scanners filters out does not stop it, as in JAX
-    opt = {"file_types": ["dockerfile"]}
-    assert ([m.to_dict() for m in MisconfScanner(ScannerOption(**opt)).scan_files(files)]
-            == [m.to_dict() for m in JaxScanner(JaxOption(**opt)).scan_files(files)])
-    with pytest.raises(ValueError, match=ftype):
-        MisconfScanner(ScannerOption(file_types=["dockerfile", ftype]))
+    assert detection.detect_type(path, content) == ftype
+    for types in ([], ["dockerfile", ftype], [ftype], ["dockerfile"]):
+        mine = MisconfScanner(ScannerOption(file_types=types)).scan_files(files)
+        ref = JaxScanner(JaxOption(file_types=types)).scan_files(files)
+        assert [m.to_dict() for m in mine] == [m.to_dict() for m in ref], types
+        assert [m.file_type for m in mine] == [m.file_type for m in ref]
+        if not types or types == ["dockerfile"]:
+            assert "Dockerfile" in {m.file_path for m in mine}
 
 
 # -- custom checks -----------------------------------------------------------
+
+
+def test_a_custom_check_outlives_its_scan_in_both_packages(tmp_path):
+    """A fault of the reference that the port keeps: ``--config-check``
+    registers its checks process-wide (``trivy_tpu/misconf/custom.py``
+    ``load_custom_checks``), so a later scan in the same process without
+    check paths still runs them. A JAX test that loads a check
+    (``tests/test_iac.py::TestCustomChecks``) so changed the first port
+    test of a file after it in one worker; the autouse fixture now gives
+    every test a fresh process's registries."""
+    (tmp_path / "c.py").write_text(PY_CHECK)
+    files = [("values.yaml", b"replicas: 2\ndebug: true\n")]
+    for scanner, option in ((MisconfScanner, ScannerOption), (JaxScanner, JaxOption)):
+        assert not scanner(option()).scan_files(files)
+        scanner(option(check_paths=[str(tmp_path / "c.py")])).scan_files(files)
+        later = scanner(option()).scan_files(files)
+        assert {f.id for m in later for f in m.failures} == {"USR-PY-001"}
+    mine = [m.to_dict() for m in MisconfScanner().scan_files(files)]
+    assert mine == [m.to_dict() for m in JaxScanner().scan_files(files)]
 
 
 def test_one_check_file_loads_into_both_packages(tmp_path):
@@ -608,7 +639,11 @@ NEW_MODULES = ("trivy_tpu_torch.misconf", "trivy_tpu_torch.misconf.scanner",
                "trivy_tpu_torch.misconf.checks.cloud_google",
                "trivy_tpu_torch.misconf.checks.cloud_azure",
                "trivy_tpu_torch.misconf.checks.cloud_github",
-               "trivy_tpu_torch.misconf.checks.cloud_extra")
+               "trivy_tpu_torch.misconf.checks.cloud_extra",
+               "trivy_tpu_torch.misconf.cloudformation",
+               "trivy_tpu_torch.misconf.adapters.aws_cfn", "trivy_tpu_torch.misconf.helm",
+               "trivy_tpu_torch.compliance", "trivy_tpu_torch.k8s",
+               "trivy_tpu_torch.k8s_node")
 
 
 def test_new_modules_import_neither_jax_nor_the_jax_package():

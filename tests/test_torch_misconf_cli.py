@@ -6,9 +6,10 @@ table and SARIF equal byte for byte; ``convert``, the severity filter, the
 ignore file and an ignore policy; ``--config-check`` Python and Rego files
 and ``--misconfig-scanners`` from the command line, the environment and the
 config file; the incremental unit keys; client mode across packages; and
-the refusals: a type of a later slice named or met by default exits 2 with
-no report, ``--fleet`` with ``misconfig`` exits 2, and a ``misconfig``
-fleet shard answers 400.
+the inputs once refused, now equal to the JAX CLI's: ``cloudformation`` or
+``helm`` named from every source, a CloudFormation template or a chart met
+by a default scan, ``--fleet`` with ``misconfig``, and a ``misconfig``
+fleet shard.
 """
 
 from __future__ import annotations
@@ -246,45 +247,73 @@ def test_config_check_and_scanners_from_every_source(env, wd, monkeypatch, sourc
     assert not any(t.startswith("svc/") for t in fails)  # dockerfile left out
 
 
+CFN_AND_CHART = {
+    "cfn/stack.json": b'{"Resources": {"B": {"Type": "AWS::S3::Bucket"}}}',
+    "cfn/stack.yaml": b"AWSTemplateFormatVersion: '2010-09-09'\nResources:\n  B:\n"
+                      b"    Type: AWS::S3::Bucket\n    Properties:\n      AccessControl: "
+                      b"PublicRead\n",
+    "chart/Chart.yaml": b"apiVersion: v2\nname: c\nversion: 0.1.0\n",
+    "chart/values.yaml": b"privileged: true\n",
+    "chart/templates/pod.yaml": MANIFESTS["c.yaml"].replace(
+        b"privileged: true", b"privileged: {{ .Values.privileged }}"),
+}
+
+
+@pytest.fixture(scope="module")
+def iac_tree(env):
+    """The tree with a CloudFormation stack in each syntax and a chart."""
+    tree = env["base"] / "iac"
+    if not tree.exists():
+        shutil.copytree(env["tree"], tree)
+        write_tree(tree, CFN_AND_CHART)
+    return tree
+
+
 @pytest.mark.parametrize("source", ["cli", "env", "config"])
 @pytest.mark.parametrize("ftype", ["cloudformation", "helm"])
-def test_a_named_unported_type_exits_2(env, wd, monkeypatch, capsys, source, ftype):
+def test_a_named_cloudformation_or_helm_type_equals_jax(iac_tree, wd, monkeypatch, source,
+                                                        ftype):
+    """The settings that exited 2 before the two types were ported: named
+    from the command line (beside ``dockerfile``), the environment or the
+    config file, each gives the JAX CLI's report of that type."""
     args = []
+    want = {ftype}
     if source == "cli":
         args = ["--misconfig-scanners", f"dockerfile,{ftype}"]
+        want = {"dockerfile", ftype}
     elif source == "env":
         monkeypatch.setenv("TRIVY_TPU_MISCONFIG_SCANNERS", ftype)
     else:
         (wd / "trivy-tpu.yaml").write_text(f"misconfiguration:\n  scanners: [{ftype}]\n")
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["fs", "--scanners", "misconfig", "--device", "cpu", "-o",
-                  str(wd / "out.json"), *args, str(env["tree"])])
-    assert exc.value.code == 2 and ftype in capsys.readouterr().err
-    assert not (wd / "out.json").exists()
+    mine, ref, rc1, rc2 = run_both(wd, "fs", iac_tree, "--scanners", "misconfig", *args)
+    assert rc1 == rc2 == 0
+    doc = assert_json_equal(mine, ref)
+    assert {r["Type"] for r in doc["Results"] if r["Class"] == "config"} == want
 
 
 @pytest.mark.parametrize("rel,content", [
-    ("cfn/stack.json", b'{"Resources": {"B": {"Type": "AWS::S3::Bucket"}}}'),
-    ("cfn/stack.yaml", b"AWSTemplateFormatVersion: '2010-09-09'\nResources:\n  B:\n"
-                       b"    Type: AWS::S3::Bucket\n"),
-    ("chart/Chart.yaml", b"apiVersion: v2\nname: c\nversion: 0.1.0\n"),
+    ("cfn/stack.json", CFN_AND_CHART["cfn/stack.json"]),
+    ("cfn/stack.yaml", CFN_AND_CHART["cfn/stack.yaml"]),
+    ("chart/Chart.yaml", CFN_AND_CHART["chart/Chart.yaml"]),
 ])
-def test_an_unported_type_met_by_default_exits_2(env, wd, tmp_path, capsys, rel, content):
+def test_a_cloudformation_or_helm_file_met_by_default_equals_jax(env, wd, tmp_path, rel,
+                                                                 content):
+    """The files that stopped a default scan before: met by a default
+    ``misconfig,secret`` scan, left out by ``--misconfig-scanners`` and
+    with ``secret`` alone, each report equals the JAX CLI's."""
     tree = tmp_path / "t"
     shutil.copytree(env["tree"], tree)
     write_tree(tree, {rel: content})
-    rc = cli.main(["fs", "--scanners", "misconfig,secret", "--device", "cpu", "--format",
-                   "json", "-o", str(wd / "out.json"), str(tree)])
-    assert rc == 2 and not (wd / "out.json").exists()
-    assert rel in capsys.readouterr().err
-    # left out by --misconfig-scanners, it does not stop the scan
+    mine, ref, rc1, rc2 = run_both(wd, "fs", tree, "--scanners", "misconfig,secret")
+    assert rc1 == rc2 == 0
+    assert_json_equal(mine, ref)
     mine, ref, rc1, rc2 = run_both(wd, "fs", tree, "--scanners", "misconfig,secret",
                                    "--misconfig-scanners", "dockerfile,kubernetes,yaml,json")
     assert rc1 == rc2 == 0
-    assert_json_equal(mine, ref)
-    # without misconfig the file is nobody's business
+    assert rel not in failed_ids(assert_json_equal(mine, ref))
     mine, ref, rc1, rc2 = run_both(wd, "fs", tree, "--scanners", "secret")
     assert rc1 == rc2 == 0
+    assert_json_equal(mine, ref)
 
 
 def test_incremental_keys_and_findings_equal_jax(env, wd, tmp_path, monkeypatch):
@@ -364,24 +393,47 @@ def test_client_mode_across_packages(env, wd, client, server_kind):
     assert failed_ids(got)
 
 
-def test_fleet_with_misconfig_exits_2(env, wd, capsys):
-    for command, target in (("fs", env["tree"]), ("image", env["image"])):
-        rc = cli.main([command, "--scanners", "misconfig,secret", "--device", "cpu",
-                       "--fleet", "127.0.0.1:9", "-o", str(wd / "out.json"), str(target)])
-        assert rc == 2 and not (wd / "out.json").exists()
-        assert "--fleet" in capsys.readouterr().err
-    with pytest.raises(ValueError, match="misconfig"):
-        cli.scan_fleet("fs", str(env["tree"]), None, scanners=("misconfig",), device="cpu")
+def test_fleet_with_misconfig_equals_the_local_scan(env, iac_tree, wd):
+    """``--fleet`` with ``misconfig,secret`` on ``fs`` and ``image`` (the
+    commands that exited 2 before), over two port replicas: the local
+    scan's ``Results``."""
+    from tests.test_torch_fleet_replica import port_server
+
+    servers = [port_server() for _ in range(2)]
+    hosts = ",".join(f"127.0.0.1:{port}" for _, port in servers)
+    try:
+        for command, target in (("fs", iac_tree), ("image", env["image"])):
+            local, _, rc, _ = run_both(wd, command, target, "--scanners", "misconfig,secret")
+            assert rc == 0
+            out = wd / "fleet.json"
+            assert cli.main([command, "--scanners", "misconfig,secret", "--device", "cpu",
+                             "--format", "json", "-q", "--cache-dir", str(wd / "cf"),
+                             "--fleet", hosts, "--fleet-speculate", "0",
+                             "--fleet-telemetry-interval", "0", "--fleet-split-threshold", "0",
+                             "-o", str(out), str(target)]) == 0
+            assert failed_ids(assert_json_equal(out.read_text(), local))
+    finally:
+        for httpd, _ in servers:
+            httpd.shutdown()
 
 
-def test_a_misconfig_shard_answers_400(env):
-    from trivy_tpu_torch.fleet.plan import ShardRefused, check_shard
+def test_a_misconfig_shard_equals_the_jax_replicas(env):
+    """The shard that answered 400: run by the port's executor and by the
+    JAX one, it gives the same key and blob, and a port server answers it
+    with 200."""
+    from trivy_tpu.cache import new_cache as jax_new_cache
+    from trivy_tpu.fleet import plan as jax_plan
+    from trivy_tpu_torch.fleet.plan import check_shard, execute_shard
     from trivy_tpu_torch.rpc.server import start_server
 
-    shard = {"Kind": "fs", "Root": str(env["tree"]), "Paths": ["svc/Dockerfile"],
-             "Scanners": ["misconfig", "secret"]}
-    with pytest.raises(ShardRefused, match="misconfig"):
-        check_shard(shard)
+    shard = {"Kind": "fs", "Root": str(env["tree"]), "Paths": ["svc/Dockerfile",
+                                                               "deploy/c.yaml"],
+             "Scanners": ["misconfig", "secret"], "Backend": "cpu"}
+    check_shard(shard)
+    mine = execute_shard(shard, new_cache("memory"), device="cpu")
+    ref = jax_plan.execute_shard(shard, jax_new_cache("memory", None))
+    assert json.loads(json.dumps(mine)) == json.loads(json.dumps(ref))
+    assert mine[0]["BlobInfo"]["Misconfigurations"]
     httpd, port = start_server(cache=new_cache("memory"), device="cpu")
     try:
         req = urllib.request.Request(
@@ -389,8 +441,8 @@ def test_a_misconfig_shard_answers_400(env):
             data=json.dumps({"Target": "t", "ArtifactID": "a", "BlobIDs": [],
                              "Options": {"Scanners": ["misconfig"]}, "Shard": shard}).encode(),
             headers={"Content-Type": "application/json"})
-        with pytest.raises(urllib.error.HTTPError) as exc:
-            urllib.request.urlopen(req, timeout=30)
-        assert exc.value.code == 400
+        with urllib.request.urlopen(req, timeout=60) as r:
+            assert r.status == 200
+            assert json.loads(r.read())["Blobs"] == json.loads(json.dumps(mine))
     finally:
         httpd.shutdown()

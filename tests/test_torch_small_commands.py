@@ -359,8 +359,7 @@ def test_db_flags_taken_from_every_source(wd, monkeypatch, command, source):
     args = parser.parse_args([command, *extra, *target])
     from trivy_tpu_torch.flag import load_config_file, resolve_all
 
-    opts = resolve_all(args._groups_by_cmd[command], args, load_config_file(None),
-                       command=command)
+    opts = resolve_all(args._groups_by_cmd[command], args, load_config_file(None))
     assert opts["skip_db_update"] is True and opts["offline_scan"] is True
     if command == "fs":
         out = wd / "port.json"

@@ -43,11 +43,10 @@ from trivy_tpu.misconf.scanner import MisconfScanner as JaxScanner
 from trivy_tpu.misconf.scanner import ScannerOption as JaxOption
 from trivy_tpu_torch import obs
 from trivy_tpu_torch.misconf import (
-    PORTED_TYPES,
-    UNPORTED_TYPES,
     MisconfScanner,
     ScannerOption,
     arm,
+    detection,
     terraform,
     tfplan,
 )
@@ -508,15 +507,20 @@ def test_disabled_ids_and_file_types_equal_jax():
     ("arm.json", DETECT[16][1], "azure-arm"),
 ])
 def test_a_ported_type_scans_as_in_jax(path, content, ftype):
-    assert ftype in PORTED_TYPES and ftype not in UNPORTED_TYPES
+    assert detection.detect_type(path, content) == ftype
     files = [("Dockerfile", DOCKERFILES["Dockerfile"]), (path, content)]
     for opt in ({}, {"file_types": ["dockerfile", ftype]}):
         mine = [m.to_dict() for m in MisconfScanner(ScannerOption(**opt)).scan_files(files)]
         assert mine == [m.to_dict() for m in JaxScanner(JaxOption(**opt)).scan_files(files)]
 
 
-def test_unported_types_are_cloudformation_and_helm():
-    assert UNPORTED_TYPES == ("cloudformation", "helm")
+def test_every_jax_type_has_its_scanner_name():
+    """Every type of the JAX scanner has its display name in the port's,
+    the name the reports carry (no type is left out any more)."""
+    from trivy_tpu.misconf.scanner import _SCANNER_NAMES as JAX_NAMES
+    from trivy_tpu_torch.misconf.scanner import _SCANNER_NAMES
+
+    assert _SCANNER_NAMES == JAX_NAMES and len(_SCANNER_NAMES) == 9
 
 
 def test_terraform_scans_under_its_own_span():

@@ -6,7 +6,8 @@ provider, a plan and two ARM templates, a planted token): ``fs --scanners
 misconfig,secret`` in JSON, table and SARIF; ``--misconfig-scanners``;
 a custom ``cloud_check`` through ``--config-check``; ``image`` with the
 tree in a layer; an incremental rescan after an edit in a called module;
-and the two types still refused, CloudFormation and Helm, named or met.
+CloudFormation and Helm beside Terraform, named or met; and ``--fleet``
+against the JAX fleet.
 """
 
 from __future__ import annotations
@@ -160,32 +161,63 @@ def test_incremental_rescan_after_a_module_edit_equals_jax(env, wd, tmp_path):
     assert targets and all(t.startswith(str(called.relative_to(tree))) for t in targets)
 
 
-def test_cloudformation_and_helm_still_exit_2(env, wd, tmp_path, capsys):
+def test_cloudformation_and_helm_beside_terraform_equal_jax(env, wd, tmp_path):
+    """The inputs that exited 2 before the two types were ported: named
+    beside ``terraform``, and a stack or a chart met in the Terraform tree
+    by a default scan and left out by ``--misconfig-scanners``, each report
+    equals the JAX CLI's."""
     for ftype in ("cloudformation", "helm"):
-        with pytest.raises(SystemExit) as exc:
-            cli.main(["fs", "--scanners", "misconfig", "--device", "cpu", "-o",
-                      str(wd / "out.json"), "--misconfig-scanners", f"terraform,{ftype}",
-                      str(env["tree"])])
-        assert exc.value.code == 2 and ftype in capsys.readouterr().err
-    for rel, content in (("cfn/stack.yaml", b"AWSTemplateFormatVersion: '2010-09-09'\n"
-                                            b"Resources:\n  B:\n    Type: AWS::S3::Bucket\n"),
-                         ("chart/Chart.yaml", b"apiVersion: v2\nname: c\nversion: 0.1.0\n")):
+        mine, ref, rc1, rc2 = run_both(wd, "fs", env["tree"], "--scanners", "misconfig",
+                                       "--misconfig-scanners", f"terraform,{ftype}")
+        assert rc1 == rc2 == 0
+        assert file_types(assert_json_equal(mine, ref)) == {"terraform"}
+    for rel, content, ftype in (
+            ("cfn/stack.yaml", b"AWSTemplateFormatVersion: '2010-09-09'\n"
+                               b"Resources:\n  B:\n    Type: AWS::S3::Bucket\n",
+             "cloudformation"),
+            ("chart/Chart.yaml", b"apiVersion: v2\nname: c\nversion: 0.1.0\n", None)):
         tree = tmp_path / rel.split("/")[0]
         shutil.copytree(env["tree"], tree)
         write_tree(tree, {rel: content})
-        rc = cli.main(["fs", "--scanners", SCANNERS, "--device", "cpu", "--format", "json",
-                       "-o", str(wd / "out.json"), str(tree)])
-        assert rc == 2 and not (wd / "out.json").exists()
-        assert rel in capsys.readouterr().err
-        # left out by --misconfig-scanners, the terraform scan runs as in JAX
+        mine, ref, rc1, rc2 = run_both(wd, "fs", tree, "--scanners", SCANNERS)
+        assert rc1 == rc2 == 0
+        types = file_types(assert_json_equal(mine, ref))
+        assert "terraform" in types and (ftype is None or ftype in types)
         mine, ref, rc1, rc2 = run_both(wd, "fs", tree, "--scanners", "misconfig",
                                        "--misconfig-scanners", "terraform,azure-arm")
         assert rc1 == rc2 == 0
         assert file_types(assert_json_equal(mine, ref)) == {"terraform", "azure-arm"}
 
 
-def test_fleet_with_misconfig_still_exits_2(env, wd, capsys):
-    rc = cli.main(["fs", "--scanners", SCANNERS, "--device", "cpu", "--fleet", "127.0.0.1:9",
-                   "-o", str(wd / "out.json"), str(env["tree"])])
-    assert rc == 2 and not (wd / "out.json").exists()
-    assert "--fleet" in capsys.readouterr().err
+def test_fleet_with_misconfig_equals_the_jax_fleet(env, wd):
+    """``--fleet`` with ``misconfig,secret`` over the monorepo: the port's
+    coordinator over port replicas gives the JAX coordinator's report over
+    JAX replicas. The shards cut the environment roots away from the
+    modules they call, so each shard evaluates its part of the set alone:
+    where that differs from the local scan, it is the reference's fault of
+    an incremental rescan (ROADMAP Queue C), and it differs in Terraform
+    results only."""
+    from tests.test_torch_helm import FLEET, jax_replica, port_replica
+
+    reports = []
+    for main, dev, make in ((cli.main, ["--device", "cpu"], port_replica),
+                            (jax_cli.main, ["--backend", "cpu"], jax_replica)):
+        servers = [make(True) for _ in range(2)]
+        try:
+            out = wd / "fleet.json"
+            assert main(["fs", *dev, "--format", "json", "-o", str(out), "-q", "--cache-dir",
+                         str(wd / f"cf{len(reports)}"), "--scanners", SCANNERS, "--fleet",
+                         ",".join(f"127.0.0.1:{port}" for _, port in servers), *FLEET,
+                         str(env["tree"])]) == 0
+            reports.append(out.read_text())
+        finally:
+            for httpd, _ in servers:
+                httpd.shutdown()
+    fleet = assert_json_equal(*reports)
+    local, _, rc, _ = run_both(wd, "fs", env["tree"], "--scanners", SCANNERS)
+    assert rc == 0
+    local = json.loads(local)
+    differ = [r for r in fleet["Results"] + local["Results"]
+              if (r in fleet["Results"]) != (r in local["Results"])]
+    assert all(r["Type"] == "terraform" for r in differ)
+    assert EXPECTED_IDS <= set().union(*failed_ids(fleet).values())

@@ -161,23 +161,30 @@ def test_watch_arms_no_timeout_alarm(tmp_path, wd, monkeypatch):
 
 
 @pytest.mark.parametrize("how", ["cli", "env", "config"])
-def test_watch_refuses_flags_the_port_lacks(tmp_path, wd, monkeypatch, capsys, how):
-    """A misconfiguration type the port lacks, named in the watch's
-    misconfiguration group, exits 2 from every source (the group itself is
-    ported); ``--server`` and ``--incremental``, which no watch takes, exit
-    2 in both CLIs."""
+def test_watch_refuses_flags_the_port_lacks(tmp_path, wd, monkeypatch, how):
+    """The watch's misconfiguration group takes every type from every
+    source, as the JAX watch does (``cloudformation`` and ``helm`` exited 2
+    before they were ported): the report equals the JAX CLI's. ``--server``
+    and ``--incremental``, which no watch takes, exit 2 in both CLIs."""
     root = make_tree(tmp_path, n_dirs=1)
-    argv = ["watch", "--device", "cpu", "-q", "--watch-count", "1"]
+    (root / "stack.yaml").write_text("AWSTemplateFormatVersion: '2010-09-09'\nResources:\n"
+                                     "  B:\n    Type: AWS::S3::Bucket\n")
+    argv = ["--scanners", "misconfig", "-q", "--format", "json", "--watch-count", "1"]
     if how == "cli":
         argv += ["--misconfig-scanners", "cloudformation"]
     elif how == "env":
-        monkeypatch.setenv("TRIVY_TPU_MISCONFIG_SCANNERS", "helm")
+        monkeypatch.setenv("TRIVY_TPU_MISCONFIG_SCANNERS", "cloudformation,helm")
     else:
         (wd / "trivy-tpu.yaml").write_text("misconfiguration:\n  scanners: [cloudformation]\n")
-    with pytest.raises(SystemExit) as exc:
-        cli.main([*argv, str(root)])
-    assert exc.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
+    outs = []
+    for tag, main, dev in (("port", cli.main, ["--device", "cpu"]),
+                           ("jax", jax_cli.main, ["--backend", "cpu"])):
+        out = wd / f"{tag}.json"
+        assert main(["watch", *dev, *argv, "-o", str(out), "--cache-dir", str(wd / tag),
+                     str(root)]) == 0
+        outs.append(json.loads(out.read_text()))
+    assert outs[0]["Results"] == outs[1]["Results"]
+    assert {r["Type"] for r in outs[0]["Results"]} == {"cloudformation"}
     for flag in ("--server", "--incremental"):
         for main, dev in ((cli.main, ["--device", "cpu"]), (jax_cli.main, ["--backend", "cpu"])):
             with pytest.raises(SystemExit) as exc:

@@ -2,8 +2,9 @@
 vulnerability, misconfiguration, secret and license scans, full or
 incremental, the ``watch`` loop over a directory, the ``image`` scan of an
 image archive, registry or daemon image, the ``vm`` scan of a disk image,
-the ``sbom`` vulnerability scan, ``convert`` of a saved JSON report, and
-the JAX CLI's ``clean``, ``plugin`` and ``version``.
+the ``sbom`` vulnerability scan, ``convert`` of a saved JSON report, the
+``k8s`` scan of Kubernetes workloads, and the JAX CLI's ``clean``,
+``plugin`` and ``version``.
 
     python -m trivy_tpu_torch fs [--scanners vuln,misconfig,secret,license]
         [--db-repository DIR] [--cache-dir D] [--java-db DIR] [--list-all-pkgs]
@@ -11,6 +12,7 @@ the JAX CLI's ``clean``, ``plugin`` and ``version``.
         [--config-check F|DIR,..] [--misconfig-scanners dockerfile,terraform,..]
         [--severity S,..] [--ignorefile F] [--ignore-policy F.py|F.rego]
         [--vex DOC|repo ..] [--show-suppressed] [--exit-code N] [-c CONFIG]
+        [--compliance docker-cis-1.6.0|k8s-nsa-1.0|..|@SPEC.yaml]
         [--format FORMAT] [-t TEMPLATE|@FILE] [--dependency-tree] [-o OUT]
         [--device cuda|cpu] [--backend auto|pallas|xla|cpu] [-d] [--log-format plain|json]
         [--skip-db-update] [--offline-scan]
@@ -47,6 +49,9 @@ the JAX CLI's ``clean``, ``plugin`` and ``version``.
         [--token-header H] [--db-repository DIR] [--cache-dir D]
         [--max-concurrent-scans N [admission flags]] [--device cuda|cpu]
     python -m trivy_tpu_torch convert [report flags as above] <report.json>
+    python -m trivy_tpu_torch k8s [--manifests FILE|DIR | --context CTX]
+        [--format table|json] [-o OUT] [--scan-images [--insecure]
+        [--db-repository DIR]] [--compliance SPEC] [--device cuda|cpu]
     python -m trivy_tpu_torch debug <bundle.json.gz>
     python -m trivy_tpu_torch clean (--all | --scan-cache | --vuln-db) [--cache-dir D]
     python -m trivy_tpu_torch plugin (install <dir|archive> | list | run <name> [args]
@@ -108,8 +113,7 @@ as the JAX package's do (``flag.py``): the command line, then
 ``TRIVY_TPU_<NAME>`` in the environment, then the config file (``-c``,
 else ``trivy-tpu.yaml`` or ``trivy_tpu.yaml`` in the working directory),
 then the default; ``--device`` and ``--stats-out`` are the port's own and
-come from the command line only. A JAX flag the port lacks exits with code
-2 from the command line, the environment or the config file alike. The
+come from the command line only. The
 report then passes the JAX package's filter: ``--severity``, VEX documents, the ignore file
 (``.trivyignore`` in the working directory by default, plain or YAML), a
 Python or Rego ``--ignore-policy``, and the dedup.
@@ -121,12 +125,13 @@ report can show packages (``vuln``, ``license`` or ``--list-all-pkgs``) or
 with ``misconfig``, the secret, license and config analyzers as their
 scanners ask. ``misconfig`` scans the ``dockerfile``, ``kubernetes``,
 ``terraform`` (``.tf``, ``.tf.json``, ``.tfvars``, local modules),
+``cloudformation`` (YAML and JSON templates with their intrinsics),
+``helm`` (a chart's templates rendered with its values; the YAML, JSON and
+manifests under a chart's root feed the render instead of their own pass),
 ``azure-arm``, ``yaml`` and ``json`` types, and terraform plans (type
 ``terraformplan-json``, no ``--misconfig-scanners`` choice, as in JAX)
-(``misconf/``) with the ``--config-check`` Python and Rego checks; naming
-``cloudformation`` or ``helm`` in ``--misconfig-scanners`` exits 2, and so
-does a scan that meets a file of either type it would evaluate, with no
-report. ``image`` also checks the image history rebuilt as a Dockerfile.
+(``misconf/``) with the ``--config-check`` Python and Rego checks.
+``image`` also checks the image history rebuilt as a Dockerfile.
 ``repo`` clones a URL (``artifact/repo.py``) and scans the checkout as
 ``fs``; a path is scanned in place. ``image`` walks each layer that its layer cache lacks the
 same way (``artifact/image.py``), every package analyzer included: of a
@@ -181,15 +186,28 @@ devices, their blobs merge into the scan cache and detection runs here, so
 the ``Results`` equal the scan's without a fleet; shards every server failed
 run here and mark the report ``Degraded`` (with ``--no-host-fallback`` the
 command exits 1). ``--fleet`` with ``--server``, or with an incremental
-flag on a tree, exits 2 as in JAX; ``--fleet`` with ``misconfig`` exits 2
-too, as fleet shards do not carry it yet. The fleet's telemetry plane runs
-at
-``--fleet-telemetry-interval`` (1.0 s by default, 0 turns it off): replica
+flag on a tree, exits 2 as in JAX. A shard with ``misconfig`` scans every
+type with no custom checks, as a JAX replica does: ``--misconfig-scanners``
+and ``--config-check`` reach no replica, and the port says so in a warning
+(the JAX CLI ignores them there with no word). The fleet's telemetry plane
+runs at ``--fleet-telemetry-interval`` (1.0 s by default, 0 turns it off): replica
 scrapes, headroom-weighted placement, the dead and draining verdicts, and
 the ``fleet`` blocks of ``--metrics-out``, ``--timeseries-out``,
 ``--trace-out``, ``--live`` and the heartbeat. ``--fleet-register-token``
 is kept in the fleet config, and, as in JAX, no command installs a
 register hook that reads it.
+
+``--compliance SPEC`` (a builtin spec, ``docker-cis-1.6.0``,
+``k8s-nsa-1.0``, ..., or ``@path`` of a YAML spec) writes the compliance
+report of the filtered scan instead of the scan's (``compliance/``), in
+``table`` or ``json`` only; another format or an unknown spec exits 2 after
+the scan, as in JAX, and ``--exit-code`` applies when a control fails.
+``k8s`` (``k8s.py``) checks the workloads of ``--manifests`` (a file,
+directory or cluster dump) or of ``kubectl get`` on the ``PATH`` (exit 1
+when it is missing or fails) with the Kubernetes checks and the host secret
+engine, a ``NodeInfo`` document with the node checks; ``--scan-images``
+scans each workload image from its registry as ``image`` does (the secret
+feed's kernels and, with a DB, the CVE join on ``--device``).
 """
 
 from __future__ import annotations
@@ -228,8 +246,7 @@ from trivy_tpu_torch.fanal.scan import (
 from trivy_tpu_torch.fanal.walker import FSWalker, WalkOption
 from trivy_tpu_torch.fleet import FleetError
 from trivy_tpu_torch.fleet.plan import BACKENDS
-from trivy_tpu_torch.misconf import UnportedTypeError, check_file_types
-from trivy_tpu_torch.flag import JAX_FLAGS, Flag, FlagGroup, load_config_file, resolve_all
+from trivy_tpu_torch.flag import Flag, FlagGroup, load_config_file, resolve_all
 from trivy_tpu_torch.obs import export
 from trivy_tpu_torch.obs import recorder as flight
 from trivy_tpu_torch.obs import timeseries
@@ -245,8 +262,7 @@ from trivy_tpu_torch.types import Report
 logger = log.logger("cli")
 
 SEVERITIES = ["UNKNOWN", "LOW", "MEDIUM", "HIGH", "CRITICAL"]
-# the JAX --misconfig-scanners choices, the types of misconf/detection.py;
-# misconf/scanner.py::UNPORTED_TYPES (cloudformation, helm) exit 2
+# the JAX --misconfig-scanners choices, the types of misconf/detection.py
 MISCONFIG_TYPES = ["dockerfile", "terraform", "cloudformation", "kubernetes", "helm",
                    "azure-arm", "yaml", "json"]
 # formats that force the whole package inventory, as --list-all-pkgs does
@@ -335,8 +351,7 @@ def scan_fs(root: str, config_path: str | None = None, device=DEFAULT_DEVICE,
     """Scan the tree under ``root`` with ``scanners`` (any of ``vuln``,
     ``misconfig``, ``secret``, ``license``; ``check_paths`` and
     ``misconfig_scanners`` in ``scanner_opts`` are the misconfiguration
-    flags, and a file of a type the port cannot scan raises
-    :class:`~trivy_tpu_torch.misconf.UnportedTypeError`). With ``vuln``,
+    flags). With ``vuln``,
     packages meet ``db`` when given (a loaded DB keeps its resident join
     across scans), else the DB that
     :func:`load_db` finds. ``parallel`` workers (0: ``tuning.parallel``,
@@ -636,8 +651,6 @@ def scan_fleet(kind: str, target: str, fleet, cache=None, config_path: str | Non
     from trivy_tpu_torch.fleet.plan import ShardSettings
 
     check_scanners(scanners)
-    if "misconfig" in scanners:
-        raise ValueError("fleet shards do not carry the misconfig scanner yet")
     dev = resolve(device)
     health0 = obs.current().health_snapshot()
     stats: Counter = Counter()
@@ -792,6 +805,9 @@ def report_flags() -> FlagGroup:
              config_name="dependency-tree",
              help="show the reversed dependency origin tree for vulnerable packages "
                   "(table format)"),
+        Flag("compliance", default=None, config_name="compliance",
+             help="render a compliance report (docker-cis-1.6.0, k8s-nsa-1.0, or "
+                  "@spec.yaml)"),
     ])
 
 
@@ -880,9 +896,7 @@ def misconf_flags() -> FlagGroup:
              help="paths to custom check files/dirs (Python check API or .rego)"),
         Flag("misconfig-scanners", default=[], is_list=True,
              config_name="misconfiguration.scanners", choices=MISCONFIG_TYPES,
-             validator=check_file_types,
-             help="limit misconfig file types (ported: dockerfile, terraform, "
-                  "kubernetes, azure-arm, yaml, json)"),
+             help="limit misconfig file types"),
     ])
 
 
@@ -1143,6 +1157,24 @@ def build_parser() -> argparse.ArgumentParser:
     groups_by_cmd["debug"] = [global_flags()]
     groups_by_cmd["debug"][0].add_to_parser(sp)
     sp.add_argument("target", help="diagnostic bundle path (.json.gz or .json)")
+    # the JAX CLI's k8s command, with its own flags (trivy_tpu/cli.py:595-609)
+    kp = sub.add_parser("k8s", help="scan Kubernetes workloads (manifests dump or kubectl)")
+    kp.add_argument("--manifests", default=None,
+                    help="manifest file/dir or cluster dump (kubectl get -o yaml/json)")
+    kp.add_argument("--context", default=None, help="kubectl context (live cluster)")
+    kp.add_argument("--format", default="table", choices=["table", "json"])
+    kp.add_argument("-o", "--output", default=None)
+    kp.add_argument("--scan-images", action="store_true",
+                    help="also pull and scan workload images (registry source)")
+    kp.add_argument("--insecure", action="store_true",
+                    help="allow plain-HTTP registries for image pulls")
+    kp.add_argument("--db-repository", default=None,
+                    help="advisory DB location for image vulnerability scans")
+    kp.add_argument("--compliance", default=None,
+                    help="compliance spec over the scan (k8s-cis-1.23, eks-cis-1.4, "
+                         "k8s-nsa-1.0, @path)")
+    kp.add_argument("--device", choices=["cuda", "cpu"], default=DEFAULT_DEVICE,
+                    help="device of the image scans (the secret feed, the CVE join)")
     # the JAX CLI's flagless commands (trivy_tpu/cli.py build_parser)
     pp = sub.add_parser("plugin", help="manage plugins (install/list/run/uninstall)")
     psub = pp.add_subparsers(dest="plugin_cmd")
@@ -1167,10 +1199,11 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     if args.command == "plugin":
         return _run_plugin(parser, args)
+    if args.command == "k8s":
+        return _run_k8s(args)
     try:
         config = load_config_file(args.config)
-        opts = resolve_all(args._groups_by_cmd[args.command], args, config,
-                           command=args.command if args.command in JAX_FLAGS else None)
+        opts = resolve_all(args._groups_by_cmd[args.command], args, config)
         if "backend" in opts and args.device is None:
             args.device = "cpu" if opts["backend"] == "cpu" else DEFAULT_DEVICE
         interval = opts["telemetry_interval"]
@@ -1294,9 +1327,13 @@ def _run(args, opts: dict) -> int:
         opts["list_all_pkgs"] = (opts["list_all_pkgs"] or opts["dependency_tree"]
                                  or opts["format"] in LIST_ALL_FORMATS)
         if args.fleet_config is not None and "misconfig" in opts["scanners"]:
-            logger.error("--fleet with the misconfig scanner is not ported yet: a fleet shard "
-                         "names no misconfiguration types; drop --fleet or the scanner")
-            return 2
+            # a JAX shard carries neither, so the JAX replicas scan every
+            # type with the builtin checks; the JAX CLI says nothing
+            for key in ("misconfig_scanners", "config_check"):
+                if opts[key]:
+                    logger.warning("--%s is ignored by the fleet's replicas: a shard carries "
+                                   "no misconfiguration settings, as in the JAX package",
+                                   key.replace("_", "-"))
         if (opts.get("server") and args.command not in CLIENT_COMMANDS
                 and args.fleet_config is None):
             # the JAX image, vm and sbom runners never read --server
@@ -1383,9 +1420,8 @@ def _run(args, opts: dict) -> int:
             with open(args.stats_out, "w", encoding="utf-8") as f:
                 json.dump(counters, f, indent=2)
         return _emit(report, opts)
-    except (PolicyError, UnportedTypeError) as e:
-        # a broken policy, or a file of a misconfiguration type the port
-        # cannot scan: no report
+    except PolicyError as e:
+        # a broken policy: no report
         logger.error("%s", e)
         return 2
     except (DaemonError, RegistryError, RepoError, DiffBaseError) as e:
@@ -1582,6 +1618,59 @@ def _run_clean(args, opts: dict) -> int:
     return 0
 
 
+def _run_k8s(args) -> int:
+    """``k8s`` (the JAX CLI's ``main`` branch): the workloads of
+    ``--manifests`` or of ``kubectl`` (exit 1 when neither loads), their
+    summary, or with ``--compliance`` the spec's report over their rows (an
+    unknown spec exits 1, as in JAX); ``--scan-images`` adds a row per
+    workload image, scanned on ``--device``."""
+    from trivy_tpu_torch import k8s
+
+    try:
+        docs = (k8s.load_manifests(args.manifests) if args.manifests
+                else k8s.load_cluster(args.context))
+    except RuntimeError as e:
+        logger.error("%s", e)
+        return 1
+    rows = k8s.scan_workloads(docs)
+    if args.compliance:
+        from trivy_tpu_torch.compliance import apply_spec, load_spec, write_report
+        from trivy_tpu_torch.types import Result
+
+        try:
+            spec = load_spec(args.compliance)
+        except Exception as e:
+            # exit 1 as in JAX, where a file that is no YAML spec ends
+            # with a traceback instead
+            logger.error("--compliance %s: %s", args.compliance, e)
+            return 1
+        report = Report(artifact_name="k8s cluster", results=[
+            Result(target=f"{r['namespace']}/{r['kind']}/{r['name']}", cls="config",
+                   misconfigurations=list(r["failures"]) + list(r.get("successes", [])))
+            for r in rows])
+        creport = apply_spec(spec, report)
+        if args.output:
+            with open(args.output, "w", encoding="utf-8") as f:
+                write_report(creport, f, args.format)
+        else:
+            write_report(creport, sys.stdout, args.format)
+        return 0
+    image_rows = None
+    if args.scan_images:
+        db = load_default_db(args.db_repository, None)
+        if db is None:
+            logger.warning("no advisory DB found; image scans report secrets only "
+                           "(--db-repository to supply one)")
+        image_rows = k8s.scan_images(k8s.workload_images(docs), insecure=args.insecure, db=db,
+                                     device=args.device)
+    if args.output:
+        with open(args.output, "w", encoding="utf-8") as f:
+            k8s.write_summary(rows, f, args.format, image_rows)
+    else:
+        k8s.write_summary(rows, sys.stdout, args.format, image_rows)
+    return 0
+
+
 def _run_plugin(parser, args) -> int:
     """``plugin install|list|uninstall|run`` (the JAX CLI's, over the same
     plugin root): a :class:`~trivy_tpu_torch.plugin.PluginError` or an
@@ -1612,11 +1701,14 @@ def _run_plugin(parser, args) -> int:
 
 def _emit(report: Report, opts: dict) -> int:
     """Filter, write, and the exit code (ref: pkg/commands/artifact/run.go;
-    the JAX package's ``commands._emit``)."""
+    the JAX package's ``commands._emit``). With ``--compliance`` the
+    compliance report of the filtered scan is written instead."""
     filter_report(report, FilterOptions(
         severities=opts["severity"], ignore_file=opts["ignorefile"],
         vex_sources=opts["vex"], policy_file=opts["ignore_policy"],
         show_suppressed=opts["show_suppressed"], cache_dir=opts["cache_dir"] or ""))
+    if opts.get("compliance"):
+        return _emit_compliance(report, opts)
     kw = {k: True for k in ("show_suppressed", "dependency_tree") if opts[k]}
     if opts["template"]:
         kw["template"] = opts["template"]
@@ -1626,6 +1718,35 @@ def _emit(report: Report, opts: dict) -> int:
     else:
         report_pkg.write(report, opts["format"], sys.stdout, **kw)
     if opts["exit_code"] and any(not r.is_empty for r in report.results):
+        return opts["exit_code"]
+    return 0
+
+
+def _emit_compliance(report: Report, opts: dict) -> int:
+    """``--compliance``: the spec's report over ``report`` in ``table`` or
+    ``json``; any other format or a spec that cannot be loaded exits 2, and
+    ``--exit-code`` applies when a control fails (the JAX ``_emit``; a spec
+    file that YAML cannot parse ends the JAX CLI with a traceback)."""
+    from trivy_tpu_torch.compliance import apply_spec, load_spec, write_report
+
+    fmt = opts["format"]
+    if fmt not in ("table", "json"):
+        logger.error("--compliance supports only table and json output, not %s", fmt)
+        return 2
+    try:
+        spec = load_spec(opts["compliance"])
+    except Exception as e:
+        # the JAX CLI exits 2 for an unknown name or a missing file, and
+        # ends with a traceback for a file that is no YAML spec
+        logger.error("--compliance %s: %s", opts["compliance"], e)
+        return 2
+    creport = apply_spec(spec, report)
+    if opts["output"]:
+        with open(opts["output"], "w", encoding="utf-8") as f:
+            write_report(creport, f, fmt)
+    else:
+        write_report(creport, sys.stdout, fmt)
+    if opts["exit_code"] and any(r.status == "FAIL" for r in creport.results):
         return opts["exit_code"]
     return 0
 

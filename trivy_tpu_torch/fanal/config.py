@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from trivy_tpu_torch import log
 from trivy_tpu_torch.fanal.analyzer import AnalysisResult, AnalyzerType
-from trivy_tpu_torch.misconf import MisconfScanner, ScannerOption, UnportedTypeError, detection
+from trivy_tpu_torch.misconf import MisconfScanner, ScannerOption, detection
 from trivy_tpu_torch.types import Misconfiguration
 
 logger = log.logger("analyzer")
@@ -46,11 +46,8 @@ class ConfigAnalyzer:
     def finalize_into(self, result: AnalysisResult) -> None:
         """:meth:`finalize` into ``result``. A failure (a check file that
         does not load) costs the misconfigurations and is logged, as the
-        JAX analyzer group logs a failed batch analyzer; a type the port
-        cannot scan stops the scan."""
+        JAX analyzer group logs a failed batch analyzer."""
         try:
             result.misconfigurations.extend(self.finalize())
-        except UnportedTypeError:
-            raise
         except Exception as e:
             logger.warning("batch analyzer %s failed: %s", self.type.value, e)

@@ -34,7 +34,6 @@ from trivy_tpu_torch.fanal.config import ConfigAnalyzer
 from trivy_tpu_torch.fanal.license import LicenseAnalyzer
 from trivy_tpu_torch.fanal.secret import SecretAnalyzer
 from trivy_tpu_torch.fanal.walker import FileInfo
-from trivy_tpu_torch.misconf import check_file_types
 
 logger = log.logger("analyze")
 
@@ -77,7 +76,6 @@ class ScanAnalyzers:
         self.misconfig = "misconfig" in scanners
         self.check_paths = list(check_paths)
         self.misconfig_scanners = list(misconfig_scanners)
-        check_file_types(self.misconfig_scanners)
         self.config_path = config_path
         self.host_fallback = host_fallback
         self.tuning = scanner_opts.get("tuning")

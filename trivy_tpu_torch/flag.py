@@ -4,14 +4,9 @@ copy of ``trivy_tpu/flag.py``.
 Each flag unifies: CLI option, environment variable (``TRIVY_TPU_*``), and
 config-file key (``trivy-tpu.yaml``), resolved in that priority order with
 defaults and allowed-value validation — the same layering as the
-reference's Flag[T]+viper stack, built on argparse.
-
-The port lacks some of the JAX package's flags. On the command line
-argparse refuses them; :data:`JAX_FLAGS` lists every JAX flag of the
-port's commands so that :func:`resolve_all` refuses them from the
-environment and the config file too, instead of dropping a setting the JAX
-package would honour. Names that belong to neither package stay ignored,
-as the JAX package ignores them.
+reference's Flag[T]+viper stack, built on argparse. Every command has
+the JAX package's flags; names that belong to no flag stay ignored, as the
+JAX package ignores them.
 """
 
 from __future__ import annotations
@@ -172,131 +167,10 @@ def config_value(config: dict, dotted: str) -> Any:
     return node
 
 
-def resolve_all(groups: list[FlagGroup], ns: argparse.Namespace, config: dict,
-                command: str | None = None) -> dict:
-    """Every flag of ``groups`` resolved. With ``command``, an environment
-    variable or config key of a JAX flag of that command that ``groups``
-    lack raises :class:`ValueError` naming both."""
+def resolve_all(groups: list[FlagGroup], ns: argparse.Namespace, config: dict) -> dict:
+    """Every flag of ``groups`` resolved."""
     out = {}
     for g in groups:
         for f in g.flags:
             out[f.dest] = f.resolve(getattr(ns, f.dest, None), config)
-    if command is not None:
-        ported = {f.name for g in groups for f in g.flags}
-        for name, config_name in JAX_FLAGS[command]:
-            if name in ported:
-                continue
-            env = ENV_PREFIX + name.upper().replace("-", "_")
-            if env in os.environ:
-                raise ValueError(f"{env} sets --{name}, a flag of the JAX package that "
-                                 f"this port does not have; unset it")
-            # a section (``debug:`` holding ``dir:``) sets keys below it,
-            # not the flag named like it
-            value = config_value(config, config_name) if config_name else None
-            if value is not None and not isinstance(value, dict):
-                raise ValueError(f"config key {config_name!r} sets --{name}, a flag of the "
-                                 f"JAX package that this port does not have; remove it")
     return out
-
-
-# -- the JAX package's flags (trivy_tpu/cli.py), as data --------------------
-
-# group -> (flag name, config key) of every Flag(...) in the group; the
-# environment name is TRIVY_TPU_ + the name upper-cased, dashes to "_"
-_JAX_GROUPS = {
-    "global": (
-        ("debug", "debug"), ("quiet", "quiet"), ("cache-dir", "cache.dir"),
-        ("cache-backend", "cache.backend"), ("cache-ttl", "cache.ttl"),
-        ("redis-ca", "cache.redis.ca"), ("redis-cert", "cache.redis.cert"),
-        ("redis-key", "cache.redis.key"), ("redis-insecure", "cache.redis.insecure"),
-        ("config", ""), ("timeout", "timeout"), ("trace", "trace"),
-        ("trace-out", "trace.out"), ("metrics-out", "trace.metrics-out"),
-        ("profile-out", "trace.profile-out"), ("telemetry-interval", "telemetry.interval"),
-        ("timeseries-out", "telemetry.timeseries-out"), ("live", "telemetry.live"),
-        ("log-format", "log.format"), ("fault-inject", "fault-inject"),
-        ("debug-dir", "debug.dir"),
-    ),
-    "scan": (
-        ("scanners", "scan.scanners"), ("skip-dirs", "scan.skip-dirs"),
-        ("skip-files", "scan.skip-files"), ("backend", "scan.backend"),
-        ("parallel", "scan.parallel"), ("no-host-fallback", "scan.no-host-fallback"),
-    ),
-    "report": (
-        ("format", "format"), ("output", "output"), ("severity", "severity"),
-        ("exit-code", "exit-code"), ("ignorefile", "ignorefile"),
-        ("ignore-policy", "ignore-policy"), ("vex", "vex"),
-        ("show-suppressed", "show-suppressed"), ("template", "template"),
-        ("list-all-pkgs", "list-all-pkgs"), ("dependency-tree", "dependency-tree"),
-        ("compliance", "compliance"),
-    ),
-    "secret": (
-        ("secret-config", "secret.config"), ("no-secret-dedup", "secret.no-dedup"),
-        ("no-secret-pack", "secret.no-pack"), ("secret-hit-cache", "secret.hit-cache"),
-        ("secret-streams", "secret.streams"), ("secret-inflight", "secret.inflight"),
-        ("no-secret-prefilter", "secret.no-prefilter"),
-        ("no-shared-arena", "secret.no-shared-arena"),
-        ("secret-arena-slabs", "secret.arena-slabs"),
-        ("secret-bucket-rungs", "secret.bucket-rungs"),
-        ("secret-dedup-mb", "secret.dedup-mb"), ("secret-compress", "secret.compress"),
-        ("no-secret-compress", "secret.no-compress"),
-        ("secret-compress-min-ratio", "secret.compress-min-ratio"),
-    ),
-    "license": (("license-full", "license.full"),),
-    "misconfiguration": (
-        ("config-check", "misconfiguration.config-check"),
-        ("misconfig-scanners", "misconfiguration.scanners"),
-    ),
-    "db": (
-        ("skip-db-update", "db.skip-update"), ("db-repository", "db.repository"),
-        ("java-db", "db.java-repository"), ("offline-scan", "offline-scan"),
-    ),
-    "client/server": (("server", "server.addr"), ("token", "server.token")),
-    "fleet": (
-        ("fleet", "fleet.replicas"), ("fleet-inflight", "fleet.inflight"),
-        ("fleet-shards-per-replica", "fleet.shards-per-replica"),
-        ("fleet-speculate", "fleet.speculate"),
-        ("fleet-telemetry-interval", "fleet.telemetry-interval"),
-        ("fleet-split-threshold", "fleet.split-threshold"),
-        ("fleet-register-token", "fleet.register-token"),
-    ),
-    "admission": (
-        ("max-concurrent-scans", "admission.max-concurrent-scans"),
-        ("admission-queue-depth", "admission.queue-depth"),
-        ("admission-queued-mb", "admission.queued-mb"), ("tenants", "admission.tenants"),
-        ("tenant-max-inflight", "admission.tenant-max-inflight"),
-        ("tenant-queued-mb", "admission.tenant-queued-mb"),
-        ("job-retention", "admission.job-retention"), ("job-deadline", "admission.job-deadline"),
-    ),
-    "tuning": (
-        ("tuning-file", "tuning.file"), ("tune", "tuning.controller"),
-        ("tuning-interval", "tuning.interval"),
-    ),
-    "incremental": (
-        ("incremental", "incremental.enabled"), ("diff-base", "incremental.diff-base"),
-        ("since-last", "incremental.since-last"),
-    ),
-    "image": (
-        ("insecure", "image.insecure"), ("username", "image.username"),
-        ("password", "image.password"), ("platform", "image.platform"),
-        ("image-src", "image.source"), ("docker-host", "image.docker.host"),
-        ("podman-host", "image.podman.host"), ("containerd-host", "image.containerd.host"),
-    ),
-}
-_FS_LIKE = ("global", "scan", "report", "secret", "license", "misconfiguration", "db",
-            "client/server", "fleet", "tuning", "incremental")
-# command -> the JAX flags of that command (trivy_tpu/cli.py _TARGET_GROUPS)
-JAX_FLAGS = {
-    cmd: tuple(flag for g in groups for flag in _JAX_GROUPS[g])
-    for cmd, groups in {
-        "fs": _FS_LIKE,
-        "rootfs": _FS_LIKE,
-        "repo": _FS_LIKE,
-        "watch": _FS_LIKE[:7] + ("tuning",),
-        "image": _FS_LIKE[:7] + ("client/server", "image", "fleet", "tuning", "incremental"),
-        "vm": _FS_LIKE[:8] + ("tuning",),
-        "sbom": ("global", "scan", "report", "db", "client/server"),
-        "convert": ("global", "report"),
-        "server": ("global", "db", "admission"),
-        "clean": ("global",),
-    }.items()
-}

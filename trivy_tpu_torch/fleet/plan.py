@@ -64,11 +64,9 @@ BACKENDS = ("auto", "pallas", "xla", "cpu")
 
 
 class ShardRefused(ValueError):
-    """A shard this port cannot run as asked: an unknown kind, a scanner it
-    cannot run on a shard (``misconfig``: the shard names no type, so a JAX
-    replica scans every one, and the port lacks some) or an unknown backend.
-    A server answers it with 400, never with a scan that would give other
-    keys and findings."""
+    """A shard this port cannot run as asked: an unknown kind, scanner or
+    backend. A server answers it with 400, never with a scan that would
+    give other keys and findings."""
 
 
 @dataclass
@@ -369,11 +367,9 @@ def plan_image_shards(artifact: ImageArchiveArtifact, cache,
 def check_shard(shard) -> None:
     """Raise :class:`ShardRefused` for a shard this port cannot run as
     asked: not an object, a kind other than ``fs`` and ``image-layer``, a
-    scanner unknown to the port or ``misconfig`` (a shard carries no
-    misconfiguration types, so a JAX replica scans all of them, some of
-    which the port lacks; dropping the scanner would give other keys and
-    findings) or a backend outside the JAX choices. Host-independent
-    and cheap: a server checks it before it queues a shard job."""
+    scanner unknown to the port or a backend outside the JAX choices.
+    Host-independent and cheap: a server checks it before it queues a shard
+    job."""
     if not isinstance(shard, dict):
         raise ShardRefused("Shard must be a JSON object")
     if shard.get("Kind") not in SHARD_KINDS:
@@ -383,9 +379,6 @@ def check_shard(shard) -> None:
         check_scanners(scanners)
     except ValueError as e:
         raise ShardRefused(f"shard: {e}") from None
-    if "misconfig" in scanners:
-        raise ShardRefused("shard: scanner 'misconfig' is not ported to fleet shards (a shard "
-                           "names no misconfiguration types, and the port lacks some)")
     backend = shard.get("Backend") or "auto"
     if backend not in BACKENDS:
         raise ShardRefused(f"shard: unknown backend {backend!r}: use {', '.join(BACKENDS)}")
@@ -431,7 +424,9 @@ def _analyzers(settings: ShardSettings, packages: bool | None,
     entries of another ruleset's namespace are dropped with a warning). As
     on the JAX replica, the license analyzers ride the secret feed's rows
     only on a device: on the CPU the fused gate's plain version costs more
-    than the unfused classifier, with the same findings."""
+    than the unfused classifier, with the same findings. With ``misconfig``
+    the config analyzer scans every type with no custom checks, as the JAX
+    ``shard_artifact_option`` builds it: a shard names neither."""
     analyzers = ScanAnalyzers(settings.scanners, settings.device,
                               license_full=settings.license_full,
                               shared_arena=settings.shared_arena and not _on_cpu(settings.device),

@@ -1,6 +1,6 @@
-"""Misconfiguration (IaC) scanning, the port of ``trivy_tpu/misconf/`` for
+"""Misconfiguration (IaC) scanning, the port of ``trivy_tpu/misconf/``:
 the ``dockerfile``, ``kubernetes``, ``terraform``, ``terraformplan-json``,
-``azure-arm``, ``yaml`` and ``json`` types.
+``cloudformation``, ``helm``, ``azure-arm``, ``yaml`` and ``json`` types.
 
 Host-only work, as in the JAX package: a registry of structured Python
 checks over typed inputs replaces the reference's rego engine (ref:
@@ -12,7 +12,9 @@ Layout:
 - parse:      dockerfile / yaml-json (line-tracking) / kubernetes views
 - hcl:        HCL2 lexer, parser, evaluator and function library
 - terraform:  module-aware evaluation of a terraform file set → BlockVals
-              (``state``); ``tfplan``: plan JSON → the same BlockVals
+              (``state``); ``tfplan``: plan JSON → the same BlockVals;
+              ``cloudformation``: templates and their intrinsics → the same
+- helm:       chart rendering (Go-template subset) → kubernetes manifests
 - adapters:   BlockVals → each provider's typed state
 - arm:        ARM templates (expressions, the Azure state, its checks)
 - checks:     check registry + builtin Docker (DS*) and Kubernetes (KSV*)
@@ -22,14 +24,6 @@ Layout:
               (ref: pkg/misconf/scanner.go:141, ResultsToMisconf :443-499)
 """
 
-from trivy_tpu_torch.misconf.scanner import (
-    PORTED_TYPES,
-    UNPORTED_TYPES,
-    MisconfScanner,
-    ScannerOption,
-    UnportedTypeError,
-    check_file_types,
-)
+from trivy_tpu_torch.misconf.scanner import MisconfScanner, ScannerOption
 
-__all__ = ["MisconfScanner", "ScannerOption", "UnportedTypeError", "PORTED_TYPES",
-           "UNPORTED_TYPES", "check_file_types"]
+__all__ = ["MisconfScanner", "ScannerOption"]

@@ -1,24 +1,20 @@
 """Misconfiguration scanner facade (ref: pkg/misconf/scanner.go:101-141),
-the port of ``trivy_tpu/misconf/scanner.py`` for the types it has:
+the port of ``trivy_tpu/misconf/scanner.py``.
+
+Routes files by detected type to the matching engine:
 
 - dockerfile / kubernetes  → per-file structural checks (DS*/KSV*)
-- terraform                → whole-file-set HCL evaluation → every
-                             provider's typed state → cloud checks
-- terraformplan-json       → plan resources → the same adapters and checks
+- terraform                → whole-file-set HCL evaluation → AWS state →
+                             cloud checks (AVD-AWS-*)
+- cloudformation           → per-file template resolution → same cloud checks
+- helm                     → template render → kubernetes checks
 - azure-arm                → template resolution → ARM checks
 - yaml / json              → user-supplied custom checks only (matching the
                              reference's generic scanners, which evaluate
                              nothing without custom policies)
 
-producing ``types.Misconfiguration`` records with the reference's
+and produces ``types.Misconfiguration`` records with the reference's
 successes/failures/CauseMetadata shape (ref: scanner.go:443-499).
-
-The JAX package's other types (cloudformation, helm) have no engine here
-yet. A scan never drops one quietly:
-naming one in ``file_types`` raises :class:`ValueError`, and a file the
-scan would evaluate that :func:`~trivy_tpu_torch.misconf.detection.
-detect_type` gives one of them stops the scan with
-:class:`UnportedTypeError`.
 """
 
 from __future__ import annotations
@@ -39,46 +35,11 @@ _SCANNER_NAMES = {
     detection.FILE_TYPE_YAML: "YAML",
     detection.FILE_TYPE_JSON: "JSON",
     detection.FILE_TYPE_TERRAFORM: "Terraform",
+    detection.FILE_TYPE_CLOUDFORMATION: "CloudFormation",
+    detection.FILE_TYPE_HELM: "Helm",
     detection.FILE_TYPE_AZURE_ARM: "Azure ARM",
     detection.FILE_TYPE_TERRAFORM_PLAN: "Terraform Plan",
 }
-
-# the types the port scans, and the JAX package's others, which it does not
-PORTED_TYPES = (
-    detection.FILE_TYPE_DOCKERFILE,
-    detection.FILE_TYPE_KUBERNETES,
-    detection.FILE_TYPE_YAML,
-    detection.FILE_TYPE_JSON,
-    detection.FILE_TYPE_TERRAFORM,
-    detection.FILE_TYPE_TERRAFORM_PLAN,
-    detection.FILE_TYPE_AZURE_ARM,
-)
-UNPORTED_TYPES = (
-    detection.FILE_TYPE_CLOUDFORMATION,
-    detection.FILE_TYPE_HELM,
-)
-
-
-class UnportedTypeError(Exception):
-    """A file the scan would evaluate has a type the port cannot scan; the
-    JAX package would report its misconfigurations, so the scan stops
-    rather than give a report without them."""
-
-    def __init__(self, path: str, file_type: str):
-        super().__init__(
-            f"{path}: misconfiguration type {file_type!r} is not ported yet (this port "
-            f"scans {', '.join(PORTED_TYPES)}); pass --misconfig-scanners to leave it out, "
-            "or scan with trivy_tpu.cli")
-        self.path = path
-        self.file_type = file_type
-
-
-def check_file_types(file_types) -> None:
-    """Raise :class:`ValueError` naming the first unported type asked for."""
-    for t in file_types:
-        if t in UNPORTED_TYPES:
-            raise ValueError(f"misconfiguration type {t!r} is not ported yet: use "
-                             f"{', '.join(PORTED_TYPES)}")
 
 
 @dataclass
@@ -95,7 +56,6 @@ class ScannerOption:
 class MisconfScanner:
     def __init__(self, option: ScannerOption | None = None):
         self.option = option or ScannerOption()
-        check_file_types(self.option.file_types)
         self._disabled = set(self.option.check_ids_disabled)
         if self.option.check_paths:
             from trivy_tpu_torch.misconf.custom import load_custom_checks
@@ -116,22 +76,25 @@ class MisconfScanner:
 
         ctx = obs.current()
         tf_files: dict[str, bytes] = {}
+        helm_files: dict[str, bytes] = {}
         per_file: list[tuple[str, str, bytes]] = []
         with ctx.span("misconf.parse"):
             for path, content in files:
                 try:
                     ftype = detection.detect_type(path, content)
                 except Exception as e:  # one bad file must not kill the batch
-                    logger.debug("misconf type detection failed for %s: %s", path, e)
+                    logger.debug(
+                        "misconf type detection failed for %s: %s", path, e
+                    )
                     continue
                 if ftype is None:
                     continue
                 if self.option.file_types and ftype not in self.option.file_types:
                     continue
-                if ftype in UNPORTED_TYPES:
-                    raise UnportedTypeError(path, ftype)
                 if ftype == detection.FILE_TYPE_TERRAFORM:
                     tf_files[path] = content
+                elif ftype == detection.FILE_TYPE_HELM:
+                    helm_files[path] = content
                 else:
                     per_file.append((path, ftype, content))
 
@@ -139,6 +102,50 @@ class MisconfScanner:
         if tf_files:
             with ctx.span("misconf.terraform"):
                 out.extend(self._scan_terraform(tf_files))
+        if helm_files:
+            # charts are more than their templates: Chart.yaml/values.yaml
+            # carry no {{ }} so they type as plain yaml — hand every
+            # yaml-ish sibling to the renderer, which groups files by
+            # chart root and ignores the rest (the reference feeds the
+            # whole chart directory to the helm SDK the same way)
+            import os.path as _p
+
+            for path, ftype, content in per_file:
+                if ftype in (
+                    detection.FILE_TYPE_YAML, detection.FILE_TYPE_JSON,
+                    detection.FILE_TYPE_KUBERNETES,
+                ) and path not in helm_files:
+                    helm_files[path] = content
+            roots = {
+                _p.dirname(p) for p in helm_files
+                if _p.basename(p) == "Chart.yaml"
+            }
+
+            # yaml-ish files under a detected chart root belong to the
+            # chart: templates render through helm, and chart-root files
+            # (values.yaml, Chart.yaml) plus chart-adjacent manifests feed
+            # the render — scanning those standalone as well would
+            # double-count the same configuration (the reference hands the
+            # whole chart directory to the helm scanner). Other types
+            # (Dockerfile, CloudFormation, ARM) never enter the helm lane
+            # and keep their standalone pass even inside a chart dir.
+            _HELM_LANE = (
+                detection.FILE_TYPE_YAML, detection.FILE_TYPE_JSON,
+                detection.FILE_TYPE_KUBERNETES,
+            )
+
+            def _chart_owned(path: str, ftype: str) -> bool:
+                return ftype in _HELM_LANE and any(
+                    path.startswith(r + "/") if r else True for r in roots
+                )
+
+            per_file = [
+                (path, ftype, content)
+                for path, ftype, content in per_file
+                if not _chart_owned(path, ftype)
+            ]
+            with ctx.span("misconf.helm"):
+                out.extend(self._scan_helm(helm_files))
         with ctx.span("misconf.eval"):
             for path, ftype, content in per_file:
                 try:
@@ -148,7 +155,10 @@ class MisconfScanner:
                     # per-file failure domain: one crashing engine or check
                     # must not kill the whole misconfig pass — count it,
                     # log it, and keep scanning the rest
-                    logger.warning("misconf evaluation failed for %s (skipped): %s", path, e)
+                    logger.warning(
+                        "misconf evaluation failed for %s (skipped): %s",
+                        path, e,
+                    )
                     ctx.count("misconf.skipped")
                     ctx.health_count("misconf.skipped")
                     continue
@@ -160,8 +170,7 @@ class MisconfScanner:
 
     # -- single-file types ---------------------------------------------------
 
-    def scan_file(self, path: str, content: bytes, ftype: str | None = None
-                  ) -> Misconfiguration | None:
+    def scan_file(self, path: str, content: bytes, ftype: str | None = None) -> Misconfiguration | None:
         if ftype is None:
             try:
                 ftype = detection.detect_type(path, content)
@@ -170,8 +179,8 @@ class MisconfScanner:
                 return None
         if ftype is None:
             return None
-        if ftype in UNPORTED_TYPES:
-            raise UnportedTypeError(path, ftype)
+        if ftype == detection.FILE_TYPE_CLOUDFORMATION:
+            return self._scan_cloudformation(path, content)
         if ftype == detection.FILE_TYPE_TERRAFORM_PLAN:
             return self._scan_tfplan(path, content)
         if ftype == detection.FILE_TYPE_AZURE_ARM:
@@ -183,8 +192,13 @@ class MisconfScanner:
             return None
         if parsed is None:
             return None
-        return evaluate(ftype, path, parsed, _SCANNER_NAMES.get(ftype, ftype),
-                        enabled=self._enabled)
+        return evaluate(
+            ftype,
+            path,
+            parsed,
+            _SCANNER_NAMES.get(ftype, ftype),
+            enabled=self._enabled,
+        )
 
     # -- engines -------------------------------------------------------------
 
@@ -192,16 +206,20 @@ class MisconfScanner:
         from trivy_tpu_torch.misconf import terraform
 
         try:
-            texts = {p: c.decode("utf-8", "replace") for p, c in tf_files.items()}
+            texts = {
+                p: c.decode("utf-8", "replace") for p, c in tf_files.items()
+            }
             resources = terraform.load(texts)
         except Exception as e:
             logger.warning("terraform evaluation failed: %s", e)
             return []
-        return self._evaluate_tf_resources(resources, sorted(tf_files),
-                                           detection.FILE_TYPE_TERRAFORM)
+        return self._evaluate_tf_resources(
+            resources, sorted(tf_files), detection.FILE_TYPE_TERRAFORM
+        )
 
-    def _evaluate_tf_resources(self, resources, files: list[str], ftype: str
-                               ) -> list[Misconfiguration]:
+    def _evaluate_tf_resources(
+        self, resources, files: list[str], ftype: str
+    ) -> list[Misconfiguration]:
         """Adapt parsed terraform resources into every provider's typed
         state and evaluate the provider check sets, merging per file (ref:
         pkg/iac/adapters/terraform/* each adapting one provider)."""
@@ -230,8 +248,13 @@ class MisconfScanner:
             except Exception as e:
                 logger.warning("%s adapter failed: %s", adapt.__module__, e)
                 continue
-            by_file = evaluate_cloud(state, files, ftype, _SCANNER_NAMES.get(ftype, ftype),
-                                     enabled=self._enabled)
+            by_file = evaluate_cloud(
+                state,
+                files,
+                ftype,
+                _SCANNER_NAMES.get(ftype, ftype),
+                enabled=self._enabled,
+            )
             for path, mc in by_file.items():
                 if path not in merged:
                     merged[path] = mc
@@ -251,9 +274,57 @@ class MisconfScanner:
         except Exception as e:
             logger.debug("tfplan parse failed for %s: %s", path, e)
             return None
-        out = self._evaluate_tf_resources(resources, [path],
-                                          detection.FILE_TYPE_TERRAFORM_PLAN)
+        out = self._evaluate_tf_resources(
+            resources, [path], detection.FILE_TYPE_TERRAFORM_PLAN
+        )
         return out[0] if out else None
+
+    def _scan_cloudformation(self, path: str, content: bytes) -> Misconfiguration | None:
+        from trivy_tpu_torch.misconf import cloudformation
+        from trivy_tpu_torch.misconf.adapters import aws_cfn
+
+        try:
+            resources = cloudformation.load(path, content)
+            state = aws_cfn.adapt(resources)
+        except Exception as e:
+            logger.debug("cloudformation evaluation failed for %s: %s", path, e)
+            return None
+        by_file = evaluate_cloud(
+            state,
+            [path],
+            detection.FILE_TYPE_CLOUDFORMATION,
+            _SCANNER_NAMES[detection.FILE_TYPE_CLOUDFORMATION],
+            enabled=self._enabled,
+        )
+        return by_file.get(path)
+
+    def _scan_helm(self, helm_files: dict[str, bytes]) -> list[Misconfiguration]:
+        from trivy_tpu_torch.misconf import helm
+        from trivy_tpu_torch.misconf.parse import kubernetes
+
+        out: list[Misconfiguration] = []
+        try:
+            rendered = helm.render_charts(helm_files)
+        except Exception as e:
+            logger.warning("helm render failed: %s", e)
+            return []
+        for path, text in rendered.items():
+            try:
+                workloads = kubernetes.parse(text.encode())
+            except Exception as e:
+                logger.debug("helm-rendered manifest parse failed for %s: %s", path, e)
+                continue
+            mc = evaluate(
+                detection.FILE_TYPE_KUBERNETES,
+                path,
+                workloads,
+                _SCANNER_NAMES[detection.FILE_TYPE_HELM],
+                enabled=self._enabled,
+            )
+            if mc is not None:
+                mc.file_type = detection.FILE_TYPE_HELM
+                out.append(mc)
+        return out
 
     def _scan_arm(self, path: str, content: bytes) -> Misconfiguration | None:
         from trivy_tpu_torch.misconf import arm

@@ -26,9 +26,9 @@ that shard on this server's device (``fleet/plan.py::execute_shard``): on
 the card the secret feed and the license kernels run here, and the answer
 is the shard's ``Blobs`` with this server's ``Health`` delta (``Trace`` on
 ``WantTrace``); detection and the merge stay with the coordinator. A shard
-with the ``misconfig`` scanner (not ported to shards), an unknown kind or
-an unknown ``Backend`` answers 400, at the async front door too; one whose
-root or secret config this host cannot see fails loudly.
+with an unknown scanner, kind or ``Backend`` answers 400, at the async
+front door too; one whose root or secret config this host cannot see fails
+loudly.
 
 With admission control enabled (:mod:`trivy_tpu_torch.rpc.admission`,
 ``--max-concurrent-scans > 0``) the server becomes an overload-safe
